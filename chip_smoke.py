@@ -2,34 +2,96 @@
 
     python3 chip_smoke.py
 
-Builds the two hand-written CUDA attention kernels from
-``vrdone_tpu_torch/csrc`` (nvcc, into ``build/vrdone_tpu_torch``), holds
-each against its plain PyTorch version at the shapes of the VidVRD eval
-forward and times both, runs the full-width VidVRD ``MaskVRD`` eval forward
-(``configs/vidvrd.yaml``, random seeded weights) on the card against the
-same weights on the CPU, counts the kernel launches of one forward at
-B=128, and drives ``InferenceRunner`` + ``decode_video`` over synthetic
-videos whose pairs fall into the 96, 192, 384 and 768 frame buckets. Any
-failed check raises. The second-to-last line of output is a JSON object of
-per-kernel results; the last is ``{"ok": true, "device": {...}}``. Without a
-CUDA device it exits with an error and prints no result.
+Builds the hand-written CUDA kernels from ``vrdone_tpu_torch/csrc`` (nvcc,
+one process per source, all started together, into
+``build/vrdone_tpu_torch``), then:
+
+  1. holds each forward kernel against its plain PyTorch version at the
+     shapes of the VidVRD eval forward, and times both and the one-call
+     library equivalent (``F.scaled_dot_product_attention``);
+  2. holds the band attention's lse and its dQ and dK/dV backward kernels
+     against autograd of the plain version at the train step's shapes
+     (B*H = 24*4, d = 128, w = 3), with a nonzero upstream gradient on
+     invalid query rows, and times them;
+  3. runs the full-width VidVRD ``MaskVRD`` eval forward
+     (``configs/vidvrd.yaml``, random seeded weights) on the card against
+     the same weights on the CPU, counts the kernel launches of one forward
+     at B=128 and times it;
+  4. drives ``InferenceRunner`` + ``decode_video`` over synthetic videos
+     whose pairs fall into the 96, 192, 384 and 768 frame buckets;
+  5. runs three full-width VidVRD train steps at 8 pairs on the card and
+     on the CPU from the same weights, batch and drop-path draws (losses,
+     matches, parameters and EMA compared), counts the launches of one step
+     at 24 pairs, and times the step at 24 and 96 pairs;
+  6. runs ``train_torch.py`` for one epoch on a tiny synthetic corpus on
+     the card, then ``eval_torch.py`` on its checkpoint.
+
+Any failed check raises. The second-to-last line of output is a JSON object
+of per-kernel results; the last is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits with an error and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = 2e-5   # kernel vs plain, fp32, TF32 off: summation order only
+GRAD_TOL = 1e-5     # backward kernels vs plain autograd, times max |grad|
+LSE_TOL = 1e-5      # forward lse vs plain logsumexp, times 1 + |lse|
 MODEL_TOL = 5e-4    # CUDA vs CPU forward through some forty chained layers
+LOSS_TOL = 1e-4     # CUDA vs CPU train-step losses, times 1 + |loss|
+STEP_GRAD_TOL = 1e-4  # CUDA vs CPU step-0 gradients, |dg| / |g| over all
+DRIFT_TOL = 5e-2    # CUDA vs CPU params after 3 steps / (leaf max + sum lr)
 B_CHECK, B_RATE, T = 8, 128, 96
+TRAIN_PAIRS = (8, 24, 96)   # checked on both devices; timed; timed
+PEAK_FLOPS = 67e12          # H100 SXM fp32 without tensor cores
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the fp32 peak."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def band_pairs(mask: torch.Tensor, w: int) -> int:
+    """(valid query, in-sequence band key) pairs of a (B, T) mask: the work
+    the band attention's output needs."""
+    t = mask.shape[1]
+    i = torch.arange(t, device=mask.device)
+    keys = (i + w).clamp(max=t - 1) - (i - w).clamp(min=0) + 1
+    return int((mask * keys).sum())
+
+
+def band_library_mask(mask: torch.Tensor, w: int) -> torch.Tensor:
+    """The band attention's masking as one additive (B, 1, T, T) mask for
+    ``F.scaled_dot_product_attention``."""
+    t = mask.shape[1]
+    i = torch.arange(t, device=mask.device)
+    out = torch.where(mask, 0.0, -1e4)[:, None, None, :].expand(
+        -1, 1, t, -1).clone()
+    out[:, :, (i[None] - i[:, None]).abs() > w] = float("-inf")
+    return out
+
+
+def heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    b, t, c = x.shape
+    return x.view(b, t, h, c // h).transpose(1, 2)
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
@@ -66,13 +128,16 @@ def attention_inputs(rng, b, tq, tk, c, device):
 
 
 def check_kernels(cuda, ba, fa) -> dict:
+    """The forward kernels at the eval forward's shapes. Returns, per
+    kernel, its entry of the JSON line (all but ``launches``), with the
+    times at B=128, T=96, d=128."""
     rng = np.random.default_rng(0)
-    h = 4
-    results = {}
+    h, w, d = 4, 3, 128
     worst = {"band_attention": 0.0, "masked_attention": 0.0}
+    entries = {}
     for t in (96, 48, 24, 12, 768):
-        q, k, v, mask = attention_inputs(rng, 128, t, t, h * 128, cuda)
-        kw = dict(n_head=h, window_size=7)
+        q, k, v, mask = attention_inputs(rng, 128, t, t, h * d, cuda)
+        kw = dict(n_head=h, window_size=2 * w + 1)
         err, ms, plain_ms = compare(
             lambda: ba.band_attention_cuda(q, k, v, mask, **kw),
             lambda: ba.band_attention_plain(q, k, v, mask, **kw))
@@ -82,23 +147,130 @@ def check_kernels(cuda, ba, fa) -> dict:
             raise AssertionError(f"band kernel off by {err} at T={t}")
         worst["band_attention"] = max(worst["band_attention"], err)
         if t == T:
-            results["band_attention"] = (ms, plain_ms)
-    for d in (128, 64):
+            lib_mask = band_library_mask(mask, w)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                heads(q, h), heads(k, h), heads(v, h), attn_mask=lib_mask))
+            n = q.numel()
+            bms, by = bound_ms(4 * 4 * n + mask.numel(),
+                               4 * d * h * band_pairs(mask, w))
+            entries["band_attention"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, shape="B*H=128*4 T=96 d=128 w=3")
+    for dd in (128, 64):
         for tq, tk in ((96, 96), (9, 9), (9, 12), (384, 384)):
-            q, k, v, mask = attention_inputs(rng, 128, tq, tk, h * d, cuda)
+            q, k, v, mask = attention_inputs(rng, 128, tq, tk, h * dd, cuda)
             err, ms, plain_ms = compare(
                 lambda: fa.full_attention_cuda(q, k, v, mask, n_head=h),
                 lambda: fa.full_attention_plain(q, k, v, mask, n_head=h))
-            print(f"masked_attention B*H=128*4 d={d} Tq={tq} Tk={tk}: "
+            print(f"masked_attention B*H=128*4 d={dd} Tq={tq} Tk={tk}: "
                   f"max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms")
             if not err <= KERNEL_TOL:
                 raise AssertionError(f"full kernel off by {err} at "
-                                     f"d={d} Tq={tq} Tk={tk}")
+                                     f"d={dd} Tq={tq} Tk={tk}")
             worst["masked_attention"] = max(worst["masked_attention"], err)
-            if (tq, tk, d) == (T, T, 128):
-                results["masked_attention"] = (ms, plain_ms)
-    return {name: (worst[name], *results[name]) for name in worst}
+            if (tq, tk, dd) == (T, T, 128):
+                lib_mask = mask[:, None, None, :]
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    heads(q, h), heads(k, h), heads(v, h),
+                    attn_mask=lib_mask))
+                bms, by = bound_ms(
+                    4 * (2 * q.numel() + 2 * k.numel()) + mask.numel(),
+                    4 * dd * h * tq * int(mask.sum()))
+                entries["masked_attention"] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bms, bound_by=by,
+                    shape="B*H=128*4 Tq=Tk=96 d=128")
+    for name, e in entries.items():
+        e["max_abs_err"] = worst[name]
+        print(f"{name} at {e['shape']}: bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}), library {e['library_ms']:.4f} ms")
+    return entries
+
+
+def check_band_backward(cuda, ba, mops) -> dict:
+    """K1's lse and the K2 (dQ) and K3 (dK, dV) kernels through
+    ``BandAttention`` against autograd of the plain version, at the train
+    step's band shapes, with a nonzero upstream gradient everywhere
+    (invalid query rows included). Returns the JSON entries of
+    ``band_attention_dq`` and ``band_attention_dkv``, timed at T=96."""
+    rng = np.random.default_rng(3)
+    b, h, d, w = 24, 4, 128, 3
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    worst = {"band_attention_dq": 0.0, "band_attention_dkv": 0.0}
+    entries = {}
+    for t in (96, 48, 24, 12, 768):
+        q, k, v, mask = attention_inputs(rng, b, t, t, h * d, cuda)
+        mask[1, t // 3] = False   # an invalid key inside a valid stretch
+        dout = torch.from_numpy(rng.standard_normal(q.shape)
+                                .astype(np.float32)).to(cuda)
+        with torch.no_grad():
+            out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True,
+                                              **kw)
+            lse_err = ((lse - ba.band_lse_plain(q, k, mask, **kw)).abs()
+                       / (1 + ba.band_lse_plain(q, k, mask, **kw).abs())
+                       ).max().item()
+        qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(mops.band_attention(*qkv, mask, **kw), qkv,
+                                  dout)
+        ref_in = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref_out = ba.band_attention_plain(*ref_in, mask, **kw)
+        want = torch.autograd.grad(ref_out, ref_in, dout, retain_graph=True)
+        abs_errs = [(g - r).abs().max().item() for g, r in zip(got, want)]
+        errs = [e / max(1.0, r.abs().max().item())
+                for e, r in zip(abs_errs, want)]
+        print(f"band backward B*H=24*4 d=128 w=3 T={t}: lse rel err "
+              f"{lse_err:.3e}; dQ, dK, dV err / max|grad| "
+              f"{errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}")
+        if not (lse_err <= LSE_TOL and max(errs) <= GRAD_TOL):
+            raise AssertionError(f"band backward off at T={t}: lse "
+                                 f"{lse_err}, grads {errs}")
+        invalid = ~mask
+        if not all((g[invalid] == 0).all() for g in got[:1]):
+            raise AssertionError("dQ of an invalid query row is not 0")
+        worst["band_attention_dq"] = max(worst["band_attention_dq"],
+                                         abs_errs[0])
+        worst["band_attention_dkv"] = max(worst["band_attention_dkv"],
+                                          *abs_errs[1:])
+        if t != T:
+            continue
+        with torch.no_grad():
+            dr = ba.band_rowsum(dout, out, h)
+        args = (q, k, v, mask, lse, dr, dout)
+        lib_in = [heads(x, h).detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *lib_in, attn_mask=band_library_mask(mask, w))
+        lib_dout = heads(dout, h)
+        n, bht = q.numel(), b * h * t
+        pairs = h * band_pairs(mask, w)
+        for name, kernel, plain_wrt, lib_wrt, out_elems, ops in (
+                ("band_attention_dq",
+                 lambda: ba.band_attention_dq_cuda(*args, **kw),
+                 ref_in[:1], lib_in[:1], n, 6 * d * pairs),
+                ("band_attention_dkv",
+                 lambda: ba.band_attention_dkv_cuda(*args, **kw),
+                 ref_in[1:], lib_in[1:], 2 * n, 8 * d * pairs)):
+            def plain(wrt=plain_wrt):
+                return torch.autograd.grad(ref_out, wrt, dout,
+                                           retain_graph=True)
+
+            def library(wrt=lib_wrt):
+                return torch.autograd.grad(lib_out, wrt, lib_dout,
+                                           retain_graph=True)
+
+            p1, k1, k2, p2 = (time_ms(f) for f in (plain, kernel, kernel,
+                                                   plain))
+            bms, by = bound_ms(4 * (4 * n + 2 * bht + out_elems) + b * t, ops)
+            entries[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                                 library_ms=time_ms(library), bound_ms=bms,
+                                 bound_by=by, shape="B*H=24*4 T=96 d=128 w=3")
+            e = entries[name]
+            print(f"{name} at {e['shape']}: kernel {e['ms']:.4f} ms, plain "
+                  f"autograd {e['plain_ms']:.4f} ms, library backward "
+                  f"{e['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+    for name, e in entries.items():
+        e["max_abs_err"] = worst[name]
+    return entries
 
 
 def build_models(cfg, cuda):
@@ -125,6 +297,319 @@ def packed_batch(rng, cfg, b, t):
     mask = np.arange(t)[None] < lens[:, None]
     x = rng.standard_normal((b, t, c)).astype(np.float32) * mask[..., None]
     return torch.from_numpy(x), torch.from_numpy(mask)
+
+
+def train_pairs(rng, cfg, n, num_gt):
+    """n synthetic SO pairs with ground truth, as datasets.get_train_item
+    yields them."""
+    c = 2 * cfg.visual_dim + cfg.bbox_so_dim + 2 * cfg.bbox_entity_dim
+    pairs = []
+    for _ in range(n):
+        t = int(rng.integers(8, cfg.max_seq_len + 1))
+        ng = int(rng.integers(1, num_gt + 1))
+        segs = np.sort(rng.integers(0, t, (ng, 2)), axis=1)
+        segs[:, 1] += 1
+        masks = np.zeros((ng, cfg.max_seq_len), np.float32)
+        for j, (s, e) in enumerate(segs):
+            masks[j, s:e] = 1
+        pairs.append({"so_feat": rng.standard_normal((t, c))
+                      .astype(np.float32),
+                      "preds": rng.integers(1, cfg.num_classes + 1, ng),
+                      "segs": segs, "masks": masks})
+    return pairs
+
+
+def train_batch(rng, cfg, n, num_gt):
+    from vrdone_tpu_torch.data.batching import pack_train_batch
+    c = 2 * cfg.visual_dim + cfg.bbox_so_dim + 2 * cfg.bbox_entity_dim
+    return pack_train_batch(train_pairs(rng, cfg, n, num_gt), n,
+                            cfg.max_seq_len, num_gt, c)
+
+
+class PoolReplay:
+    """Stands in for ``ops.masked.max_pool1d`` in the step-0 comparison:
+    on the card it records the position each window picks, on the CPU it
+    takes the card's picks and counts the windows where its own pick
+    differs. Activations agree only to about 1e-6 across devices, so a
+    near-tie in a window can pick another position on each, and the
+    gradient then flows to another element: a real difference of the two
+    forwards, not an error of either backward. Replaying the card's picks
+    compares the two backwards on one set of choices."""
+
+    def __init__(self):
+        self.picks, self.replay = [], False
+        self.flips = self.windows = 0
+
+    def __call__(self, x, *, kernel, stride, padding):
+        xt = x.transpose(1, 2)
+        out, idx = F.max_pool1d(xt, kernel, stride, padding,
+                                return_indices=True)
+        if self.replay:
+            pick = self.picks.pop(0).to(x.device)
+            self.flips += int((pick != idx).sum())
+            out = xt.gather(-1, pick)
+        else:
+            self.picks.append(idx.cpu())
+            self.windows += idx.numel()
+        return out.transpose(1, 2)
+
+
+def check_train_step(cfg, raw, cuda, ba, fa) -> dict:
+    """Three full-width train steps at 8 pairs on the card and on the CPU
+    from the same weights, batch and drop-path draws; the launches of one
+    step at 24 pairs; the step time at 24 and 96 pairs. Returns the
+    launches of that one step per kernel."""
+    from vrdone_tpu_torch.models.layers import AffineDropPath
+    from vrdone_tpu_torch.models.maskvrd import match
+    from vrdone_tpu_torch.ops import masked as mops
+    from vrdone_tpu_torch.train.loop import (batch_to_device,
+                                             create_train_state,
+                                             step_generator, train_step)
+    tc = raw["training_config"]
+    num_gt = raw["training_dataset_config"]["proposal_max_preds"]
+    steps_per_epoch = 100
+    states = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("cuda", cuda)):
+        gen = torch.Generator().manual_seed(0)
+        state, _ = create_train_state(cfg, tc, steps_per_epoch, device=dev,
+                                      generator=gen)
+        with torch.no_grad():
+            # drop-path scales near 1 so that every branch moves the loss
+            for m in state.model.modules():
+                if isinstance(m, AffineDropPath):
+                    m.scale.copy_(torch.empty_like(m.scale, device="cpu")
+                                  .uniform_(0.5, 1.5, generator=gen))
+        state.ema_params = [p.detach().clone() for p in state.params()]
+        states[name] = state
+    rng = np.random.default_rng(5)
+    batch = train_batch(rng, cfg, TRAIN_PAIRS[0], num_gt)
+    first_grads = {}
+    max_pool1d, pool = mops.max_pool1d, PoolReplay()
+    for step in range(3):
+        rows, losses = {}, {}
+        # the card first: step 0's CPU run replays its max-pool picks
+        for name in ("cuda", "cpu"):
+            state = states[name]
+            dev = next(state.model.parameters()).device
+            tb = batch_to_device(batch, dev)
+            with torch.no_grad():
+                state.model.train()
+                preds = state.model(tb["feats"], tb["seq_mask"],
+                                    step_generator(0, step))
+                logits = torch.stack([preds["pred_logits"], *[
+                    a["pred_logits"] for a in preds["aux_outputs"]]])
+                masks = torch.stack([preds["pred_masks"], *[
+                    a["pred_masks"] for a in preds["aux_outputs"]]])
+                rows[name] = match(cfg, logits, masks, tb)[0].cpu()
+            if step == 0:
+                pool.replay = name == "cpu"
+                mops.max_pool1d = pool
+            try:
+                _, losses[name] = train_step(state, tb,
+                                             step_generator(0, step))
+            finally:
+                mops.max_pool1d = max_pool1d
+            if step == 0:
+                first_grads[name] = [m.detach().cpu().clone() for m in
+                                     state.optimizer.moments["mu"]]
+        if step == 0:
+            print(f"step 0: max-pool windows whose pick differs between the "
+                  f"devices (a near-tie; the CPU replays the card's): "
+                  f"{pool.flips} of {pool.windows}")
+        flips = int((rows["cuda"] != rows["cpu"]).any(-1).sum())
+        errs = {k: abs(losses["cuda"][k].item() - v.item())
+                / (1 + abs(v.item())) for k, v in losses["cpu"].items()}
+        worst = max(errs, key=errs.get)
+        print(f"train step {step} at {TRAIN_PAIRS[0]} pairs: total_loss "
+              f"cpu {losses['cpu']['total_loss'].item():.6f} cuda "
+              f"{losses['cuda']['total_loss'].item():.6f}; worst loss term "
+              f"{worst} rel err {errs[worst]:.3e}; matchings that differ: "
+              f"{flips} of {rows['cpu'].shape[0] * rows['cpu'].shape[1]}")
+        if flips:
+            print(f"  NOTE: {flips} matchings differ between CPU and CUDA "
+                  "(a near-tie in the cost flips the assignment)")
+        if errs[worst] > LOSS_TOL:
+            raise AssertionError(f"train step {step}: {worst} off by "
+                                 f"{errs[worst]}")
+    names = [n for n, _ in states["cpu"].model.named_parameters()]
+
+    # the step-0 gradients (its first moments, 0.1 g): over the whole model
+    # by norm, and the three leaves furthest off for the record (a leaf
+    # whose gradient is a sum that nearly cancels, as softmax makes of the
+    # key projections', carries a larger share of rounding)
+    num = sum(((a - b) ** 2).sum() for a, b in zip(first_grads["cuda"],
+                                                  first_grads["cpu"]))
+    den = sum((b ** 2).sum() for b in first_grads["cpu"])
+    rel = (num / den).sqrt().item()
+    top = max(g.abs().max().item() for g in first_grads["cpu"])
+    leaves = sorted(((a - b).abs().max().item()
+                     / max(b.abs().max().item(), 1e-30), n,
+                     b.abs().max().item() / top)
+                    for n, a, b in zip(names, first_grads["cuda"],
+                                       first_grads["cpu"]))[-3:]
+    print(f"step 0 gradients CUDA vs CPU: |dg| / |g| over the model "
+          f"{rel:.3e}; worst leaves (max err / leaf max, leaf max / model "
+          f"max): " + "; ".join(f"{n} {e:.2e}, {m:.2e}"
+                                for e, n, m in reversed(leaves)))
+    if rel > STEP_GRAD_TOL:
+        raise AssertionError(f"step-0 gradients off by {rel}")
+    # parameters and EMA, against each leaf's largest value plus the total
+    # learning rate, the most Adam moves a coordinate: a zero-initialised
+    # leaf holds only its steps, and Adam's (0.09 g0 + 0.1 g1) can cancel
+    # and magnify last-bit gradient differences into a share of a step
+    lr_sum = sum(states["cpu"].optimizer.schedule(t) for t in range(3))
+    for label, get in (("params", lambda s: s.params()),
+                       ("ema", lambda s: s.ema_params)):
+        drift, where = 0.0, ""
+        for n, a, b, g in zip(names, get(states["cuda"]),
+                              get(states["cpu"]), first_grads["cpu"]):
+            if g.abs().max() < 1e-9:   # gradient-free leaf: noise vs noise
+                continue
+            rel = ((a.detach().cpu() - b.detach()).abs().max()
+                   / (b.detach().abs().max() + lr_sum)).item()
+            if rel > drift:
+                drift, where = rel, n
+        print(f"after 3 steps, {label}: worst drift CUDA vs CPU / (leaf max "
+              f"+ sum of lr {lr_sum:.3e}) {drift:.3e} ({where})")
+        if drift > DRIFT_TOL:
+            raise AssertionError(f"{label} drift {drift} at {where}")
+    del states["cpu"]
+
+    state = states["cuda"]
+    expect = {"band_attention": 2 * cfg.backbone_arch[1]
+              + cfg.backbone_arch[2]}
+    expect.update(band_attention_dq=expect["band_attention"],
+                  band_attention_dkv=expect["band_attention"],
+                  masked_attention=0)
+    dense_expect = 4 * cfg.backbone_arch[1] + 2 * cfg.predictor.num_layers
+    launches = None
+    for n_pairs in TRAIN_PAIRS[1:]:
+        tb = batch_to_device(train_batch(rng, cfg, n_pairs, num_gt), cuda)
+        if launches is None:
+            torch.cuda.synchronize()
+            ba.launches = ba.dq_launches = ba.dkv_launches = 0
+            fa.launches = fa.dense_calls = 0
+            train_step(state, tb, step_generator(0, state.step))
+            torch.cuda.synchronize()
+            launches = {"band_attention": ba.launches,
+                        "band_attention_dq": ba.dq_launches,
+                        "band_attention_dkv": ba.dkv_launches,
+                        "masked_attention": fa.launches}
+            print(f"train step at {n_pairs} pairs: kernel launches "
+                  f"{launches}, dense full-attention calls {fa.dense_calls}")
+            if launches != expect or fa.dense_calls != dense_expect:
+                raise AssertionError(f"launches {launches} / dense "
+                                     f"{fa.dense_calls}, expected {expect} "
+                                     f"/ {dense_expect}")
+        for _ in range(3):
+            train_step(state, tb, step_generator(0, state.step))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        iters = 10
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            _, losses = train_step(state, tb, step_generator(0, state.step))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not all(torch.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite losses at {n_pairs} pairs")
+        print(f"vidvrd train step {n_pairs} pairs T={T} fp32: "
+              f"{1e3 * seconds / iters:.2f} ms per step, "
+              f"{n_pairs * iters / seconds:.1f} pairs/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_train_step(state, tb, step_generator, train_step)
+    return launches
+
+
+def profile_train_step(state, tb, step_generator, train_step,
+                       steps: int = 3) -> None:
+    """Where a train step's time goes: ``torch.profiler`` over ``steps``
+    steps, device time summed over the kernels against the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train_step(state, tb, step_generator(0, state.step))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(dev_us(e) for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    print(f"  profile over {steps} steps: wall {1e3 * wall:.2f} ms a step "
+          f"(profiler on), device busy {busy:.2f} ms "
+          f"({100 * busy / (1e3 * wall):.1f}%), {launches:.0f} kernels a "
+          f"step")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+        print(f"    {dev_us(e) / 1e3 / steps:8.3f} ms  {e.count // steps:5d}x"
+              f"  {e.key[:90]}")
+
+
+def check_train_cli(raw, device: str = "cuda") -> None:
+    """train_torch.py for one epoch of a tiny synthetic corpus on the card,
+    then eval_torch.py on its last checkpoint."""
+    import yaml
+    from tests.synth_corpus import make_vidvrd_corpus, make_vidvrd_test_corpus
+    vis = raw["model_config"]["visual_dim"]
+    with tempfile.TemporaryDirectory() as root:
+        dirs = make_vidvrd_corpus(root, n_videos=4, n_frames=40, seed=0,
+                                  vis_dim=vis)
+        dirs.update(make_vidvrd_test_corpus(root, n_videos=2, seed=1,
+                                            vis_dim=vis))
+        cfg = json.loads(json.dumps(raw))
+        cfg["dataset_config"].update(
+            ann_dir=dirs["ann_dir"], info_dir=dirs["info_dir"],
+            gt_boxfeatures_dir=dirs["gt_boxfeatures_dir"],
+            test_boxfeatures_dir=dirs["test_boxfeatures_dir"],
+            cache_dir=os.path.join(root, "cache"))
+        cfg["training_dataset_config"]["num_pairs"] = 2
+        cfg["training_config"].update(batch_size=2, training_epoch=1,
+                                      total_epoch=2, warmup_epochs=1,
+                                      log_interval=1, eval_start_epoch=1)
+        cfg["prepare_gt_config"]["gt_relations_path"] = os.path.join(
+            root, "gts.json")
+        cfg_path = os.path.join(root, "cfg.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        exp = os.path.join(root, "exp")
+        common = ["--data_name", "vidvrd", "--cfg_path", cfg_path,
+                  "--exp_dir", exp, "--device", device]
+        for script, extra in (
+                ("train_torch.py", []),
+                ("eval_torch.py", ["--ckpt_path",
+                                   os.path.join(exp, "model_last.ckpt"),
+                                   "--topk", "3"])):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, str(ROOT / script), *common,
+                                *extra], cwd=ROOT, capture_output=True,
+                               text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"{script} failed:\n{r.stdout[-3000:]}"
+                                     f"\n{r.stderr[-3000:]}")
+            print(f"{script} on {device}: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        metrics = dict(re_metric(r.stdout))
+        keys = {"RelDet_mAP", "RelDet_AR@50", "RelDet_AR@100", "RelTag_AP@1",
+                "RelTag_AP@5", "RelTag_AP@10"}
+        if set(metrics) != keys or not all(map(math.isfinite,
+                                               metrics.values())):
+            raise AssertionError(f"eval_torch.py metrics {metrics}")
+        print(f"train_torch.py -> eval_torch.py: {metrics}")
+
+
+def re_metric(text: str):
+    for name, value in re.findall(
+            r"(RelDet_mAP|RelDet_AR@50|RelDet_AR@100|RelTag_AP@1|"
+            r"RelTag_AP@5|RelTag_AP@10): ([0-9.eE+-]+|nan)", text):
+        yield name, float(value)
 
 
 def synthetic_video(rng, lengths, feat_dim):
@@ -158,6 +643,7 @@ def main() -> int:
     from vrdone_tpu_torch.ops import _build
     from vrdone_tpu_torch.ops import band_attention as ba
     from vrdone_tpu_torch.ops import full_attention as fa
+    from vrdone_tpu_torch.ops import masked as mops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -169,18 +655,20 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 1. build
+    # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    ba._kernel()
-    fa._kernel()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor() as pool:
+        list(pool.map(lambda f: f(), (ba._kernel, fa._kernel)))
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     for name, (seconds, log) in _build.BUILD_LOG.items():
         usage = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"  {name}: nvcc {seconds:.1f} s; " + " | ".join(usage))
 
-    # 2. each kernel against its plain version at the slice's shapes
+    # 2. each kernel against its plain version at the slices' shapes
     kernels = check_kernels(cuda, ba, fa)
+    kernels.update(check_band_backward(cuda, ba, mops))
 
     # 3. the full-width VidVRD forward
     raw = load_yaml_config(str(ROOT / "configs" / "vidvrd.yaml"))
@@ -261,15 +749,35 @@ def main() -> int:
         n_triplets += n
     print(f"InferenceRunner + decode_video: {n_triplets} triplets")
 
-    sources = {"band_attention": ("vrdone_tpu_torch/csrc/band_attention.cu",
-                                  "vrdone_tpu/ops/pallas/band_attention.py:42"),
+    # 5. the full-width train step
+    train_launches = check_train_step(cfg, raw, cuda, ba, fa)
+
+    # 6. train_torch.py -> eval_torch.py
+    check_train_cli(raw)
+
+    band = "vrdone_tpu_torch/csrc/band_attention.cu"
+    pallas = "vrdone_tpu/ops/pallas/band_attention.py"
+    sources = {"band_attention": (band, f"{pallas}:42"),
+               "band_attention_dq": (band, f"{pallas}:112"),
+               "band_attention_dkv": (band, f"{pallas}:146"),
                "masked_attention": ("vrdone_tpu_torch/csrc/masked_attention.cu",
                                     "vrdone_tpu/ops/masked.py:203")}
+    # launches: the eval forward's for the forward kernels, the train
+    # step's for the backward ones; both paths are in launches_by_path
+    by_path = {name: {"eval_forward": launches.get(name, 0),
+                      "train_step": train_launches[name]}
+               for name in sources}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": launches[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, (err, ms, plain_ms) in kernels.items()]}))
+         "replaces": sources[name][1],
+         "launches": (launches[name] if name in launches
+                      else train_launches[name]),
+         "launches_by_path": by_path[name],
+         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+         "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+         "shape": e["shape"]}
+        for name, e in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,15 +1,19 @@
 """Evaluate a VrdONE relation detector with the PyTorch port.
 
 The counterpart of ``eval.py`` on ``vrdone_tpu_torch``: the same flags, the
-same datasets, ground truth and scoring (``vrdone_tpu.data.datasets`` and
-``vrdone_tpu.eval.{convert,metrics}``, which import neither JAX nor the
-model), and the port's bucketed eval forward on ``--device``.
-``--ckpt_path`` is a flat ``.npz`` of flax parameters written by
-``tools/export_params_npz.py`` from a ``train.py`` checkpoint; with
-``--eval_exp_dir`` the sweep reads ``model_epoch_<n>_<data>.npz`` files.
+same datasets, ground truth and scoring (the port's copies in
+``vrdone_tpu_torch.data.datasets`` and ``vrdone_tpu_torch.eval.{convert,
+metrics}``), and the port's bucketed eval forward on ``--device``. It
+imports nothing of ``vrdone_tpu``.
+
+``--ckpt_path`` takes either a ``train_torch.py`` checkpoint (``.ckpt``;
+its EMA parameters when it has them) or a flat ``.npz`` of flax parameters
+written by ``tools/export_params_npz.py`` from a ``train.py`` checkpoint.
+With ``--eval_exp_dir`` the sweep reads ``model_epoch_<n>_<data>.ckpt``,
+or the ``.npz`` of that name where no ``.ckpt`` exists.
 
     python eval_torch.py --data_name vidvrd --cfg_path configs/vidvrd.yaml \
-        --exp_dir exp --ckpt_path exp/model_last.npz --device cuda
+        --exp_dir exp --ckpt_path exp/model_last.ckpt --device cuda
 """
 
 from __future__ import annotations
@@ -21,15 +25,16 @@ from collections import defaultdict
 
 import torch
 
-from vrdone_tpu.data.datasets import VidORDataset, VidVRDDataset
-from vrdone_tpu.eval.convert import build_groundtruth, to_eval_format
-from vrdone_tpu.eval.metrics import relation_metrics
-from vrdone_tpu.utils.logging import setup_logger
 from vrdone_tpu_torch.config import (InferenceConfig, load_yaml_config,
                                      model_config_from_yaml)
 from vrdone_tpu_torch.convert import load_npz, load_params
+from vrdone_tpu_torch.data.datasets import VidORDataset, VidVRDDataset
+from vrdone_tpu_torch.eval.convert import build_groundtruth, to_eval_format
 from vrdone_tpu_torch.eval.decode import InferenceRunner, infer_video
+from vrdone_tpu_torch.eval.metrics import relation_metrics
 from vrdone_tpu_torch.models.maskvrd import MaskVRD
+from vrdone_tpu_torch.train.checkpoint import restore_params_for_eval
+from vrdone_tpu_torch.utils.logging import setup_logger
 
 METRIC_KEYS = ["RelDet_mAP", "RelDet_AR@50", "RelDet_AR@100",
                "RelTag_AP@1", "RelTag_AP@5", "RelTag_AP@10"]
@@ -42,7 +47,8 @@ def parse_args():
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--exp_dir", type=str, required=True)
     p.add_argument("--ckpt_path", type=str,
-                   help=".npz written by tools/export_params_npz.py")
+                   help="a train_torch.py .ckpt, or an .npz written by "
+                        "tools/export_params_npz.py")
     p.add_argument("--eval_exp_dir", default=False, action="store_true")
     p.add_argument("--scale", default=None, type=int)
     p.add_argument("--eval_start_epoch", type=int, default=3)
@@ -58,6 +64,15 @@ def parse_args():
     p.add_argument("--device", type=str, required=True,
                    help="torch device of the forward, e.g. cuda or cpu")
     return p.parse_args()
+
+
+def load_weights(model: MaskVRD, path: str) -> None:
+    """A flax ``.npz`` by its suffix, else a ``train_torch.py`` checkpoint
+    (EMA first)."""
+    if path.endswith(".npz"):
+        load_params(model, load_npz(path))
+    else:
+        model.load_state_dict(restore_params_for_eval(path), strict=True)
 
 
 def main():
@@ -112,8 +127,10 @@ def main():
         tc = config["training_config"]
         for epoch in range(args.eval_start_epoch - 1, tc["training_epoch"],
                            tc.get("save_interval", 1)):
-            ckpt_paths.append(os.path.join(
-                args.exp_dir, f"model_epoch_{epoch + 1}_{args.data_name}.npz"))
+            stem = os.path.join(args.exp_dir,
+                                f"model_epoch_{epoch + 1}_{args.data_name}")
+            ckpt_paths.append(stem + ".ckpt" if os.path.isfile(stem + ".ckpt")
+                              else stem + ".npz")
     else:
         if not args.ckpt_path:
             raise SystemExit("--ckpt_path or --eval_exp_dir is required")
@@ -126,7 +143,7 @@ def main():
     for ckpt_idx, ckpt_path in enumerate(ckpt_paths):
         logger.info(f"Loading parameters from: {ckpt_path}")
         model = MaskVRD(model_cfg, device=device)
-        load_params(model, load_npz(ckpt_path))
+        load_weights(model, ckpt_path)
         runner = InferenceRunner(model_cfg, model, infer_cfg, c,
                                  device=device)
 

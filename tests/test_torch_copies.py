@@ -1,0 +1,120 @@
+"""The port's own copies of the JAX package's host-side data, eval and
+logging modules, pinned to their originals: each copy's source is the
+original's under a two-line header, and the dataset items, ground truth,
+eval records and metric dict come out identical from both packages on the
+synthetic corpora."""
+
+import importlib
+import inspect
+import os
+
+import numpy as np
+import pytest
+
+from tests.synth_corpus import make_vidvrd_corpus, make_vidvrd_test_corpus
+from vrdone_tpu.data.datasets import VidVRDDataset as JDataset
+from vrdone_tpu.eval import convert as jconvert
+from vrdone_tpu.eval.metrics import relation_metrics as jmetrics
+from vrdone_tpu_torch.data.datasets import VidVRDDataset as TDataset
+from vrdone_tpu_torch.eval import convert as tconvert
+from vrdone_tpu_torch.eval.metrics import relation_metrics as tmetrics
+
+COPIES = ["data.datasets", "data.features", "data.category",
+          "data.memmap_cache", "data.native", "eval.metrics", "eval.convert",
+          "utils.logging"]
+
+
+@pytest.mark.parametrize("name", COPIES)
+def test_copy_is_the_original(name):
+    ours = inspect.getsource(importlib.import_module(f"vrdone_tpu_torch.{name}"))
+    theirs = inspect.getsource(importlib.import_module(f"vrdone_tpu.{name}"))
+    header, body = ours.split("\n", 2)[:2], ours.split("\n", 2)[2]
+    assert header[0] == (f"# Copy of vrdone_tpu/{name.replace('.', '/')}.py, "
+                         "kept so that the port imports nothing of")
+    assert body == theirs
+
+
+def equal(a, b, path="item"):
+    """Deep equality of nested dicts, lists and arrays, types included."""
+    assert type(a) is type(b), path
+    if isinstance(a, dict):
+        assert list(a) == list(b), path
+        for k in a:
+            equal(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            equal(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert a == b, path
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("corpus"))
+    dirs = make_vidvrd_corpus(root, n_videos=4, n_frames=40, seed=0)
+    dirs.update(make_vidvrd_test_corpus(root, n_videos=3, seed=1))
+    return root, dirs
+
+
+def _config(root, dirs, split):
+    return {"ann_dir": dirs["ann_dir"], "info_dir": dirs["info_dir"],
+            "gt_boxfeatures_dir": dirs["gt_boxfeatures_dir"],
+            "test_boxfeatures_dir": dirs["test_boxfeatures_dir"],
+            "cache_dir": os.path.join(root, f"cache_{split}"),
+            "cache_tag": "C", "feat_stride": 1, "max_seq_len": 48,
+            "split": split, "cut_max_preds": True, "proposal_max_preds": 9,
+            "num_pairs": 2, "proposal_min_frames": 2, "random_stride": False,
+            "stride_offset": 0}
+
+
+def test_dataset_items_match(corpus):
+    root, dirs = corpus
+    for split in ("train", "test"):
+        j = JDataset(_config(root, dirs, split))
+        t = TDataset(_config(root, dirs, split))
+        if split == "train":
+            assert t.num_train_items() == j.num_train_items() > 0
+            for i in range(j.num_train_items()):
+                equal(t.get_train_item(i, np.random.default_rng(i)),
+                      j.get_train_item(i, np.random.default_rng(i)))
+        else:
+            assert t.num_test_items() == j.num_test_items() > 0
+            for i in range(j.num_test_items()):
+                equal(t.get_test_item(i, np.random.default_rng(i)),
+                      j.get_test_item(i, np.random.default_rng(i)))
+
+
+def test_groundtruth_records_and_metrics_match(corpus):
+    root, dirs = corpus
+    gts = jconvert.build_groundtruth(dirs["ann_dir"], "train", "vidvrd")
+    equal(tconvert.build_groundtruth(dirs["ann_dir"], "train", "vidvrd"), gts)
+    assert sum(map(len, gts.values())) > 0
+    # predictions: every ground-truth relation with a score, some with a
+    # shortened span or another predicate
+    rng = np.random.default_rng(3)
+    preds = {}
+    for video, insts in gts.items():
+        recs = []
+        for inst in insts:
+            b, e = inst["duration"]
+            cut = int(rng.integers(0, max(1, (e - b) // 2)))
+            rec = {"triplet": list(inst["triplet"]), "duration": (b, e - cut),
+                   "score": float(rng.uniform()),
+                   "sub_traj": inst["sub_traj"][:e - cut - b],
+                   "obj_traj": inst["obj_traj"][:e - cut - b]}
+            if rng.uniform() < 0.3:
+                rec["triplet"][1] = "chase"
+            recs.append(rec)
+        preds[video] = recs
+    for th in (0.5, 0.7):
+        want = jmetrics(gts, preds, viou_threshold=th)
+        equal(tmetrics(gts, preds, viou_threshold=th), want)
+    triplets = {"triplets": [(1, 2, 3)], "pred_durations": [(2, 5)],
+                "so_trajs": [([[0, 0, 1, 1]] * 3, [[1, 1, 2, 2]] * 3)],
+                "triple_scores_avg": [0.5]}
+    equal(tconvert.to_eval_format("vidvrd", "v_1", triplets),
+          jconvert.to_eval_format("vidvrd", "v_1", triplets))

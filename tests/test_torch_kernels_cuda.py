@@ -7,7 +7,9 @@ package, so the repository's JAX conftest is left out):
         tests/test_torch_kernels_cuda.py
 
 Tolerance 2e-5 in fp32 with TF32 off: the kernel and cuBLAS sum the same
-products in different orders.
+products in different orders. The backward kernels are held to 1e-5 of the
+gradient's largest magnitude (sums over the 2w+1 keys of a band and d
+channels), the lse to 1e-5 of 1 + |lse|.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from vrdone_tpu_torch.models.layers import AffineDropPath
 from vrdone_tpu_torch.models.maskvrd import MaskVRD
 from vrdone_tpu_torch.ops import band_attention as ba
 from vrdone_tpu_torch.ops import full_attention as fa
+from vrdone_tpu_torch.ops import masked as mops
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +89,121 @@ def test_full_kernel_matches_plain(cuda, tq, tk, d):
     assert torch.isfinite(out).all()
     assert max_err(out, ref) <= TOL
     assert (out[3] == 0).all()
+
+
+@pytest.mark.parametrize("t,w,d", [
+    (96, 3, 128), (48, 3, 128), (12, 3, 128), (768, 3, 128), (37, 9, 32),
+    (5, 3, 128), (1, 3, 8), (100, 15, 256), (64, 0, 64)])
+def test_band_backward_kernels_match_plain_autograd(cuda, t, w, d):
+    """K1's lse, and K2 (dQ) and K3 (dK, dV) through ``BandAttention``
+    against autograd of the plain version, with a nonzero upstream gradient
+    on the invalid query rows (which must pass nothing back)."""
+    b, h = 4, 4
+    q, k, v, mask = streams(t * 17 + w, b, t, t, h * d,
+                            [t, max(1, t // 2), 1, 0], cuda)
+    mask[0, t // 3] = False
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(t)
+                       ).to(cuda)
+    with torch.no_grad():
+        _, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
+        ref_lse = ba.band_lse_plain(q, k, mask, **kw)
+    assert ((lse - ref_lse).abs() / (1 + ref_lse.abs())).max() <= 1e-5
+
+    counts = (ba.launches, ba.dq_launches, ba.dkv_launches)
+    qk = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = mops.band_attention(*qk, mask, **kw)
+    got = torch.autograd.grad(out, qk, dout)
+    torch.cuda.synchronize()
+    assert (ba.launches, ba.dq_launches, ba.dkv_launches) == tuple(
+        c + 1 for c in counts)
+    qp = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ba.band_attention_plain(*qp, mask, **kw), qp,
+                               dout)
+    for name, g, r in zip("qkv", got, want):
+        assert max_err(g, r) <= 1e-5 * max(1.0, r.abs().max().item()), name
+    assert (got[0][3] == 0).all()  # a batch row with no valid query
+
+
+def test_kernels_without_backward_refuse_grad(cuda):
+    """A CUDA tensor that needs a gradient cannot pass through a kernel
+    launch that has no backward."""
+    q, k, v, mask = streams(1, 2, 16, 16, 64, [16, 8], cuda)
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ba.band_attention_cuda(q, k, v, mask, n_head=4, window_size=7)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.full_attention_cuda(q, k, v, mask, n_head=4)
+    with torch.no_grad():
+        ba.band_attention_cuda(q, k, v, mask, n_head=4, window_size=7)
+        fa.full_attention_cuda(q, k, v, mask, n_head=4)
+    # the dispatch picks the differentiable forms instead
+    fa.dense_calls = 0
+    out = mops.full_attention(q, k, v, mask, n_head=4, allow_kernel=False)
+    assert out.grad_fn is not None and fa.dense_calls == 1
+    assert mops.band_attention(q, k, v, mask, n_head=4,
+                               window_size=7).grad_fn is not None
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of a small MaskVRD with drop path on: the card (band
+    kernels forward and backward, dense full attention) against the CPU on
+    the same weights, batch and drop-path draws."""
+    from vrdone_tpu_torch.train.loop import (create_train_state,
+                                             step_generator, train_step)
+    cfg = ModelConfig(visual_dim=24, embd_dim=32, fpn_dim=16,
+                      max_seq_len=48, with_fuzzy=True, scale_range=0.85,
+                      predictor=PredictorConfig(
+                          n_input=32, n_embd=16, n_hidden=64, num_layers=3,
+                          num_queries=9))
+    tc = {"type": "AdamW", "training_lr": 1e-4, "weight_decay": 0.05,
+          "clip_grad_l2norm": 1.0, "warmup": True, "warmup_epochs": 1,
+          "total_epoch": 2}
+    states = {}
+    for dev in (torch.device("cpu"), cuda):
+        states[dev.type], _ = create_train_state(
+            cfg, tc, 1, device=dev, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    b, t, g = 4, 48, 9
+    lens = np.array([48, 30, 17, 5])
+    seq = np.arange(t)[None] < lens[:, None]
+    gm = np.zeros((b, g, t), np.float32)
+    segs = np.zeros((b, g, 2), np.int32)
+    gv = np.zeros((b, g), bool)
+    for i in range(b):
+        for j in range(int(rng.integers(1, 4))):
+            s = int(rng.integers(0, lens[i] - 1))
+            e = int(rng.integers(s + 1, lens[i] + 1))
+            gm[i, j, s:e], segs[i, j], gv[i, j] = 1, (s, e), True
+    batch = {"feats": rng.standard_normal((b, t, 2 * 24 + 5 + 16))
+             .astype(np.float32) * seq[..., None],
+             "seq_mask": seq, "item_valid": np.ones(b, bool),
+             "gt_labels": rng.integers(1, 133, (b, g)).astype(np.int32),
+             "gt_masks": gm, "gt_segs": segs, "gt_valid": gv}
+    losses = {}
+    ba.launches = ba.dq_launches = ba.dkv_launches = fa.launches = 0
+    for name, state in states.items():
+        dev = next(state.model.parameters()).device
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        for step in range(2):
+            _, losses[name, step] = train_step(state, tb,
+                                               step_generator(0, step))
+    torch.cuda.synchronize()
+    band = 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
+    assert (ba.launches, ba.dq_launches, ba.dkv_launches,
+            fa.launches) == (2 * band, 2 * band, 2 * band, 0)
+    for step in range(2):
+        for k, v in losses["cpu", step].items():
+            assert abs(losses["cuda", step][k].item() - v.item()) <= 1e-4 * (
+                1 + abs(v.item())), (k, step)
+    # the gradients, through Adam's first moments (noise-level gradients of
+    # key biases make sign-like Adam steps differ, so parameters are held
+    # only to twice the largest step, 2 * lr)
+    for m, r in zip(states["cuda"].optimizer.moments["mu"],
+                    states["cpu"].optimizer.moments["mu"]):
+        assert max_err(m.cpu(), r) <= 1e-3 * r.abs().max().item() + 1e-7
+    for p, r in zip(states["cuda"].params(), states["cpu"].params()):
+        assert max_err(p.cpu(), r) <= 2e-4
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -1,4 +1,4 @@
-"""JAX parameters -> the port's ``state_dict``.
+"""JAX parameters <-> the port's ``state_dict``.
 
 The inverse of the transplant helpers in ``tests/oracle.py``. Input is the
 flax parameter tree flattened to ``/``-joined keys (what
@@ -33,6 +33,37 @@ def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
             if parts[-1] == "kernel":
                 parts[-1] = "weight"
         out[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
+def flax_key(name: str, value: torch.Tensor) -> str:
+    """The flattened flax key (``a/b/kernel``) of a ``state_dict`` entry.
+    Only flax ``kernel`` leaves become ``weight``, and only they have two or
+    more axes under that name (LayerNorm's ``weight`` is 1-D), so the
+    inverse of ``params_from_jax`` needs no module types."""
+    parts = name.split(".")
+    if parts[-1] == "weight" and value.ndim >= 2:
+        parts[-1] = "kernel"
+    return "/".join(parts)
+
+
+def is_flax_kernel(name: str, value: torch.Tensor) -> bool:
+    """Whether the parameter is a flax ``kernel`` or ``*_kernel`` leaf: the
+    parameters that ``params_from_jax`` transposes and the JAX package's
+    ``train/optim.py::decay_mask`` decays."""
+    leaf = flax_key(name, value).rsplit("/", 1)[-1]
+    return leaf == "kernel" or leaf.endswith("_kernel")
+
+
+def params_to_jax(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """``state_dict`` tensors -> flattened flax params: the inverse of
+    ``params_from_jax``."""
+    out = {}
+    for name, value in state.items():
+        a = value.detach().cpu().numpy()
+        if is_flax_kernel(name, value):
+            a = a.T if a.ndim == 2 else a.transpose(2, 1, 0)
+        out[flax_key(name, value)] = np.ascontiguousarray(a)
     return out
 
 

@@ -1,9 +1,10 @@
-"""Eval batch packing (mirror of ``eval_bucket_lengths`` and
-``pack_eval_bucket`` in ``vrdone_tpu/data/batching.py``).
+"""Ragged -> static-shape batch packing (mirror of
+``vrdone_tpu/data/batching.py``).
 
-Kept as a copy so that the GPU path does not import ``vrdone_tpu``;
-``tests/test_torch_eval.py`` pins both functions, output for output, to the
-originals. Short sequences pad to ``max_seq_len``; long ones to
+Kept as a copy so that the port does not import ``vrdone_tpu``;
+``tests/test_torch_eval.py`` and ``tests/test_torch_train.py`` pin each
+function, output for output, to the original. Train batches have one static
+shape. For eval, short sequences pad to ``max_seq_len``; long ones to
 ``max_seq_len * 2**k`` rounded up to the model's ``max_div_factor``, so the
 forward sees a handful of shapes.
 """
@@ -11,6 +12,52 @@ forward sees a handful of shapes.
 from __future__ import annotations
 
 import numpy as np
+
+
+def pack_train_batch(pairs: list[dict], pack_size: int, max_seq_len: int,
+                     num_gt: int, feat_dim: int) -> dict:
+    """Pack per-pair dicts (from datasets.get_train_item) into the static
+    training batch of ``models/maskvrd.py``. Pairs beyond pack_size are
+    dropped."""
+    p = pack_size
+    item_valid = np.zeros((p,), bool)
+    gt_labels = np.zeros((p, num_gt), np.int32)
+    gt_masks = np.zeros((p, num_gt, max_seq_len), np.float32)
+    gt_segs = np.zeros((p, num_gt, 2), np.int32)
+    gt_valid = np.zeros((p, num_gt), bool)
+
+    # the native packer (native/tracklet_ops.cpp) when it is built
+    from . import native
+    if native.have_native() and pairs:
+        feats, seq_mask = native.pack_pairs(
+            [pair["so_feat"] for pair in pairs[:p]], p, max_seq_len,
+            feat_dim)
+    else:
+        feats = np.zeros((p, max_seq_len, feat_dim), np.float32)
+        seq_mask = np.zeros((p, max_seq_len), bool)
+        for i, pair in enumerate(pairs[:p]):
+            t = pair["so_feat"].shape[0]
+            feats[i, :t] = pair["so_feat"]
+            seq_mask[i, :t] = True
+        # keep one valid frame on padded rows (finite masked reductions)
+        seq_mask[len(pairs[:p]):, 0] = True
+
+    for i, pair in enumerate(pairs[:p]):
+        item_valid[i] = True
+        n = min(len(pair["preds"]), num_gt)
+        gt_labels[i, :n] = pair["preds"][:n]
+        gt_masks[i, :n] = pair["masks"][:n]
+        gt_segs[i, :n] = pair["segs"][:n]
+        gt_valid[i, :n] = True
+    return {
+        "feats": feats,
+        "seq_mask": seq_mask,
+        "item_valid": item_valid,
+        "gt_labels": gt_labels,
+        "gt_masks": gt_masks,
+        "gt_segs": gt_segs,
+        "gt_valid": gt_valid,
+    }
 
 
 def eval_bucket_lengths(lengths: np.ndarray, max_seq_len: int,

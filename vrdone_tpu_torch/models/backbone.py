@@ -34,7 +34,8 @@ class SOSBackbone(nn.Module):
                  scale_factor: int = 2, with_ln: bool = False,
                  path_pdrop: float = 0.0, use_abs_pe: bool = False,
                  use_rel_pe: bool = False, use_local: bool = True,
-                 n_clip: Optional[int] = None, *, device: torch.device):
+                 n_clip: Optional[int] = None, proj_pdrop: float = 0.0, *,
+                 device: torch.device):
         super().__init__()
         if len(arch) != 3 or len(mha_win_size) != 1 + arch[-1]:
             raise ValueError(f"bad arch {arch} / windows {mha_win_size}")
@@ -71,7 +72,8 @@ class SOSBackbone(nn.Module):
         for i in range(arch[1]):
             self.add_module(f"stem_{i}", TransformerBlock(
                 n_embd, n_head, n_ds_strides=(1, 1), path_pdrop=path_pdrop,
-                mha_win_size=mha_win_size[0], device=device))
+                mha_win_size=mha_win_size[0], proj_pdrop=proj_pdrop,
+                device=device))
         for stream in ("s", "o"):
             for i in range(arch[1]):
                 self.add_module(f"{stream}_attn_{i}", DecoderLayer(
@@ -93,7 +95,7 @@ class SOSBackbone(nn.Module):
             self.add_module(f"branch_{i}", TransformerBlock(
                 n_embd, n_head, n_ds_strides=(scale_factor, scale_factor),
                 path_pdrop=path_pdrop, mha_win_size=mha_win_size[1 + i],
-                device=device))
+                proj_pdrop=proj_pdrop, device=device))
         if use_abs_pe:
             # a fixed table, not a parameter (reference registers it as a
             # non-persistent buffer, backbones.py:70-72)
@@ -112,7 +114,13 @@ class SOSBackbone(nn.Module):
                 x[..., 2 * nv + nso + ne:])
 
     def _pe(self, t: int) -> Tensor:
-        """The eval-time table: stretched linearly past max_len."""
+        """The table cut to t frames; at eval, stretched linearly past
+        max_len (training sequences never exceed it)."""
+        if self.training:
+            if t > self.max_len:
+                raise ValueError(f"training sequence of {t} frames exceeds "
+                                 f"max_seq_len {self.max_len}")
+            return self.pos_embd[:t]
         if t >= self.max_len:
             return mops.resize_pe_linear(self.pos_embd, t)
         return self.pos_embd[:t]
@@ -120,10 +128,13 @@ class SOSBackbone(nn.Module):
     def _norm_relu(self, norm: Optional[nn.Module], x: Tensor) -> Tensor:
         return F.relu(norm(x) if norm is not None else x)
 
-    def forward(self, x: Tensor, mask: Tensor
+    def forward(self, x: Tensor, mask: Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> tuple[tuple[Tensor, ...], tuple[Tensor, ...]]:
         """x: (B, T, C_packed), mask: (B, T) bool. Returns (feats, masks):
-        pyramid tuples, level 0 at full resolution."""
+        pyramid tuples, level 0 at full resolution. ``generator`` feeds
+        stochastic depth and dropout in training."""
+        g = generator
         s_feat, o_feat, so_bbox, s_bbox, o_bbox = self._split_channels(x)
         mask_f = mask[..., None].to(s_feat.dtype)
 
@@ -144,31 +155,35 @@ class SOSBackbone(nn.Module):
                                  self.bbox_entity_embd(s_bbox, mask)[0])
         o_bbox = self._norm_relu(self.bbox_entity_norm,
                                  self.bbox_entity_embd(o_bbox, mask)[0])
-        s_feat = self.visual_bbox_fuse(torch.cat([s_feat, s_bbox], -1)) * mask_f
-        o_feat = self.visual_bbox_fuse(torch.cat([o_feat, o_bbox], -1)) * mask_f
+        s_feat = self.visual_bbox_fuse(torch.cat([s_feat, s_bbox], -1),
+                                       g) * mask_f
+        o_feat = self.visual_bbox_fuse(torch.cat([o_feat, o_bbox], -1),
+                                       g) * mask_f
 
         # stem: per-stream encoding + subject-object mutual cross-attention
         for i in range(self.arch[1]):
             blk = getattr(self, f"stem_{i}")
-            s_feat, _ = blk(s_feat, mask)
-            o_feat, _ = blk(o_feat, mask)
-            s_mut, _ = getattr(self, f"s_attn_{i}")(s_feat, o_feat, mask, mask)
-            o_mut, _ = getattr(self, f"o_attn_{i}")(o_feat, s_feat, mask, mask)
+            s_feat, _ = blk(s_feat, mask, generator=g)
+            o_feat, _ = blk(o_feat, mask, generator=g)
+            s_mut, _ = getattr(self, f"s_attn_{i}")(s_feat, o_feat, mask, mask,
+                                                    generator=g)
+            o_mut, _ = getattr(self, f"o_attn_{i}")(o_feat, s_feat, mask, mask,
+                                                    generator=g)
             s_feat = s_feat + s_mut
             o_feat = o_feat + o_mut
 
         s_feat = self.s_fuse_norm(s_feat)
         o_feat = self.o_fuse_norm(o_feat)
-        so_feat = self.so_fuse(torch.cat([s_feat, o_feat], -1)) * mask_f
+        so_feat = self.so_fuse(torch.cat([s_feat, o_feat], -1), g) * mask_f
         so_bbox, _ = self.bbox_so_embd(so_bbox, mask)
         so_embedding = self.so_visual_bbox_fuse(
-            torch.cat([so_feat, so_bbox], -1)) * mask_f
+            torch.cat([so_feat, so_bbox], -1), g) * mask_f
 
         feats = (so_embedding,)
         masks = (mask,)
         for i in range(self.arch[2]):
-            so_embedding, mask = getattr(self, f"branch_{i}")(so_embedding,
-                                                              mask)
+            so_embedding, mask = getattr(self, f"branch_{i}")(
+                so_embedding, mask, generator=g)
             feats += (so_embedding,)
             masks += (mask,)
         return feats, masks

@@ -8,11 +8,16 @@ so a flax parameter path maps to a ``state_dict`` key by joining with "."
 (see ``vrdone_tpu_torch/convert.py``). Input widths that flax infers on the
 first call are constructor arguments here.
 
-The port runs the eval forward: dropout and stochastic depth are identity
-(``AffineDropPath`` still applies its per-channel scale). Parameters are
-allocated uninitialised on the given ``device``; ``init_weights`` fills them
-from a ``torch.Generator`` with the reference's initialisers, or they are
-loaded from a converted JAX checkpoint.
+``self.training`` stands where the JAX modules take ``deterministic``
+(``deterministic = not self.training``). Like the flax modules, whose
+``deterministic`` defaults to True, every module here starts in eval mode;
+``model.train()`` turns training on. In training, stochastic depth and
+dropout draw from the ``torch.Generator`` handed down each ``forward`` as
+``generator`` (flax's ``droppath`` and ``dropout`` rngs); at eval they are
+identity and ``AffineDropPath`` applies only its per-channel scale.
+Parameters are allocated uninitialised on the given ``device``;
+``init_weights`` fills them from a ``torch.Generator`` with the reference's
+initialisers, or they are loaded from a converted JAX checkpoint.
 """
 
 from __future__ import annotations
@@ -27,6 +32,16 @@ from torch import nn
 from ..ops import masked as mops
 
 Tensor = torch.Tensor
+Generator = Optional[torch.Generator]
+
+
+class Module(nn.Module):
+    """``nn.Module`` that starts in eval mode (flax's deterministic=True
+    default)."""
+
+    def __init__(self):
+        super().__init__()
+        self.training = False
 
 
 # ---------------------------------------------------------------------------
@@ -64,7 +79,7 @@ def get_activation(name: str):
 # primitives
 # ---------------------------------------------------------------------------
 
-class ChannelLayerNorm(nn.Module):
+class ChannelLayerNorm(Module):
     """LayerNorm over channels of (B, T, C) (reference models/blocks.py:116)."""
 
     def __init__(self, features: int, eps: float = 1e-5, affine: bool = True,
@@ -87,7 +102,7 @@ class ChannelLayerNorm(nn.Module):
         return mops.channel_layernorm(x, self.weight, self.bias, self.eps)
 
 
-class MaskedConv1D(nn.Module):
+class MaskedConv1D(Module):
     """Mask-preserving conv1d (reference models/blocks.py:63-113)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
@@ -113,7 +128,7 @@ class MaskedConv1D(nn.Module):
                                   stride=self.stride, groups=self.groups)
 
 
-class Dense(nn.Module):
+class Dense(Module):
     """Linear layer on the last axis, torch-style fan-in init, constant
     bias (zero unless ``bias_value`` is given)."""
 
@@ -135,16 +150,17 @@ class Dense(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class ConvMLP(nn.Module):
+class ConvMLP(Module):
     """Stacked conv1d MLP (reference models/blocks.py:37-61). kernel_size 1
     (every shipped config) is a stack of Dense layers."""
 
     def __init__(self, in_features: int, hidden_dim: int, output_dim: int,
-                 num_layers: int, kernel_size: int = 1, act: str = "gelu", *,
-                 device: torch.device):
+                 num_layers: int, kernel_size: int = 1, act: str = "gelu",
+                 dropout: float = 0.0, *, device: torch.device):
         super().__init__()
         self.num_layers = num_layers
         self.kernel_size = kernel_size
+        self.dropout = dropout
         self.act = get_activation(act)
         dims = [hidden_dim] * (num_layers - 1) + [output_dim]
         c_in = in_features
@@ -166,7 +182,7 @@ class ConvMLP(nn.Module):
             _fan_in_uniform_(kernel, kernel[0].numel(), generator)
             getattr(self, f"layers_{i}_bias").zero_()
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, generator: Generator = None) -> Tensor:
         for i in range(self.num_layers):
             if self.kernel_size == 1:
                 x = getattr(self, f"layers_{i}")(x)
@@ -175,40 +191,44 @@ class ConvMLP(nn.Module):
                                 getattr(self, f"layers_{i}_bias"))
             if i < self.num_layers - 1:
                 x = self.act(x)
+            x = mops.dropout(x, self.dropout, self.training, generator)
         return x
 
 
-class AffineDropPath(nn.Module):
+class AffineDropPath(Module):
     """Per-channel-scaled stochastic depth (reference models/blocks.py:1134);
     at eval only the scale applies."""
 
-    def __init__(self, features: int, init_scale: float = 1e-4, *,
-                 device: torch.device):
+    def __init__(self, features: int, drop_prob: float = 0.0,
+                 init_scale: float = 1e-4, *, device: torch.device):
         super().__init__()
+        self.drop_prob = drop_prob
         self.init_scale = init_scale
         self.scale = nn.Parameter(torch.empty(features, device=device))
 
     def init_params(self, generator: torch.Generator) -> None:
         self.scale.fill_(self.init_scale)
 
-    def forward(self, x: Tensor) -> Tensor:
-        return x * self.scale
+    def forward(self, x: Tensor, generator: Generator = None) -> Tensor:
+        return mops.drop_path(x * self.scale, self.drop_prob, self.training,
+                              generator)
 
 
-class MaybeDropPath(nn.Module):
+class MaybeDropPath(Module):
     """AffineDropPath when drop_prob > 0 else identity, mirroring the
     reference's conditional wiring (models/blocks.py:1063-1068)."""
 
     def __init__(self, features: int, drop_prob: float = 0.0, *,
                  device: torch.device):
         super().__init__()
-        self.AffineDropPath_0 = (AffineDropPath(features, device=device)
+        self.AffineDropPath_0 = (AffineDropPath(features, drop_prob,
+                                                device=device)
                                  if drop_prob > 0.0 else None)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, generator: Generator = None) -> Tensor:
         if self.AffineDropPath_0 is None:
             return x
-        return self.AffineDropPath_0(x)
+        return self.AffineDropPath_0(x, generator)
 
 
 # ---------------------------------------------------------------------------
@@ -222,27 +242,32 @@ def _no_rel_pe(use_rel_pe: bool) -> None:
             "(K4), which is not ported yet; see ROADMAP.md queue 2")
 
 
-class MHA(nn.Module):
+class MHA(Module):
     """Dense masked multi-head attention over explicit (q, k, v) streams
     (reference MaskedMHA / MaskedMHA_QKV)."""
 
-    def __init__(self, n_embd: int, n_head: int, *, device: torch.device):
+    def __init__(self, n_embd: int, n_head: int, proj_pdrop: float = 0.0, *,
+                 device: torch.device):
         super().__init__()
         self.n_head = n_head
+        self.proj_pdrop = proj_pdrop
         self.query = Dense(n_embd, n_embd, device=device)
         self.key = Dense(n_embd, n_embd, device=device)
         self.value = Dense(n_embd, n_embd, device=device)
         self.proj = Dense(n_embd, n_embd, device=device)
 
     def forward(self, q: Tensor, k: Tensor, v: Tensor, qx_mask: Tensor,
-                kv_mask: Tensor) -> tuple[Tensor, Tensor]:
+                kv_mask: Tensor, generator: Generator = None
+                ) -> tuple[Tensor, Tensor]:
         out = mops.full_attention(self.query(q), self.key(k), self.value(v),
-                                  kv_mask, n_head=self.n_head)
-        out = self.proj(out)
+                                  kv_mask, n_head=self.n_head,
+                                  allow_kernel=not self.training)
+        out = mops.dropout(self.proj(out), self.proj_pdrop, self.training,
+                           generator)
         return out * qx_mask[..., None].to(out.dtype), qx_mask
 
 
-class _QKVPreproc(nn.Module):
+class _QKVPreproc(Module):
     """Depthwise conv + channel LayerNorm of each of the q/k/v streams (the
     "Conv" of the reference's MHCA variants)."""
 
@@ -292,14 +317,15 @@ def _mhca_kernels(n_qx_stride: int, n_kv_stride: int, *, qkv_api: bool):
     return qx_kernel, qx_stride, kv_kernel, kv_stride
 
 
-class ConvMHA(nn.Module):
+class ConvMHA(Module):
     """Multi-head conv attention (reference MaskedMHCA / MaskedMHCA_QKV)."""
 
     def __init__(self, n_embd: int, n_head: int, n_qx_stride: int = 1,
-                 n_kv_stride: int = 1, qkv_api: bool = False, *,
-                 device: torch.device):
+                 n_kv_stride: int = 1, qkv_api: bool = False,
+                 proj_pdrop: float = 0.0, *, device: torch.device):
         super().__init__()
         self.n_head = n_head
+        self.proj_pdrop = proj_pdrop
         self.preproc = _QKVPreproc(
             n_embd, *_mhca_kernels(n_qx_stride, n_kv_stride, qkv_api=qkv_api),
             device=device)
@@ -309,23 +335,28 @@ class ConvMHA(nn.Module):
         self.proj = Dense(n_embd, n_embd, device=device)
 
     def forward(self, q: Tensor, k: Tensor, v: Tensor, qx_mask: Tensor,
-                kv_mask: Tensor) -> tuple[Tensor, Tensor]:
+                kv_mask: Tensor, generator: Generator = None
+                ) -> tuple[Tensor, Tensor]:
         q, k, v, qm, km = self.preproc(q, k, v, qx_mask, kv_mask)
         out = mops.full_attention(self.query(q), self.key(k), self.value(v),
-                                  km, n_head=self.n_head)
-        out = self.proj(out)
+                                  km, n_head=self.n_head,
+                                  allow_kernel=not self.training)
+        out = mops.dropout(self.proj(out), self.proj_pdrop, self.training,
+                           generator)
         return out * qm[..., None].to(out.dtype), qm
 
 
-class LocalMHA(nn.Module):
+class LocalMHA(Module):
     """Sliding-window attention without conv preprocessing
     (reference LocalMaskedMHA / LocalMaskedMHA_QKV)."""
 
     def __init__(self, n_embd: int, n_head: int, window_size: int,
-                 use_rel_pe: bool = False, *, device: torch.device):
+                 use_rel_pe: bool = False, proj_pdrop: float = 0.0, *,
+                 device: torch.device):
         super().__init__()
         _no_rel_pe(use_rel_pe)
         self.n_head = n_head
+        self.proj_pdrop = proj_pdrop
         self.window_size = window_size
         self.query = Dense(n_embd, n_embd, device=device)
         self.key = Dense(n_embd, n_embd, device=device)
@@ -333,24 +364,27 @@ class LocalMHA(nn.Module):
         self.proj = Dense(n_embd, n_embd, device=device)
 
     def forward(self, q: Tensor, k: Tensor, v: Tensor, qx_mask: Tensor,
-                kv_mask: Tensor) -> tuple[Tensor, Tensor]:
+                kv_mask: Tensor, generator: Generator = None
+                ) -> tuple[Tensor, Tensor]:
         out = mops.band_attention(self.query(q), self.key(k), self.value(v),
                                   kv_mask, n_head=self.n_head,
                                   window_size=self.window_size)
-        out = self.proj(out)
+        out = mops.dropout(self.proj(out), self.proj_pdrop, self.training,
+                           generator)
         return out * qx_mask[..., None].to(out.dtype), qx_mask
 
 
-class LocalConvMHA(nn.Module):
+class LocalConvMHA(Module):
     """Sliding-window conv attention (reference LocalMaskedMHCA family)."""
 
     def __init__(self, n_embd: int, n_head: int, window_size: int,
                  n_qx_stride: int = 1, n_kv_stride: int = 1,
-                 use_rel_pe: bool = False, qkv_api: bool = False, *,
-                 device: torch.device):
+                 use_rel_pe: bool = False, qkv_api: bool = False,
+                 proj_pdrop: float = 0.0, *, device: torch.device):
         super().__init__()
         _no_rel_pe(use_rel_pe)
         self.n_head = n_head
+        self.proj_pdrop = proj_pdrop
         self.window_size = window_size
         self.preproc = _QKVPreproc(
             n_embd, *_mhca_kernels(n_qx_stride, n_kv_stride, qkv_api=qkv_api),
@@ -361,12 +395,14 @@ class LocalConvMHA(nn.Module):
         self.proj = Dense(n_embd, n_embd, device=device)
 
     def forward(self, q: Tensor, k: Tensor, v: Tensor, qx_mask: Tensor,
-                kv_mask: Tensor) -> tuple[Tensor, Tensor]:
+                kv_mask: Tensor, generator: Generator = None
+                ) -> tuple[Tensor, Tensor]:
         q, k, v, qm, km = self.preproc(q, k, v, qx_mask, kv_mask)
         out = mops.band_attention(self.query(q), self.key(k), self.value(v),
                                   km, n_head=self.n_head,
                                   window_size=self.window_size)
-        out = self.proj(out)
+        out = mops.dropout(self.proj(out), self.proj_pdrop, self.training,
+                           generator)
         return out * qm[..., None].to(out.dtype), qm
 
 
@@ -374,27 +410,29 @@ class LocalConvMHA(nn.Module):
 # composite blocks
 # ---------------------------------------------------------------------------
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(Module):
     """Pre-LN transformer encoder block with optional temporal downsampling
     (reference models/blocks.py:992-1080)."""
 
     def __init__(self, n_embd: int, n_head: int,
                  n_ds_strides: tuple[int, int] = (1, 1),
                  n_hidden: Optional[int] = None, path_pdrop: float = 0.0,
-                 mha_win_size: int = -1, use_rel_pe: bool = False, *,
-                 device: torch.device):
+                 mha_win_size: int = -1, use_rel_pe: bool = False,
+                 proj_pdrop: float = 0.0, *, device: torch.device):
         super().__init__()
         self.n_ds_strides = tuple(n_ds_strides)
+        self.proj_pdrop = proj_pdrop
         self.ln1 = ChannelLayerNorm(n_embd, device=device)
         if mha_win_size > 1:
             self.attn = LocalConvMHA(
                 n_embd, n_head, window_size=mha_win_size,
                 n_qx_stride=n_ds_strides[0], n_kv_stride=n_ds_strides[1],
-                use_rel_pe=use_rel_pe, device=device)
+                use_rel_pe=use_rel_pe, proj_pdrop=proj_pdrop, device=device)
         else:
             self.attn = ConvMHA(
                 n_embd, n_head, n_qx_stride=n_ds_strides[0],
-                n_kv_stride=n_ds_strides[1], device=device)
+                n_kv_stride=n_ds_strides[1], proj_pdrop=proj_pdrop,
+                device=device)
         self.drop_path_attn = MaybeDropPath(n_embd, path_pdrop, device=device)
         n_hidden = n_hidden if n_hidden is not None else 4 * n_embd
         self.ln2 = ChannelLayerNorm(n_embd, device=device)
@@ -403,9 +441,13 @@ class TransformerBlock(nn.Module):
         self.drop_path_mlp = MaybeDropPath(n_embd, path_pdrop, device=device)
 
     def forward(self, x: Tensor, mask: Tensor,
-                pos_embd: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
+                pos_embd: Optional[Tensor] = None,
+                generator: Generator = None) -> tuple[Tensor, Tensor]:
+        def drop(t):
+            return mops.dropout(t, self.proj_pdrop, self.training, generator)
+
         xn = self.ln1(x)
-        out, out_mask = self.attn(xn, xn, xn, mask, mask)
+        out, out_mask = self.attn(xn, xn, xn, mask, mask, generator)
         out_mask_f = out_mask[..., None].to(out.dtype)
         if self.n_ds_strides[0] > 1:
             stride = self.n_ds_strides[0]
@@ -414,17 +456,17 @@ class TransformerBlock(nn.Module):
             skip = skip[:, :out.shape[1]]
         else:
             skip = x
-        out = skip * out_mask_f + self.drop_path_attn(out)
-        h = F.gelu(self.mlp_0(self.ln2(out)))
-        h = self.mlp_1(h)
-        out = out + self.drop_path_mlp(h * out_mask_f)
+        out = skip * out_mask_f + self.drop_path_attn(out, generator)
+        h = drop(F.gelu(self.mlp_0(self.ln2(out))))
+        h = drop(self.mlp_1(h))
+        out = out + self.drop_path_mlp(h * out_mask_f, generator)
         if pos_embd is not None:
             out = out + pos_embd * out_mask_f
         return out, out_mask
 
 
 def _make_attn(n_embd, n_head, *, use_local, win_size, n_qx_stride,
-               n_kv_stride, use_rel_pe, name, device):
+               n_kv_stride, use_rel_pe, proj_pdrop, name, device):
     """Attention flavour of a decoder layer
     (reference models/local_transformer.py:653-739)."""
     pointwise = ((name == "self_attn" and n_qx_stride == 0)
@@ -432,23 +474,26 @@ def _make_attn(n_embd, n_head, *, use_local, win_size, n_qx_stride,
     if use_local:
         if pointwise:
             return LocalMHA(n_embd, n_head, window_size=win_size,
-                            use_rel_pe=use_rel_pe, device=device)
+                            use_rel_pe=use_rel_pe, proj_pdrop=proj_pdrop,
+                            device=device)
         return LocalConvMHA(n_embd, n_head, window_size=win_size,
                             n_qx_stride=n_qx_stride, n_kv_stride=n_kv_stride,
                             use_rel_pe=use_rel_pe, qkv_api=True,
-                            device=device)
+                            proj_pdrop=proj_pdrop, device=device)
     if pointwise:
-        return MHA(n_embd, n_head, device=device)
+        return MHA(n_embd, n_head, proj_pdrop=proj_pdrop, device=device)
     if name == "self_attn":
         # reference passes n_kv_stride=n_qx_stride for decoder self-attn
         # (models/local_transformer.py:711-718)
         return ConvMHA(n_embd, n_head, n_qx_stride=n_qx_stride,
-                       n_kv_stride=n_qx_stride, qkv_api=True, device=device)
+                       n_kv_stride=n_qx_stride, qkv_api=True,
+                       proj_pdrop=proj_pdrop, device=device)
     return ConvMHA(n_embd, n_head, n_qx_stride=n_qx_stride,
-                   n_kv_stride=n_kv_stride, qkv_api=True, device=device)
+                   n_kv_stride=n_kv_stride, qkv_api=True,
+                   proj_pdrop=proj_pdrop, device=device)
 
 
-class DecoderLayer(nn.Module):
+class DecoderLayer(Module):
     """Self-attn + cross-attn (+ optional FFN) decoder layer
     (reference MaskedConvTransformerDecoderLayer,
     models/local_transformer.py:625-835)."""
@@ -457,12 +502,14 @@ class DecoderLayer(nn.Module):
                  n_hidden: Optional[int] = None, path_pdrop: float = 0.0,
                  n_qx_stride: int = 0, n_kv_stride: int = 1,
                  with_ffn: bool = True, use_local: bool = False,
-                 win_size: Optional[int] = None, use_rel_pe: bool = False, *,
-                 device: torch.device):
+                 win_size: Optional[int] = None, use_rel_pe: bool = False,
+                 proj_pdrop: float = 0.0, *, device: torch.device):
         super().__init__()
+        self.proj_pdrop = proj_pdrop
         kw = dict(use_local=use_local, win_size=win_size,
                   n_qx_stride=n_qx_stride, n_kv_stride=n_kv_stride,
-                  use_rel_pe=use_rel_pe, device=device)
+                  use_rel_pe=use_rel_pe, proj_pdrop=proj_pdrop,
+                  device=device)
         self.self_attn = _make_attn(n_embd, n_head, name="self_attn", **kw)
         self.multihead_attn = _make_attn(n_embd, n_head,
                                          name="multihead_attn", **kw)
@@ -484,21 +531,28 @@ class DecoderLayer(nn.Module):
     def forward(self, tgt: Tensor, memory: Tensor, tgt_mask: Tensor,
                 memory_mask: Tensor, pos: Optional[Tensor] = None,
                 query_pos: Optional[Tensor] = None,
-                cross_first: bool = False) -> tuple[Tensor, Tensor]:
+                cross_first: bool = False,
+                generator: Generator = None) -> tuple[Tensor, Tensor]:
         def wpe(t, p):
             return t if p is None else t + p
+
+        def drop(t):
+            return mops.dropout(t, self.proj_pdrop, self.training, generator)
 
         def do_self(t):
             t2 = self.ln1(t)
             qk = wpe(t2, query_pos)
-            t2, m2 = self.self_attn(qk, qk, t, tgt_mask, tgt_mask)
-            return t * m2[..., None].to(t2.dtype) + self.drop_path_attn1(t2), m2
+            t2, m2 = self.self_attn(qk, qk, t, tgt_mask, tgt_mask, generator)
+            return (t * m2[..., None].to(t2.dtype)
+                    + self.drop_path_attn1(t2, generator)), m2
 
         def do_cross(t):
             t2 = self.ln2(t)
             t2, m2 = self.multihead_attn(wpe(t2, query_pos), wpe(memory, pos),
-                                         memory, tgt_mask, memory_mask)
-            return t * m2[..., None].to(t2.dtype) + self.drop_path_attn2(t2), m2
+                                         memory, tgt_mask, memory_mask,
+                                         generator)
+            return (t * m2[..., None].to(t2.dtype)
+                    + self.drop_path_attn2(t2, generator)), m2
 
         if cross_first:
             tgt, m = do_cross(tgt)
@@ -508,13 +562,14 @@ class DecoderLayer(nn.Module):
             tgt, m = do_cross(tgt)
 
         if self.with_ffn:
-            h = F.gelu(self.mlp_0(self.ln3(tgt)))
-            h = self.mlp_1(h)
-            tgt = tgt + self.drop_path_mlp(h * m[..., None].to(h.dtype))
+            h = drop(F.gelu(self.mlp_0(self.ln3(tgt))))
+            h = drop(self.mlp_1(h))
+            tgt = tgt + self.drop_path_mlp(h * m[..., None].to(h.dtype),
+                                           generator)
         return tgt, m
 
 
-class Decoder(nn.Module):
+class Decoder(Module):
     """Stack of decoder layers with optional intermediate outputs
     (reference MaskedConvTransformerDecoder,
     models/local_transformer.py:838-905)."""
@@ -524,8 +579,8 @@ class Decoder(nn.Module):
                  n_qx_stride: int = 0, n_kv_stride: int = 1,
                  num_layers: int = 4, with_norm: bool = True,
                  return_intermediate: bool = False, use_local: bool = False,
-                 win_size: Optional[int] = None, use_rel_pe: bool = False, *,
-                 device: torch.device):
+                 win_size: Optional[int] = None, use_rel_pe: bool = False,
+                 proj_pdrop: float = 0.0, *, device: torch.device):
         super().__init__()
         self.num_layers = num_layers
         self.return_intermediate = return_intermediate
@@ -536,18 +591,20 @@ class Decoder(nn.Module):
                 n_embd, n_head, n_hidden, path_pdrop=path_pdrop,
                 n_qx_stride=n_qx_stride, n_kv_stride=n_kv_stride,
                 use_local=use_local, win_size=win_size,
-                use_rel_pe=use_rel_pe, device=device))
+                use_rel_pe=use_rel_pe, proj_pdrop=proj_pdrop, device=device))
 
     def forward(self, tgt: Tensor, memory: Tensor, tgt_mask: Tensor,
                 memory_mask: Tensor, pos: Optional[Tensor] = None,
                 query_pos: Optional[Tensor] = None,
-                cross_first: bool = False) -> tuple[Tensor, Tensor]:
+                cross_first: bool = False,
+                generator: Generator = None) -> tuple[Tensor, Tensor]:
         out, out_mask = tgt, tgt_mask
         inter = []
         for i in range(self.num_layers):
             out, out_mask = getattr(self, f"layers_{i}")(
                 out, memory, out_mask, memory_mask, pos=pos,
-                query_pos=query_pos, cross_first=cross_first)
+                query_pos=query_pos, cross_first=cross_first,
+                generator=generator)
             if self.return_intermediate:
                 inter.append(self.norm(out) if self.norm is not None else out)
         if self.norm is not None:
@@ -559,7 +616,7 @@ class Decoder(nn.Module):
         return out[None], out_mask
 
 
-class DecoderOnly(nn.Module):
+class DecoderOnly(Module):
     """Query decoder with zero-init targets and learned query positions
     (reference MaskedConvTransformerDecoderOnly,
     models/local_transformer.py:908-976)."""
@@ -569,18 +626,20 @@ class DecoderOnly(nn.Module):
                  n_qx_stride: int = 0, n_kv_stride: int = 1,
                  num_layers: int = 4, return_intermediate: bool = False,
                  use_local: bool = False, win_size: Optional[int] = None,
-                 use_rel_pe: bool = False, *, device: torch.device):
+                 use_rel_pe: bool = False, proj_pdrop: float = 0.0, *,
+                 device: torch.device):
         super().__init__()
         self.decoder = Decoder(
             n_embd, n_head, n_hidden, path_pdrop=path_pdrop,
             n_qx_stride=n_qx_stride, n_kv_stride=n_kv_stride,
             num_layers=num_layers, return_intermediate=return_intermediate,
             use_local=use_local, win_size=win_size, use_rel_pe=use_rel_pe,
-            device=device)
+            proj_pdrop=proj_pdrop, device=device)
 
     def forward(self, src: Tensor, mask: Tensor, query_embed: Tensor,
                 pos_embed: Optional[Tensor] = None,
-                cross_first: bool = False) -> tuple[Tensor, Tensor]:
+                cross_first: bool = False,
+                generator: Generator = None) -> tuple[Tensor, Tensor]:
         """src (B, T, C), mask (B, T), query_embed (Q, C)."""
         bs = src.shape[0]
         q = query_embed[None].expand(bs, *query_embed.shape)
@@ -590,4 +649,4 @@ class DecoderOnly(nn.Module):
         pos = (None if pos_embed is None
                else pos_embed[None].expand(bs, *pos_embed.shape))
         return self.decoder(tgt, src, tgt_mask, mask, pos=pos, query_pos=q,
-                            cross_first=cross_first)
+                            cross_first=cross_first, generator=generator)

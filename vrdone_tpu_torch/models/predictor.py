@@ -28,8 +28,8 @@ class MaskedTransformerPredictor(nn.Module):
                  cls_prior_prob: float = 0.01, n_qx_stride: int = 0,
                  n_kv_stride: int = 1, num_layers: int = 4,
                  deep_supervision: bool = False,
-                 enforce_input_project: bool = False, *,
-                 device: torch.device):
+                 enforce_input_project: bool = False,
+                 proj_pdrop: float = 0.0, *, device: torch.device):
         super().__init__()
         self.deep_supervision = deep_supervision
         self.input_norm = ChannelLayerNorm(n_input, device=device)
@@ -42,7 +42,7 @@ class MaskedTransformerPredictor(nn.Module):
             n_embd, n_head, n_hidden, path_pdrop=path_pdrop,
             n_qx_stride=n_qx_stride, n_kv_stride=n_kv_stride,
             num_layers=num_layers, return_intermediate=deep_supervision,
-            device=device)
+            proj_pdrop=proj_pdrop, device=device)
         # focal prior on the class bias (reference :79-81); the weight's
         # variance_scaling(1/3, fan_in, uniform) is Dense's U(+-1/sqrt(fan_in))
         bias_value = -math.log((1 - cls_prior_prob) / cls_prior_prob)
@@ -55,7 +55,8 @@ class MaskedTransformerPredictor(nn.Module):
         self.query_embed.normal_(0.0, 1.0, generator=generator)
 
     def forward(self, x: Tensor, mask_features: Tensor, mask: Tensor,
-                output_mask: Tensor) -> dict:
+                output_mask: Tensor,
+                generator: torch.Generator | None = None) -> dict:
         """x: (B, Tc, C) coarsest level; mask_features: (B, T0, Cm);
         mask: (B, Tc); output_mask: (B, T0). Returns pred_logits
         (B, Q, K+1), pred_masks (B, Q, T0), aux_outputs (with deep
@@ -63,12 +64,13 @@ class MaskedTransformerPredictor(nn.Module):
         src = self.input_norm(x)
         if self.input_proj is not None:
             src = self.input_proj(src) * mask[..., None].to(src.dtype)
-        hs, _ = self.transformer(src, mask, self.query_embed)  # (L, B, Q, C)
+        hs, _ = self.transformer(src, mask, self.query_embed,
+                                 generator=generator)         # (L, B, Q, C)
         outputs_class = self.class_embed(hs)                   # (L, B, Q, K+1)
         out = {"pred_logits": outputs_class[-1]}
         invalid = ~output_mask                                 # (B, T0)
         if self.deep_supervision:
-            mask_embed = self.mask_embed(hs)                   # (L, B, Q, C)
+            mask_embed = self.mask_embed(hs, generator)        # (L, B, Q, C)
             seg = torch.einsum("lbqc,btc->lbqt", mask_embed, mask_features)
             seg = seg.masked_fill(invalid[None, :, None, :], NON_ATTN_CONST)
             out["pred_masks"] = seg[-1]
@@ -76,7 +78,7 @@ class MaskedTransformerPredictor(nn.Module):
                 {"pred_logits": outputs_class[i], "pred_masks": seg[i]}
                 for i in range(seg.shape[0] - 1)]
         else:
-            mask_embed = self.mask_embed(hs[-1])               # (B, Q, C)
+            mask_embed = self.mask_embed(hs[-1], generator)    # (B, Q, C)
             seg = torch.einsum("bqc,btc->bqt", mask_embed, mask_features)
             out["pred_masks"] = seg.masked_fill(invalid[:, None, :],
                                                 NON_ATTN_CONST)

@@ -73,6 +73,17 @@ def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
                            f"{code} ({msg})")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through a kernel launch that
+    has no backward: its output would carry no ``grad_fn`` and every
+    tensor in front of it would silently get no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an input requires grad. Call it under "
+            "torch.no_grad(), or take the differentiable form "
+            "(ops.masked.band_attention / full_attention(allow_kernel=False))")
+
+
 def check_attention_inputs(q, k, v, kv_mask) -> None:
     """The checks both attention kernels need before their pointers are
     passed: one CUDA device, fp32 (B, T, C) streams, a (B, Tk) bool key

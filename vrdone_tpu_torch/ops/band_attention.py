@@ -1,11 +1,18 @@
-"""Banded (sliding-window) attention: the CUDA kernel and its plain version.
+"""Banded (sliding-window) attention: the CUDA kernels and their plain
+version.
 
-Counterpart of the TPU kernel ``vrdone_tpu/ops/pallas/band_attention.py``
-(forward, no relative-position bias) and of its dense oracle
+Counterpart of the TPU kernels ``vrdone_tpu/ops/pallas/band_attention.py``
+(the forward with its log-sum-exp, and the dQ and dK/dV backward kernels of
+its custom VJP; no relative-position bias) and of the dense oracle
 ``vrdone_tpu/ops/masked.py::band_attention``. Query i attends keys j with
 |i - j| <= w = window_size // 2; an in-band invalid key gets an additive
 -1e4 (not -inf); out-of-band keys are excluded; a row whose query is
 invalid is zeroed. The kernel source is ``csrc/band_attention.cu``.
+
+``BandAttention`` is the differentiable CUDA form: its forward launches the
+forward kernel with the lse output and its backward the dQ and dK/dV
+kernels. ``band_attention_cuda`` alone has no backward and refuses inputs
+that need one.
 """
 
 from __future__ import annotations
@@ -23,48 +30,63 @@ NEG_BIG = -1e4        # additive mask of an invalid in-band key
 MAX_HALF_WINDOW = 15  # the kernel gives one lane to each of 2w + 1 keys
 MAX_HEAD_DIM = 256
 
-# launches of the CUDA kernel since the count was last set to 0
-launches = 0
+# launches of each CUDA kernel since the counts were last set to 0
+launches = 0       # forward
+dq_launches = 0    # backward, dQ
+dkv_launches = 0   # backward, dK and dV
+
+
+def _band_scores(q, k, kv_mask, n_head, window_size):
+    """(B, H, T, T) masked, scaled scores of the plain version."""
+    t = q.shape[1]
+    w = window_size // 2
+    d = q.shape[-1] // n_head
+    scale = 1.0 / math.sqrt(d)
+    qh, kh = split_heads(q, n_head), split_heads(k, n_head)
+    att = torch.einsum("bhqd,bhkd->bhqk", qh * scale, kh)
+    idx = torch.arange(t, device=q.device)
+    in_band = (idx[None, :] - idx[:, None]).abs() <= w
+    att = att + NEG_BIG * (~kv_mask)[:, None, None, :].to(att.dtype)
+    return att.masked_fill(~in_band, float("-inf"))
 
 
 def band_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_mask: torch.Tensor, *, n_head: int,
                          window_size: int) -> torch.Tensor:
     """Dense band-masked attention over (B, T, C) streams (the reference
-    the kernel is held to). kv_mask: (B, T) bool. q is unscaled."""
-    t = q.shape[1]
-    w = window_size // 2
-    d = q.shape[-1] // n_head
-    scale = 1.0 / math.sqrt(d)
-    qh, kh, vh = (split_heads(x, n_head) for x in (q, k, v))
-    att = torch.einsum("bhqd,bhkd->bhqk", qh * scale, kh)
-    idx = torch.arange(t, device=q.device)
-    in_band = (idx[None, :] - idx[:, None]).abs() <= w
-    att = att + NEG_BIG * (~kv_mask)[:, None, None, :].to(att.dtype)
-    att = att.masked_fill(~in_band, float("-inf"))
-    att = torch.softmax(att, dim=-1)
+    the kernels are held to; its autograd backward is what the backward
+    kernels are held to). kv_mask: (B, T) bool. q is unscaled."""
+    att = torch.softmax(_band_scores(q, k, kv_mask, n_head, window_size),
+                        dim=-1)
     att = att * kv_mask[:, None, :, None].to(att.dtype)
-    return merge_heads(torch.einsum("bhqk,bhkd->bhqd", att, vh))
+    return merge_heads(torch.einsum("bhqk,bhkd->bhqd", att,
+                                    split_heads(v, n_head)))
+
+
+def band_lse_plain(q: torch.Tensor, k: torch.Tensor, kv_mask: torch.Tensor,
+                   *, n_head: int, window_size: int) -> torch.Tensor:
+    """(B, H, T) log-sum-exp of each row's band scores: the plain version of
+    the forward kernel's ``lse`` output."""
+    return torch.logsumexp(_band_scores(q, k, kv_mask, n_head, window_size),
+                           dim=-1)
 
 
 @functools.cache
 def _kernel() -> ctypes.CDLL:
     lib = _build.load_library("band_attention")
-    fn = lib.band_attention_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
+    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    for fn, n_ptr in ((lib.band_attention_forward, 6),
+                      (lib.band_attention_backward_dq, 8),
+                      (lib.band_attention_backward_dkv, 9)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
     lib.band_attention_error_string.restype = ctypes.c_char_p
     lib.band_attention_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
-def band_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_mask: torch.Tensor, *, n_head: int,
-                        window_size: int) -> torch.Tensor:
-    """The hand-written kernel: same contract as ``band_attention_plain``,
-    for fp32 CUDA tensors. Raises on anything the kernel does not take."""
-    global launches
+def _shape(q, k, v, kv_mask, n_head, window_size):
+    """Check what the kernels take; returns (B, T, d, w, scale)."""
     _build.check_attention_inputs(q, k, v, kv_mask)
     b, t, c = q.shape
     if k.shape[1] != t:
@@ -77,14 +99,119 @@ def band_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM or w > MAX_HALF_WINDOW:
         raise ValueError(f"head dim {d} (max {MAX_HEAD_DIM}) or half "
                          f"window {w} (max {MAX_HALF_WINDOW}) too large")
+    return b, t, d, w, 1.0 / math.sqrt(d)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def band_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_mask: torch.Tensor, *, n_head: int,
+                        window_size: int, with_lse: bool = False):
+    """The forward kernel: same contract as ``band_attention_plain``, for
+    fp32 CUDA tensors. With ``with_lse`` it returns ``(out, lse)``, lse
+    (B, H, T) fp32. Raises on anything the kernel does not take, and when
+    an input needs a gradient (use ``BandAttention`` for that)."""
+    global launches
+    _build.refuse_grad("band_attention_cuda", q, k, v)
+    b, t, d, w, scale = _shape(q, k, v, kv_mask, n_head, window_size)
     lib = _kernel()
     out = torch.empty_like(q)
+    lse = (torch.empty((b, n_head, t), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.band_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-            out.data_ptr(), b, t, n_head, d, w,
-            1.0 / math.sqrt(d), stream)
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            b, t, n_head, d, w, scale, _stream(q))
     _build.check_launch(lib, "band_attention", code)
     launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def band_rowsum(dout: torch.Tensor, out: torch.Tensor, n_head: int
+                ) -> torch.Tensor:
+    """Dr = rowsum(dO * O): (B, H, T) fp32, a plain op (as in JAX,
+    ``band_attention.py:251-252``)."""
+    b, t, c = out.shape
+    return ((dout * out).view(b, t, n_head, c // n_head).sum(-1)
+            .transpose(1, 2).contiguous())
+
+
+def _backward_args(q, k, v, kv_mask, lse, dr, dout, n_head, window_size):
+    b, t, d, w, scale = _shape(q, k, v, kv_mask, n_head, window_size)
+    if (dout.shape != q.shape or dout.dtype != torch.float32
+            or dout.device != q.device or not dout.is_contiguous()):
+        raise ValueError("dout must be a contiguous fp32 tensor like q")
+    for name, x in (("lse", lse), ("dr", dr)):
+        if (x.shape != (b, n_head, t) or x.dtype != torch.float32
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous fp32 "
+                             f"{(b, n_head, t)} on q's device")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+            lse.data_ptr(), dr.data_ptr(), dout.data_ptr())
+    return ptrs, (b, t, n_head, d, w, scale)
+
+
+def band_attention_dq_cuda(q, k, v, kv_mask, lse, dr, dout, *, n_head: int,
+                           window_size: int) -> torch.Tensor:
+    """dQ of the band attention for the upstream gradient ``dout``, from
+    the forward's lse and ``band_rowsum(dout, out)``: one launch of the dQ
+    kernel."""
+    global dq_launches
+    ptrs, dims = _backward_args(q, k, v, kv_mask, lse, dr, dout, n_head,
+                                window_size)
+    lib = _kernel()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        code = lib.band_attention_backward_dq(*ptrs, dq.data_ptr(), *dims,
+                                              _stream(q))
+    _build.check_launch(lib, "band_attention", code)
+    dq_launches += 1
+    return dq
+
+
+def band_attention_dkv_cuda(q, k, v, kv_mask, lse, dr, dout, *, n_head: int,
+                            window_size: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV), from the same inputs as ``band_attention_dq_cuda``: one
+    launch of the dK/dV kernel."""
+    global dkv_launches
+    ptrs, dims = _backward_args(q, k, v, kv_mask, lse, dr, dout, n_head,
+                                window_size)
+    lib = _kernel()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        code = lib.band_attention_backward_dkv(*ptrs, dk.data_ptr(),
+                                               dv.data_ptr(), *dims,
+                                               _stream(q))
+    _build.check_launch(lib, "band_attention", code)
+    dkv_launches += 1
+    return dk, dv
+
+
+class BandAttention(torch.autograd.Function):
+    """Differentiable band attention on the card: the forward kernel with
+    its lse, and the dQ and dK/dV kernels as the backward (the port of the
+    JAX package's ``_band_core`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, n_head, window_size):
+        out, lse = band_attention_cuda(q, k, v, kv_mask, n_head=n_head,
+                                       window_size=window_size,
+                                       with_lse=True)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.n_head, ctx.window_size = n_head, window_size
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        args = (q, k, v, kv_mask, lse, band_rowsum(dout, out, ctx.n_head),
+                dout)
+        kw = dict(n_head=ctx.n_head, window_size=ctx.window_size)
+        dq = band_attention_dq_cuda(*args, **kw)
+        dk, dv = band_attention_dkv_cuda(*args, **kw)
+        return dq, dk, dv, None, None, None

@@ -24,6 +24,9 @@ MAX_HEAD_DIM = 256
 
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
+# calls of the dense form on a CUDA tensor (``ops.masked.full_attention``
+# with allow_kernel=False, as in training) since the count was last set to 0
+dense_calls = 0
 
 
 def full_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,8 +61,10 @@ def full_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_mask: torch.Tensor, *, n_head: int
                         ) -> torch.Tensor:
     """The hand-written kernel: same contract as ``full_attention_plain``,
-    for fp32 CUDA tensors. Raises on anything the kernel does not take."""
+    for fp32 CUDA tensors. Raises on anything the kernel does not take, and
+    when an input needs a gradient (the kernel has no backward)."""
     global launches
+    _build.refuse_grad("full_attention_cuda", q, k, v)
     _build.check_attention_inputs(q, k, v, kv_mask)
     b, tq, c = q.shape
     tk = k.shape[1]

@@ -13,7 +13,10 @@ Semantics kept identical to the reference (``vrdone_tpu/ops/masked.py:12-20``):
 
 ``band_attention`` and ``full_attention`` dispatch on the tensor's device:
 a CPU tensor takes the plain PyTorch version, any other tensor the
-hand-written CUDA kernel, which raises on what it does not take.
+hand-written CUDA kernels, which raise on what they do not take. Where a
+gradient is needed, band attention takes its differentiable kernel form
+(``BandAttention``); full attention takes the dense form by argument
+(``allow_kernel=False``), as the JAX package trains through it.
 """
 
 from __future__ import annotations
@@ -22,14 +25,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .band_attention import band_attention_cuda, band_attention_plain
+from . import full_attention as _fa
+from .band_attention import (BandAttention, band_attention_cuda,
+                             band_attention_plain)
 from .full_attention import full_attention_cuda, full_attention_plain
 from .heads import merge_heads, split_heads
 
 __all__ = [
     "conv1d", "downsample_mask", "masked_conv1d", "max_pool1d",
     "channel_layernorm", "split_heads", "merge_heads", "full_attention",
-    "band_attention", "sinusoid_encoding", "resize_pe_linear",
+    "band_attention", "sinusoid_encoding", "resize_pe_linear", "drop_path",
+    "dropout",
 ]
 
 
@@ -100,10 +106,17 @@ def channel_layernorm(x: torch.Tensor, weight: torch.Tensor | None,
 # ---------------------------------------------------------------------------
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   kv_mask: torch.Tensor, *, n_head: int) -> torch.Tensor:
+                   kv_mask: torch.Tensor, *, n_head: int,
+                   allow_kernel: bool = True) -> torch.Tensor:
     """Key-masked attention over (B, T, C) streams; kv_mask (B, Tk) bool.
-    The output is not masked by the query mask."""
+    The output is not masked by the query mask. ``allow_kernel`` mirrors the
+    JAX package's ``full_attention_auto(allow_flash=deterministic)``: callers
+    pass ``not self.training``, and training runs the dense form, whose
+    autograd is the backward (the kernel has none)."""
     if q.device.type == "cpu":
+        return full_attention_plain(q, k, v, kv_mask, n_head=n_head)
+    if not allow_kernel:
+        _fa.dense_calls += 1
         return full_attention_plain(q, k, v, kv_mask, n_head=n_head)
     return full_attention_cuda(q, k, v, kv_mask, n_head=n_head)
 
@@ -116,6 +129,8 @@ def band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return band_attention_plain(q, k, v, kv_mask, n_head=n_head,
                                     window_size=window_size)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return BandAttention.apply(q, k, v, kv_mask, n_head, window_size)
     return band_attention_cuda(q, k, v, kv_mask, n_head=n_head,
                                window_size=window_size)
 
@@ -147,3 +162,51 @@ def resize_pe_linear(pe: torch.Tensor, new_len: int) -> torch.Tensor:
     hi = (lo + 1).clamp(max=t - 1)
     frac = (src - lo.float())[:, None]
     return pe[lo] * (1.0 - frac) + pe[hi] * frac
+
+
+# ---------------------------------------------------------------------------
+# stochastic depth and dropout
+# ---------------------------------------------------------------------------
+
+def _uniform(shape, generator: torch.Generator,
+             like: torch.Tensor) -> torch.Tensor:
+    """U[0, 1) draws from ``generator`` on its own device, moved to
+    ``like``'s. With a CPU generator a CPU run and a card run from one seed
+    draw the same numbers."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u.to(device=like.device, dtype=like.dtype)
+
+
+def drop_path_with(x: torch.Tensor, u: torch.Tensor,
+                   drop_prob: float) -> torch.Tensor:
+    """Per-sample stochastic depth for given per-sample uniforms ``u``
+    (B,): ``floor(keep + u)`` keeps a sample, the kept ones scale by
+    1/keep (vrdone_tpu/ops/masked.py::drop_path)."""
+    keep = 1.0 - drop_prob
+    mask = torch.floor(keep + u).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+    return x / keep * mask
+
+
+def drop_path(x: torch.Tensor, drop_prob: float, training: bool,
+              generator: torch.Generator | None) -> torch.Tensor:
+    """Per-sample stochastic depth (reference models/blocks.py:1107-1120);
+    identity at eval or when drop_prob is 0. The (B,) uniforms come from
+    ``generator``."""
+    if not training or drop_prob == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("drop_path in training needs a torch.Generator")
+    return drop_path_with(x, _uniform((x.shape[0],), generator, x),
+                          drop_prob)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Elementwise dropout as flax ``nn.Dropout``: keep with probability
+    1 - p, kept values scale by 1/(1 - p); identity at eval or p == 0."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = _uniform(x.shape, generator, x) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
