@@ -24,7 +24,14 @@ one process per source, all started together, into
      matches, parameters and EMA compared), counts the launches of one step
      at 24 pairs, and times the step at 24 and 96 pairs;
   6. runs ``train_torch.py`` for one epoch on a tiny synthetic corpus on
-     the card, then ``eval_torch.py`` on its checkpoint.
+     the card, then ``eval_torch.py`` on its checkpoint;
+  7. holds MEGA's position-bias and fused set-attention kernels against
+     their plain versions at the detector's shapes, runs ``detect_video`` at
+     full width (R-101-C4, 608x1088, 300 key / 75 reference proposals,
+     window 25, global 10, 16 frames, random seeded weights) through the
+     fused attention and again through the position-bias kernel, checks a
+     small detector on the card against the CPU, stage by stage and whole,
+     and runs ``detect_torch.py`` on the card.
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``.
@@ -55,6 +62,10 @@ MODEL_TOL = 5e-4    # CUDA vs CPU forward through some forty chained layers
 LOSS_TOL = 1e-4     # CUDA vs CPU train-step losses, times 1 + |loss|
 STEP_GRAD_TOL = 1e-4  # CUDA vs CPU step-0 gradients, |dg| / |g| over all
 DRIFT_TOL = 5e-2    # CUDA vs CPU params after 3 steps / (leaf max + sum lr)
+MEGA_TOL = 1e-4     # fused set-attention vs plain, times 1 + max |out|
+BIAS_RTOL, BIAS_ATOL = 2e-5, 1e-5   # position bias vs plain, gate space
+DETECT_TOL = 1e-3   # small detector, CUDA vs CPU, times max |x|
+DETECT_FRAMES, CANVAS = 16, (608, 1088)
 B_CHECK, B_RATE, T = 8, 128, 96
 TRAIN_PAIRS = (8, 24, 96)   # checked on both devices; timed; timed
 PEAK_FLOPS = 67e12          # H100 SXM fp32 without tensor cores
@@ -107,6 +118,44 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def dev_us(event) -> float:
+    """A ``torch.profiler`` event's own device time in microseconds (the
+    attribute's name differs between torch versions)."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def device_events(prof) -> list:
+    """The kernels of a ``torch.profiler`` run, averaged by name."""
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+
+
+def kernel_device_ms(fn, kernel_name: str,
+                     iters: int = 5) -> tuple[float, int]:
+    """(ms, launches seen): device time of one launch of the named kernel,
+    from ``torch.profiler`` over ``iters`` calls that launch it once each.
+    It is the kernel alone, where the CUDA events of ``time_ms`` also hold
+    the host work of the wrapper whenever that is the slower side. The mean
+    is over the launches the profiler saw: of a kernel launched outside
+    PyTorch's dispatcher it can miss some (all of them with the CPU
+    activity off)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in device_events(prof) if kernel_name in e.key]
+    seen = sum(e.count for e in hits)
+    if not seen:
+        raise AssertionError(f"the profiler saw no {kernel_name}")
+    return sum(dev_us(e) for e in hits) / 1e3 / seen, seen
 
 
 def compare(kernel, plain) -> tuple[float, float, float]:
@@ -517,39 +566,34 @@ def check_train_step(cfg, raw, cuda, ba, fa) -> dict:
               f"{1e3 * seconds / iters:.2f} ms per step, "
               f"{n_pairs * iters / seconds:.1f} pairs/s, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_train_step(state, tb, step_generator, train_step)
+        profile_device(lambda: train_step(state, tb,
+                                          step_generator(0, state.step)),
+                       3, "step")
     return launches
 
 
-def profile_train_step(state, tb, step_generator, train_step,
-                       steps: int = 3) -> None:
-    """Where a train step's time goes: ``torch.profiler`` over ``steps``
-    steps, device time summed over the kernels against the host clock."""
+def profile_device(fn, runs: int, unit: str) -> None:
+    """Where the time of ``fn`` goes: ``torch.profiler`` over ``runs``
+    calls, device time summed over the kernels against the host clock, and
+    the ten kernels with the most device time, each per call (a ``unit``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            train_step(state, tb, step_generator(0, state.step))
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy = sum(dev_us(e) for e in kernels) / 1e3 / steps
-    launches = sum(e.count for e in kernels) / steps
-    print(f"  profile over {steps} steps: wall {1e3 * wall:.2f} ms a step "
-          f"(profiler on), device busy {busy:.2f} ms "
+        wall = (time.perf_counter() - t0) / runs
+    kernels = device_events(prof)
+    busy = sum(dev_us(e) for e in kernels) / 1e3 / runs
+    launches = sum(e.count for e in kernels) / runs
+    print(f"  profile over {runs} {unit}(s): wall {1e3 * wall:.2f} ms a "
+          f"{unit} (profiler on), device busy {busy:.2f} ms "
           f"({100 * busy / (1e3 * wall):.1f}%), {launches:.0f} kernels a "
-          f"step")
+          f"{unit}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
-        print(f"    {dev_us(e) / 1e3 / steps:8.3f} ms  {e.count // steps:5d}x"
+        print(f"    {dev_us(e) / 1e3 / runs:9.3f} ms  {e.count // runs:6d}x"
               f"  {e.key[:90]}")
 
 
@@ -631,6 +675,319 @@ def synthetic_video(rng, lengths, feat_dim):
     }
 
 
+def mega_case(rng, g, n, m, dg, dgo, p_valid, device):
+    """Fused-attention operands as the detector makes them: boxes on the
+    canvas, Wg as initialised (normal(0.01))."""
+    def boxes(k):
+        xy = rng.uniform(0, 1, (k, 2)) * (CANVAS[1], CANVAS[0])
+        return np.concatenate([xy, xy + rng.uniform(8, 300, (k, 2))],
+                              1).astype(np.float32)
+
+    arrays = [rng.standard_normal(sh).astype(np.float32)
+              for sh in ((g, n, dg), (g, m, dg), (g, m, dgo))]
+    arrays += [0.1 * rng.standard_normal((g, m)).astype(np.float32),
+               rng.uniform(size=m) < p_valid, boxes(n), boxes(m),
+               rng.normal(0, 0.01, (64, g)).astype(np.float32),
+               rng.normal(0, 0.01, (g,)).astype(np.float32)]
+    return [torch.from_numpy(np.asarray(a)).to(device) for a in arrays]
+
+
+def check_mega_kernels(cuda, pb, ma) -> dict:
+    """The position-bias kernel (K6) at the stage-0 shape, and the fused
+    set-attention kernel (K5) at every shape of a full-width frame, bias on
+    and off, at ragged shapes and with all keys invalid, against their
+    plain versions. Returns both kernels' JSON entries."""
+    rng = np.random.default_rng(7)
+    g, dg = 16, 64
+    entries = {}
+
+    *_, qr, kr, w, b = mega_case(rng, g, 675, 3750, 1, 1, 1.0, cuda)
+    got, want = pb.position_bias_cuda(qr, kr, w, b), pb.position_bias_plain(
+        qr, kr, w, b)
+    gate_err = (got.exp() - want.exp()).abs()
+    if not (gate_err <= BIAS_ATOL + BIAS_RTOL * want.exp()).all():
+        raise AssertionError(f"position bias off in gate space by "
+                             f"{gate_err.max().item()}")
+    log_err = {th: (got - want)[want > th].abs().max().item()
+               for th in (-10, -8)}
+    if not log_err[-8] <= 3e-2 + 1e-3 * 8:
+        raise AssertionError(f"position bias off in log space: {log_err}")
+    p1, k1, k2, p2 = (time_ms(f) for f in (
+        lambda: pb.position_bias_plain(qr, kr, w, b),
+        lambda: pb.position_bias_cuda(qr, kr, w, b),
+        lambda: pb.position_bias_cuda(qr, kr, w, b),
+        lambda: pb.position_bias_plain(qr, kr, w, b)))
+    n, m = 675, 3750
+    bms, by = bound_ms(4 * (4 * n + 4 * m + 65 * g + g * n * m),
+                       2 * 64 * g * n * m)
+    dev_ms, seen = kernel_device_ms(
+        lambda: pb.position_bias_cuda(qr, kr, w, b), "position_bias_kernel")
+    entries["position_bias"] = dict(
+        ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=None,
+        bound_ms=bms, bound_by=by, max_abs_err=gate_err.max().item(),
+        device_ms=dev_ms, shape="G=16 N=675 M=3750")
+    print(f"position_bias G=16 N=675 M=3750: gate-space max_abs_err "
+          f"{gate_err.max().item():.3e}; log-space max err above -10 "
+          f"{log_err[-10]:.3e}, above -8 {log_err[-8]:.3e}; wrapper "
+          f"{(k1 + k2) / 2:.4f} ms (the kernel alone {dev_ms:.4f} ms, "
+          f"{seen} launches seen), plain {(p1 + p2) / 2:.4f} ms, bound "
+          f"{bms:.4f} ms ({by})")
+    del got, want, gate_err
+
+    worst = 0.0
+    for label, gg, n, m, dgq, dgo, p_valid, bias in (
+            ("local stage 0", g, 675, 3750, dg, dg, 0.9, True),
+            ("local stage 1", g, 675, 750, dg, dg, 0.9, True),
+            ("local stage 2", g, 300, 750, dg, dg, 0.9, True),
+            ("global, key rows", g, 300, 750, dg, dg, 0.9, False),
+            ("global, window rows", g, 1875, 750, dg, dg, 0.9, False),
+            ("ragged", 5, 13, 77, 30, 40, 0.5, True),
+            ("small detector", 4, 10, 12, 256, 256, 0.7, True),
+            ("all keys invalid", g, 33, 101, dg, dg, 0.0, True),
+            ("all keys invalid", g, 33, 101, dg, dg, 0.0, False)):
+        q, k, vp, ub, valid, *extra = mega_case(rng, gg, n, m, dgq, dgo,
+                                                p_valid, cuda)
+        extra = extra if bias else []
+        out = ma.mega_attention_cuda(q, k, vp, ub, valid, *extra)
+        ref = ma.mega_attention_plain(q, k, vp, ub, valid, *extra)
+        err = (out - ref).abs().max().item()
+        if not (torch.isfinite(out).all()
+                and err <= MEGA_TOL * (1 + ref.abs().max().item())):
+            raise AssertionError(f"mega attention off by {err} ({label})")
+        if p_valid == 0.0 and not (out == 0).all():
+            raise AssertionError("a row with no valid key is not 0")
+        worst = max(worst, err)
+        p1, k1, k2, p2 = (time_ms(f) for f in (
+            lambda: ma.mega_attention_plain(q, k, vp, ub, valid, *extra),
+            lambda: ma.mega_attention_cuda(q, k, vp, ub, valid, *extra),
+            lambda: ma.mega_attention_cuda(q, k, vp, ub, valid, *extra),
+            lambda: ma.mega_attention_plain(q, k, vp, ub, valid, *extra)))
+        dev_ms, seen = kernel_device_ms(
+            lambda: ma.mega_attention_cuda(q, k, vp, ub, valid, *extra),
+            "mega_attention_kernel")
+        print(f"mega_attention {label} G={gg} N={n} M={m} dg={dgq} "
+              f"dgo={dgo} bias={bias}: max_abs_err {err:.3e}, wrapper "
+              f"{(k1 + k2) / 2:.4f} ms (the kernel alone {dev_ms:.4f} ms, "
+              f"{seen} launches seen), plain {(p1 + p2) / 2:.4f} ms")
+        if label != "local stage 0":
+            continue
+        # the library's one call: SDPA with g heads and the bias, u-term
+        # and validity as one additive mask (built outside the timing)
+        with torch.no_grad():
+            lib_mask = (pb.position_bias_plain(*extra) + ub[:, None, :]
+                        ).masked_fill(~valid[None, None, :], float("-inf"))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], vp[None], attn_mask=lib_mask[None],
+            scale=1.0 / math.sqrt(dgq)))
+        pairs = n * int(valid.sum())
+        bms, by = bound_ms(
+            4 * (q.numel() + k.numel() + vp.numel() + ub.numel()
+                 + n * gg * dgo + 4 * (n + m) + 65 * gg) + m,
+            2 * gg * pairs * (dgq + dgo) + 2 * 64 * gg * pairs)
+        entries["mega_attention"] = dict(
+            ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+            bound_ms=bms, bound_by=by, device_ms=dev_ms,
+            shape="G=16 N=675 M=3750 dg=64")
+        print(f"mega_attention at G=16 N=675 M=3750: library (SDPA, mask "
+              f"precomputed) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        del lib_mask
+    entries["mega_attention"]["max_abs_err"] = worst
+    return entries
+
+
+def check_detect_video(cuda, pb, ma) -> dict:
+    """detect_video at full width on the card: the launches of one video
+    through each attention route, phase times, memory, a profile, and the
+    memory property. Returns the launches by route."""
+    from vrdone_tpu_torch.models.detector import MegaDetector, detect_video
+    det = MegaDetector(num_classes=31,
+                       generator=torch.Generator().manual_seed(0)).to(cuda)
+    rng = np.random.default_rng(8)
+    t = DETECT_FRAMES
+    images = rng.integers(0, 256, (t, *CANVAS, 3), dtype=np.uint8)
+    hw = np.asarray(CANVAS, np.float32)
+    launches = {}
+    outs = {}
+    for route, kw in (("detect_video", {}),
+                      ("detect_video_pe_bias", dict(fused_attention=False))):
+        torch.cuda.synchronize()
+        ma.launches = pb.launches = 0
+        outs[route] = detect_video(det, images, hw, **kw)
+        torch.cuda.synchronize()
+        launches[route] = {"mega_attention": ma.launches,
+                           "position_bias": pb.launches}
+        print(f"{route}: {t} frames, kernel launches {launches[route]}")
+        for key, v in outs[route].items():
+            if not np.isfinite(v).all():
+                raise AssertionError(f"{route}: non-finite {key}")
+    expect = {"detect_video": {"mega_attention": 6 * t, "position_bias": 0},
+              "detect_video_pe_bias": {"mega_attention": 0,
+                                       "position_bias": 3 * t}}
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    out = outs["detect_video"]
+    scale = np.abs(out["visual"]).max()
+    apart = np.abs(out["visual"] - outs["detect_video_pe_bias"]["visual"])
+    print(f"detect_video outputs: proposals {out['proposals'].shape}, "
+          f"{int(out['valid'].sum())} valid; visual {out['visual'].shape}, "
+          f"max |visual| {scale:.3e}; cls_logits {out['cls_logits'].shape}; "
+          f"the two routes' visual differ by at most "
+          f"{apart.max() / scale:.3e} of max |visual|, by more than 1e-3 of "
+          f"it in {(apart > 1e-3 * scale).mean():.2%} of the values (random "
+          f"weights saturate MEGA's softmax, so near-ties may flip between "
+          f"routes; reported, not a check)")
+
+    for _ in range(2):
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        detect_video(det, images, hw, timings=timings)
+        wall = time.perf_counter() - t0
+        print(f"detect_video {t} frames {CANVAS[0]}x{CANVAS[1]} fp32: "
+              + ", ".join(f"{k} {1e3 * v / t:.2f} ms/frame"
+                          for k, v in timings.items())
+              + f"; {t / wall:.2f} frames/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    profile_device(lambda: detect_video(det, images, hw), 1, "video")
+
+    # the memory property: a change to frame 0 moves frame 3's logits
+    images2 = images.copy()
+    images2[0] = rng.integers(0, 256, images[0].shape, dtype=np.uint8)
+    moved = np.abs(detect_video(det, images2, hw)["cls_logits"][3]
+                   - out["cls_logits"][3]).max()
+    print(f"frame 0 changed: frame 3's logits move by {moved:.3e}")
+    if not moved > 1e-6:
+        raise AssertionError("later frames ignore earlier ones")
+    del det
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_detect_vs_cpu(cuda) -> None:
+    """A small detector (R (1, 1, 1), the full MEGA head) on the card
+    against the same weights on the CPU: the RPN outputs, proposal
+    selection on identical inputs, RoIAlign -> C5 -> fc0 and the MEGA
+    stream on identical rois and fc0 inputs, then the whole path with its
+    proposal flips counted."""
+    from vrdone_tpu_torch.models import rpn as rpn_lib
+    from vrdone_tpu_torch.models.detector import (MegaDetector,
+                                                  detect_video,
+                                                  precompute_chunk)
+    from vrdone_tpu_torch.models.mega import global_indices, stream_video
+    kw = dict(num_classes=31, resnet_layers=(1, 1, 1), base_num=16,
+              window=5, key_loc=2, global_size=3)
+    cpu_det = MegaDetector(**kw, generator=torch.Generator().manual_seed(1))
+    gpu_det = MegaDetector(**kw, device=cuda)
+    gpu_det.load_state_dict(cpu_det.state_dict())
+    rng = np.random.default_rng(9)
+    t, hw, nk = 5, (128, 192), 24
+    images = rng.integers(0, 256, (t, *hw, 3), dtype=np.uint8)
+
+    def worst(a, b):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    devs = {"cpu": (torch.device("cpu"), cpu_det), "cuda": (cuda, gpu_det)}
+    with torch.no_grad():
+        c4 = {k: det.features(torch.from_numpy(images).to(d))
+              for k, (d, det) in devs.items()}
+        rpn = {k: det.rpn(c4[k]) for k, (_, det) in devs.items()}
+        errs = {"c4": worst(c4["cuda"], c4["cpu"]),
+                "rpn logits": worst(rpn["cuda"][0], rpn["cpu"][0]),
+                "rpn deltas": worst(rpn["cuda"][1], rpn["cpu"][1])}
+        # proposal selection on identical inputs: the card's RPN outputs
+        hp, wp, a = rpn["cuda"][0].shape[1:]
+        anchors = torch.from_numpy(rpn_lib.make_anchors(hp, wp))
+        for f in range(t):
+            logits = rpn["cuda"][0][f].reshape(-1).cpu()
+            deltas = rpn["cuda"][1][f].reshape(-1, 4).cpu()
+            sel = [rpn_lib.select_proposals(
+                anchors.to(d), logits.to(d), deltas.to(d), hw,
+                post_nms_top_n=nk) for d in (torch.device("cpu"), cuda)]
+            if not (torch.equal(sel[0][2], sel[1][2].cpu())
+                    and torch.allclose(sel[0][0], sel[1][0].cpu(),
+                                       atol=1e-3, rtol=0)):
+                raise AssertionError(f"select_proposals keeps differ on "
+                                     f"identical inputs (frame {f})")
+        # RoIAlign -> C5 -> fc0 and the stream on identical inputs: the
+        # card's proposals and fc0 features
+        pre = precompute_chunk(gpu_det, torch.from_numpy(images).to(cuda),
+                               hw, key_post_nms=nk)
+        kb, kv, _, kf, rb, rv, rf = pre
+        fc0_cpu = torch.stack([cpu_det.frame_fc0(c4["cpu"][f], kb[f].cpu(),
+                                                 kv[f].cpu())
+                               for f in range(t)])
+        errs["fc0"] = worst(kf, fc0_cpu)
+        sched = dict(mem_size=kw["window"], window=kw["window"],
+                     key_loc=kw["key_loc"],
+                     glob_idx=global_indices(t, kw["global_size"]))
+        streams = {}
+        for name, (dev, det) in devs.items():
+            x = [v.to(dev) for v in (kf, kb, kv, rf, rb, rv)]
+            streams[name] = stream_video(
+                det.mega.routed(True, True), key_feat=x[0], key_rois=x[1],
+                key_valid=x[2], key_is_fc0=True, ref_feat=x[3],
+                ref_rois=x[4], ref_valid=x[5], **sched)
+        errs["stream (K5 vs plain)"] = worst(streams["cuda"], streams["cpu"])
+    print("small detector, CUDA vs CPU on identical inputs, max |err| / "
+          "max |x|: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; select_proposals keeps identical")
+    bad = {k: v for k, v in errs.items() if not v <= DETECT_TOL}
+    if bad:
+        raise AssertionError(f"small detector off: {bad}")
+
+    hwa = np.asarray(hw, np.float32)
+    out = {"cuda": detect_video(gpu_det, images, hwa, key_post_nms=nk),
+           "cpu": detect_video(cpu_det, images, hwa, key_post_nms=nk)}
+    flips = sum(int(not (np.array_equal(out["cuda"]["valid"][f],
+                                        out["cpu"]["valid"][f])
+                         and np.allclose(out["cuda"]["proposals"][f],
+                                         out["cpu"]["proposals"][f],
+                                         atol=1e-3, rtol=0)))
+                for f in range(t))
+    print(f"small detector, whole path CUDA vs CPU: frames whose proposals "
+          f"differ (RPN near-ties): {flips} of {t}")
+    if flips:
+        print("  NOTE: a proposal flip feeds every later frame through the "
+              "window and memory; the whole-path outputs are not compared")
+        return
+    whole = {k: worst(torch.from_numpy(out["cuda"][k]),
+                      torch.from_numpy(out["cpu"][k]))
+             for k in ("visual", "cls_logits", "bbox_deltas")}
+    print("  whole path max |err| / max |x|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in whole.items()))
+    if not all(v <= DETECT_TOL for v in whole.values()):
+        raise AssertionError(f"whole detection path off: {whole}")
+
+
+def check_detect_cli(device: str = "cuda") -> None:
+    """detect_torch.py over a tiny synthetic frames directory."""
+    from PIL import Image
+    rng = np.random.default_rng(10)
+    with tempfile.TemporaryDirectory() as root:
+        frames = Path(root) / "frames" / "vid0"
+        frames.mkdir(parents=True)
+        for i in range(6):
+            Image.fromarray(rng.integers(0, 256, (120, 200, 3),
+                                         dtype=np.uint8)).save(
+                frames / f"{i:06d}.jpg")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, str(ROOT / "detect_torch.py"), "--frames_dir",
+             str(Path(root) / "frames"), "--out_dir", str(Path(root) / "out"),
+             "--canvas", "128", "224", "--score_thresh", "0.02",
+             "--device", device],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"detect_torch.py failed:\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        if not (Path(root) / "out" / "vid0.pkl").exists():
+            raise AssertionError("detect_torch.py wrote no pickle")
+        print(f"detect_torch.py on {device} (R-101, 6 frames): exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s; {r.stdout.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card",
@@ -644,6 +1001,8 @@ def main() -> int:
     from vrdone_tpu_torch.ops import band_attention as ba
     from vrdone_tpu_torch.ops import full_attention as fa
     from vrdone_tpu_torch.ops import masked as mops
+    from vrdone_tpu_torch.ops import mega_attention as ma
+    from vrdone_tpu_torch.ops import position_bias as pb
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -659,7 +1018,8 @@ def main() -> int:
     t0 = time.perf_counter()
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor() as pool:
-        list(pool.map(lambda f: f(), (ba._kernel, fa._kernel)))
+        list(pool.map(lambda f: f(), (ba._kernel, fa._kernel, ma._kernel,
+                                      pb._kernel)))
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     for name, (seconds, log) in _build.BUILD_LOG.items():
         usage = [ln.strip() for ln in log.splitlines()
@@ -755,27 +1115,46 @@ def main() -> int:
     # 6. train_torch.py -> eval_torch.py
     check_train_cli(raw)
 
+    # 7. MEGA: the two kernels, detect_video at full width, the small
+    # detector against the CPU, detect_torch.py
+    kernels.update(check_mega_kernels(cuda, pb, ma))
+    detect_launches = check_detect_video(cuda, pb, ma)
+    check_detect_vs_cpu(cuda)
+    check_detect_cli()
+
     band = "vrdone_tpu_torch/csrc/band_attention.cu"
     pallas = "vrdone_tpu/ops/pallas/band_attention.py"
     sources = {"band_attention": (band, f"{pallas}:42"),
                "band_attention_dq": (band, f"{pallas}:112"),
                "band_attention_dkv": (band, f"{pallas}:146"),
                "masked_attention": ("vrdone_tpu_torch/csrc/masked_attention.cu",
-                                    "vrdone_tpu/ops/masked.py:203")}
-    # launches: the eval forward's for the forward kernels, the train
-    # step's for the backward ones; both paths are in launches_by_path
+                                    "vrdone_tpu/ops/masked.py:203"),
+               "mega_attention": ("vrdone_tpu_torch/csrc/mega_attention.cu",
+                                  "vrdone_tpu/ops/pallas/mega_attention.py:56"),
+               "position_bias": ("vrdone_tpu_torch/csrc/position_bias.cu",
+                                 "vrdone_tpu/ops/pallas/position_bias.py:95")}
+    # launches: the eval forward's for the forward band and full-attention
+    # kernels, the train step's for the backward ones, detect_video's for
+    # the fused set-attention and, with the fused attention off, for the
+    # position bias; every path is in launches_by_path
     by_path = {name: {"eval_forward": launches.get(name, 0),
-                      "train_step": train_launches[name]}
+                      "train_step": train_launches.get(name, 0),
+                      **{route: c.get(name, 0)
+                         for route, c in detect_launches.items()}}
                for name in sources}
+    main_path = {"mega_attention": "detect_video",
+                 "position_bias": "detect_video_pe_bias"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],
-         "launches": (launches[name] if name in launches
+         "launches": (by_path[name][main_path[name]] if name in main_path
+                      else launches[name] if name in launches
                       else train_launches[name]),
          "launches_by_path": by_path[name],
          "max_abs_err": e["max_abs_err"], "ms": e["ms"],
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
          "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+         **({"device_ms": e["device_ms"]} if "device_ms" in e else {}),
          "shape": e["shape"]}
         for name, e in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -61,7 +61,7 @@ def parse_args():
     p.add_argument("--eval_dp", type=int, default=1,
                    help="not ported yet beyond 1 (ROADMAP.md queue 1, "
                         "item 7)")
-    p.add_argument("--device", type=str, required=True,
+    p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the forward, e.g. cuda or cpu")
     return p.parse_args()
 

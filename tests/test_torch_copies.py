@@ -118,3 +118,66 @@ def test_groundtruth_records_and_metrics_match(corpus):
                 "triple_scores_avg": [0.5]}
     equal(tconvert.to_eval_format("vidvrd", "v_1", triplets),
           jconvert.to_eval_format("vidvrd", "v_1", triplets))
+
+
+# -- the detection path's host-side copies ------------------------------------
+
+@pytest.mark.parametrize("name", ["linear_interpolate_boxes",
+                                  "merge_durations", "build_traj_proposal"])
+def test_proposal_functions_are_the_originals(name):
+    from vrdone_tpu.data import proposals as jprop
+    from vrdone_tpu_torch.data import proposals as tprop
+    assert (inspect.getsource(getattr(tprop, name))
+            == inspect.getsource(getattr(jprop, name)))
+
+
+def _detections(rng, n_frames=14):
+    """Three boxes drifting across frames with two categories, jitter, a
+    frame where one is missed, and a spurious box now and then."""
+    starts = np.array([[10, 10, 60, 50], [100, 40, 160, 120],
+                       [30, 90, 80, 150]], np.float32)
+    labels = np.array([1, 2, 1])
+    out = []
+    for f in range(n_frames):
+        keep = np.ones(3, bool)
+        if f == 6:
+            keep[1] = False
+        boxes = starts[keep] + 2.0 * f + rng.normal(0, 1.0, (keep.sum(), 4))
+        labs = labels[keep]
+        if f % 4 == 1:
+            boxes = np.concatenate([boxes, rand_box(rng)])
+            labs = np.concatenate([labs, [3]])
+        order = rng.permutation(len(boxes))
+        scores = rng.uniform(0.5, 1.0, len(boxes)).astype(np.float32)
+        feats = rng.standard_normal((len(boxes), 8)).astype(np.float32)
+        out.append((boxes[order].astype(np.float32), labs[order],
+                    scores[order], feats[order]))
+    return out
+
+
+def rand_box(rng):
+    xy = rng.uniform(0, 200, 2)
+    return np.concatenate([xy, xy + rng.uniform(5, 40, 2)])[None]
+
+
+def test_tracker_and_proposals_match_the_originals():
+    """On identical detections the port's IoUTracker (on the port's
+    matcher) gives the JAX tracker's tracks, and the proposal dicts built
+    from them are equal."""
+    from vrdone_tpu.data.proposals import build_traj_proposal as jbuild
+    from vrdone_tpu.data.tracking import IoUTracker as JTracker
+    from vrdone_tpu.data.tracking import iou_matrix as jiou
+    from vrdone_tpu_torch.data.proposals import build_traj_proposal as tbuild
+    from vrdone_tpu_torch.data.tracking import IoUTracker as TTracker
+    from vrdone_tpu_torch.data.tracking import iou_matrix as tiou
+    assert inspect.getsource(tiou) == inspect.getsource(jiou)
+    dets = _detections(np.random.default_rng(7))
+    jt, tt = JTracker(min_length=3), TTracker(min_length=3)
+    for f, (boxes, labels, scores, feats) in enumerate(dets):
+        jt.update(f, boxes, labels, scores, feats)
+        tt.update(f, boxes, labels, scores, feats)
+    want, got = jt.finish(), tt.finish()
+    assert len(want) >= 3
+    equal(got, want, "tracks")
+    equal(tbuild("v", got, (320, 240), len(dets)),
+          jbuild("v", want, (320, 240), len(dets)))

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``vrdone_tpu_torch``,
-``eval_torch``, ``train_torch`` and ``chip_smoke`` in a fresh interpreter
+``eval_torch``, ``train_torch``, ``detect_torch`` and ``chip_smoke`` in a
+fresh interpreter
 brings no JAX, flax, optax or orbax module and nothing of the JAX package
 into ``sys.modules``."""
 
@@ -14,7 +15,8 @@ import importlib, pkgutil, sys
 import vrdone_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vrdone_tpu_torch.__path__,
                                                "vrdone_tpu_torch.")]
-for name in names + ["eval_torch", "train_torch", "chip_smoke"]:
+for name in names + ["eval_torch", "train_torch", "detect_torch",
+                     "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
@@ -31,6 +33,6 @@ def test_port_imports_nothing_of_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     n = int(r.stdout.split()[0])
-    # the package's modules: config, convert, data (6), eval (3), models
-    # (6), ops (7), train (3), utils (1), and the subpackages themselves
-    assert n >= 30, r.stdout
+    # the package's modules: config, convert, data (8), eval (3), models
+    # (10), ops (10), train (3), utils (1), and the subpackages themselves
+    assert n >= 43, r.stdout

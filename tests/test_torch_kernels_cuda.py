@@ -9,7 +9,12 @@ package, so the repository's JAX conftest is left out):
 Tolerance 2e-5 in fp32 with TF32 off: the kernel and cuBLAS sum the same
 products in different orders. The backward kernels are held to 1e-5 of the
 gradient's largest magnitude (sums over the 2w+1 keys of a band and d
-channels), the lse to 1e-5 of 1 + |lse|.
+channels), the lse to 1e-5 of 1 + |lse|. MEGA's position bias is compared
+in gate space (rtol 2e-5, atol 1e-5: the log magnifies rounding near the
+relu's zero, and the kernel folds dw/dh through angle identities where the
+plain version embeds them), and in log space where it is above -8; the
+fused set-attention to 1e-4 of 1 + max |out| (its bias against the plain
+bias, then a softmax over up to 3750 keys).
 """
 
 import numpy as np
@@ -22,6 +27,8 @@ from vrdone_tpu_torch.models.maskvrd import MaskVRD
 from vrdone_tpu_torch.ops import band_attention as ba
 from vrdone_tpu_torch.ops import full_attention as fa
 from vrdone_tpu_torch.ops import masked as mops
+from vrdone_tpu_torch.ops import mega_attention as ma
+from vrdone_tpu_torch.ops import position_bias as pb
 
 pytestmark = pytest.mark.cuda
 
@@ -252,3 +259,155 @@ def test_model_forward_on_card_matches_cpu(cuda):
         ref = cpu(x, mask)
     for key in ("pred_logits", "pred_masks"):
         assert max_err(out[key].cpu(), ref[key]) <= 5e-4, key
+
+
+def mega_case(seed, g, n, m, dg, dgo, p_valid, device, canvas=(608, 1088)):
+    """Fused-attention operands as the detector makes them: rois on a
+    canvas, Wg drawn as initialised (normal(0.01))."""
+    rng = np.random.default_rng(seed)
+
+    def boxes(k):
+        xy = rng.uniform(0, 1, (k, 2)) * (canvas[1], canvas[0])
+        wh = rng.uniform(8, 300, (k, 2))
+        return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((g, n, dg), (g, m, dg), (g, m, dgo))]
+    arrays.append(0.1 * rng.standard_normal((g, m)).astype(np.float32))
+    arrays.append(rng.uniform(size=m) < p_valid)
+    arrays += [boxes(n), boxes(m),
+               rng.normal(0, 0.01, (64, g)).astype(np.float32),
+               rng.normal(0, 0.01, (g,)).astype(np.float32)]
+    return [torch.from_numpy(np.asarray(a)).to(device) for a in arrays]
+
+
+def gate_space_ok(got, want):
+    """Gate space everywhere; log space where the bias is above -8, where
+    its atol 3e-2 is the gate's 1e-5 carried through the log. (Nearer the
+    floor a gate error of 1e-6, what fp32 sines of the 360-radian dw/dh
+    angles give between the folded and the embedded forms, is more than
+    3e-2 in log space: at the detector's 40 million values some reach it
+    above -10.)"""
+    eg, ew = got.exp(), want.exp()
+    assert ((eg - ew).abs() <= 1e-5 + 2e-5 * ew.abs()).all()
+    sel = want > -8
+    assert ((got - want)[sel].abs() <= 3e-2 + 1e-3 * want[sel].abs()).all()
+
+
+@pytest.mark.parametrize("n,m,g", [
+    (675, 3750, 16), (300, 750, 16), (37, 101, 16), (1, 1, 1), (9, 130, 32),
+    (5, 257, 4)])
+def test_position_bias_kernel_matches_plain(cuda, n, m, g):
+    """The detector's shapes, ragged tiles, the largest group count."""
+    *_, qr, kr, w, b = mega_case(n + m, g, n, m, 1, 1, 1.0, cuda)
+    qr[-1] = 0.0   # a degenerate (padding) box stays finite
+    before = pb.launches
+    got = pb.fused_position_bias(qr, kr, w, b)
+    torch.cuda.synchronize()
+    assert pb.launches == before + 1
+    want = pb.position_bias_plain(qr, kr, w, b)
+    assert got.shape == (g, n, m) and torch.isfinite(got).all()
+    gate_space_ok(got, want)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("g,n,m,dg,dgo,p_valid", [
+    (16, 675, 3750, 64, 64, 0.9),     # local stage 0
+    (16, 675, 750, 64, 64, 0.9),      # local stage 1
+    (16, 300, 750, 64, 64, 0.9),      # local stage 2, global
+    (16, 1875, 750, 64, 64, 0.9),     # global over the window
+    (4, 10, 12, 256, 256, 0.7),       # the small detector's groups
+    (5, 13, 77, 30, 40, 0.5),         # widths off the float4 path
+    (16, 37, 101, 16, 24, 0.3),
+    (2, 3, 1, 8, 8, 1.0)])
+def test_mega_attention_kernel_matches_plain(cuda, with_bias, g, n, m, dg,
+                                             dgo, p_valid):
+    q, k, vp, ub, valid, *bias = mega_case(n * 7 + m, g, n, m, dg, dgo,
+                                           p_valid, cuda)
+    bias = bias if with_bias else []
+    before = ma.launches
+    got = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    torch.cuda.synchronize()
+    assert ma.launches == before + 1
+    want = ma.mega_attention_plain(q, k, vp, ub, valid, *bias)
+    assert got.shape == (n, g * dgo) and torch.isfinite(got).all()
+    assert max_err(got, want) <= 1e-4 * (1 + want.abs().max().item())
+
+
+@pytest.mark.parametrize("m", [1, 40, 3750])
+def test_mega_attention_all_invalid_rows_are_zero(cuda, m):
+    """No valid key (and so no finite score) anywhere: exactly 0, no NaN."""
+    q, k, vp, ub, valid, *bias = mega_case(m, 16, 33, m, 64, 64, 0.0, cuda)
+    for extra in ([], bias):
+        out = ma.fused_mega_attention(q, k, vp, ub, valid, *extra)
+        torch.cuda.synchronize()
+        assert (out == 0).all()
+
+
+def test_mega_kernels_refuse_grad_and_bad_inputs(cuda):
+    q, k, vp, ub, valid, qr, kr, w, b = mega_case(0, 4, 8, 16, 16, 16, 1.0,
+                                                  cuda)
+    w.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        pb.fused_position_bias(qr, kr, w, b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ma.fused_mega_attention(q, k, vp, ub, valid, qr, kr, w, b)
+    with torch.no_grad():
+        pb.fused_position_bias(qr, kr, w, b)
+    with pytest.raises(ValueError, match="groups"):
+        ma.fused_mega_attention(q.repeat(5, 1, 1), k.repeat(5, 1, 1),
+                                vp.repeat(5, 1, 1), ub.repeat(5, 1), valid)
+    with pytest.raises(ValueError, match="embed_dim"):
+        pb.fused_position_bias(qr, kr, w.detach(), b, embed_dim=32)
+    with pytest.raises(TypeError, match="dtype"):
+        ma.fused_mega_attention(q.double(), k, vp, ub, valid)
+
+
+def test_mega_head_on_card_matches_cpu(cuda):
+    """MEGAHead.enhance of a 16-group head with memory and global sets:
+    the card through K5 (and through K6 on the dense route) against the
+    CPU's plain versions, same parameters and inputs."""
+    from vrdone_tpu_torch.models.mega import BoxSet, MEGAHead
+    gen = torch.Generator().manual_seed(0)
+    cpu = MEGAHead(feat_dim=256, groups=16, stage=3, advanced_num=3,
+                   in_dim=128, device=torch.device("cpu"), generator=gen)
+    gpu = MEGAHead(feat_dim=256, groups=16, stage=3, advanced_num=3,
+                   in_dim=128, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+
+    def boxes(*shape):
+        xy = rng.uniform(0, 500, (*shape, 2))
+        return np.concatenate([xy, xy + rng.uniform(8, 200, (*shape, 2))],
+                              -1).astype(np.float32)
+
+    arrays = [rng.standard_normal((12, 128)).astype(np.float32), boxes(12),
+              np.arange(12) < 10,
+              rng.standard_normal((5, 6, 256)).astype(np.float32),
+              boxes(5, 6), rng.uniform(size=(5, 6)) < 0.8]
+    mems = [(rng.standard_normal((n, 256)).astype(np.float32), boxes(n),
+             rng.uniform(size=n) < 0.8) for n in (30, 15, 15)]
+    glob = (rng.standard_normal((20, 256)).astype(np.float32), boxes(20),
+            np.ones(20, bool))
+
+    def run(head, dev, **flags):
+        tt = [torch.from_numpy(np.asarray(a)).to(dev) for a in arrays]
+        mem = [BoxSet(*(torch.from_numpy(np.asarray(a)).to(dev) for a in x))
+               for x in mems]
+        gl = BoxSet(*(torch.from_numpy(np.asarray(a)).to(dev) for a in glob))
+        with torch.no_grad():
+            return head.routed(**flags).enhance(
+                tt[0], tt[1], tt[2], BoxSet(*tt[3:]), mem, gl).cpu()
+
+    want = run(cpu, torch.device("cpu"), fused_pe_bias=False,
+               fused_attention=False)
+    ma.launches = pb.launches = 0
+    fused = run(gpu, cuda, fused_pe_bias=False, fused_attention=True)
+    biased = run(gpu, cuda, fused_pe_bias=True, fused_attention=False)
+    torch.cuda.synchronize()
+    # 3 local stages + the global attention of the key rows, of the window
+    # rows and the one residual stage; K6 serves the 3 local stages
+    assert (ma.launches, pb.launches) == (6, 3)
+    scale = want.abs().max().item()
+    assert max_err(fused, want) <= 2e-4 * scale
+    assert max_err(biased, want) <= 2e-4 * scale

@@ -4,7 +4,8 @@ The package keeps the JAX package's module layout and names, so each module
 here has its counterpart at the same path under ``vrdone_tpu/``. It imports
 ``torch`` and never ``jax``. The attention kernels of the eval and train
 paths (band attention forward and backward, key-masked full attention
-forward) are hand-written CUDA C++ (``csrc/``), built with ``nvcc`` at first
+forward) and of the MEGA detector (fused set-attention, geometric position
+bias) are hand-written CUDA C++ (``csrc/``), built with ``nvcc`` at first
 use.
 """
 

@@ -7,14 +7,27 @@ names, so a key maps by joining with ``.``; only layouts change:
 
   * Dense ``kernel`` (in, out)            -> ``weight`` (out, in)
   * conv ``kernel`` (K, C_in/g, C_out)    -> ``weight`` (C_out, C_in/g, K)
+  * 2-D conv ``kernel`` (kh, kw, C_in, C_out) -> ``weight`` (C_out, C_in, kh, kw)
   * ConvMLP ``layers_<i>_kernel`` (K, C_in, C_out) -> same name, (C_out, C_in, K)
+  * MEGA's ``GroupedLinear`` ``kernel`` (groups, D, dg) under ``l_Wv<i>`` or
+    ``g_Wv<i>`` crosses as it is, name and layout
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
+
+# the GroupedLinear modules of models/mega.py: their rank-3 kernel is no conv
+_GROUPED = re.compile(r"[lg]_Wv\d+")
+
+
+def _grouped(parts: list[str]) -> bool:
+    return (len(parts) >= 2 and parts[-1] == "kernel"
+            and _GROUPED.fullmatch(parts[-2]) is not None)
 
 
 def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -23,11 +36,15 @@ def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     for key, value in flat.items():
         parts = key.split("/")
         value = np.asarray(value)
-        if parts[-1] == "kernel" or parts[-1].endswith("_kernel"):
+        if _grouped(parts):
+            pass
+        elif parts[-1] == "kernel" or parts[-1].endswith("_kernel"):
             if value.ndim == 2:
                 value = value.T
             elif value.ndim == 3:
                 value = value.transpose(2, 1, 0)
+            elif value.ndim == 4:
+                value = value.transpose(3, 2, 0, 1)
             else:
                 raise ValueError(f"{key}: kernel of rank {value.ndim}")
             if parts[-1] == "kernel":
@@ -39,8 +56,9 @@ def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
 def flax_key(name: str, value: torch.Tensor) -> str:
     """The flattened flax key (``a/b/kernel``) of a ``state_dict`` entry.
     Only flax ``kernel`` leaves become ``weight``, and only they have two or
-    more axes under that name (LayerNorm's ``weight`` is 1-D), so the
-    inverse of ``params_from_jax`` needs no module types."""
+    more axes under that name (LayerNorm's and frozen batch norm's
+    ``weight`` are 1-D), so the inverse of ``params_from_jax`` needs no
+    module types."""
     parts = name.split(".")
     if parts[-1] == "weight" and value.ndim >= 2:
         parts[-1] = "kernel"
@@ -49,8 +67,9 @@ def flax_key(name: str, value: torch.Tensor) -> str:
 
 def is_flax_kernel(name: str, value: torch.Tensor) -> bool:
     """Whether the parameter is a flax ``kernel`` or ``*_kernel`` leaf: the
-    parameters that ``params_from_jax`` transposes and the JAX package's
-    ``train/optim.py::decay_mask`` decays."""
+    parameters that the JAX package's ``train/optim.py::decay_mask``
+    decays (all but the grouped ones are the ones ``params_from_jax``
+    transposes)."""
     leaf = flax_key(name, value).rsplit("/", 1)[-1]
     return leaf == "kernel" or leaf.endswith("_kernel")
 
@@ -61,9 +80,10 @@ def params_to_jax(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     out = {}
     for name, value in state.items():
         a = value.detach().cpu().numpy()
-        if is_flax_kernel(name, value):
-            a = a.T if a.ndim == 2 else a.transpose(2, 1, 0)
-        out[flax_key(name, value)] = np.ascontiguousarray(a)
+        key = flax_key(name, value)
+        if is_flax_kernel(name, value) and not _grouped(key.split("/")):
+            a = a.transpose({2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}[a.ndim])
+        out[key] = np.ascontiguousarray(a)
     return out
 
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled for Hopper (``sm_90a``) into ``build/vrdone_tpu_torch/`` at the
-root of the checkout, under a name that carries a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is loaded.
+root of the checkout, under a name that carries a hash of the source, the
+shared ``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt
+and an unchanged one is loaded.
 Nothing here runs at import time: the CPU-only tests import every module.
 """
 
@@ -39,7 +40,9 @@ def load_library(name: str) -> ctypes.CDLL:
     load it. Raises ``RuntimeError`` with nvcc's output if the build fails.
     Callers keep the returned library (each kernel module loads once)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers count too: a source includes them by name
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, log = 0.0, ""

@@ -1,0 +1,151 @@
+"""MEGA's fused grouped set-attention: the CUDA kernel and its plain version.
+
+Counterpart of the TPU kernel ``vrdone_tpu/ops/pallas/mega_attention.py``
+(``fused_mega_attention``). Per group g, with dg the group width,
+
+    s   = (q_g . k_g^T) / sqrt(dg) + ub_g           ub = (u . k^T) / sqrt(dg)
+    s  += log(relu(Wg(PE(q_rois, k_rois))) + 1e-6)  local flavour only
+    out = softmax over the valid keys of s, times vproj_g = V @ Wv_g
+
+and a query row with no valid key gives 0. The output is (N, g * dgo) in
+``GroupedLinear``'s concatenation order; Wv's output bias is added by the
+caller. The value projection and ub stay outside the kernel, one matrix
+product each, as in the JAX package. The kernel source is
+``csrc/mega_attention.cu`` (with the bias device code shared with the
+position-bias kernel through ``csrc/mega_bias.cuh``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+from .position_bias import (EMBED_DIM, bias_operands, check_bias_inputs,
+                            position_bias_plain)
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e9          # the dense form's additive mask, as models/mega.py
+MAX_GROUPS = 16         # the kernel gives each group one warp of a block
+MAX_GROUP_DIM = 256     # dg and dgo: the kernel gives a lane dgo / 32 floats
+
+# launches of the CUDA kernel since the count was last set to 0
+launches = 0
+
+
+def mega_attention_plain(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
+                         valid: Tensor, q_rois: Tensor | None = None,
+                         k_rois: Tensor | None = None,
+                         wg_kernel: Tensor | None = None,
+                         wg_bias: Tensor | None = None, *,
+                         embed_dim: int = EMBED_DIM,
+                         wave_length: float = 1000.0) -> Tensor:
+    """The dense composition in the kernel's operand space: q (g, N, dg),
+    k (g, M, dg), vproj (g, M, dgo), ub (g, M), valid (M,) bool; the rois
+    and Wg's kernel (64, g) and bias (g,) add the geometric bias."""
+    g, n, dg = q.shape
+    aff = torch.einsum("gnd,gmd->gnm", q, k) / math.sqrt(dg) + ub[:, None, :]
+    if q_rois is not None:
+        aff = aff + position_bias_plain(q_rois, k_rois, wg_kernel, wg_bias,
+                                        embed_dim=embed_dim,
+                                        wave_length=wave_length)
+    aff = torch.where(valid[None, None, :], aff, NEG_INF)
+    att = torch.softmax(aff, dim=-1) * valid[None, None, :].to(aff.dtype)
+    out = torch.einsum("gnm,gmo->gno", att, vproj)
+    return out.transpose(0, 1).reshape(n, -1)
+
+
+@functools.cache
+def _kernel() -> ctypes.CDLL:
+    lib = _build.load_library("mega_attention")
+    fn = lib.mega_attention_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_float),
+                      ctypes.c_void_p])
+    lib.mega_attention_error_string.restype = ctypes.c_char_p
+    lib.mega_attention_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def mega_attention_cuda(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
+                        valid: Tensor, q_rois: Tensor | None = None,
+                        k_rois: Tensor | None = None,
+                        wg_kernel: Tensor | None = None,
+                        wg_bias: Tensor | None = None, *,
+                        embed_dim: int = EMBED_DIM,
+                        wave_length: float = 1000.0) -> Tensor:
+    """The hand-written kernel: same contract as ``mega_attention_plain``
+    for fp32 CUDA tensors. Raises on what the kernel does not take, and
+    when an input needs a gradient (the kernel has no backward)."""
+    global launches
+    with_bias = q_rois is not None
+    extra = (q_rois, k_rois, wg_kernel, wg_bias) if with_bias else ()
+    _build.refuse_grad("mega_attention_cuda", q, k, vproj, ub, *extra)
+    for name, t in (("q", q), ("k", k), ("vproj", vproj), ("ub", ub),
+                    ("valid", valid)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must lie on q's CUDA device, got "
+                             f"{t.device}")
+        if t.dtype != (torch.bool if name == "valid" else torch.float32):
+            raise TypeError(f"{name} has dtype {t.dtype}")
+    g, n, dg = q.shape
+    m, dgo = k.shape[1], vproj.shape[2]
+    if (k.shape != (g, m, dg) or vproj.shape[:2] != (g, m)
+            or ub.shape != (g, m) or valid.shape != (m,)
+            or not 1 <= g <= MAX_GROUPS or not 1 <= dg <= MAX_GROUP_DIM
+            or not 1 <= dgo <= MAX_GROUP_DIM):
+        raise ValueError(
+            f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, vproj "
+            f"{tuple(vproj.shape)}, ub {tuple(ub.shape)}, valid "
+            f"{tuple(valid.shape)} (groups at most {MAX_GROUPS}, group "
+            f"widths at most {MAX_GROUP_DIM})")
+    if with_bias:
+        check_bias_inputs(q_rois, k_rois, wg_kernel, wg_bias, embed_dim)
+        if q_rois.shape[0] != n or k_rois.shape[0] != m \
+                or wg_bias.shape[0] != g:
+            raise ValueError("rois or Wg disagree with q and k")
+    out = torch.empty((n, g * dgo), device=q.device)
+    if n == 0:
+        return out
+    q, k, vproj, ub, valid = (t.contiguous() for t in (q, k, vproj, ub,
+                                                       valid))
+    if with_bias:
+        qr, kr, a, b_t, wt, b, freqs = bias_operands(
+            q_rois, k_rois, wg_kernel, wg_bias, embed_dim, wave_length)
+        ptrs = [t.data_ptr() for t in (qr, kr, a, b_t, wt, b)]
+    else:
+        ptrs, freqs = [None] * 6, None
+    lib = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.mega_attention_forward(
+            q.data_ptr(), k.data_ptr(), vproj.data_ptr(), ub.data_ptr(),
+            valid.data_ptr(), *ptrs, out.data_ptr(), n, m, g, dg, dgo,
+            1.0 / math.sqrt(dg), freqs, stream)
+    _build.check_launch(lib, "mega_attention", code)
+    launches += 1
+    return out
+
+
+def fused_mega_attention(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
+                         valid: Tensor, q_rois: Tensor | None = None,
+                         k_rois: Tensor | None = None,
+                         wg_kernel: Tensor | None = None,
+                         wg_bias: Tensor | None = None, *,
+                         embed_dim: int = EMBED_DIM,
+                         wave_length: float = 1000.0) -> Tensor:
+    """The grouped set-attention: the kernel on CUDA tensors, the plain
+    version on CPU tensors. With the rois and Wg given it adds the
+    geometric bias (local flavour); without, it is the global flavour."""
+    args = (q, k, vproj, ub, valid, q_rois, k_rois, wg_kernel, wg_bias)
+    kw = dict(embed_dim=embed_dim, wave_length=wave_length)
+    if q.device.type == "cuda":
+        return mega_attention_cuda(*args, **kw)
+    if q.device.type != "cpu":
+        raise ValueError(f"no kernel for device {q.device}")
+    return mega_attention_plain(*args, **kw)
