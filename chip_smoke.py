@@ -31,7 +31,17 @@ one process per source, all started together, into
      window 25, global 10, 16 frames, random seeded weights) through the
      fused attention and again through the position-bias kernel, checks a
      small detector on the card against the CPU, stage by stage and whole,
-     and runs ``detect_torch.py`` on the card.
+     and runs ``detect_torch.py`` on the card;
+  8. holds the band kernel with the relative-position bias (K4) against
+     its plain version at the streamed stem's and branches' shapes,
+     ``BandAttentionPE``'s gradients against plain autograd, and the band
+     (K1) and full-attention (K7) kernels against theirs at the shapes the
+     stream gives them, times each kernel alone, then streams
+     a synthetic SO-pair sequence of 6,000 positions through
+     ``StreamingRunner`` at VidOR local-attention width
+     (``configs/vidor_local.yaml`` with ``use_rel_pe``, random seeded
+     weights), counts its launches, holds the first chunk group against the
+     CPU and times it.
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``.
@@ -40,6 +50,7 @@ Without a CUDA device it exits with an error and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -68,6 +79,7 @@ DETECT_TOL = 1e-3   # small detector, CUDA vs CPU, times max |x|
 DETECT_FRAMES, CANVAS = 16, (608, 1088)
 B_CHECK, B_RATE, T = 8, 128, 96
 TRAIN_PAIRS = (8, 24, 96)   # checked on both devices; timed; timed
+STREAM_T = 6000             # feature positions of the streamed sequence
 PEAK_FLOPS = 67e12          # H100 SXM fp32 without tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
@@ -134,15 +146,16 @@ def device_events(prof) -> list:
             and str(e.device_type).endswith("CUDA")]
 
 
-def kernel_device_ms(fn, kernel_name: str,
-                     iters: int = 5) -> tuple[float, int]:
+def kernel_device_ms(fn, kernel_name: str, iters: int = 5,
+                     required: bool = True) -> tuple[float | None, int]:
     """(ms, launches seen): device time of one launch of the named kernel,
     from ``torch.profiler`` over ``iters`` calls that launch it once each.
     It is the kernel alone, where the CUDA events of ``time_ms`` also hold
     the host work of the wrapper whenever that is the slower side. The mean
     is over the launches the profiler saw: of a kernel launched outside
     PyTorch's dispatcher it can miss some (all of them with the CPU
-    activity off)."""
+    activity off). Seeing none raises, unless not ``required``: then the
+    time is None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -154,8 +167,32 @@ def kernel_device_ms(fn, kernel_name: str,
     hits = [e for e in device_events(prof) if kernel_name in e.key]
     seen = sum(e.count for e in hits)
     if not seen:
+        if not required:
+            return None, 0
         raise AssertionError(f"the profiler saw no {kernel_name}")
     return sum(dev_us(e) for e in hits) / 1e3 / seen, seen
+
+
+def queued_device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``, whose work on the card is one
+    kernel, with the host's part kept out and no profiler: the card first
+    spins for some 25 ms, so that all ``iters`` calls are queued before the
+    first runs, and the two events around them then time the kernels back
+    to back. Raises if the card woke before the last call was queued."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    if start.query():
+        raise AssertionError("the card ran out of queued work: the times "
+                             "would hold the host's")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def compare(kernel, plain) -> tuple[float, float, float]:
@@ -572,10 +609,11 @@ def check_train_step(cfg, raw, cuda, ba, fa) -> dict:
     return launches
 
 
-def profile_device(fn, runs: int, unit: str) -> None:
+def profile_device(fn, runs: int, unit: str) -> tuple[float, float, list]:
     """Where the time of ``fn`` goes: ``torch.profiler`` over ``runs``
     calls, device time summed over the kernels against the host clock, and
-    the ten kernels with the most device time, each per call (a ``unit``)."""
+    the ten kernels with the most device time, each per call (a ``unit``).
+    Returns (device busy ms, wall ms, the kernels' events), a call each."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -595,6 +633,7 @@ def profile_device(fn, runs: int, unit: str) -> None:
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"    {dev_us(e) / 1e3 / runs:9.3f} ms  {e.count // runs:6d}x"
               f"  {e.key[:90]}")
+    return busy, 1e3 * wall, kernels
 
 
 def check_train_cli(raw, device: str = "cuda") -> None:
@@ -762,13 +801,17 @@ def check_mega_kernels(cuda, pb, ma) -> dict:
             lambda: ma.mega_attention_cuda(q, k, vp, ub, valid, *extra),
             lambda: ma.mega_attention_cuda(q, k, vp, ub, valid, *extra),
             lambda: ma.mega_attention_plain(q, k, vp, ub, valid, *extra)))
+        # the profiler can miss every launch of a call that runs no other
+        # op (the no-bias ones); only stage 0's time enters the JSON line
         dev_ms, seen = kernel_device_ms(
             lambda: ma.mega_attention_cuda(q, k, vp, ub, valid, *extra),
-            "mega_attention_kernel")
+            "mega_attention_kernel", required=label == "local stage 0")
+        alone = (f"{dev_ms:.4f} ms, {seen} launches seen" if seen
+                 else "not measured, the profiler saw no launch")
         print(f"mega_attention {label} G={gg} N={n} M={m} dg={dgq} "
               f"dgo={dgo} bias={bias}: max_abs_err {err:.3e}, wrapper "
-              f"{(k1 + k2) / 2:.4f} ms (the kernel alone {dev_ms:.4f} ms, "
-              f"{seen} launches seen), plain {(p1 + p2) / 2:.4f} ms")
+              f"{(k1 + k2) / 2:.4f} ms (the kernel alone {alone}), plain "
+              f"{(p1 + p2) / 2:.4f} ms")
         if label != "local stage 0":
             continue
         # the library's one call: SDPA with g heads and the bias, u-term
@@ -800,7 +843,7 @@ def check_detect_video(cuda, pb, ma) -> dict:
     through each attention route, phase times, memory, a profile, and the
     memory property. Returns the launches by route."""
     from vrdone_tpu_torch.models.detector import MegaDetector, detect_video
-    det = MegaDetector(num_classes=31,
+    det = MegaDetector(num_classes=31, device=torch.device("cpu"),
                        generator=torch.Generator().manual_seed(0)).to(cuda)
     rng = np.random.default_rng(8)
     t = DETECT_FRAMES
@@ -877,7 +920,8 @@ def check_detect_vs_cpu(cuda) -> None:
     from vrdone_tpu_torch.models.mega import global_indices, stream_video
     kw = dict(num_classes=31, resnet_layers=(1, 1, 1), base_num=16,
               window=5, key_loc=2, global_size=3)
-    cpu_det = MegaDetector(**kw, generator=torch.Generator().manual_seed(1))
+    cpu_det = MegaDetector(**kw, device=torch.device("cpu"),
+                           generator=torch.Generator().manual_seed(1))
     gpu_det = MegaDetector(**kw, device=cuda)
     gpu_det.load_state_dict(cpu_det.state_dict())
     rng = np.random.default_rng(9)
@@ -986,6 +1030,245 @@ def check_detect_cli(device: str = "cuda") -> None:
             raise AssertionError("detect_torch.py wrote no pickle")
         print(f"detect_torch.py on {device} (R-101, 6 frames): exit 0 in "
               f"{time.perf_counter() - t0:.1f} s; {r.stdout.strip()}")
+
+
+def band_pe_library_mask(mask: torch.Tensor, rel_pe: torch.Tensor,
+                         window_size: int) -> torch.Tensor:
+    """K4's masking and bias as one additive (B, H, T, T) mask for
+    ``F.scaled_dot_product_attention``."""
+    t, w = mask.shape[1], window_size // 2
+    i = torch.arange(t, device=mask.device)
+    idx = (i[None] - i[:, None] + w).clamp(0, window_size - 1)
+    return band_library_mask(mask, w) + rel_pe[:, idx][None]
+
+
+def check_band_pe(cuda, ba, mops) -> tuple[dict, dict]:
+    """K4 against its plain version at the streamed chunk's band shapes
+    (B=8, H=8, d=64: the stem at T=768, the branches at 384, 192, 96), at
+    a T off the 16-row tile, at w=3 and at an even window, with invalid
+    keys inside and after the valid stretch; ``BandAttentionPE``'s dq, dk,
+    dv and d rel_pe against plain autograd at the stem's shape. Returns
+    K4's JSON entry, timed at the stem's shape, and the kernel alone at
+    each stream shape, {T: ms}."""
+    rng = np.random.default_rng(11)
+    b, h, d = 8, 8, 64
+    worst, entry, alone = 0.0, None, {}
+    for t, ws in ((768, 9), (384, 9), (192, 9), (96, 9), (757, 9), (768, 7),
+                  (768, 8)):
+        q, k, v, mask = attention_inputs(rng, b, t, t, h * d, cuda)
+        mask[1, t // 3] = False   # an invalid key inside a valid stretch
+        pe = torch.from_numpy(rng.standard_normal((h, ws))
+                              .astype(np.float32)).to(cuda)
+        kw = dict(n_head=h, window_size=ws)
+        err, ms, plain_ms = compare(
+            lambda: ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw),
+            lambda: ba.band_attention_pe_plain(q, k, v, mask, pe, **kw))
+        stream_shape = ws == 9 and t % 96 == 0
+        if stream_shape:
+            alone[t] = queued_device_ms(
+                lambda: ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw))
+        print(f"band_attention_pe B*H=8*8 d=64 window={ws} T={t}: "
+              f"max_abs_err {err:.3e}, kernel {ms:.4f} ms"
+              + (f" (alone {alone[t]:.4f} ms)" if stream_shape else "")
+              + f", plain {plain_ms:.4f} ms")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"K4 off by {err} at T={t} window={ws}")
+        worst = max(worst, err)
+        if (t, ws) != (768, 9):
+            continue
+        lib_mask = band_pe_library_mask(mask, pe, ws)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            heads(q, h), heads(k, h), heads(v, h), attn_mask=lib_mask))
+        del lib_mask
+        bms, by = bound_ms(4 * (4 * q.numel() + pe.numel()) + mask.numel(),
+                           4 * d * h * band_pairs(mask, ws // 2))
+        entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bms, bound_by=by, device_ms=alone[t],
+                     shape="B*H=8*8 T=768 d=64 window=9")
+        print(f"band_attention_pe at {entry['shape']}: the kernel alone "
+              f"{alone[t]:.4f} ms (queued behind a sleep), library (SDPA, "
+              f"mask precomputed) {lib_ms:.4f} ms, bound {bms:.4f} ms "
+              f"({by})")
+
+        # BandAttentionPE: the K4 forward, the dense form's autograd as the
+        # backward, against plain autograd on the same inputs
+        dout = torch.from_numpy(rng.standard_normal(q.shape)
+                                .astype(np.float32)).to(cuda)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, pe)]
+        before = ba.pe_launches
+        got = torch.autograd.grad(
+            mops.band_attention(*leaves[:3], mask, rel_pe=leaves[3], **kw),
+            leaves, dout)
+        if ba.pe_launches != before + 1:
+            raise AssertionError("BandAttentionPE did not launch K4")
+        ref = [x.clone().requires_grad_() for x in (q, k, v, pe)]
+        want = torch.autograd.grad(
+            ba.band_attention_pe_plain(*ref[:3], mask, ref[3], **kw), ref,
+            dout)
+        errs = [(g - r).abs().max().item() / max(1.0, r.abs().max().item())
+                for g, r in zip(got, want)]
+        print("BandAttentionPE at B*H=8*8 T=768 d=64 window=9: dq, dk, dv, "
+              "d rel_pe err / max|grad| " + ", ".join(f"{e:.3e}"
+                                                      for e in errs))
+        if not max(errs) <= GRAD_TOL:
+            raise AssertionError(f"BandAttentionPE grads off: {errs}")
+    entry["max_abs_err"] = worst
+    return entry, alone
+
+
+def check_stream_kernels(cuda, ba, fa) -> tuple[dict, dict]:
+    """K1 and K7 against their plain versions at the shapes the streamed
+    chunk group gives them: K1 in the S/O mutual layers at B=8, T=768,
+    H=8, d=64, window 9, with invalid keys inside and after the valid
+    stretch; K7 in the predictor at B=8, H=8, d=32 with 9 queries over the
+    9 queries (all valid) and over the 96 positions of the coarsest level.
+    Returns the worst error of each and the kernel alone at each shape."""
+    rng = np.random.default_rng(13)
+    worst = {"band_attention": 0.0, "masked_attention": 0.0}
+    alone = {}
+    q, k, v, mask = attention_inputs(rng, 8, 768, 768, 8 * 64, cuda)
+    mask[1, 768 // 3] = False   # an invalid key inside a valid stretch
+    kw = dict(n_head=8, window_size=9)
+    cases = [("band_attention", "T=768",
+              lambda: ba.band_attention_cuda(q, k, v, mask, **kw),
+              lambda: ba.band_attention_plain(q, k, v, mask, **kw))]
+    for tk in (9, 96):
+        qf, kf, vf, mf = attention_inputs(rng, 8, 9, tk, 8 * 32, cuda)
+        if tk == 9:
+            mf[:] = True
+        cases.append(("masked_attention", f"Tq=9 Tk={tk}",
+                      lambda qf=qf, kf=kf, vf=vf, mf=mf:
+                      fa.full_attention_cuda(qf, kf, vf, mf, n_head=8),
+                      lambda qf=qf, kf=kf, vf=vf, mf=mf:
+                      fa.full_attention_plain(qf, kf, vf, mf, n_head=8)))
+    for name, label, kernel, plain in cases:
+        err, ms, plain_ms = compare(kernel, plain)
+        alone[name, label] = queued_device_ms(kernel)
+        print(f"{name} stream shape B=8 H=8 {label}: max_abs_err "
+              f"{err:.3e}, kernel {ms:.4f} ms (alone "
+              f"{alone[name, label]:.4f} ms), plain {plain_ms:.4f} ms")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"{name} off by {err} at the stream's "
+                                 f"{label}")
+        worst[name] = max(worst[name], err)
+    return worst, alone
+
+
+def check_streaming(cuda, ba, fa, pe_alone: dict, alone: dict) -> dict:
+    """``StreamingRunner`` at VidOR local-attention width with
+    ``use_rel_pe`` over ``STREAM_T`` positions: the launches of the whole
+    run (counts set to 0 just before it), the first chunk group's first two
+    chunks against the CPU, the records, the rates and a profile, with the
+    hand kernels' device time from their times alone (``pe_alone`` of
+    ``check_band_pe``, ``alone`` of ``check_stream_kernels``) in place of
+    what the profiler saw of them. Returns the run's launches per kernel."""
+    from vrdone_tpu_torch.config import (InferenceConfig, load_yaml_config,
+                                         model_config_from_yaml)
+    from vrdone_tpu_torch.eval.streaming import StreamingRunner
+    raw = load_yaml_config(str(ROOT / "configs" / "vidor_local.yaml"))
+    cfg = dataclasses.replace(model_config_from_yaml(raw), use_rel_pe=True)
+    cpu_model, gpu_model = build_models(cfg, cuda)
+    ic = raw["inference_config"]
+    infer = InferenceConfig(
+        topk=ic["topk"], feat_stride=ic["feat_stride"],
+        pred_min_frames=ic["pred_min_frames"], n_max_pair=ic["n_max_pair"],
+        viou_th=ic["viou_th"], max_so_pair=cfg.max_so_pair)
+    feat_dim = 2 * cfg.visual_dim + cfg.bbox_so_dim + 2 * cfg.bbox_entity_dim
+    runner = StreamingRunner(cfg, gpu_model, infer, feat_dim, chunk_batch=8,
+                             device=cuda)
+    rng = np.random.default_rng(12)
+    so_feat = rng.standard_normal((STREAM_T, feat_dim)).astype(np.float32)
+    chunks = runner.chunk_starts(STREAM_T)
+    groups = list(runner.chunk_groups(so_feat))
+    print(f"stream: vidor_local + use_rel_pe, T={STREAM_T}, halo "
+          f"{runner.halo}, chunk {runner.chunk_len}, interior "
+          f"{runner.interior}: {len(chunks)} chunks in {len(groups)} forwards "
+          f"of {tuple(groups[0][1].shape)}")
+    if (runner.halo, runner.chunk_len) != (192, 768):
+        raise AssertionError(f"halo {runner.halo}, chunk {runner.chunk_len}")
+
+    # the first chunk group's first two chunks against the CPU
+    _, feats, mask = groups[0]
+    with torch.inference_mode():
+        out = gpu_model(torch.from_numpy(feats).to(cuda),
+                        torch.from_numpy(mask).to(cuda))
+        ref = cpu_model(torch.from_numpy(feats[:2]),
+                        torch.from_numpy(mask[:2]))
+    del cpu_model
+    for key in ("pred_logits", "pred_masks"):
+        err = (out[key][:2].cpu() - ref[key]).abs().max().item()
+        print(f"stream chunk group 0, chunks 0-1, {key} "
+              f"{tuple(out[key].shape)}: CUDA vs CPU max_abs_err {err:.3e} "
+              f"(max |x| {ref[key].abs().max().item():.3e})")
+        if not err <= MODEL_TOL:
+            raise AssertionError(f"stream {key} off by {err}")
+
+    torch.cuda.synchronize()
+    ba.launches = ba.pe_launches = fa.launches = 0
+    records = runner.run_pair(so_feat)
+    torch.cuda.synchronize()
+    launches = {"band_attention_pe": ba.pe_launches,
+                "band_attention": ba.launches, "masked_attention": fa.launches}
+    arch, n = cfg.backbone_arch, len(groups)
+    expect = {"band_attention_pe": n * (2 * arch[1] + arch[2]),
+              "band_attention": n * 4 * arch[1],
+              "masked_attention": n * 2 * cfg.predictor.num_layers}
+    print(f"stream run_pair: kernel launches {launches} in {n} forwards "
+          f"(per forward K4 {launches['band_attention_pe'] // n}, K1 "
+          f"{launches['band_attention'] // n}, K7 "
+          f"{launches['masked_attention'] // n})")
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    if not records or not all(
+            math.isfinite(r["score"]) and 0 <= r["start"] < r["end"]
+            <= STREAM_T and 1 <= r["pred_cat"] <= cfg.num_classes
+            for r in records):
+        raise AssertionError(f"stream records: {records[:5]}")
+    print(f"stream run_pair: {len(records)} span records over "
+          f"{len({r['query'] for r in records})} queries")
+
+    feats_dev = torch.from_numpy(feats).to(cuda)
+    mask_dev = torch.from_numpy(mask).to(cuda)
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: gpu_model(feats_dev, mask_dev), iters=5,
+                         warmup=1)
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner.run_pair(so_feat)
+        seconds = time.perf_counter() - t0
+        print(f"stream T={STREAM_T} fp32: {STREAM_T / seconds:.1f} "
+              f"positions/s, {len(chunks) / seconds:.2f} chunks/s, "
+              f"{1e3 * seconds:.1f} ms a sequence; one chunk-group forward "
+              f"{fwd_ms:.2f} ms; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    busy, wall, events = profile_device(lambda: runner.run_pair(so_feat), 1,
+                                        "sequence")
+    # the hand kernels of a forward by shape: K4 in the stem's blocks of
+    # both streams at T and once a branch level at T/2, T/4, ...; K1 at T;
+    # K7 over the queries and over the coarsest level
+    t = runner.chunk_len
+    per_forward = {
+        "band_attention_pe": 2 * arch[1] * pe_alone[t] + sum(
+            pe_alone[t >> (lv + 1)] for lv in range(arch[2])),
+        "band_attention": 4 * arch[1] * alone["band_attention", f"T={t}"],
+        "masked_attention": cfg.predictor.num_layers * (
+            alone["masked_attention", "Tq=9 Tk=9"]
+            + alone["masked_attention", f"Tq=9 Tk={t >> arch[2]}"])}
+    hand = {name: n * ms for name, ms in per_forward.items()}
+    names = ("band_attention_pe_fwd_kernel", "band_attention_fwd_kernel",
+             "masked_attention_fwd_kernel")
+    seen = [e for e in events if any(s in e.key for s in names)]
+    seen_ms = sum(dev_us(e) for e in seen) / 1e3
+    total = busy - seen_ms + sum(hand.values())
+    print(f"stream hand kernels a sequence, alone times x launches: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in hand.items())
+          + f"; the profiler saw {sum(e.count for e in seen)} of "
+          f"{sum(launches.values())} of their launches ({seen_ms:.3f} ms); "
+          f"device busy with all of them {total:.2f} ms "
+          f"({100 * total / wall:.1f}% of the profiled wall), the hand "
+          f"kernels {100 * sum(hand.values()) / total:.1f}% of it")
+    return launches
 
 
 def main() -> int:
@@ -1122,9 +1405,17 @@ def main() -> int:
     check_detect_vs_cpu(cuda)
     check_detect_cli()
 
+    # 8. K4 and the streaming runner at VidOR local-attention width
+    kernels["band_attention_pe"], pe_alone = check_band_pe(cuda, ba, mops)
+    stream_worst, alone = check_stream_kernels(cuda, ba, fa)
+    for name, err in stream_worst.items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    stream_launches = check_streaming(cuda, ba, fa, pe_alone, alone)
+
     band = "vrdone_tpu_torch/csrc/band_attention.cu"
     pallas = "vrdone_tpu/ops/pallas/band_attention.py"
     sources = {"band_attention": (band, f"{pallas}:42"),
+               "band_attention_pe": (band, f"{pallas}:42 (with_pe)"),
                "band_attention_dq": (band, f"{pallas}:112"),
                "band_attention_dkv": (band, f"{pallas}:146"),
                "masked_attention": ("vrdone_tpu_torch/csrc/masked_attention.cu",
@@ -1136,14 +1427,17 @@ def main() -> int:
     # launches: the eval forward's for the forward band and full-attention
     # kernels, the train step's for the backward ones, detect_video's for
     # the fused set-attention and, with the fused attention off, for the
-    # position bias; every path is in launches_by_path
+    # position bias, the streaming run's for the bias band kernel; every
+    # path is in launches_by_path
     by_path = {name: {"eval_forward": launches.get(name, 0),
                       "train_step": train_launches.get(name, 0),
                       **{route: c.get(name, 0)
-                         for route, c in detect_launches.items()}}
+                         for route, c in detect_launches.items()},
+                      "stream": stream_launches.get(name, 0)}
                for name in sources}
     main_path = {"mega_attention": "detect_video",
-                 "position_bias": "detect_video_pe_bias"}
+                 "position_bias": "detect_video_pe_bias",
+                 "band_attention_pe": "stream"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],

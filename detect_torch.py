@@ -96,6 +96,7 @@ def build_detector(args) -> MegaDetector:
                        key_loc=args.window // 2,
                        global_size=args.global_size,
                        global_enable=args.global_size > 0,
+                       device=torch.device("cpu"),
                        generator=torch.Generator().manual_seed(args.seed))
     if args.ckpt_path:
         load_params(det, load_npz(args.ckpt_path))

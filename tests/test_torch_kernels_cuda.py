@@ -7,7 +7,8 @@ package, so the repository's JAX conftest is left out):
         tests/test_torch_kernels_cuda.py
 
 Tolerance 2e-5 in fp32 with TF32 off: the kernel and cuBLAS sum the same
-products in different orders. The backward kernels are held to 1e-5 of the
+products in different orders (K4, the band kernel with the relative-position
+bias, adds the bias in the plain version's order). The backward kernels are held to 1e-5 of the
 gradient's largest magnitude (sums over the 2w+1 keys of a band and d
 channels), the lse to 1e-5 of 1 + |lse|. MEGA's position bias is compared
 in gate space (rtol 2e-5, atol 1e-5: the log magnifies rounding near the
@@ -132,6 +133,75 @@ def test_band_backward_kernels_match_plain_autograd(cuda, t, w, d):
     assert (got[0][3] == 0).all()  # a batch row with no valid query
 
 
+def pe_table(seed, h, window_size, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((h, window_size))
+                            .astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("t,window_size,d", [
+    (768, 9, 64), (768, 8, 64), (300, 7, 64), (37, 9, 64), (37, 8, 32),
+    (96, 6, 128), (5, 9, 64), (1, 7, 8), (100, 31, 128), (64, 1, 64)])
+def test_band_pe_kernel_matches_plain(cuda, t, window_size, d):
+    """K4 at the streamed stem's shape (T 768, w 4, d 64), even windows
+    (the bias index clamps), T off the 16-row tile, T < 2w + 1, the widest
+    band and w = 0, with invalid keys and queries."""
+    b, h = 4, 8
+    q, k, v, mask = streams(t * 13 + window_size, b, t, t, h * d,
+                            [t, max(1, t // 2), 1, 0], cuda)
+    mask[0, t // 3] = False  # an invalid key inside a valid stretch
+    pe = pe_table(t + window_size, h, window_size, cuda)
+    kw = dict(n_head=h, window_size=window_size)
+    before = (ba.launches, ba.pe_launches)
+    out = ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw)
+    torch.cuda.synchronize()
+    assert (ba.launches, ba.pe_launches) == (before[0], before[1] + 1)
+    ref = ba.band_attention_pe_plain(q, k, v, mask, pe, **kw)
+    assert max_err(out, ref) <= TOL
+    assert (out[3] == 0).all()  # no valid query (and no valid key)
+
+
+def test_band_pe_kernel_with_zero_table_is_k1(cuda):
+    """K1 and K4 share one forward body: with a zero table K4 gives K1's
+    output bit for bit."""
+    q, k, v, mask = streams(3, 4, 768, 768, 8 * 64, [768, 300, 1, 0], cuda)
+    kw = dict(n_head=8, window_size=9)
+    zero = torch.zeros(8, 9, device=cuda)
+    assert torch.equal(ba.band_attention_pe_cuda(q, k, v, mask, zero, **kw),
+                       ba.band_attention_cuda(q, k, v, mask, **kw))
+
+
+@pytest.mark.parametrize("t,window_size,d", [
+    (768, 9, 64), (96, 8, 64), (37, 7, 32), (5, 9, 16)])
+def test_band_pe_autograd_matches_plain(cuda, t, window_size, d):
+    """``BandAttentionPE`` (K4 forward, the dense form's recomputed
+    autograd as the backward) against autograd of the plain version: dq,
+    dk, dv and d rel_pe, with a nonzero upstream gradient on invalid query
+    rows."""
+    b, h = 4, 8
+    q, k, v, mask = streams(t * 7 + window_size, b, t, t, h * d,
+                            [t, max(1, t // 2), 1, 0], cuda)
+    mask[0, t // 3] = False
+    pe = pe_table(t, h, window_size, cuda)
+    kw = dict(n_head=h, window_size=window_size)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(t)
+                       ).to(cuda)
+    counts = (ba.launches, ba.pe_launches, ba.dq_launches, ba.dkv_launches)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, pe)]
+    out = mops.band_attention(*leaves[:3], mask, rel_pe=leaves[3], **kw)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (ba.launches, ba.pe_launches, ba.dq_launches,
+            ba.dkv_launches) == (counts[0], counts[1] + 1, *counts[2:])
+    ref = [x.clone().requires_grad_() for x in (q, k, v, pe)]
+    ref_out = ba.band_attention_pe_plain(*ref[:3], mask, ref[3], **kw)
+    want = torch.autograd.grad(ref_out, ref, dout)
+    assert max_err(out, ref_out) <= TOL
+    for name, g, r in zip(("dq", "dk", "dv", "drel_pe"), got, want):
+        assert max_err(g, r) <= 1e-5 * max(1.0, r.abs().max().item()), name
+    assert (got[0][3] == 0).all()  # a batch row with no valid query
+
+
 def test_kernels_without_backward_refuse_grad(cuda):
     """A CUDA tensor that needs a gradient cannot pass through a kernel
     launch that has no backward."""
@@ -141,8 +211,12 @@ def test_kernels_without_backward_refuse_grad(cuda):
         ba.band_attention_cuda(q, k, v, mask, n_head=4, window_size=7)
     with pytest.raises(RuntimeError, match="no backward"):
         fa.full_attention_cuda(q, k, v, mask, n_head=4)
+    pe = torch.zeros(4, 7, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ba.band_attention_pe_cuda(q, k, v, mask, pe, n_head=4, window_size=7)
     with torch.no_grad():
         ba.band_attention_cuda(q, k, v, mask, n_head=4, window_size=7)
+        ba.band_attention_pe_cuda(q, k, v, mask, pe, n_head=4, window_size=7)
         fa.full_attention_cuda(q, k, v, mask, n_head=4)
     # the dispatch picks the differentiable forms instead
     fa.dense_calls = 0
@@ -150,6 +224,8 @@ def test_kernels_without_backward_refuse_grad(cuda):
     assert out.grad_fn is not None and fa.dense_calls == 1
     assert mops.band_attention(q, k, v, mask, n_head=4,
                                window_size=7).grad_fn is not None
+    assert mops.band_attention(q, k, v, mask, n_head=4, window_size=7,
+                               rel_pe=pe).grad_fn is not None
 
 
 def test_train_step_on_card_matches_cpu(cuda):
@@ -224,6 +300,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ba.band_attention_cuda(q, k, v, mask, n_head=4, window_size=33)
     with pytest.raises(ValueError, match="CUDA device"):
         fa.full_attention_cuda(q, k, v, mask.cpu(), n_head=4)
+    with pytest.raises(ValueError, match="rel_pe"):
+        ba.band_attention_pe_cuda(q, k, v, mask, torch.zeros(4, 8,
+                                                             device=cuda),
+                                  n_head=4, window_size=7)
 
 
 def test_model_forward_on_card_matches_cpu(cuda):
@@ -256,6 +336,39 @@ def test_model_forward_on_card_matches_cpu(cuda):
         assert ba.launches == 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
         assert fa.launches == (4 * cfg.backbone_arch[1]
                                + 2 * cfg.predictor.num_layers)
+        ref = cpu(x, mask)
+    for key in ("pred_logits", "pred_masks"):
+        assert max_err(out[key].cpu(), ref[key]) <= 5e-4, key
+
+
+def test_model_with_rel_pe_on_card_matches_cpu(cuda):
+    """A small MaskVRD with ``use_local`` and ``use_rel_pe``: the CUDA
+    forward (K4 in the stem and branch blocks, K1 in the S/O mutual layers,
+    K7 in the predictor) against the CPU forward on the same weights."""
+    cfg = ModelConfig(visual_dim=24, embd_dim=32, fpn_dim=16,
+                      max_seq_len=48, use_local=True, use_rel_pe=True,
+                      predictor=PredictorConfig(
+                          n_input=32, n_embd=16, n_hidden=64, num_layers=3))
+    gen = torch.Generator().manual_seed(1)
+    cpu = MaskVRD(cfg, device=torch.device("cpu"), generator=gen)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, AffineDropPath):
+                m.scale.uniform_(0.5, 1.5, generator=gen)
+    gpu = MaskVRD(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal(
+        (3, 48, 2 * 24 + 5 + 16)).astype(np.float32))
+    mask = torch.from_numpy(np.arange(48)[None]
+                            < np.array([48, 24, 11])[:, None])
+    ba.launches = ba.pe_launches = fa.launches = 0
+    with torch.no_grad():
+        out = gpu(x.to(cuda), mask.to(cuda))
+        torch.cuda.synchronize()
+        arch = cfg.backbone_arch
+        assert (ba.pe_launches, ba.launches, fa.launches) == (
+            2 * arch[1] + arch[2], 4 * arch[1], 2 * cfg.predictor.num_layers)
         ref = cpu(x, mask)
     for key in ("pred_logits", "pred_masks"):
         assert max_err(out[key].cpu(), ref[key]) <= 5e-4, key

@@ -159,8 +159,3 @@ def test_conv_mlp(kernel_size):
                     device=CPU)
     params = jax_and_torch(jm, tm, x)
     close(tm(torch.from_numpy(x)), jax.jit(jm.apply)(params, jnp.asarray(x)))
-
-
-def test_rel_pe_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.LocalConvMHA(16, 4, window_size=7, use_rel_pe=True, device=CPU)

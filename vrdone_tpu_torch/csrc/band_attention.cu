@@ -1,10 +1,22 @@
 // Banded (sliding-window) attention for Hopper (sm_90a), fp32: the forward
-// with its per-row log-sum-exp, and the two backward kernels.
+// with its per-row log-sum-exp, the forward with a relative-position bias,
+// and the two backward kernels.
 //
 // Replaces the TPU kernels of vrdone_tpu/ops/pallas/band_attention.py:
 //   * band_attention_fwd_kernel  <- _band_kernel (forward, no relative-
 //     position bias), reached through _head_forward; with a non-null `lse`
 //     it also writes lse = m + log(l) per query row, as _head_forward does;
+//   * band_attention_pe_fwd_kernel <- _band_kernel(with_pe=True), reached
+//     through band_attention_pallas(rel_pe=...) and masked._band_pallas_pe:
+//     the same forward with rel_pe[h, clip(j - i + w, 0, window_size - 1)]
+//     added to each in-band score before the key mask. The Pallas kernel
+//     adds host-built (H, 3, block, block) bias tiles; here lane l of a
+//     band already scores key i - w + l, so its bias is the one table
+//     entry rel_pe[h, min(l, window_size - 1)], read into a register. The
+//     clamp matters for an even window_size, where 2w + 1 > window_size.
+//     both forwards share one templated body, so K1's code is unchanged.
+//     The JAX package pairs this forward with the dense backward, and so
+//     does the port (no backward kernel);
 //   * band_attention_dq_kernel   <- _dq_kernel (dQ), launched by
 //     _band_core_bwd;
 //   * band_attention_dkv_kernel  <- _dkv_kernel (dK, dV), launched by
@@ -35,7 +47,9 @@
 // dot product on its own. Slab rows that lanes read in parallel are stored
 // at a stride of d+1 floats, so 32 lanes reading 32 rows hit 32 banks. The
 // backward recomputes each score with the same fmaf chain as the forward, so
-// P agrees with the lse it is divided by.
+// P agrees with the lse it is divided by. K4 at the streaming shapes
+// (d = 64, w = 4, T = 768) is bound by bytes in the same way; its table adds
+// one cached 4-byte load a lane.
 //   * dq: a block owns kRows query rows and stages keys and values
 //     [i0 - w, i0 + kRows + w); lane l of warp r rebuilds P and dS of key
 //     i - w + l, then the warp sums dS . K over its band with lanes over the
@@ -48,7 +62,7 @@
 // heads split head-major along the channels (channels [h*d, (h+1)*d) are
 // head h), as the JAX package's _split_heads lays them out, so no transpose
 // is needed around the calls. mask is (B, T) bool (one byte each); lse and
-// Dr are (B, H, T) fp32. Takes any T (no padding), 1 <= d <= 256 and
+// Dr are (B, H, T) fp32; rel_pe is (H, window_size) fp32. Takes any T (no padding), 1 <= d <= 256 and
 // 0 <= w <= 15; the Python wrapper rejects anything else before the launch.
 
 #include <cuda_runtime.h>
@@ -85,13 +99,16 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
-__global__ void __launch_bounds__(kRows * 32)
-band_attention_fwd_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const unsigned char* __restrict__ mask,
-                          float* __restrict__ out, float* __restrict__ lse,
-                          int T, int H, int D, int w, float scale) {
+// The forward body. With kPE, lane l adds rel_pe[h, min(l, npe - 1)]
+// ((H, npe) table) to its score, between the scaled dot product and the
+// key mask, the order of the dense form's additions.
+template <bool kPE>
+__device__ __forceinline__ void band_forward_body(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const unsigned char* __restrict__ mask,
+    const float* __restrict__ rel_pe, float* __restrict__ out,
+    float* __restrict__ lse, int T, int H, int D, int w, int npe,
+    float scale) {
   extern __shared__ float smem[];
   const int slab = kRows + 2 * w;
   const int kstride = D + 1;
@@ -120,9 +137,11 @@ band_attention_fwd_kernel(const float* __restrict__ q,
   // lane l scores key j = i - w + l, which sits at slab row warp + l
   const int j = i - w + lane;
   float s = -INFINITY;
-  if (lane <= 2 * w && j >= 0 && j < T)
-    s = dot_row(qs + warp * D, ks + (warp + lane) * kstride, D) +
-        (mrow[j] ? 0.f : kNegBig);
+  if (lane <= 2 * w && j >= 0 && j < T) {
+    s = dot_row(qs + warp * D, ks + (warp + lane) * kstride, D);
+    if (kPE) s += __ldg(rel_pe + h * npe + min(lane, npe - 1));
+    s += mrow[j] ? 0.f : kNegBig;
+  }
   // the query's own key (lane w) is always in the sequence, so m is finite
   float m = s;
 #pragma unroll
@@ -154,6 +173,29 @@ band_attention_fwd_kernel(const float* __restrict__ q,
     if (c < D) orow[c] = acc[t] * keep;
   }
   if (lse != nullptr && lane == 0) lse[(size_t)bh * T + i] = m + logf(l);
+}
+
+__global__ void __launch_bounds__(kRows * 32)
+band_attention_fwd_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const unsigned char* __restrict__ mask,
+                          float* __restrict__ out, float* __restrict__ lse,
+                          int T, int H, int D, int w, float scale) {
+  band_forward_body<false>(q, k, v, mask, nullptr, out, lse, T, H, D, w, 1,
+                           scale);
+}
+
+__global__ void __launch_bounds__(kRows * 32)
+band_attention_pe_fwd_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const unsigned char* __restrict__ mask,
+                             const float* __restrict__ rel_pe,
+                             float* __restrict__ out, int T, int H, int D,
+                             int w, int npe, float scale) {
+  band_forward_body<true>(q, k, v, mask, rel_pe, out, nullptr, T, H, D, w,
+                          npe, scale);
 }
 
 __global__ void __launch_bounds__(kRows * 32)
@@ -347,6 +389,30 @@ extern "C" int band_attention_forward(const float* q, const float* k,
   band_attention_fwd_kernel<<<grid, kRows * 32, smem,
                               (cudaStream_t)stream>>>(
       q, k, v, mask, out, lse, T, H, D, w, scale);
+  return (int)cudaGetLastError();
+}
+
+// Forward with the relative-position bias `rel_pe`, (H, window_size) fp32
+// (K4). No lse: its backward recomputes the dense form.
+extern "C" int band_attention_pe_forward(const float* q, const float* k,
+                                         const float* v,
+                                         const unsigned char* mask,
+                                         const float* rel_pe, float* out,
+                                         int B, int T, int H, int D, int w,
+                                         int window_size, float scale,
+                                         void* stream) {
+  if (bad_shape(B, T, H, D, w) || window_size < 1)
+    return (int)cudaErrorInvalidValue;
+  const int slab = kRows + 2 * w;
+  const size_t smem =
+      sizeof(float) * ((size_t)slab * (D + 1) + (size_t)slab * D +
+                       (size_t)kRows * D);
+  cudaError_t err = allow_smem(band_attention_pe_fwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (T + kRows - 1) / kRows);
+  band_attention_pe_fwd_kernel<<<grid, kRows * 32, smem,
+                                 (cudaStream_t)stream>>>(
+      q, k, v, mask, rel_pe, out, T, H, D, w, window_size, scale);
   return (int)cudaGetLastError();
 }
 

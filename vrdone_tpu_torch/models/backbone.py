@@ -43,10 +43,6 @@ class SOSBackbone(nn.Module):
             raise NotImplementedError(
                 "the CLIP-fused backbone is not ported yet; see ROADMAP.md "
                 "queue 1")
-        if use_rel_pe:
-            raise NotImplementedError(
-                "use_rel_pe needs the band kernel with relative-position "
-                "bias (K4), which is not ported yet; see ROADMAP.md queue 2")
         self.n_visual = n_visual
         self.n_bbox_so = n_bbox_so
         self.n_bbox_entity = n_bbox_entity
@@ -72,8 +68,10 @@ class SOSBackbone(nn.Module):
         for i in range(arch[1]):
             self.add_module(f"stem_{i}", TransformerBlock(
                 n_embd, n_head, n_ds_strides=(1, 1), path_pdrop=path_pdrop,
-                mha_win_size=mha_win_size[0], proj_pdrop=proj_pdrop,
-                device=device))
+                mha_win_size=mha_win_size[0], use_rel_pe=use_rel_pe,
+                proj_pdrop=proj_pdrop, device=device))
+        # the S/O mutual layers take no relative-position bias, as in the
+        # JAX package
         for stream in ("s", "o"):
             for i in range(arch[1]):
                 self.add_module(f"{stream}_attn_{i}", DecoderLayer(
@@ -95,7 +93,8 @@ class SOSBackbone(nn.Module):
             self.add_module(f"branch_{i}", TransformerBlock(
                 n_embd, n_head, n_ds_strides=(scale_factor, scale_factor),
                 path_pdrop=path_pdrop, mha_win_size=mha_win_size[1 + i],
-                proj_pdrop=proj_pdrop, device=device))
+                use_rel_pe=use_rel_pe, proj_pdrop=proj_pdrop,
+                device=device))
         if use_abs_pe:
             # a fixed table, not a parameter (reference registers it as a
             # non-persistent buffer, backbones.py:70-72)

@@ -92,7 +92,7 @@ class MegaDetector(nn.Module):
                  key_loc: int = 12, global_size: int = 10,
                  advanced_num_override: int | None = None,
                  stride_in_1x1: bool = False, *,
-                 device: torch.device = torch.device("cpu"),
+                 device: torch.device,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.num_classes = num_classes

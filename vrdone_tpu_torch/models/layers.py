@@ -235,13 +235,6 @@ class MaybeDropPath(Module):
 # attention
 # ---------------------------------------------------------------------------
 
-def _no_rel_pe(use_rel_pe: bool) -> None:
-    if use_rel_pe:
-        raise NotImplementedError(
-            "use_rel_pe needs the band kernel with relative-position bias "
-            "(K4), which is not ported yet; see ROADMAP.md queue 2")
-
-
 class MHA(Module):
     """Dense masked multi-head attention over explicit (q, k, v) streams
     (reference MaskedMHA / MaskedMHA_QKV)."""
@@ -346,64 +339,84 @@ class ConvMHA(Module):
         return out * qm[..., None].to(out.dtype), qm
 
 
-class LocalMHA(Module):
+class _BandAttnBase(Module):
+    """What the two sliding-window flavours share: the optional conv
+    preprocessing (``preproc_kernels``, see ``_mhca_kernels``), the
+    q/k/v/proj Dense layers and, with ``use_rel_pe``, the (n_head,
+    window_size) relative-position bias ``rel_pe``, initialised as the JAX
+    package does (truncated normal at +-2 std, std sqrt(2 / n_embd))."""
+
+    def __init__(self, n_embd: int, n_head: int, window_size: int,
+                 use_rel_pe: bool, proj_pdrop: float,
+                 preproc_kernels: Optional[tuple[int, int, int, int]] = None,
+                 *, device: torch.device):
+        super().__init__()
+        self.n_embd = n_embd
+        self.n_head = n_head
+        self.proj_pdrop = proj_pdrop
+        self.window_size = window_size
+        if preproc_kernels is not None:
+            self.preproc = _QKVPreproc(n_embd, *preproc_kernels,
+                                       device=device)
+        self.query = Dense(n_embd, n_embd, device=device)
+        self.key = Dense(n_embd, n_embd, device=device)
+        self.value = Dense(n_embd, n_embd, device=device)
+        self.proj = Dense(n_embd, n_embd, device=device)
+        if use_rel_pe:
+            self.rel_pe = nn.Parameter(torch.empty(n_head, window_size,
+                                                   device=device))
+        else:
+            self.register_parameter("rel_pe", None)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        if self.rel_pe is not None:
+            std = math.sqrt(2.0 / self.n_embd)
+            nn.init.trunc_normal_(self.rel_pe, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+
+    def _attend(self, q: Tensor, k: Tensor, v: Tensor, kv_mask: Tensor,
+                mask: Tensor, generator: Generator) -> Tensor:
+        out = mops.band_attention(self.query(q), self.key(k), self.value(v),
+                                  kv_mask, n_head=self.n_head,
+                                  window_size=self.window_size,
+                                  rel_pe=self.rel_pe)
+        out = mops.dropout(self.proj(out), self.proj_pdrop, self.training,
+                           generator)
+        return out * mask[..., None].to(out.dtype)
+
+
+class LocalMHA(_BandAttnBase):
     """Sliding-window attention without conv preprocessing
     (reference LocalMaskedMHA / LocalMaskedMHA_QKV)."""
 
     def __init__(self, n_embd: int, n_head: int, window_size: int,
                  use_rel_pe: bool = False, proj_pdrop: float = 0.0, *,
                  device: torch.device):
-        super().__init__()
-        _no_rel_pe(use_rel_pe)
-        self.n_head = n_head
-        self.proj_pdrop = proj_pdrop
-        self.window_size = window_size
-        self.query = Dense(n_embd, n_embd, device=device)
-        self.key = Dense(n_embd, n_embd, device=device)
-        self.value = Dense(n_embd, n_embd, device=device)
-        self.proj = Dense(n_embd, n_embd, device=device)
+        super().__init__(n_embd, n_head, window_size, use_rel_pe, proj_pdrop,
+                         device=device)
 
     def forward(self, q: Tensor, k: Tensor, v: Tensor, qx_mask: Tensor,
                 kv_mask: Tensor, generator: Generator = None
                 ) -> tuple[Tensor, Tensor]:
-        out = mops.band_attention(self.query(q), self.key(k), self.value(v),
-                                  kv_mask, n_head=self.n_head,
-                                  window_size=self.window_size)
-        out = mops.dropout(self.proj(out), self.proj_pdrop, self.training,
-                           generator)
-        return out * qx_mask[..., None].to(out.dtype), qx_mask
+        return self._attend(q, k, v, kv_mask, qx_mask, generator), qx_mask
 
 
-class LocalConvMHA(Module):
+class LocalConvMHA(_BandAttnBase):
     """Sliding-window conv attention (reference LocalMaskedMHCA family)."""
 
     def __init__(self, n_embd: int, n_head: int, window_size: int,
                  n_qx_stride: int = 1, n_kv_stride: int = 1,
                  use_rel_pe: bool = False, qkv_api: bool = False,
                  proj_pdrop: float = 0.0, *, device: torch.device):
-        super().__init__()
-        _no_rel_pe(use_rel_pe)
-        self.n_head = n_head
-        self.proj_pdrop = proj_pdrop
-        self.window_size = window_size
-        self.preproc = _QKVPreproc(
-            n_embd, *_mhca_kernels(n_qx_stride, n_kv_stride, qkv_api=qkv_api),
-            device=device)
-        self.query = Dense(n_embd, n_embd, device=device)
-        self.key = Dense(n_embd, n_embd, device=device)
-        self.value = Dense(n_embd, n_embd, device=device)
-        self.proj = Dense(n_embd, n_embd, device=device)
+        super().__init__(n_embd, n_head, window_size, use_rel_pe, proj_pdrop,
+                         _mhca_kernels(n_qx_stride, n_kv_stride,
+                                       qkv_api=qkv_api), device=device)
 
     def forward(self, q: Tensor, k: Tensor, v: Tensor, qx_mask: Tensor,
                 kv_mask: Tensor, generator: Generator = None
                 ) -> tuple[Tensor, Tensor]:
         q, k, v, qm, km = self.preproc(q, k, v, qx_mask, kv_mask)
-        out = mops.band_attention(self.query(q), self.key(k), self.value(v),
-                                  km, n_head=self.n_head,
-                                  window_size=self.window_size)
-        out = mops.dropout(self.proj(out), self.proj_pdrop, self.training,
-                           generator)
-        return out * qm[..., None].to(out.dtype), qm
+        return self._attend(q, k, v, km, qm, generator), qm
 
 
 # ---------------------------------------------------------------------------

@@ -2,17 +2,22 @@
 version.
 
 Counterpart of the TPU kernels ``vrdone_tpu/ops/pallas/band_attention.py``
-(the forward with its log-sum-exp, and the dQ and dK/dV backward kernels of
-its custom VJP; no relative-position bias) and of the dense oracle
-``vrdone_tpu/ops/masked.py::band_attention``. Query i attends keys j with
-|i - j| <= w = window_size // 2; an in-band invalid key gets an additive
--1e4 (not -inf); out-of-band keys are excluded; a row whose query is
-invalid is zeroed. The kernel source is ``csrc/band_attention.cu``.
+(the forward with its log-sum-exp, the forward with a relative-position
+bias, and the dQ and dK/dV backward kernels of its custom VJP) and of the
+dense oracle ``vrdone_tpu/ops/masked.py::band_attention``. Query i attends
+keys j with |i - j| <= w = window_size // 2; with a bias, rel_pe[h,
+clip(j - i + w, 0, window_size - 1)] is added to the scaled score; an
+in-band invalid key gets an additive -1e4 (not -inf); out-of-band keys are
+excluded; a row whose query is invalid is zeroed. The kernel source is
+``csrc/band_attention.cu``.
 
-``BandAttention`` is the differentiable CUDA form: its forward launches the
-forward kernel with the lse output and its backward the dQ and dK/dV
-kernels. ``band_attention_cuda`` alone has no backward and refuses inputs
-that need one.
+``BandAttention`` is the differentiable CUDA form without a bias: its
+forward launches the forward kernel with the lse output and its backward
+the dQ and dK/dV kernels. ``BandAttentionPE`` is the one with a bias (the
+port of ``masked._band_pallas_pe``): the bias kernel forward and the dense
+form's autograd as the backward, as the JAX package pairs them.
+``band_attention_cuda`` and ``band_attention_pe_cuda`` alone have no
+backward and refuse inputs that need one.
 """
 
 from __future__ import annotations
@@ -32,12 +37,14 @@ MAX_HEAD_DIM = 256
 
 # launches of each CUDA kernel since the counts were last set to 0
 launches = 0       # forward
+pe_launches = 0    # forward with the relative-position bias
 dq_launches = 0    # backward, dQ
 dkv_launches = 0   # backward, dK and dV
 
 
-def _band_scores(q, k, kv_mask, n_head, window_size):
-    """(B, H, T, T) masked, scaled scores of the plain version."""
+def _band_scores(q, k, kv_mask, n_head, window_size, rel_pe=None):
+    """(B, H, T, T) masked, scaled scores of the plain version, the bias
+    added before the key mask as in the JAX package."""
     t = q.shape[1]
     w = window_size // 2
     d = q.shape[-1] // n_head
@@ -45,9 +52,19 @@ def _band_scores(q, k, kv_mask, n_head, window_size):
     qh, kh = split_heads(q, n_head), split_heads(k, n_head)
     att = torch.einsum("bhqd,bhkd->bhqk", qh * scale, kh)
     idx = torch.arange(t, device=q.device)
-    in_band = (idx[None, :] - idx[:, None]).abs() <= w
+    relpos = idx[None, :] - idx[:, None]               # j - i
+    if rel_pe is not None:
+        att = att + rel_pe[:, (relpos + w).clamp(0, window_size - 1)][None]
     att = att + NEG_BIG * (~kv_mask)[:, None, None, :].to(att.dtype)
-    return att.masked_fill(~in_band, float("-inf"))
+    return att.masked_fill(~(relpos.abs() <= w), float("-inf"))
+
+
+def _band_plain(q, k, v, kv_mask, n_head, window_size, rel_pe=None):
+    att = torch.softmax(_band_scores(q, k, kv_mask, n_head, window_size,
+                                     rel_pe), dim=-1)
+    att = att * kv_mask[:, None, :, None].to(att.dtype)
+    return merge_heads(torch.einsum("bhqk,bhkd->bhqd", att,
+                                    split_heads(v, n_head)))
 
 
 def band_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,11 +73,17 @@ def band_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense band-masked attention over (B, T, C) streams (the reference
     the kernels are held to; its autograd backward is what the backward
     kernels are held to). kv_mask: (B, T) bool. q is unscaled."""
-    att = torch.softmax(_band_scores(q, k, kv_mask, n_head, window_size),
-                        dim=-1)
-    att = att * kv_mask[:, None, :, None].to(att.dtype)
-    return merge_heads(torch.einsum("bhqk,bhkd->bhqd", att,
-                                    split_heads(v, n_head)))
+    return _band_plain(q, k, v, kv_mask, n_head, window_size)
+
+
+def band_attention_pe_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, kv_mask: torch.Tensor,
+                            rel_pe: torch.Tensor, *, n_head: int,
+                            window_size: int) -> torch.Tensor:
+    """``band_attention_plain`` with the relative-position bias rel_pe
+    (n_head, window_size): the reference the bias kernel is held to, and
+    through its autograd the backward of ``BandAttentionPE``."""
+    return _band_plain(q, k, v, kv_mask, n_head, window_size, rel_pe)
 
 
 def band_lse_plain(q: torch.Tensor, k: torch.Tensor, kv_mask: torch.Tensor,
@@ -80,6 +103,10 @@ def _kernel() -> ctypes.CDLL:
                       (lib.band_attention_backward_dkv, 9)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
+    lib.band_attention_pe_forward.restype = ctypes.c_int
+    lib.band_attention_pe_forward.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p])
     lib.band_attention_error_string.restype = ctypes.c_char_p
     lib.band_attention_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -128,6 +155,37 @@ def band_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_launch(lib, "band_attention", code)
     launches += 1
     return (out, lse) if with_lse else out
+
+
+def band_attention_pe_cuda(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, kv_mask: torch.Tensor,
+                           rel_pe: torch.Tensor, *, n_head: int,
+                           window_size: int) -> torch.Tensor:
+    """The bias forward kernel (one launch): same contract as
+    ``band_attention_pe_plain``, for fp32 CUDA tensors, rel_pe a contiguous
+    (n_head, window_size) fp32 table on q's device. Raises on anything the
+    kernel does not take, and when an input needs a gradient (use
+    ``BandAttentionPE`` for that)."""
+    global pe_launches
+    _build.refuse_grad("band_attention_pe_cuda", q, k, v, rel_pe)
+    b, t, d, w, scale = _shape(q, k, v, kv_mask, n_head, window_size)
+    if (rel_pe.shape != (n_head, window_size)
+            or rel_pe.dtype != torch.float32 or rel_pe.device != q.device
+            or not rel_pe.is_contiguous()):
+        raise ValueError(f"rel_pe must be a contiguous fp32 "
+                         f"{(n_head, window_size)} table on q's device, got "
+                         f"{tuple(rel_pe.shape)} {rel_pe.dtype} on "
+                         f"{rel_pe.device}")
+    lib = _kernel()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        code = lib.band_attention_pe_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+            rel_pe.data_ptr(), out.data_ptr(), b, t, n_head, d, w,
+            window_size, scale, _stream(q))
+    _build.check_launch(lib, "band_attention", code)
+    pe_launches += 1
+    return out
 
 
 def band_rowsum(dout: torch.Tensor, out: torch.Tensor, n_head: int
@@ -215,3 +273,28 @@ class BandAttention(torch.autograd.Function):
         dq = band_attention_dq_cuda(*args, **kw)
         dk, dv = band_attention_dkv_cuda(*args, **kw)
         return dq, dk, dv, None, None, None
+
+
+class BandAttentionPE(torch.autograd.Function):
+    """Differentiable band attention with the relative-position bias on the
+    card (the port of the JAX package's ``masked._band_pallas_pe`` custom
+    VJP): the bias kernel as the forward, and as the backward autograd of
+    the dense form, recomputed, for dq, dk, dv and d rel_pe. The JAX
+    package has no backward kernel for the bias, so neither has the port."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, rel_pe, n_head, window_size):
+        ctx.save_for_backward(q, k, v, kv_mask, rel_pe)
+        ctx.n_head, ctx.window_size = n_head, window_size
+        return band_attention_pe_cuda(q, k, v, kv_mask, rel_pe,
+                                      n_head=n_head, window_size=window_size)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, rel_pe = ctx.saved_tensors
+        leaves = [x.detach().requires_grad_() for x in (q, k, v, rel_pe)]
+        with torch.enable_grad():
+            out = _band_plain(*leaves[:3], kv_mask, ctx.n_head,
+                              ctx.window_size, leaves[3])
+        dq, dk, dv, dpe = torch.autograd.grad(out, leaves, dout)
+        return dq, dk, dv, None, dpe, None, None

@@ -15,8 +15,9 @@ Semantics kept identical to the reference (``vrdone_tpu/ops/masked.py:12-20``):
 a CPU tensor takes the plain PyTorch version, any other tensor the
 hand-written CUDA kernels, which raise on what they do not take. Where a
 gradient is needed, band attention takes its differentiable kernel form
-(``BandAttention``); full attention takes the dense form by argument
-(``allow_kernel=False``), as the JAX package trains through it.
+(``BandAttention``, or ``BandAttentionPE`` with a relative-position bias);
+full attention takes the dense form by argument (``allow_kernel=False``),
+as the JAX package trains through it.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from . import full_attention as _fa
-from .band_attention import (BandAttention, band_attention_cuda,
-                             band_attention_plain)
+from .band_attention import (BandAttention, BandAttentionPE,
+                             band_attention_cuda, band_attention_pe_cuda,
+                             band_attention_pe_plain, band_attention_plain)
 from .full_attention import full_attention_cuda, full_attention_plain
 from .heads import merge_heads, split_heads
 
@@ -122,17 +124,26 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   kv_mask: torch.Tensor, *, n_head: int,
-                   window_size: int) -> torch.Tensor:
+                   kv_mask: torch.Tensor, *, n_head: int, window_size: int,
+                   rel_pe: torch.Tensor | None = None) -> torch.Tensor:
     """Sliding-window attention over (B, T, C) streams, |i - j| <= w with
-    w = window_size // 2; kv_mask (B, T) bool."""
+    w = window_size // 2; kv_mask (B, T) bool; rel_pe an optional
+    (n_head, window_size) relative-position bias. On a card the JAX
+    package's length threshold for its kernel does not apply: every call
+    takes a kernel."""
+    if rel_pe is None:
+        plain, fn, kernel, pe = (band_attention_plain, BandAttention,
+                                 band_attention_cuda, ())
+    else:
+        plain, fn, kernel, pe = (band_attention_pe_plain, BandAttentionPE,
+                                 band_attention_pe_cuda, (rel_pe,))
+    kw = dict(n_head=n_head, window_size=window_size)
     if q.device.type == "cpu":
-        return band_attention_plain(q, k, v, kv_mask, n_head=n_head,
-                                    window_size=window_size)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return BandAttention.apply(q, k, v, kv_mask, n_head, window_size)
-    return band_attention_cuda(q, k, v, kv_mask, n_head=n_head,
-                               window_size=window_size)
+        return plain(q, k, v, kv_mask, *pe, **kw)
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in (q, k, v, *pe)):
+        return fn.apply(q, k, v, kv_mask, *pe, n_head, window_size)
+    return kernel(q, k, v, kv_mask, *pe, **kw)
 
 
 # ---------------------------------------------------------------------------
