@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port (``vrdone_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase below
+    python3 chip_smoke.py --only kernels  # the build and the kernel checks
+                                          # of 1, 2, 7 and 8; no ``ok`` line
 
 Builds the hand-written CUDA kernels from ``vrdone_tpu_torch/csrc`` (nvcc,
 one process per source, all started together, into
@@ -8,7 +10,9 @@ one process per source, all started together, into
 
   1. holds each forward kernel against its plain PyTorch version at the
      shapes of the VidVRD eval forward, and times both and the one-call
-     library equivalent (``F.scaled_dot_product_attention``);
+     library equivalent (``F.scaled_dot_product_attention``), the
+     full-attention kernel (K7) also at the largest eval bucket (768) and at
+     VidOR's S/O cross-attention (B=8, H=8, T=512, d=64), each timed alone;
   2. holds the band attention's lse and its dQ and dK/dV backward kernels
      against autograd of the plain version at the train step's shapes
      (B*H = 24*4, d = 128, w = 3), with a nonzero upstream gradient on
@@ -26,7 +30,8 @@ one process per source, all started together, into
   6. runs ``train_torch.py`` for one epoch on a tiny synthetic corpus on
      the card, then ``eval_torch.py`` on its checkpoint;
   7. holds MEGA's position-bias and fused set-attention kernels against
-     their plain versions at the detector's shapes, runs ``detect_video`` at
+     their plain versions at the detector's shapes (right after 2, with
+     every other kernel check), runs ``detect_video`` at
      full width (R-101-C4, 608x1088, 300 key / 75 reference proposals,
      window 25, global 10, 16 frames, random seeded weights) through the
      fused attention and again through the position-bias kernel, checks a
@@ -36,7 +41,8 @@ one process per source, all started together, into
      its plain version at the streamed stem's and branches' shapes,
      ``BandAttentionPE``'s gradients against plain autograd, and the band
      (K1) and full-attention (K7) kernels against theirs at the shapes the
-     stream gives them, times each kernel alone, then streams
+     stream gives them and times each kernel alone (these checks too right
+     after 2), then streams
      a synthetic SO-pair sequence of 6,000 positions through
      ``StreamingRunner`` at VidOR local-attention width
      (``configs/vidor_local.yaml`` with ``use_rel_pe``, random seeded
@@ -44,12 +50,15 @@ one process per source, all started together, into
      CPU and times it.
 
 Any failed check raises. The second-to-last line of output is a JSON object
-of per-kernel results; the last is ``{"ok": true, "device": {...}}``.
+of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
+``--only kernels`` the last line is the per-kernel JSON object, without
+launch counts.
 Without a CUDA device it exits with an error and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -64,6 +73,8 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from vrdone_tpu_torch.data.batching import packed_channels
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = 2e-5   # kernel vs plain, fp32, TF32 off: summation order only
@@ -241,35 +252,53 @@ def check_kernels(cuda, ba, fa) -> dict:
                                4 * d * h * band_pairs(mask, w))
             entries["band_attention"] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=by, shape="B*H=128*4 T=96 d=128 w=3")
-    for dd in (128, 64):
-        for tq, tk in ((96, 96), (9, 9), (9, 12), (384, 384)):
-            q, k, v, mask = attention_inputs(rng, 128, tq, tk, h * dd, cuda)
-            err, ms, plain_ms = compare(
-                lambda: fa.full_attention_cuda(q, k, v, mask, n_head=h),
-                lambda: fa.full_attention_plain(q, k, v, mask, n_head=h))
-            print(f"masked_attention B*H=128*4 d={dd} Tq={tq} Tk={tk}: "
-                  f"max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms")
-            if not err <= KERNEL_TOL:
-                raise AssertionError(f"full kernel off by {err} at "
-                                     f"d={dd} Tq={tq} Tk={tk}")
-            worst["masked_attention"] = max(worst["masked_attention"], err)
-            if (tq, tk, dd) == (T, T, 128):
-                lib_mask = mask[:, None, None, :]
-                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    heads(q, h), heads(k, h), heads(v, h),
-                    attn_mask=lib_mask))
-                bms, by = bound_ms(
-                    4 * (2 * q.numel() + 2 * k.numel()) + mask.numel(),
-                    4 * dd * h * tq * int(mask.sum()))
-                entries["masked_attention"] = dict(
-                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bms, bound_by=by,
-                    shape="B*H=128*4 Tq=Tk=96 d=128")
+                bound_by=by, shape="B*H=128*4 T=96 d=128 w=3",
+                device_ms=queued_device_ms(
+                    lambda: ba.band_attention_cuda(q, k, v, mask, **kw)))
+    # K7 at the eval forward's shapes (the cross-attention at 96 up to the
+    # largest bucket, 768; the predictor's 9 queries), and at VidOR's S/O
+    # cross-attention (B=8, H=8, T=512, d=64); the ones marked are also
+    # timed alone and against the library
+    for b, hh, dd, tq, tk, alone in (
+            (128, h, 128, 96, 96, True), (128, h, 128, 9, 9, False),
+            (128, h, 128, 9, 12, False), (128, h, 128, 384, 384, True),
+            (128, h, 128, 768, 768, True), (128, h, 64, 96, 96, False),
+            (128, h, 64, 9, 9, False), (128, h, 64, 9, 12, False),
+            (128, h, 64, 384, 384, False), (8, 8, 64, 512, 512, True)):
+        q, k, v, mask = attention_inputs(rng, b, tq, tk, hh * dd, cuda)
+        err, ms, plain_ms = compare(
+            lambda: fa.full_attention_cuda(q, k, v, mask, n_head=hh),
+            lambda: fa.full_attention_plain(q, k, v, mask, n_head=hh))
+        shape = f"B*H={b}*{hh} Tq={tq} Tk={tk} d={dd}"
+        rows, bucket = fa._variant(tq, dd)
+        print(f"masked_attention {shape} (instance {rows} rows, d bucket "
+              f"{bucket}): max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"full kernel off by {err} at {shape}")
+        worst["masked_attention"] = max(worst["masked_attention"], err)
+        if not alone:
+            continue
+        dev_ms = queued_device_ms(
+            lambda: fa.full_attention_cuda(q, k, v, mask, n_head=hh))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            heads(q, hh), heads(k, hh), heads(v, hh),
+            attn_mask=mask[:, None, None, :]))
+        bms, by = bound_ms(4 * (2 * q.numel() + 2 * k.numel()) + mask.numel(),
+                           4 * dd * hh * tq * int(mask.sum()))
+        print(f"masked_attention {shape}: the kernel alone {dev_ms:.4f} ms "
+              f"(queued behind a sleep), library (SDPA) {lib_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+        if (b, tq, dd) == (128, T, 128):
+            entries["masked_attention"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, device_ms=dev_ms,
+                shape="B*H=128*4 Tq=Tk=96 d=128")
+        del q, k, v, mask
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
-        print(f"{name} at {e['shape']}: bound {e['bound_ms']:.4f} ms "
+        print(f"{name} at {e['shape']}: the kernel alone "
+              f"{e['device_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
               f"({e['bound_by']}), library {e['library_ms']:.4f} ms")
     return entries
 
@@ -349,9 +378,11 @@ def check_band_backward(cuda, ba, mops) -> dict:
             bms, by = bound_ms(4 * (4 * n + 2 * bht + out_elems) + b * t, ops)
             entries[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                                  library_ms=time_ms(library), bound_ms=bms,
-                                 bound_by=by, shape="B*H=24*4 T=96 d=128 w=3")
+                                 bound_by=by, shape="B*H=24*4 T=96 d=128 w=3",
+                                 device_ms=queued_device_ms(kernel))
             e = entries[name]
-            print(f"{name} at {e['shape']}: kernel {e['ms']:.4f} ms, plain "
+            print(f"{name} at {e['shape']}: kernel {e['ms']:.4f} ms (alone "
+                  f"{e['device_ms']:.4f} ms), plain "
                   f"autograd {e['plain_ms']:.4f} ms, library backward "
                   f"{e['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
     for name, e in entries.items():
@@ -377,7 +408,7 @@ def build_models(cfg, cuda):
 
 
 def packed_batch(rng, cfg, b, t):
-    c = 2 * cfg.visual_dim + cfg.bbox_so_dim + 2 * cfg.bbox_entity_dim
+    c = packed_channels(cfg)
     lens = rng.integers(2, t + 1, size=b)
     lens[0] = t
     mask = np.arange(t)[None] < lens[:, None]
@@ -388,7 +419,7 @@ def packed_batch(rng, cfg, b, t):
 def train_pairs(rng, cfg, n, num_gt):
     """n synthetic SO pairs with ground truth, as datasets.get_train_item
     yields them."""
-    c = 2 * cfg.visual_dim + cfg.bbox_so_dim + 2 * cfg.bbox_entity_dim
+    c = packed_channels(cfg)
     pairs = []
     for _ in range(n):
         t = int(rng.integers(8, cfg.max_seq_len + 1))
@@ -407,9 +438,8 @@ def train_pairs(rng, cfg, n, num_gt):
 
 def train_batch(rng, cfg, n, num_gt):
     from vrdone_tpu_torch.data.batching import pack_train_batch
-    c = 2 * cfg.visual_dim + cfg.bbox_so_dim + 2 * cfg.bbox_entity_dim
     return pack_train_batch(train_pairs(rng, cfg, n, num_gt), n,
-                            cfg.max_seq_len, num_gt, c)
+                            cfg.max_seq_len, num_gt, packed_channels(cfg))
 
 
 class PoolReplay:
@@ -1173,7 +1203,7 @@ def check_streaming(cuda, ba, fa, pe_alone: dict, alone: dict) -> dict:
         topk=ic["topk"], feat_stride=ic["feat_stride"],
         pred_min_frames=ic["pred_min_frames"], n_max_pair=ic["n_max_pair"],
         viou_th=ic["viou_th"], max_so_pair=cfg.max_so_pair)
-    feat_dim = 2 * cfg.visual_dim + cfg.bbox_so_dim + 2 * cfg.bbox_entity_dim
+    feat_dim = packed_channels(cfg)
     runner = StreamingRunner(cfg, gpu_model, infer, feat_dim, chunk_batch=8,
                              device=cuda)
     rng = np.random.default_rng(12)
@@ -1271,7 +1301,16 @@ def check_streaming(cuda, ba, fa, pe_alone: dict, alone: dict) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch port on one CUDA card")
+    parser.add_argument(
+        "--only", choices=("kernels",), default=None,
+        help="kernels: build the kernels, hold each against its plain "
+             "version at the main paths' shapes and time it (the kernel "
+             "checks of phases 1, 2, 7 and 8), print their JSON line and "
+             "stop")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card",
               file=sys.stderr)
@@ -1309,9 +1348,20 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         print(f"  {name}: nvcc {seconds:.1f} s; " + " | ".join(usage))
 
-    # 2. each kernel against its plain version at the slices' shapes
+    # 2. each kernel against its plain version at the slices' shapes: the
+    # eval forward's and the train step's, the detector's (K5, K6) and the
+    # stream's (K4, and K1 and K7 at the stream's shapes)
     kernels = check_kernels(cuda, ba, fa)
     kernels.update(check_band_backward(cuda, ba, mops))
+    kernels.update(check_mega_kernels(cuda, pb, ma))
+    kernels["band_attention_pe"], pe_alone = check_band_pe(cuda, ba, mops)
+    stream_worst, alone = check_stream_kernels(cuda, ba, fa)
+    for name, err in stream_worst.items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    if args.only == "kernels":
+        print(json.dumps({"kernels": [{"name": name, **e}
+                                      for name, e in kernels.items()]}))
+        return 0
 
     # 3. the full-width VidVRD forward
     raw = load_yaml_config(str(ROOT / "configs" / "vidvrd.yaml"))
@@ -1367,7 +1417,7 @@ def main() -> int:
         topk=ic["topk"], feat_stride=ic["feat_stride"],
         pred_min_frames=ic["pred_min_frames"], n_max_pair=ic["n_max_pair"],
         viou_th=ic["viou_th"], max_so_pair=cfg.max_so_pair)
-    feat_dim = 2 * cfg.visual_dim + cfg.bbox_so_dim + 2 * cfg.bbox_entity_dim
+    feat_dim = packed_channels(cfg)
     runner = InferenceRunner(cfg, gpu_model, infer, feat_dim, device=cuda)
     lengths = [40, 96, 150, 300, 700, 12, 190, 383]
     buckets = sorted(set(eval_bucket_lengths(
@@ -1398,18 +1448,13 @@ def main() -> int:
     # 6. train_torch.py -> eval_torch.py
     check_train_cli(raw)
 
-    # 7. MEGA: the two kernels, detect_video at full width, the small
-    # detector against the CPU, detect_torch.py
-    kernels.update(check_mega_kernels(cuda, pb, ma))
+    # 7. MEGA: detect_video at full width, the small detector against the
+    # CPU, detect_torch.py
     detect_launches = check_detect_video(cuda, pb, ma)
     check_detect_vs_cpu(cuda)
     check_detect_cli()
 
-    # 8. K4 and the streaming runner at VidOR local-attention width
-    kernels["band_attention_pe"], pe_alone = check_band_pe(cuda, ba, mops)
-    stream_worst, alone = check_stream_kernels(cuda, ba, fa)
-    for name, err in stream_worst.items():
-        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    # 8. the streaming runner at VidOR local-attention width
     stream_launches = check_streaming(cuda, ba, fa, pe_alone, alone)
 
     band = "vrdone_tpu_torch/csrc/band_attention.cu"

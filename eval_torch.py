@@ -28,6 +28,7 @@ import torch
 from vrdone_tpu_torch.config import (InferenceConfig, load_yaml_config,
                                      model_config_from_yaml)
 from vrdone_tpu_torch.convert import load_npz, load_params
+from vrdone_tpu_torch.data.batching import packed_channels
 from vrdone_tpu_torch.data.datasets import VidORDataset, VidVRDDataset
 from vrdone_tpu_torch.eval.convert import build_groundtruth, to_eval_format
 from vrdone_tpu_torch.eval.decode import InferenceRunner, infer_video
@@ -136,8 +137,7 @@ def main():
             raise SystemExit("--ckpt_path or --eval_exp_dir is required")
         ckpt_paths.append(args.ckpt_path)
 
-    c = 2 * model_cfg.visual_dim + model_cfg.bbox_so_dim \
-        + 2 * model_cfg.bbox_entity_dim
+    c = packed_channels(model_cfg)
 
     all_results = defaultdict(list)
     for ckpt_idx, ckpt_path in enumerate(ckpt_paths):

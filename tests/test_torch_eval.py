@@ -89,6 +89,24 @@ def test_batching_matches():
         assert tdecode._pack_size(n, 200) == jdecode._pack_size(n, 200)
 
 
+@pytest.mark.parametrize("name,clip", [("vidvrd.yaml", False),
+                                       ("vidor_x.yaml", True)])
+def test_packed_channels_counts_clip(name, clip):
+    """The packed width that ``eval_torch.py`` and ``train_torch.py`` both
+    take equals ``train.py::feat_channels`` (``eval.py`` inlines the same
+    width) on the same config: the shipped one, and the same with CLIP
+    features of another width switched on."""
+    from train import feat_channels
+    path = os.path.join(REPO, "configs", name)
+    tcfg = tconfig.model_config_from_yaml(tconfig.load_yaml_config(path))
+    jcfg = jconfig.model_config_from_yaml(jconfig.load_yaml_config(path))
+    assert tcfg.with_clip_feature == jcfg.with_clip_feature == clip
+    assert tbatching.packed_channels(tcfg) == feat_channels(jcfg)
+    clip512 = dict(with_clip_feature=True, clip_dim=512)
+    assert (tbatching.packed_channels(dataclasses.replace(tcfg, **clip512))
+            == feat_channels(dataclasses.replace(jcfg, **clip512)))
+
+
 def synthetic_item(rng, lengths, feat_dim):
     """One video: a trajectory per pair end, both spanning the pair."""
     n = len(lengths)

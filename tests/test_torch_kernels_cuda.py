@@ -18,6 +18,8 @@ fused set-attention to 1e-4 of 1 + max |out| (its bias against the plain
 bias, then a softmax over up to 3750 keys).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -80,13 +82,21 @@ def test_band_kernel_matches_plain(cuda, t, w, d):
     assert (out[3] == 0).all()  # no valid query (and no valid key)
 
 
-@pytest.mark.parametrize("tq,tk,d", [
-    (96, 96, 128), (96, 96, 64), (9, 9, 64), (9, 12, 64), (384, 384, 128),
-    (384, 384, 64), (5, 100, 32), (40, 33, 256), (1, 1, 8)])
-def test_full_kernel_matches_plain(cuda, tq, tk, d):
+@pytest.mark.parametrize("tq,tk,d,h", [
+    (96, 96, 128, 4), (96, 96, 64, 4), (9, 9, 64, 4), (9, 12, 64, 4),
+    (384, 384, 128, 4), (384, 384, 64, 4), (5, 100, 32, 4),
+    (40, 33, 256, 4), (1, 1, 8, 4),
+    # the tiles' edges: 64 or 48 query rows a block (16 up to Tq = 16), 32
+    # keys a tile, head dims off their bucket and off a multiple of 4
+    (63, 31, 128, 4), (64, 32, 64, 4), (65, 33, 32, 4), (97, 65, 40, 4),
+    (129, 31, 30, 4), (16, 65, 40, 4), (17, 32, 30, 4), (33, 64, 256, 4),
+    (48, 96, 128, 4), (49, 33, 64, 4), (144, 20, 256, 4),
+    # the largest eval bucket, VidOR's S/O cross-attention
+    (768, 768, 128, 4), (512, 512, 64, 8)])
+def test_full_kernel_matches_plain(cuda, tq, tk, d, h):
     """Slice shapes, Tq != Tk, Tk off the 32-key tile, and a batch row with
     no valid key, which both versions write as 0."""
-    b, h = 4, 4
+    b = 4
     q, k, v, mask = streams(tq * 7 + tk, b, tq, tk, h * d,
                             [tk, max(1, tk // 3), 1, 0], cuda)
     before = fa.launches
@@ -97,6 +107,55 @@ def test_full_kernel_matches_plain(cuda, tq, tk, d):
     assert torch.isfinite(out).all()
     assert max_err(out, ref) <= TOL
     assert (out[3] == 0).all()
+
+
+@pytest.mark.parametrize("tq,d", [(96, 128), (9, 32)])
+def test_full_kernel_skips_a_tile_without_valid_keys(cuda, tq, d):
+    """A key tile in the middle of a row with no valid key (skipped before
+    its copy and any exp), valid keys only in the last, ragged tile, and
+    values at invalid keys that are not finite (they never enter the
+    sum)."""
+    b, h, tk = 3, 4, 100
+    q, k, v, mask = streams(tq + d, b, tq, tk, h * d, [tk, tk, tk], cuda)
+    mask[0, 32:64] = False        # the second of four tiles
+    mask[1, :96] = False          # only keys 96..99
+    mask[2, 5:96] = False         # tiles 1 and 2 empty, 0 and 3 not
+    v[~mask] = float("nan")
+    out = fa.full_attention_cuda(q, k, v, mask, n_head=h)
+    v[~mask] = 0.0
+    ref = fa.full_attention_plain(q, k, v, mask, n_head=h)
+    assert torch.isfinite(out).all()
+    assert max_err(out, ref) <= TOL
+
+
+def test_full_kernel_unaligned_streams_take_the_scalar_path(cuda):
+    """Streams whose data start 4 bytes past a 16-byte boundary cannot be
+    copied in 16-byte chunks: the same kernel loads them element by
+    element."""
+    b, tq, tk, h, d = 2, 70, 40, 4, 64
+    q, k, v, mask = streams(5, b, tq, tk, h * d, [tk, 17], cuda)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+    qs, ks, vs = shifted(q), shifted(k), shifted(v)
+    assert qs.data_ptr() % 16 and qs.is_contiguous()
+    out = fa.full_attention_cuda(qs, ks, vs, mask, n_head=h)
+    assert max_err(out, fa.full_attention_plain(q, k, v, mask, n_head=h)) \
+        <= TOL
+
+
+def test_full_kernel_instance_is_variant(cuda):
+    """The built kernel picks the instance that ``_variant`` names."""
+    lib = fa._kernel()
+    rows, bucket = ctypes.c_int(), ctypes.c_int()
+    for tq in (1, 9, 16, 17, 48, 96, 97, 192, 512, 768):
+        for d in (1, 8, 30, 32, 33, 64, 100, 128, 129, 256):
+            assert lib.masked_attention_instance(
+                tq, d, ctypes.byref(rows), ctypes.byref(bucket)) == 0
+            assert (rows.value, bucket.value) == fa._variant(tq, d)
 
 
 @pytest.mark.parametrize("t,w,d", [

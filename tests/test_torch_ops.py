@@ -131,6 +131,24 @@ def test_full_attention_row_without_keys_is_zero():
     assert (out[1] == 0).all()
 
 
+@pytest.mark.parametrize("tq,d,rows,bucket", [
+    (96, 128, 48, 128), (192, 128, 64, 128), (384, 128, 64, 128),
+    (768, 128, 64, 128), (96, 64, 48, 64), (512, 64, 64, 64),
+    (9, 32, 16, 32), (9, 128, 16, 128), (16, 40, 16, 64), (17, 30, 48, 32),
+    (1, 256, 16, 256), (65, 8, 48, 32), (97, 100, 64, 128)])
+def test_full_kernel_variant(tq, d, rows, bucket):
+    """The K7 instance for the main paths' (Tq, d): 48 query rows a block
+    at the eval forward's 96, 64 at the larger buckets and VidOR's 512, 16
+    for the predictor's 9 queries; the smallest head-dim bucket."""
+    assert tfull._variant(tq, d) == (rows, bucket)
+
+
+@pytest.mark.parametrize("d", [0, 257, 512])
+def test_full_kernel_variant_refuses_head_dims_it_does_not_take(d):
+    with pytest.raises(ValueError, match="head dim"):
+        tfull._variant(96, d)
+
+
 def test_dispatch_takes_plain_on_cpu_and_kernel_refuses_cpu():
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 2, 10, 10, 16))

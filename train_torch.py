@@ -26,6 +26,7 @@ import torch
 import yaml
 
 from vrdone_tpu_torch.config import load_yaml_config, model_config_from_yaml
+from vrdone_tpu_torch.data.batching import packed_channels
 from vrdone_tpu_torch.data.datasets import VidORDataset, VidVRDDataset
 from vrdone_tpu_torch.data.loader import TrainLoader
 from vrdone_tpu_torch.train import checkpoint as ckpt
@@ -62,14 +63,6 @@ def parse_args():
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the train step, e.g. cuda or cpu")
     return p.parse_args()
-
-
-def feat_channels(model_cfg) -> int:
-    c = 2 * model_cfg.visual_dim + model_cfg.bbox_so_dim \
-        + 2 * model_cfg.bbox_entity_dim
-    if model_cfg.with_clip_feature:
-        c += 2 * model_cfg.clip_dim
-    return c
 
 
 def main():
@@ -111,7 +104,7 @@ def main():
     num_gt = config["training_dataset_config"]["proposal_max_preds"]
     loader = TrainLoader(dataset, batch_size, pack_size,
                          model_cfg.max_seq_len, num_gt,
-                         feat_channels(model_cfg), seed=args.seed)
+                         packed_channels(model_cfg), seed=args.seed)
     steps_per_epoch = loader.steps_per_epoch()
     logger.info(f"Pairs per step: {pack_size}; steps/epoch: {steps_per_epoch}")
 

@@ -10,141 +10,434 @@
 // afterwards). A row with no valid key is written as 0, where the dense form
 // would give NaN; the eval path never makes such a row.
 //
-// What bounds it on this card: with fp32 inputs and TF32 off there are no
-// tensor cores to use, so at the eval shapes (d = 64 or 128, Tq = Tk = 96 up
-// to 768) the 4*Tq*Tk*d flops per (batch, head) run on the fp32 pipes and
-// the kernel is arithmetic-bound, with shared-memory bandwidth the next
-// limit. The design: a block owns kRows query rows of one (batch, head) and
-// walks the keys in tiles of 32, staging each key/value tile in shared
-// memory once for all kRows rows. One warp serves one query row and one lane
-// one key of the tile, so a score is a dot product in one lane (no shuffle
-// per key), with the query row broadcast from shared memory and the key
-// rows stored at a stride of d+1 floats so the 32 lanes hit 32 banks. The
-// softmax is online across tiles (running max and sum in registers), and
-// for P.V each lane owns d/32 output channels. Tiles with no valid key are
-// skipped.
+// What bounds it on this card. The inputs are fp32 and TF32 is off (the
+// parity setting), so there are no tensor cores to use and the 4*Tq*Tk*d
+// flops of a (batch, head) run on the fp32 FMA pipes (67 TFLOP/s). At the
+// eval forward's 96x96, d=128, B*H=128*4 the least time is set by the bytes
+// (q, k, v read once, out written once: 100 MB, 0.030 ms); at 384x384 and
+// above, and at VidOR's 512x512, d=64, by the operations. Short of either
+// bound, a kernel of this kind is held back by shared-memory bandwidth (the
+// one-key-a-lane design did one 4-byte shared load per FMA), by re-reading K
+// and V from L2 once per block, and by latency at the few warps an SM that
+// the tiles' shared memory leaves room for.
+//
+// The design:
+// - A block owns kRows query rows of one (batch, head): 64, or 48 where
+//   that pads strictly fewer rows (Tq = 96 takes two full 48-row tiles
+//   where 64 rows would leave the second half empty), and 16 for Tq <= 16
+//   (the predictor's 9 queries). It walks the keys in tiles of kTile = 32, and
+//   each K/V tile is read from device memory once for all its rows. The
+//   query tile is copied once, scaled in place, and stays in shared memory.
+// - Register micro-tiles. Each of the 128 threads owns TM rows x 4 keys of
+//   the scores (TM = kRows / 16): at each step of 4 channels it loads TM
+//   query and 4 key float4s (16-byte loads) for 16*TM FMAs, 8 FMAs a shared
+//   load at TM = 4. The 8 lanes of a row group (a warp holds 4) own all 32
+//   keys of the tile, so the online softmax's row max and sum are 3-step
+//   shuffles inside the warp; a thread's rows are 4 apart, so the 4 row
+//   groups of a warp read 4 neighbouring query rows, in distinct banks. P
+//   goes to shared memory, key-major, and P.V accumulates into TM rows x d/8
+//   output channels a thread (64 registers at d = 128), from one P and d/32
+//   V float4 loads a key. exp is the hardware's ex2 (__expf); every shape
+//   the tests and chip_smoke.py take stays within 2e-5 of the plain version.
+// - K/V tiles come in with cp.async, 16 bytes a thread, double-buffered: the
+//   next tile's copy is issued before the current tile is computed. Keys
+//   past Tk, invalid keys and channels past d are zero-filled by the copy
+//   itself (src-size 0), so an invalid value never enters the sum. A tile
+//   with no valid key is skipped before its copy and before any exp. When d
+//   is not a multiple of 4 or a pointer is not 16-byte aligned, the same
+//   kernel takes a scalar load path instead.
+// - Shared-memory layout: Q and K rows at a stride of d + 4 floats and P rows
+//   at kRows + 4, so the 8 lanes of a quarter-warp hit 32 distinct banks.
+// - One template per head-dim bucket (32, 64, 128, 256; channels past d are
+//   zero). At d = 128 and 64 rows a block takes 106.5 KB of shared memory
+//   and 168 registers a thread: 2 blocks (8 warps) an SM.
+//
+// What still holds it back (PERF.md): a warp's 16-byte shared load delivers
+// 512 bytes and seems to take 4 cycles of the SM's shared-memory bandwidth
+// however many lanes share an address (the timings fit that, not the
+// one-cycle broadcast), so at 8 FMAs a load the score product takes about
+// twice the cycles of its FMAs, and P.V (12.8 FMAs a load) more than its.
+// Larger register tiles need more rows a block, and their shared memory then
+// leaves one block an SM: 128-row blocks of 8 x 4 tiles were slower.
 //
 // Layout: q and out are (B, Tq, H*d), k and v (B, Tk, H*d), contiguous, heads
 // split head-major along the channels as the JAX package's _split_heads lays
 // them out. mask is (B, Tk) bool (one byte each). Takes any Tq and Tk and
 // 1 <= d <= 256; the Python wrapper rejects anything else before the launch.
+// The instance (rows a block, head-dim bucket) is chosen by pick_instance,
+// the rule of vrdone_tpu_torch/ops/full_attention.py::_variant.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 16;   // query rows per block, one warp each
-constexpr int kTile = 32;   // keys per tile, one lane each
-constexpr int kMaxD = 256;  // head dim bound (kMaxD / 32 floats a lane)
+constexpr int kThreads = 128;  // 4 warps, each 4 row groups of 8 lanes
+constexpr int kTile = 32;      // keys a tile: 8 lanes x 4 keys
+constexpr int kMaxD = 256;
 
-__global__ void __launch_bounds__(kRows * 32)
-masked_attention_fwd_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const unsigned char* __restrict__ mask,
-                            float* __restrict__ out,
-                            int Tq, int Tk, int H, int D, float scale) {
-  extern __shared__ float smem[];
-  const int kstride = D + 1;
-  float* ks = smem;                    // kTile x (D + 1)
-  float* vs = ks + kTile * kstride;    // kTile x D
-  float* qs = vs + kTile * D;          // kRows x D, pre-scaled
+template <int DB, int TM>
+struct Tiles {
+  static constexpr int kRows = 16 * TM;  // 4 warps x 4 row groups x TM
+  static constexpr int kKS = DB + 4;     // Q and K row stride (floats)
+  static constexpr int kPS = kRows + 4;  // P row stride (floats)
+  static constexpr int kQ = kRows * kKS;
+  static constexpr int kK = kTile * kKS;
+  static constexpr int kV = kTile * DB;
+  static constexpr int kP = kTile * kPS;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kQ + 2 * kK + 2 * kV + kP);
+};
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int i0 = blockIdx.y * kRows;
-  const int C = H * D;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The first tile at or after t that holds a valid key (n_tiles if none).
+// Block-uniform; every test is a barrier, and there is at least one.
+__device__ __forceinline__ int next_tile(const unsigned char* mrow, int t,
+                                         int n_tiles, int Tk) {
+  for (;; ++t) {
+    const int j = t * kTile + (threadIdx.x & (kTile - 1));
+    if (__syncthreads_or(t < n_tiles && j < Tk && mrow[j]) || t >= n_tiles)
+      return t;
+  }
+}
+
+// The problem a launch solves (the kernels' one argument).
+struct Problem {
+  const float* q;
+  const float* k;
+  const float* v;
+  const unsigned char* mask;
+  float* out;
+  int B, Tq, Tk, H, D;
+  float scale;
+};
+
+// One K/V tile of keys j0 .. j0 + kTile - 1 into ks (stride DB + 4) and vs
+// (stride DB); keys past Tk, invalid keys and channels past D are 0.
+template <int DB>
+__device__ __forceinline__ void load_kv(float* ks, float* vs,
+                                        const Problem p,
+                                        const unsigned char* mrow,
+                                        size_t kbase, int j0, bool vec) {
+  constexpr int kKS = DB + 4;
+  const int C = p.H * p.D;
+  if (vec) {
+    constexpr int kChunks = DB / 4;  // 16-byte chunks a row
+#pragma unroll
+    for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      const int n = idx / kChunks;
+      const int c = 4 * (idx - n * kChunks);
+      const int j = j0 + n;
+      const bool live = j < p.Tk && c < p.D && mrow[j];
+      const size_t off = live ? kbase + (size_t)j * C + c : 0;
+      cp_async16(ks + n * kKS + c, p.k + off, live);
+      cp_async16(vs + n * DB + c, p.v + off, live);
+    }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < kTile * DB / kThreads; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      const int n = idx / DB;
+      const int c = idx - n * DB;
+      const int j = j0 + n;
+      const bool live = j < p.Tk && c < p.D && mrow[j];
+      const size_t off = kbase + (size_t)j * C + c;
+      ks[n * kKS + c] = live ? p.k[off] : 0.f;
+      vs[n * DB + c] = live ? p.v[off] : 0.f;
+    }
+  }
+}
+
+template <int DB, int TM>
+__global__ void __launch_bounds__(kThreads)
+masked_attention_fwd_kernel(const Problem p, int row_tiles, bool vec) {
+  using T = Tiles<DB, TM>;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;               // kRows x kKS, pre-scaled
+  float* ks = qs + T::kQ;         // 2 stages of kTile x kKS
+  float* vs = ks + 2 * T::kK;     // 2 stages of kTile x DB
+  float* ps = vs + 2 * T::kV;     // kTile x kPS, key-major
+
+  const int bh = blockIdx.x / row_tiles;
+  const int i0 = (blockIdx.x - bh * row_tiles) * T::kRows;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int Tq = p.Tq, Tk = p.Tk, D = p.D, C = p.H * p.D;
   const size_t qbase = (size_t)b * Tq * C + (size_t)h * D;
   const size_t kbase = (size_t)b * Tk * C + (size_t)h * D;
-  const unsigned char* mrow = mask + (size_t)b * Tk;
+  const unsigned char* mrow = p.mask + (size_t)b * Tk;
+  const int n_tiles = (Tk + kTile - 1) / kTile;
 
-  for (int idx = threadIdx.x; idx < kRows * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    const int i = i0 + r;
-    qs[idx] = i < Tq ? q[qbase + (size_t)i * C + c] * scale : 0.f;
+  // the query tile and the first K/V tile are copied together; the query
+  // tile is scaled in place once it has landed
+  if (vec) {
+#pragma unroll
+    for (int it = 0; it < T::kRows * DB / 4 / kThreads; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      const int r = idx / (DB / 4);
+      const int c = 4 * (idx - r * (DB / 4));
+      const bool live = i0 + r < Tq && c < D;
+      cp_async16(qs + r * T::kKS + c,
+                 p.q + (live ? qbase + (size_t)(i0 + r) * C + c : 0), live);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < T::kRows * DB; idx += kThreads) {
+      const int r = idx / DB;
+      const int c = idx - r * DB;
+      const int i = i0 + r;
+      qs[r * T::kKS + c] =
+          i < Tq && c < D ? p.q[qbase + (size_t)i * C + c] * p.scale : 0.f;
+    }
+  }
+  cp_async_commit();
+  int t = next_tile(mrow, 0, n_tiles, Tk);
+  if (t < n_tiles) load_kv<DB>(ks, vs, p, mrow, kbase, t * kTile, vec);
+  cp_async_commit();
+  if (vec) {
+    cp_async_wait<1>();  // this thread's part of the query tile
+#pragma unroll
+    for (int it = 0; it < T::kRows * DB / 4 / kThreads; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      const int r = idx / (DB / 4);
+      float4* x = reinterpret_cast<float4*>(
+          qs + r * T::kKS + 4 * (idx - r * (DB / 4)));
+      float4 y = *x;
+      y.x *= p.scale;
+      y.y *= p.scale;
+      y.z *= p.scale;
+      y.w *= p.scale;
+      *x = y;
+    }
   }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int i = i0 + warp;
-  const bool active = i < Tq;  // the same in every lane of the warp
+  // this thread's keys of a tile are col + 8 * jn, its rows of the block
+  // row0 + 4 * i (so the 4 row groups of a warp read 4 neighbouring query
+  // rows, in distinct banks); its P of a key sits at pslot + i
+  const int col = lane & 7;
+  const int row0 = warp * 4 * TM + (lane >> 3);
+  const int pslot = warp * 4 * TM + (lane >> 3) * TM;
 
-  float m = -INFINITY;  // running max of the valid scores
-  float l = 0.f;        // running sum of exp(score - m)
-  float acc[kMaxD / 32];
+  float m[TM], l[TM], acc[TM][DB / 8];
 #pragma unroll
-  for (int t = 0; t < kMaxD / 32; ++t) acc[t] = 0.f;
+  for (int i = 0; i < TM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DB / 8; ++c) acc[i][c] = 0.f;
+  }
 
-  for (int j0 = 0; j0 < Tk; j0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (and qs is written)
-    for (int idx = threadIdx.x; idx < kTile * D; idx += blockDim.x) {
-      const int r = idx / D;
-      const int c = idx - r * D;
-      const int j = j0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (j < Tk) {
-        const size_t off = kbase + (size_t)j * C + c;
-        kv = k[off];
-        vv = v[off];
+  int stage = 0;
+  while (t < n_tiles) {
+    // the barrier of next_tile tells both that this tile (and the query
+    // tile) landed for every thread and that every thread is done with the
+    // other stage, which the next copy overwrites while this tile is used
+    cp_async_wait<0>();
+    const int t_next = next_tile(mrow, t + 1, n_tiles, Tk);
+    if (t_next < n_tiles)
+      load_kv<DB>(ks + (stage ^ 1) * T::kK, vs + (stage ^ 1) * T::kV, p,
+                  mrow, kbase, t_next * kTile, vec);
+    cp_async_commit();
+    const float* kt = ks + stage * T::kK;
+    const float* vt = vs + stage * T::kV;
+    const int j0 = t * kTile;
+
+    float s[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) s[i][jn] = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < DB; c += 4) {
+      float4 qv[TM], kv[4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(
+            qs + (row0 + 4 * i) * T::kKS + c);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+        kv[jn] = *reinterpret_cast<const float4*>(
+            kt + (col + 8 * jn) * T::kKS + c);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn) {
+          float a = s[i][jn];
+          a = fmaf(qv[i].x, kv[jn].x, a);
+          a = fmaf(qv[i].y, kv[jn].y, a);
+          a = fmaf(qv[i].z, kv[jn].z, a);
+          a = fmaf(qv[i].w, kv[jn].w, a);
+          s[i][jn] = a;
+        }
+    }
+
+    // online softmax; the tile holds a valid key, so every row max is finite
+    bool valid[4];
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      const int j = j0 + col + 8 * jn;
+      valid[jn] = j < Tk && mrow[j];
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+        if (valid[jn]) mx = fmaxf(mx, s[i][jn]);
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = __expf(m[i] - m_new);  // 0 while m is still -inf
+      float psum = 0.f;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        s[i][jn] = valid[jn] ? __expf(s[i][jn] - m_new) : 0.f;
+        psum += s[i][jn];
       }
-      ks[r * kstride + c] = kv;
-      vs[r * D + c] = vv;
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, o);
+      l[i] = l[i] * alpha + psum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DB / 8; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();
-    if (!active) continue;
-
-    const int j = j0 + lane;
-    const bool valid = j < Tk && mrow[j];
-    float s = -INFINITY;
-    if (valid) {
-      const float* qrow = qs + warp * D;
-      const float* krow = ks + lane * kstride;
-      float dot = 0.f;
-      for (int c = 0; c < D; ++c) dot = fmaf(qrow[c], krow[c], dot);
-      s = dot;
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      float* prow = ps + (col + 8 * jn) * T::kPS + pslot;
+      if constexpr (TM % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; i += 4)
+          *reinterpret_cast<float4*>(prow + i) = make_float4(
+              s[i][jn], s[i + 1][jn], s[i + 2][jn], s[i + 3][jn]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) prow[i] = s[i][jn];
+      }
     }
-    float tmax = s;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-    if (tmax == -INFINITY) continue;  // no valid key in this tile
+    __syncthreads();  // P of the whole tile is in shared memory
 
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);  // 0 while m is still -inf
-    const float p = valid ? expf(s - m_new) : 0.f;
-    float psum = p;
+    const float* vcol = vt + 4 * col;
+#pragma unroll 4
+    for (int n = 0; n < kTile; ++n) {
+      float pn[TM];
+      if constexpr (TM % 4 == 0) {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, o);
-    l = l * alpha + psum;
-    m = m_new;
+        for (int i = 0; i < TM; i += 4) {
+          const float4 p4 =
+              *reinterpret_cast<const float4*>(ps + n * T::kPS + pslot + i);
+          pn[i] = p4.x;
+          pn[i + 1] = p4.y;
+          pn[i + 2] = p4.z;
+          pn[i + 3] = p4.w;
+        }
+      } else {
 #pragma unroll
-    for (int t = 0; t < kMaxD / 32; ++t) acc[t] *= alpha;
-    const int n_keys = min(kTile, Tk - j0);
-    for (int n = 0; n < n_keys; ++n) {
-      const float pn = __shfl_sync(0xffffffffu, p, n);
-      if (pn == 0.f) continue;  // invalid key; pn is the same in every lane
-      const float* vrow = vs + n * D;
+        for (int i = 0; i < TM; ++i) pn[i] = ps[n * T::kPS + pslot + i];
+      }
 #pragma unroll
-      for (int t = 0; t < kMaxD / 32; ++t) {
-        const int c = lane + 32 * t;
-        if (c < D) acc[t] = fmaf(pn, vrow[c], acc[t]);
+      for (int jc = 0; jc < DB / 32; ++jc) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(vcol + n * DB + 32 * jc);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          acc[i][4 * jc + 0] = fmaf(pn[i], x.x, acc[i][4 * jc + 0]);
+          acc[i][4 * jc + 1] = fmaf(pn[i], x.y, acc[i][4 * jc + 1]);
+          acc[i][4 * jc + 2] = fmaf(pn[i], x.z, acc[i][4 * jc + 2]);
+          acc[i][4 * jc + 3] = fmaf(pn[i], x.w, acc[i][4 * jc + 3]);
+        }
+      }
+    }
+    t = t_next;
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = i0 + row0 + 4 * i;
+    if (row >= Tq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float* orow = p.out + qbase + (size_t)row * C;
+#pragma unroll
+    for (int jc = 0; jc < DB / 32; ++jc) {
+      const int c = 4 * col + 32 * jc;
+      if (vec) {
+        if (c < D)
+          *reinterpret_cast<float4*>(orow + c) = make_float4(
+              acc[i][4 * jc] * inv, acc[i][4 * jc + 1] * inv,
+              acc[i][4 * jc + 2] * inv, acc[i][4 * jc + 3] * inv);
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (c + x < D) orow[c + x] = acc[i][4 * jc + x] * inv;
       }
     }
   }
+}
 
-  if (!active) return;
-  const float inv = l > 0.f ? 1.f / l : 0.f;
-  float* orow = out + qbase + (size_t)i * C;
-#pragma unroll
-  for (int t = 0; t < kMaxD / 32; ++t) {
-    const int c = lane + 32 * t;
-    if (c < D) orow[c] = acc[t] * inv;
+template <int DB, int TM>
+cudaError_t launch(const Problem& p, cudaStream_t stream) {
+  using T = Tiles<DB, TM>;
+  auto kernel = masked_attention_fwd_kernel<DB, TM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = (p.Tq + T::kRows - 1) / T::kRows;
+  const long long blocks = (long long)p.B * p.H * row_tiles;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const bool vec = p.D % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(p.q) |
+                     reinterpret_cast<uintptr_t>(p.k) |
+                     reinterpret_cast<uintptr_t>(p.v) |
+                     reinterpret_cast<uintptr_t>(p.out)) & 15) == 0;
+  kernel<<<(unsigned)blocks, kThreads, T::kBytes, stream>>>(p, row_tiles,
+                                                             vec);
+  return cudaGetLastError();
+}
+
+template <int TM>
+cudaError_t launch_bucket(int bucket, const Problem& p,
+                          cudaStream_t stream) {
+  switch (bucket) {
+    case 32: return launch<32, TM>(p, stream);
+    case 64: return launch<64, TM>(p, stream);
+    case 128: return launch<128, TM>(p, stream);
+    default: return launch<256, TM>(p, stream);
   }
+}
+
+// The instance for Tq queries of head dim D: rows a block (16 up to Tq =
+// 16, else 48 where it pads fewer rows than 64) and the smallest head-dim
+// bucket that holds D (ops/full_attention.py::_variant).
+void pick_instance(int Tq, int D, int* rows, int* bucket) {
+  *rows = Tq <= 16 ? 16 : (48 - Tq % 48) % 48 < (64 - Tq % 64) % 64 ? 48 : 64;
+  *bucket = D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
 }  // namespace
@@ -160,17 +453,22 @@ extern "C" int masked_attention_forward(const float* q, const float* k,
                                         void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || D < 1 || D > kMaxD)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)kTile * (D + 1) +
-                                       (size_t)kTile * D + (size_t)kRows * D);
-  cudaError_t err = cudaFuncSetAttribute(
-      masked_attention_fwd_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Tq + kRows - 1) / kRows);
-  masked_attention_fwd_kernel<<<grid, kRows * 32, smem,
-                                (cudaStream_t)stream>>>(
-      q, k, v, mask, out, Tq, Tk, H, D, scale);
-  return (int)cudaGetLastError();
+  int rows, bucket;
+  pick_instance(Tq, D, &rows, &bucket);
+  const Problem p{q, k, v, mask, out, B, Tq, Tk, H, D, scale};
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(rows == 16   ? launch_bucket<1>(bucket, p, s)
+                : rows == 48 ? launch_bucket<3>(bucket, p, s)
+                             : launch_bucket<4>(bucket, p, s));
+}
+
+// The instance masked_attention_forward takes for Tq queries of head dim D
+// (rows a block, head-dim bucket), for the wrapper's tests.
+extern "C" int masked_attention_instance(int Tq, int D, int* rows,
+                                         int* bucket) {
+  if (Tq < 1 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  pick_instance(Tq, D, rows, bucket);
+  return 0;
 }
 
 // The message of a code returned above, for the Python wrapper's error.

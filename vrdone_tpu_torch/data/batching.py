@@ -14,6 +14,18 @@ from __future__ import annotations
 import numpy as np
 
 
+def packed_channels(model_cfg) -> int:
+    """Channels of one packed SO-pair frame: subject and object visual
+    features, the pair's box features, each entity's box features and, with
+    ``with_clip_feature``, each entity's CLIP features (``eval.py``'s and
+    ``train.py``'s width)."""
+    c = 2 * model_cfg.visual_dim + model_cfg.bbox_so_dim \
+        + 2 * model_cfg.bbox_entity_dim
+    if model_cfg.with_clip_feature:
+        c += 2 * model_cfg.clip_dim
+    return c
+
+
 def pack_train_batch(pairs: list[dict], pack_size: int, max_seq_len: int,
                      num_gt: int, feat_dim: int) -> dict:
     """Pack per-pair dicts (from datasets.get_train_item) into the static

@@ -20,7 +20,9 @@ import torch
 from . import _build
 from .heads import merge_heads, split_heads
 
-MAX_HEAD_DIM = 256
+# head dims of the kernel's instances: d takes the smallest that holds it
+HEAD_DIM_BUCKETS = (32, 64, 128, 256)
+MAX_HEAD_DIM = HEAD_DIM_BUCKETS[-1]
 
 # launches of the CUDA kernel since the count was last set to 0
 launches = 0
@@ -45,6 +47,19 @@ def full_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return merge_heads(torch.einsum("bhqk,bhkd->bhqd", att, vh))
 
 
+def _variant(tq: int, d: int) -> tuple[int, int]:
+    """(query rows a block, head-dim bucket) of the kernel instance that
+    takes ``tq`` queries of head dim ``d``: 16 rows for the predictor's few
+    queries, else 48 where that pads fewer rows than 64 (Tq = 96), else 64;
+    the smallest bucket that holds d. The rule of
+    ``csrc/masked_attention.cu::pick_instance`` (a ``cuda`` test holds the
+    two together). Raises for a head dim the kernel does not take."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is outside 1..{MAX_HEAD_DIM}")
+    rows = 16 if tq <= 16 else 48 if -tq % 48 < -tq % 64 else 64
+    return rows, next(b for b in HEAD_DIM_BUCKETS if d <= b)
+
+
 @functools.cache
 def _kernel() -> ctypes.CDLL:
     lib = _build.load_library("masked_attention")
@@ -54,6 +69,10 @@ def _kernel() -> ctypes.CDLL:
                    + [ctypes.c_float, ctypes.c_void_p])
     lib.masked_attention_error_string.restype = ctypes.c_char_p
     lib.masked_attention_error_string.argtypes = [ctypes.c_int]
+    lib.masked_attention_instance.restype = ctypes.c_int
+    lib.masked_attention_instance.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
