@@ -30,8 +30,9 @@ one process per source, all started together, into
   6. runs ``train_torch.py`` for one epoch on a tiny synthetic corpus on
      the card, then ``eval_torch.py`` on its checkpoint;
   7. holds MEGA's position-bias and fused set-attention kernels against
-     their plain versions at the detector's shapes (right after 2, with
-     every other kernel check), runs ``detect_video`` at
+     their plain versions at the detector's shapes and times the fused one
+     alone at each of a frame's five shapes beside SDPA and its bound
+     (right after 2, with every other kernel check), runs ``detect_video`` at
      full width (R-101-C4, 608x1088, 300 key / 75 reference proposals,
      window 25, global 10, 16 frames, random seeded weights) through the
      fused attention and again through the position-bias kernel, checks a
@@ -59,6 +60,7 @@ Without a CUDA device it exits with an error and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -157,16 +159,15 @@ def device_events(prof) -> list:
             and str(e.device_type).endswith("CUDA")]
 
 
-def kernel_device_ms(fn, kernel_name: str, iters: int = 5,
-                     required: bool = True) -> tuple[float | None, int]:
+def kernel_device_ms(fn, kernel_name: str,
+                     iters: int = 5) -> tuple[float, int]:
     """(ms, launches seen): device time of one launch of the named kernel,
     from ``torch.profiler`` over ``iters`` calls that launch it once each.
     It is the kernel alone, where the CUDA events of ``time_ms`` also hold
     the host work of the wrapper whenever that is the slower side. The mean
     is over the launches the profiler saw: of a kernel launched outside
     PyTorch's dispatcher it can miss some (all of them with the CPU
-    activity off). Seeing none raises, unless not ``required``: then the
-    time is None (not measured)."""
+    activity off). Seeing none raises."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -178,8 +179,6 @@ def kernel_device_ms(fn, kernel_name: str, iters: int = 5,
     hits = [e for e in device_events(prof) if kernel_name in e.key]
     seen = sum(e.count for e in hits)
     if not seen:
-        if not required:
-            return None, 0
         raise AssertionError(f"the profiler saw no {kernel_name}")
     return sum(dev_us(e) for e in hits) / 1e3 / seen, seen
 
@@ -761,6 +760,27 @@ def mega_case(rng, g, n, m, dg, dgo, p_valid, device):
     return [torch.from_numpy(np.asarray(a)).to(device) for a in arrays]
 
 
+# the fused set-attention's shapes in a full-width detect_video frame
+DETECT_SHAPES = ("local stage 0", "local stage 1", "local stage 2",
+                 "global, key rows", "global, window rows")
+
+
+@contextlib.contextmanager
+def cached_bias_operands(ma, extra):
+    """Within it, the fused set-attention wrapper's ``bias_operands`` (the
+    dozens of small torch kernels of ``pe_setup``) returns one result built
+    beforehand from the rois and Wg in ``extra``, so that a call's work on
+    the card is the kernel's alone."""
+    real = ma.bias_operands
+    if extra:
+        ops = real(*extra, 64, 1000.0)
+        ma.bias_operands = lambda *args: ops
+    try:
+        yield
+    finally:
+        ma.bias_operands = real
+
+
 def check_mega_kernels(cuda, pb, ma) -> dict:
     """The position-bias kernel (K6) at the stage-0 shape, and the fused
     set-attention kernel (K5) at every shape of a full-width frame, bias on
@@ -831,39 +851,45 @@ def check_mega_kernels(cuda, pb, ma) -> dict:
             lambda: ma.mega_attention_cuda(q, k, vp, ub, valid, *extra),
             lambda: ma.mega_attention_cuda(q, k, vp, ub, valid, *extra),
             lambda: ma.mega_attention_plain(q, k, vp, ub, valid, *extra)))
-        # the profiler can miss every launch of a call that runs no other
-        # op (the no-bias ones); only stage 0's time enters the JSON line
-        dev_ms, seen = kernel_device_ms(
-            lambda: ma.mega_attention_cuda(q, k, vp, ub, valid, *extra),
-            "mega_attention_kernel", required=label == "local stage 0")
-        alone = (f"{dev_ms:.4f} ms, {seen} launches seen" if seen
-                 else "not measured, the profiler saw no launch")
         print(f"mega_attention {label} G={gg} N={n} M={m} dg={dgq} "
               f"dgo={dgo} bias={bias}: max_abs_err {err:.3e}, wrapper "
-              f"{(k1 + k2) / 2:.4f} ms (the kernel alone {alone}), plain "
-              f"{(p1 + p2) / 2:.4f} ms")
-        if label != "local stage 0":
+              f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms")
+        if label not in DETECT_SHAPES:
             continue
-        # the library's one call: SDPA with g heads and the bias, u-term
-        # and validity as one additive mask (built outside the timing)
+        # the detector's shapes: the kernel alone (a call's split kernel
+        # and merge, with the bias operands built once outside), the
+        # library's one call (SDPA with g heads and the bias, u-term and
+        # validity as one additive mask built outside the timing), the bound
+        with cached_bias_operands(ma, extra):
+            alone = [queued_device_ms(lambda: ma.mega_attention_cuda(
+                q, k, vp, ub, valid, *extra)) for _ in range(2)]
         with torch.no_grad():
-            lib_mask = (pb.position_bias_plain(*extra) + ub[:, None, :]
-                        ).masked_fill(~valid[None, None, :], float("-inf"))
+            lib_mask = (pb.position_bias_plain(*extra) if bias else 0.0) \
+                + ub[:, None, :].expand(gg, n, m)
+            lib_mask = lib_mask.masked_fill(~valid[None, None, :],
+                                            float("-inf"))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], vp[None], attn_mask=lib_mask[None],
             scale=1.0 / math.sqrt(dgq)))
         pairs = n * int(valid.sum())
         bms, by = bound_ms(
             4 * (q.numel() + k.numel() + vp.numel() + ub.numel()
-                 + n * gg * dgo + 4 * (n + m) + 65 * gg) + m,
-            2 * gg * pairs * (dgq + dgo) + 2 * 64 * gg * pairs)
-        entries["mega_attention"] = dict(
-            ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
-            bound_ms=bms, bound_by=by, device_ms=dev_ms,
-            shape="G=16 N=675 M=3750 dg=64")
-        print(f"mega_attention at G=16 N=675 M=3750: library (SDPA, mask "
-              f"precomputed) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                 + n * gg * dgo + (4 * (n + m) + 65 * gg if bias else 0))
+            + m, 2 * gg * pairs * (dgq + dgo)
+            + (2 * 64 * gg * pairs if bias else 0))
+        splits = ma.key_splits(cuda.index, n, m, gg, dgq, dgo)
+        print(f"mega_attention {label}: the kernel alone {alone[0]:.4f} / "
+              f"{alone[1]:.4f} ms, library (SDPA, mask precomputed) "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); {splits} key "
+              f"splits, scratch "
+              f"{4 * splits * gg * n * (dgo + 2) / 1e6 if splits > 1 else 0:.2f}"
+              f" MB")
         del lib_mask
+        if label == "local stage 0":
+            entries["mega_attention"] = dict(
+                ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, device_ms=sum(alone) / 2,
+                shape="G=16 N=675 M=3750 dg=64")
     entries["mega_attention"]["max_abs_err"] = worst
     return entries
 
@@ -922,7 +948,12 @@ def check_detect_video(cuda, pb, ma) -> dict:
               + f"; {t / wall:.2f} frames/s; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    profile_device(lambda: detect_video(det, images, hw), 1, "video")
+    _, _, kernels = profile_device(lambda: detect_video(det, images, hw), 1,
+                                   "video")
+    k5 = [e for e in kernels if "mega_attention" in e.key]
+    print(f"detect_video: the fused set-attention's kernels "
+          f"{sum(dev_us(e) for e in k5) / 1e3:.3f} ms of device time a "
+          f"video, " + ", ".join(f"{e.count} x {e.key[:60]}" for e in k5))
 
     # the memory property: a change to frame 0 moves frame 3's logits
     images2 = images.copy()

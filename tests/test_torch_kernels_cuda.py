@@ -516,6 +516,87 @@ def test_mega_attention_all_invalid_rows_are_zero(cuda, m):
         assert (out == 0).all()
 
 
+def mega_split_case(seed, n, m, cuda, with_bias):
+    """A 16-group, 64-wide case whose keys the kernel cuts into more than
+    one split (checked), and the plain version's output."""
+    q, k, vp, ub, valid, *bias = mega_case(seed, 16, n, m, 64, 64, 0.9, cuda)
+    bias = bias if with_bias else []
+    assert ma.key_splits(q.device.index, n, m, 16, 64, 64) > 1
+    return q, k, vp, ub, valid, bias
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("n,m", [
+    (675, 3750),    # stage 0, every split full
+    (300, 1001),    # M not a multiple of the splits' whole tiles
+    (1, 3750),      # one query row
+    (5, 777)])      # fewer rows than a block holds
+def test_mega_attention_split_keys_match_plain(cuda, with_bias, n, m):
+    q, k, vp, ub, valid, bias = mega_split_case(n + m, n, m, cuda, with_bias)
+    got = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    torch.cuda.synchronize()
+    want = ma.mega_attention_plain(q, k, vp, ub, valid, *bias)
+    assert got.shape == (n, 16 * 64) and torch.isfinite(got).all()
+    assert max_err(got, want) <= 1e-4 * (1 + want.abs().max().item())
+
+
+def dense_with_bias(q, k, vp, ub, valid, bias):
+    """The set-attention's dense form in float64 around a given (g, N, M)
+    bias (0 for none)."""
+    q, k, vp, ub, bias = (t.double() for t in (q, k, vp, ub, bias))
+    aff = torch.einsum("gnd,gmd->gnm", q, k) / q.shape[-1] ** 0.5
+    aff = torch.where(valid, aff + ub[:, None, :] + bias, -1e9)
+    att = torch.softmax(aff, dim=-1) * valid
+    out = torch.einsum("gnm,gmo->gno", att, vp)
+    return out.transpose(0, 1).reshape(q.shape[1], -1).float()
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_mega_attention_valid_keys_in_one_split_only(cuda, with_bias):
+    """Valid keys only in the last tile of M = 3750: every split but the
+    last has no valid key and must weigh nothing in the merge. With five
+    valid keys the softmax follows each key's bias closely, and the plain
+    bias embeds dw and dh where the kernels fold them, which near the
+    relu's zero differ by more than the tolerance in log space (the
+    position-bias tests compare in gate space for that); so the reference
+    takes the position-bias kernel's bias, the same fold as the fused one."""
+    q, k, vp, ub, valid, bias = mega_split_case(5, 675, 3750, cuda,
+                                                with_bias)
+    valid[:] = False
+    valid[3744:3749] = True
+    got = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    torch.cuda.synchronize()
+    want = dense_with_bias(q, k, vp, ub, valid,
+                           pb.fused_position_bias(*bias) if bias else
+                           torch.zeros(()).to(cuda))
+    assert torch.isfinite(got).all()
+    assert max_err(got, want) <= 1e-4 * (1 + want.abs().max().item())
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_mega_attention_never_reads_invalid_keys(cuda, with_bias):
+    """NaN in k and vproj at the invalid keys never reaches the output."""
+    q, k, vp, ub, valid, bias = mega_split_case(6, 300, 1001, cuda,
+                                                with_bias)
+    want = ma.mega_attention_plain(q, k, vp, ub, valid, *bias)
+    k[:, ~valid] = float("nan")
+    vp[:, ~valid] = float("nan")
+    got = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert max_err(got, want) <= 1e-4 * (1 + want.abs().max().item())
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_mega_attention_split_merge_is_deterministic(cuda, with_bias):
+    q, k, vp, ub, valid, bias = mega_split_case(7, 675, 3750, cuda,
+                                                with_bias)
+    first = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    second = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_mega_kernels_refuse_grad_and_bad_inputs(cuda):
     q, k, vp, ub, valid, qr, kr, w, b = mega_case(0, 4, 8, 16, 16, 16, 1.0,
                                                   cuda)

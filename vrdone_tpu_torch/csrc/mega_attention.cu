@@ -12,33 +12,61 @@
 //
 // What bounds it on this card: at the detector's stage-0 shape (G = 16,
 // N = 675 queries, M = 3750 keys, DG = DGO = 64) the scores and the P.V sum
-// are 2 * 16 * 675 * 3750 * 64 fmaf (10.4 GFLOP) on the fp32 pipes, with
-// the bias adding 1024 fmaf and 18 transcendentals per pair; its bytes in
-// and out (q, k, vproj, rois, the output) are about 35 MB. It is bound by
-// operations.
+// are 2 * 16 * 675 * 3750 * 64 fmaf (10.4 GFLOP) on the fp32 pipes (TF32 is
+// off: the parity setting), with the bias adding 1024 fmaf and 18
+// transcendentals per pair; its bytes in and out (q, k, vproj, rois, the
+// output) are about 35 MB. It is bound by operations.
 //
 // The design:
 // - A block owns kRows(DGO) query rows and ALL G groups, one warp per
-//   group, and walks the keys in tiles of 32 itself (the sequential key
-//   grid axis of the Pallas kernel becomes this loop; blocks run in no
-//   order and share nothing).
-// - The geometric bias is shared across the groups: for each key tile the
-//   whole block first computes the (G, rows, 32) bias tile into shared
-//   memory, one thread per (row, key) pair, so a pair's logf and sincosf
-//   run once and serve all G groups (a block owning one group would run
-//   them G = 16 times). The rows' separable factors and the weights are
-//   staged once per block.
+//   group, and walks one split of the keys in tiles of 32 (the sequential
+//   key grid axis of the Pallas kernel becomes this loop).
+// - Key splits fill the card: the keys are cut into S runs of whole tiles,
+//   S chosen at the launch so that the row tiles x S blocks fill the
+//   card's block slots once (pick_splits; at stage 0, 85 row tiles and 2
+//   blocks an SM give S = 3). Each (block, split) leaves its rows' partial
+//   softmax state (m, l, unnormalised acc) in scratch that the wrapper
+//   allocates, and mega_attention_merge combines the S states in split
+//   order, one thread an output float: no atomics, the same bits every
+//   run. A split with no valid key has l = 0 and weighs nothing.
+// - Registers: the launch bounds hold a thread to 64 so that 2 blocks (32
+//   warps) share an SM. A row's softmax state lives in one lane (lane r
+//   holds row r's max and sum) rather than in all 32, and P goes through
+//   shared memory rather than registers; ptxas still spills a few dozen
+//   bytes at the main instance.
+// - The geometric bias is shared across the groups and spread over every
+//   thread: for each key tile the block first writes the pairs' 32
+//   sinusoid features to shared memory, feature-major, one (pair, axis) a
+//   thread (a log and 8 sincosf; a pair's transcendentals run once for all
+//   G groups), then builds the (G, rows, 32) bias tile, each thread 2
+//   groups x 4 keys of one row, so a shared load of wt, A, f or B serves 4
+//   or 8 FMAs and all 512 threads have work. The rows' separable factors
+//   and the weights are staged once per block. A tile without a valid key
+//   is skipped before its bias.
 // - Scores: lane j of warp g takes key j of the tile and the block's rows,
-//   reading its key row from device memory and the rows' queries from
-//   shared memory as broadcasts. Online softmax per (g, row) in registers.
-//   P.V: each lane owns DGO / 32 output channels of every row; the key's
-//   probability comes by shuffle and its vproj row is read once,
-//   coalesced, for all rows.
+//   reading its key row from L2 kChunk float4s at a time (one wait a chunk)
+//   and the rows' queries from shared memory as broadcasts; ub is loaded
+//   beside them. Online softmax per (g, row), exp as the hardware's ex2.
+//   P goes to the warp's slice of shared memory, key-major, over the
+//   features (dead once the bias is built). P.V: each lane owns DGO / 32
+//   output channels of every row, reads a key's P of all rows as float4
+//   broadcasts, and has the vproj rows of kAhead keys in flight before it
+//   uses the first (coalesced, one row a warp a key).
 // - The all-invalid sentinel: invalid keys (and keys past M, which the
-//   kernel masks itself; the inputs are not padded) score -inf, a tile
-//   with no valid key is skipped before any exp, and the running max is
-//   only ever taken over finite scores, so no exp(-inf - -inf) arises. A
-//   row whose keys are all invalid keeps l = 0 and is written as exactly 0.
+//   kernel masks itself; the inputs are not padded) score -inf and load no
+//   vproj, a tile with no valid key is skipped before any exp, and the
+//   running max is only ever taken over finite scores, so no
+//   exp(-inf - -inf) arises. A row whose keys are all invalid keeps l = 0
+//   and is written as exactly 0.
+//
+// What still holds it back (PERF.md): at stage 0 a warp spends about as
+// long in the bias phase (its three barriers and the shared-memory loads
+// of the bias tile) as in the score product (the query broadcasts, one
+// float a lane a cycle of the SM's load bandwidth), and about half that in
+// P.V; each 8-row block re-reads K and vproj from L2. Register micro-tiles
+// of 4 rows x 4 keys in 16-row blocks (one block an SM), of 4 rows x 2 keys
+// in 8-row blocks, and one block an SM with more loads in flight were
+// tried and were slower.
 //
 // Layout: q (G, N, DG), k (G, M, DG), vproj (G, M, DGO), ub (G, M), valid
 // (M,) bool (one byte each), out (N, G * DGO); with the bias, q_rois (N, 4),
@@ -50,11 +78,12 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <algorithm>
+
 #include "mega_bias.cuh"
 
 namespace {
 
-using mega_bias::Box;
 using mega_bias::Freqs;
 using mega_bias::kPairFeat;
 using mega_bias::kSepDim;
@@ -76,48 +105,75 @@ struct Params {
   const float* wt;
   const float* b;
   float* out;
+  float* part;  // null: one split, the kernel writes `out` itself
   int N, M, G, DG, DGO;
+  int tiles_per_split;
   float scale;
   Freqs fr;
 };
 
+constexpr int kAS = kSepDim + 1;  // A's row stride: rows in distinct banks
+static_assert(kSepDim == kPairFeat, "the bias loop walks both at once");
+
+// How the bias tile is spread: a thread computes kGS groups x 4 keys of
+// one query row, (G / kGS) x kRows x kQuads items of a tile: 8 x 8 x 8 =
+// 512 at 8 rows and 16 groups, one for each thread.
+constexpr int kGS = 2;
+constexpr int kQuads = kTile / 4;
+
 // kRows query rows per block and DPL = ceil(DGO / 32) output floats a lane
-// per row: kRows * DPL <= 16 keeps the accumulators at 16 registers.
+// per row: kRows * DPL <= 16 keeps the accumulators at 16 registers, and
+// the launch bounds the rest, for 2 blocks an SM.
 template <int kRows, int DPL>
-__global__ void __launch_bounds__(kMaxGroups * 32)
+__global__ void __launch_bounds__(kMaxGroups * 32, 2)
 mega_attention_kernel(const Params p) {
+  // loads in flight a lane: key-row float4s, and vproj rows of P.V
+  constexpr int kChunk = 4;
+  constexpr int kAhead = DPL >= 16 ? 1 : 16 / DPL;
+  constexpr int kPairs = kRows * kTile;
   extern __shared__ __align__(16) float smem[];
   const int G = p.G, DG = p.DG, DGO = p.DGO, N = p.N, M = p.M;
+  const int Gp = (G + kGS - 1) / kGS * kGS;  // padded with 0s
   const bool with_bias = p.q_rois != nullptr;
-  float* q_s = smem;                          // G x kRows x DG
-  float* bias_s = q_s + G * kRows * DG;       // G x kRows x kTile
-  float* a_s = bias_s + G * kRows * kTile;    // G x kRows x 32
-  float* bt_s = a_s + G * kRows * kSepDim;    // 32 x kTile
-  float* wt_s = bt_s + kSepDim * kTile;       // G x 32
-  float* b_s = wt_s + G * kPairFeat;          // G
-  float* qbox_s = b_s + G;                    // kRows x 4
+  float* bias_s = smem;                         // G x kRows x kTile
+  float* feat_s = bias_s + G * kRows * kTile;   // 32 x kRows * kTile
+  // the features, and once the bias is built each warp's P (kTile x kPS)
+  constexpr int kPS = kRows + 4;
+  float* bt_s = feat_s + max(kPairFeat * kPairs, G * kTile * kPS);
+  float* q_s = bt_s + kSepDim * kTile;          // G x kRows x DG
+  float* a_s = q_s + G * kRows * DG;            // Gp x kRows x kAS
+  float* wt_s = a_s + Gp * kRows * kAS;         // Gp x 32
+  float* b_s = wt_s + Gp * kPairFeat;           // Gp
+  float* qbox_s = b_s + Gp;                     // kRows x 4
 
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
+  const int g = tid >> 5;
+  const int lane = tid & 31;
   const int n0 = blockIdx.x * kRows;
+  // this block's keys: split blockIdx.y's whole tiles
+  const int m_begin = blockIdx.y * p.tiles_per_split * kTile;
+  const int m_end = min(M, m_begin + p.tiles_per_split * kTile);
   for (int idx = tid; idx < G * kRows * DG; idx += nthreads) {
-    const int g = idx / (kRows * DG);
+    const int gg = idx / (kRows * DG);
     const int r = (idx / DG) % kRows;
     const int c = idx % DG;
     const int n = n0 + r;
-    q_s[idx] = n < N ? p.q[((size_t)g * N + n) * DG + c] : 0.f;
+    q_s[idx] = n < N ? p.q[((size_t)gg * N + n) * DG + c] : 0.f;
   }
   if (with_bias) {
-    for (int idx = tid; idx < G * kRows * kSepDim; idx += nthreads) {
-      const int g = idx / (kRows * kSepDim);
+    for (int idx = tid; idx < Gp * kRows * kSepDim; idx += nthreads) {
+      const int gg = idx / (kRows * kSepDim);
       const int r = (idx / kSepDim) % kRows;
+      const int j = idx % kSepDim;
       const int n = n0 + r;
-      a_s[idx] = n < N ? p.A[((size_t)g * N + n) * kSepDim + idx % kSepDim]
-                       : 0.f;
+      a_s[(gg * kRows + r) * kAS + j] =
+          gg < G && n < N ? p.A[((size_t)gg * N + n) * kSepDim + j] : 0.f;
     }
-    for (int idx = tid; idx < G * kPairFeat; idx += nthreads)
-      wt_s[idx] = p.wt[idx];
-    for (int idx = tid; idx < G; idx += nthreads) b_s[idx] = p.b[idx];
+    for (int idx = tid; idx < Gp * kPairFeat; idx += nthreads)
+      wt_s[idx] = idx < G * kPairFeat ? p.wt[idx] : 0.f;
+    for (int idx = tid; idx < Gp; idx += nthreads)
+      b_s[idx] = idx < G ? p.b[idx] : 0.f;
     for (int idx = tid; idx < kRows * 4; idx += nthreads) {
       const int n = n0 + idx / 4;
       qbox_s[idx] = n < N ? p.q_rois[(size_t)n * 4 + idx % 4] : 0.f;
@@ -125,47 +181,99 @@ mega_attention_kernel(const Params p) {
   }
   __syncthreads();
 
-  const int g = tid >> 5;
-  const int lane = tid & 31;
   const float* qg = q_s + g * kRows * DG;
   const float* kg = p.k + (size_t)g * M * DG;
   const float* vg = p.vproj + (size_t)g * M * DGO;
   // float4 loads of the key rows where the widths and the base allow them
   const bool vec4 = (DG & 3) == 0 && (reinterpret_cast<size_t>(p.k) & 15) == 0;
 
-  float m_run[kRows], l_run[kRows], acc[kRows][DPL];
+  // the softmax state (max, sum) of row r lives in lane r, two registers
+  // where a copy in every lane would take 2 kRows
+  float m_mine = -INFINITY, l_mine = 0.f, acc[kRows][DPL];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
+  for (int r = 0; r < kRows; ++r)
 #pragma unroll
     for (int d = 0; d < DPL; ++d) acc[r][d] = 0.f;
-  }
 
-  for (int m0 = 0; m0 < M; m0 += kTile) {
+  for (int m0 = m_begin; m0 < m_end; m0 += kTile) {
     if (with_bias) {
-      __syncthreads();  // the previous tile's bias is consumed
+      // a tile without a valid key is skipped whole (the test is the same
+      // in every thread); it is also the barrier after which the previous
+      // tile's bias, features and B are consumed
+      if (!__syncthreads_or(m0 + lane < M && p.valid[m0 + lane])) continue;
       for (int idx = tid; idx < kSepDim * kTile; idx += nthreads) {
         const int m = m0 + idx % kTile;
         bt_s[idx] = m < M ? p.Bt[(size_t)(idx / kTile) * M + m] : 0.f;
       }
-      __syncthreads();
-      // the (G, kRows, kTile) bias tile: each pair once, for every group
-      for (int pr = tid; pr < kRows * kTile; pr += nthreads) {
-        const int r = pr / kTile;
-        const int t = pr % kTile;
-        const int m = m0 + t;
-        if (n0 + r >= N || m >= M) continue;
-        const Box qb = mega_bias::load_box(qbox_s + 4 * r);
-        const Box kb = mega_bias::load_box(p.k_rois + 4 * (size_t)m);
-        float f[kPairFeat], bk[kSepDim];
-        mega_bias::pair_features(qb, kb, p.fr, f);
+      // the pairs' 32 sinusoid features, feature-major: each (pair, axis)
+      // once, one log and 8 sincosf; pairs past N or M get finite values
+      // that nothing reads
+      for (int it = tid; it < 2 * kPairs; it += nthreads) {
+        const int axis = it / kPairs;  // 0: dx, 1: dy
+        const int pr = it - axis * kPairs;
+        const int m = m0 + pr % kTile;
+        const float* qb = qbox_s + 4 * (pr / kTile);
+        float kc = 0.f;
+        if (m < M) {
+          const float* kb = p.k_rois + 4 * (size_t)m;
+          kc = 0.5f * (kb[axis] + kb[axis + 2]);
+        }
+        const float d = mega_bias::log_offset(
+            0.5f * (qb[axis] + qb[axis + 2]), qb[axis + 2] - qb[axis] + 1.f,
+            kc);
+        float* f = feat_s + 2 * mega_bias::kFreqs * axis * kPairs + pr;
 #pragma unroll
-        for (int j = 0; j < kSepDim; ++j) bk[j] = bt_s[j * kTile + t];
-        for (int gg = 0; gg < G; ++gg)
-          bias_s[(gg * kRows + r) * kTile + t] = mega_bias::group_bias(
-              wt_s + gg * kPairFeat, a_s + (gg * kRows + r) * kSepDim, f, bk,
-              b_s[gg]);
+        for (int i = 0; i < mega_bias::kFreqs; ++i)
+          sincosf(d * p.fr.c[i], f + i * kPairs,
+                  f + (mega_bias::kFreqs + i) * kPairs);
+      }
+      __syncthreads();
+      // the (G, kRows, kTile) bias tile over every thread: kGS groups x 4
+      // keys of one row a thread, so each shared load serves several FMAs
+      for (int it = tid; it < Gp / kGS * kRows * kQuads;
+           it += nthreads) {
+        const int kq = it % kQuads;
+        const int r = it / kQuads % kRows;
+        const int g0 = it / (kQuads * kRows) * kGS;
+        float bacc[kGS][4], sep[kGS][4];
+#pragma unroll
+        for (int x = 0; x < kGS; ++x)
+#pragma unroll
+          for (int y = 0; y < 4; ++y) {
+            bacc[x][y] = b_s[g0 + x];
+            sep[x][y] = 0.f;
+          }
+        const float* fq = feat_s + r * kTile + 4 * kq;
+        const float* bq = bt_s + 4 * kq;
+        const float* aq = a_s + (g0 * kRows + r) * kAS;
+#pragma unroll 4
+        for (int j = 0; j < kPairFeat; ++j) {
+          const float4 f4 =
+              *reinterpret_cast<const float4*>(fq + j * kPairs);
+          const float4 b4 = *reinterpret_cast<const float4*>(bq + j * kTile);
+#pragma unroll
+          for (int x = 0; x < kGS; ++x) {
+            const float w = wt_s[(g0 + x) * kPairFeat + j];
+            const float a = aq[x * kRows * kAS + j];
+            bacc[x][0] = fmaf(w, f4.x, bacc[x][0]);
+            bacc[x][1] = fmaf(w, f4.y, bacc[x][1]);
+            bacc[x][2] = fmaf(w, f4.z, bacc[x][2]);
+            bacc[x][3] = fmaf(w, f4.w, bacc[x][3]);
+            sep[x][0] = fmaf(a, b4.x, sep[x][0]);
+            sep[x][1] = fmaf(a, b4.y, sep[x][1]);
+            sep[x][2] = fmaf(a, b4.z, sep[x][2]);
+            sep[x][3] = fmaf(a, b4.w, sep[x][3]);
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < kGS; ++x)
+          if (g0 + x < G)
+            *reinterpret_cast<float4*>(
+                bias_s + ((g0 + x) * kRows + r) * kTile + 4 * kq) =
+                make_float4(mega_bias::finish(bacc[x][0], sep[x][0]),
+                            mega_bias::finish(bacc[x][1], sep[x][1]),
+                            mega_bias::finish(bacc[x][2], sep[x][2]),
+                            mega_bias::finish(bacc[x][3], sep[x][3]));
       }
       __syncthreads();
     }
@@ -180,17 +288,29 @@ mega_attention_kernel(const Params p) {
     for (int r = 0; r < kRows; ++r) s[r] = 0.f;
     if (valid) {
       const float* krow = kg + (size_t)m * DG;
+      const float u = p.ub[(size_t)g * M + m];  // in flight with the key row
       if (vec4) {
-        for (int c = 0; c < DG; c += 4) {
-          const float4 kv = *reinterpret_cast<const float4*>(krow + c);
+        // kChunk float4 loads of the key row in flight at once: the loop
+        // waits on L2 once a chunk, not once a load
+        for (int c0 = 0; c0 < DG; c0 += 4 * kChunk) {
+          float4 kv[kChunk];
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float4 qv =
-                *reinterpret_cast<const float4*>(qg + r * DG + c);
-            s[r] = fmaf(qv.x, kv.x, s[r]);
-            s[r] = fmaf(qv.y, kv.y, s[r]);
-            s[r] = fmaf(qv.z, kv.z, s[r]);
-            s[r] = fmaf(qv.w, kv.w, s[r]);
+          for (int j = 0; j < kChunk; ++j)
+            kv[j] = c0 + 4 * j < DG
+                        ? *reinterpret_cast<const float4*>(krow + c0 + 4 * j)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int j = 0; j < kChunk; ++j) {
+            if (c0 + 4 * j >= DG) break;
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              const float4 qv = *reinterpret_cast<const float4*>(
+                  qg + r * DG + c0 + 4 * j);
+              s[r] = fmaf(qv.x, kv[j].x, s[r]);
+              s[r] = fmaf(qv.y, kv[j].y, s[r]);
+              s[r] = fmaf(qv.z, kv[j].z, s[r]);
+              s[r] = fmaf(qv.w, kv[j].w, s[r]);
+            }
           }
         }
       } else {
@@ -200,7 +320,6 @@ mega_attention_kernel(const Params p) {
           for (int r = 0; r < kRows; ++r) s[r] = fmaf(qg[r * DG + c], kv, s[r]);
         }
       }
-      const float u = p.ub[(size_t)g * M + m];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         s[r] = s[r] * p.scale + u;
@@ -210,51 +329,103 @@ mega_attention_kernel(const Params p) {
 
     // online softmax; every score below is finite or -inf (invalid), and
     // the tile holds at least one valid key, so each row's max is finite
-    float pr_[kRows];
+    float* pw = feat_s + g * kTile * kPS;  // this warp's P, key-major
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       float tmax = valid ? s[r] : -INFINITY;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_new = fmaxf(m_run[r], tmax);
-      const float alpha = expf(m_run[r] - m_new);  // 0 while m_run is -inf
-      const float pv = valid ? expf(s[r] - m_new) : 0.f;
+      const float m_old = __shfl_sync(0xffffffffu, m_mine, r);
+      const float m_new = fmaxf(m_old, tmax);
+      const float alpha = __expf(m_old - m_new);  // 0 while m_old is -inf
+      const float pv = valid ? __expf(s[r] - m_new) : 0.f;
       float psum = pv;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l_run[r] = l_run[r] * alpha + psum;
-      m_run[r] = m_new;
-      pr_[r] = pv;
+      if (lane == r) {
+        l_mine = l_mine * alpha + psum;
+        m_mine = m_new;
+      }
+      pw[lane * kPS + r] = pv;
 #pragma unroll
       for (int d = 0; d < DPL; ++d) acc[r][d] *= alpha;
     }
 
+    __syncwarp();  // the tile's P is written
+    // P.V, kAhead keys at a time: their vproj loads are all in flight
+    // before the first is used (an invalid key loads nothing and is skipped)
     const int n_keys = min(kTile, M - m0);
-    for (int kk = 0; kk < n_keys; ++kk) {
-      if (!((vmask >> kk) & 1u)) continue;  // warp-uniform
-      const float* vrow = vg + (size_t)(m0 + kk) * DGO;
-      float vv[DPL];
+    for (int k0 = 0; k0 < n_keys; k0 += kAhead) {
+      float vv[kAhead][DPL];
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j) {
+        const int kk = k0 + j;
+        const bool live = kk < n_keys && ((vmask >> kk) & 1u);
+        const float* vrow = vg + (size_t)(m0 + kk) * DGO;
+#pragma unroll
+        for (int d = 0; d < DPL; ++d) {
+          const int c = lane + 32 * d;
+          vv[j][d] = live && c < DGO ? vrow[c] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j) {
+        const int kk = k0 + j;
+        if (kk >= n_keys || !((vmask >> kk) & 1u)) continue;  // warp-uniform
+        float pk[kRows];
+        if constexpr (kRows % 4 == 0) {
+#pragma unroll
+          for (int r = 0; r < kRows; r += 4) {
+            const float4 p4 =
+                *reinterpret_cast<const float4*>(pw + kk * kPS + r);
+            pk[r] = p4.x;
+            pk[r + 1] = p4.y;
+            pk[r + 2] = p4.z;
+            pk[r + 3] = p4.w;
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) pk[r] = pw[kk * kPS + r];
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int d = 0; d < DPL; ++d)
+            acc[r][d] = fmaf(pk[r], vv[j][d], acc[r][d]);
+      }
+    }
+    __syncwarp();  // P is read before the next tile writes it
+  }
+
+  if (p.part != nullptr) {
+    // this split's partial softmax state, merged by mega_attention_merge
+    const size_t split = (size_t)blockIdx.y * G + g;
+    float* ml = p.part + (size_t)gridDim.y * G * N * DGO;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int n = n0 + r;
+      if (n >= N) break;
+      float* arow = p.part + (split * N + n) * DGO;
 #pragma unroll
       for (int d = 0; d < DPL; ++d) {
         const int c = lane + 32 * d;
-        vv[d] = c < DGO ? vrow[c] : 0.f;
+        if (c < DGO) arow[c] = acc[r][d];
       }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pk = __shfl_sync(0xffffffffu, pr_[r], kk);
-#pragma unroll
-        for (int d = 0; d < DPL; ++d) acc[r][d] = fmaf(pk, vv[d], acc[r][d]);
+      if (lane == r) {
+        ml[2 * (split * N + n)] = m_mine;
+        ml[2 * (split * N + n) + 1] = l_mine;
       }
     }
+    return;
   }
-
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int n = n0 + r;
     if (n >= N) break;
-    const float inv = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
+    const float l = __shfl_sync(0xffffffffu, l_mine, r);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
     float* orow = p.out + (size_t)n * G * DGO + (size_t)g * DGO;
 #pragma unroll
     for (int d = 0; d < DPL; ++d) {
@@ -264,46 +435,140 @@ mega_attention_kernel(const Params p) {
   }
 }
 
+// Merges the S splits' partial (m, l, acc) of each (row, group) in split
+// order, one thread an output float: deterministic, no atomics. A split
+// with no valid key (l = 0, m = -inf) weighs nothing; a row with none in
+// any split is written as 0.
+__global__ void __launch_bounds__(256)
+mega_attention_merge(const float* part, float* out, int N, int G, int DGO,
+                     int S) {
+  const size_t total = (size_t)N * G * DGO;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int c = (int)(idx % DGO);
+  const size_t ng = idx / DGO;  // n * G + g
+  const int g = (int)(ng % G);
+  const size_t n = ng / G;
+  const float* ml = part + (size_t)S * total;
+  float m_max = -INFINITY;
+  for (int s = 0; s < S; ++s) {
+    const size_t j = ((size_t)s * G + g) * N + n;
+    if (ml[2 * j + 1] > 0.f) m_max = fmaxf(m_max, ml[2 * j]);
+  }
+  float l = 0.f, acc = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const size_t j = ((size_t)s * G + g) * N + n;
+    const float ls = ml[2 * j + 1];
+    if (!(ls > 0.f)) continue;
+    const float w = expf(ml[2 * j] - m_max);
+    l = fmaf(ls, w, l);
+    acc = fmaf(part[j * DGO + c], w, acc);
+  }
+  out[idx] = l > 0.f ? acc / l : 0.f;
+}
+
+// An instance of the kernel (query rows a block, output floats a lane) and
+// its dynamic shared memory for G groups of width DG.
+struct Instance {
+  void (*kernel)(Params);
+  int rows;
+  size_t smem;
+};
+
 template <int kRows, int DPL>
-int launch(const Params& p, cudaStream_t stream) {
-  const size_t floats = (size_t)p.G * kRows * p.DG +
-                        (size_t)p.G * kRows * kTile +
-                        (size_t)p.G * kRows * kSepDim + kSepDim * kTile +
-                        (size_t)p.G * kPairFeat + p.G + kRows * 4;
-  const size_t smem = sizeof(float) * floats;
+Instance make_instance(int G, int DG) {
+  constexpr int kPairs = kRows * kTile;
+  const int Gp = (G + kGS - 1) / kGS * kGS;
+  constexpr int kPS = kRows + 4;
+  const size_t floats = (size_t)G * kRows * kTile +
+                        (size_t)std::max(kPairFeat * kPairs, G * kTile * kPS) +
+                        kSepDim * kTile + (size_t)G * kRows * DG +
+                        (size_t)Gp * kRows * kAS + (size_t)Gp * kPairFeat +
+                        Gp + kRows * 4;
+  return {mega_attention_kernel<kRows, DPL>, kRows, sizeof(float) * floats};
+}
+
+Instance pick_instance(int G, int DG, int DGO) {
+  if (DGO <= 32) return make_instance<8, 1>(G, DG);
+  if (DGO <= 64) return make_instance<8, 2>(G, DG);
+  if (DGO <= 128) return make_instance<4, 4>(G, DG);
+  return make_instance<2, 8>(G, DG);
+}
+
+constexpr int kMaxSplits = 16;
+
+// The number of key splits: as many whole waves of blocks as the card holds
+// at once, without more splits than key tiles (or kMaxSplits).
+cudaError_t pick_splits(const Instance& in, int N, int M, int G, int* S) {
   cudaError_t err = cudaFuncSetAttribute(
-      mega_attention_kernel<kRows, DPL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.N + kRows - 1) / kRows);
-  mega_attention_kernel<kRows, DPL><<<grid, 32 * p.G, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+      in.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)in.smem);
+  if (err != cudaSuccess) return err;
+  int dev, sms, per_sm;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, in.kernel,
+                                                      32 * G, in.smem);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = (N + in.rows - 1) / in.rows;
+  const int n_tiles = (M + kTile - 1) / kTile;
+  const int slots = sms * (per_sm > 0 ? per_sm : 1);
+  *S = min(max(1, slots / row_tiles), min(max(1, n_tiles), kMaxSplits));
+  return cudaSuccess;
+}
+
+bool bad_shape(int N, int M, int G, int DG, int DGO) {
+  return N < 1 || M < 0 || G < 1 || G > kMaxGroups || DG < 1 ||
+         DG > kMaxDim || DGO < 1 || DGO > kMaxDim;
 }
 
 }  // namespace
 
+// The key splits mega_attention_forward should take for this problem on the
+// current device; the caller sizes the scratch from it. Returns the CUDA
+// error code (0 on success).
+extern "C" int mega_attention_splits(int N, int M, int G, int DG, int DGO,
+                                     int* splits) {
+  if (bad_shape(N, M, G, DG, DGO)) return (int)cudaErrorInvalidValue;
+  return (int)pick_splits(pick_instance(G, DG, DGO), N, M, G, splits);
+}
+
 // With q_rois null the kernel adds no bias and reads none of k_rois, A, Bt,
 // wt, b or freqs; else `freqs` points to the 8 fp32 rates on the host.
-// `scale` is 1/sqrt(DG). Returns the CUDA error code of the launch (0 on
-// success). Does not synchronise; runs on `stream`.
+// `scale` is 1/sqrt(DG). The keys are cut into `splits` runs of whole
+// tiles; with more than one, `part` is scratch of splits * G * N * (DGO + 2)
+// floats for their partial softmax states, merged into `out` by a second
+// kernel. Returns the CUDA error code of the launches (0 on success). Does
+// not synchronise; runs on `stream`.
 extern "C" int mega_attention_forward(
     const float* q, const float* k, const float* vproj, const float* ub,
     const unsigned char* valid, const float* q_rois, const float* k_rois,
     const float* A, const float* Bt, const float* wt, const float* b,
-    float* out, int N, int M, int G, int DG, int DGO, float scale,
-    const float* freqs, void* stream) {
-  if (N < 1 || M < 0 || G < 1 || G > kMaxGroups || DG < 1 || DG > kMaxDim ||
-      DGO < 1 || DGO > kMaxDim || (q_rois != nullptr && freqs == nullptr))
+    float* out, float* part, int N, int M, int G, int DG, int DGO,
+    int splits, float scale, const float* freqs, void* stream) {
+  if (bad_shape(N, M, G, DG, DGO) || splits < 1 || splits > kMaxSplits ||
+      (splits > 1 && part == nullptr) ||
+      (q_rois != nullptr && freqs == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int n_tiles = (M + kTile - 1) / kTile;
   Params p{q, k, vproj, ub, valid, q_rois, k_rois, A, Bt, wt, b, out,
-           N, M, G, DG, DGO, scale, {}};
+           splits > 1 ? part : nullptr, N, M, G, DG, DGO,
+           (n_tiles + splits - 1) / splits, scale, {}};
   if (q_rois != nullptr)
     for (int i = 0; i < mega_bias::kFreqs; ++i) p.fr.c[i] = freqs[i];
   const cudaStream_t s = (cudaStream_t)stream;
-  if (DGO <= 32) return launch<8, 1>(p, s);
-  if (DGO <= 64) return launch<8, 2>(p, s);
-  if (DGO <= 128) return launch<4, 4>(p, s);
-  return launch<2, 8>(p, s);
+  const Instance in = pick_instance(G, DG, DGO);
+  cudaError_t err = cudaFuncSetAttribute(
+      in.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)in.smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + in.rows - 1) / in.rows, splits);
+  in.kernel<<<grid, 32 * G, in.smem, s>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1)
+    return (int)err;
+  const size_t total = (size_t)N * G * DGO;
+  mega_attention_merge<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      part, out, N, G, DGO, splits);
+  return (int)cudaGetLastError();
 }
 
 // The message of a code returned above, for the Python wrapper's error.

@@ -39,18 +39,30 @@ __device__ __forceinline__ Box load_box(const float* r) {
   return {0.5f * (x1 + x2), 0.5f * (y1 + y2), x2 - x1 + 1.f, y2 - y1 + 1.f};
 }
 
+// One axis of the pair's log-space offset: dx from the query's and the
+// key's centres along x and the query's width, dy likewise along y.
+__device__ __forceinline__ float log_offset(float q_centre, float q_size,
+                                            float k_centre) {
+  return logf(fabsf((q_centre - k_centre) / q_size) + 1e-3f);
+}
+
 // The pair's features in the embedding's order: f[16 j + i] = sin(pos_j c_i)
 // and f[16 j + 8 + i] = cos(pos_j c_i), with pos_0 = dx and pos_1 = dy.
 __device__ __forceinline__ void pair_features(const Box& q, const Box& k,
                                               const Freqs& fr,
                                               float f[kPairFeat]) {
-  const float dx = logf(fabsf((q.cx - k.cx) / q.w) + 1e-3f);
-  const float dy = logf(fabsf((q.cy - k.cy) / q.h) + 1e-3f);
+  const float dx = log_offset(q.cx, q.w, k.cx);
+  const float dy = log_offset(q.cy, q.h, k.cy);
 #pragma unroll
   for (int i = 0; i < kFreqs; ++i) {
     sincosf(dx * fr.c[i], &f[i], &f[kFreqs + i]);
     sincosf(dy * fr.c[i], &f[2 * kFreqs + i], &f[3 * kFreqs + i]);
   }
+}
+
+// The bias from its two contractions: acc = b + wt_g . f and sep = A_g . B.
+__device__ __forceinline__ float finish(float acc, float sep) {
+  return logf(fmaxf(acc + sep, 0.f) + 1e-6f);
 }
 
 // One group's bias of the pair: wt_g and a_g are that group's 32 weights of
@@ -64,7 +76,7 @@ __device__ __forceinline__ float group_bias(const float* wt_g, const float* a_g,
   float sep = 0.f;
 #pragma unroll
   for (int j = 0; j < kSepDim; ++j) sep = fmaf(a_g[j], bk[j], sep);
-  return logf(fmaxf(acc + sep, 0.f) + 1e-6f);
+  return finish(acc, sep);
 }
 
 }  // namespace mega_bias

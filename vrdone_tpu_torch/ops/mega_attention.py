@@ -12,7 +12,10 @@ and a query row with no valid key gives 0. The output is (N, g * dgo) in
 caller. The value projection and ub stay outside the kernel, one matrix
 product each, as in the JAX package. The kernel source is
 ``csrc/mega_attention.cu`` (with the bias device code shared with the
-position-bias kernel through ``csrc/mega_bias.cuh``).
+position-bias kernel through ``csrc/mega_bias.cuh``). The kernel cuts the
+keys into splits that fill the card; with more than one, the wrapper
+allocates S * g * N * (dgo + 2) floats of scratch for their partial softmax
+states, which a second kernel merges.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ NEG_INF = -1e9          # the dense form's additive mask, as models/mega.py
 MAX_GROUPS = 16         # the kernel gives each group one warp of a block
 MAX_GROUP_DIM = 256     # dg and dgo: the kernel gives a lane dgo / 32 floats
 
-# launches of the CUDA kernel since the count was last set to 0
+# calls that launched the CUDA kernel (and, with more than one key split,
+# its merge) since the count was last set to 0
 launches = 0
 
 
@@ -64,12 +68,28 @@ def _kernel() -> ctypes.CDLL:
     lib = _build.load_library("mega_attention")
     fn = lib.mega_attention_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.POINTER(ctypes.c_float),
                       ctypes.c_void_p])
+    lib.mega_attention_splits.restype = ctypes.c_int
+    lib.mega_attention_splits.argtypes = ([ctypes.c_int] * 5
+                                          + [ctypes.POINTER(ctypes.c_int)])
     lib.mega_attention_error_string.restype = ctypes.c_char_p
     lib.mega_attention_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def key_splits(device: int, n: int, m: int, g: int, dg: int, dgo: int) -> int:
+    """The key splits the kernel takes for this problem on ``device`` (the
+    C side's rule: fill the card's block slots once)."""
+    lib = _kernel()
+    splits = ctypes.c_int(1)
+    with torch.cuda.device(device):
+        code = lib.mega_attention_splits(n, m, g, dg, dgo,
+                                         ctypes.byref(splits))
+    _build.check_launch(lib, "mega_attention", code)
+    return splits.value
 
 
 def mega_attention_cuda(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
@@ -121,12 +141,17 @@ def mega_attention_cuda(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
     else:
         ptrs, freqs = [None] * 6, None
     lib = _kernel()
+    splits = key_splits(q.device.index, n, m, g, dg, dgo)
+    # the splits' partial (acc, m, l) of each (row, group), merged into out
+    part = (torch.empty(splits * g * n * (dgo + 2), device=q.device)
+            if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.mega_attention_forward(
             q.data_ptr(), k.data_ptr(), vproj.data_ptr(), ub.data_ptr(),
-            valid.data_ptr(), *ptrs, out.data_ptr(), n, m, g, dg, dgo,
-            1.0 / math.sqrt(dg), freqs, stream)
+            valid.data_ptr(), *ptrs, out.data_ptr(),
+            None if part is None else part.data_ptr(), n, m, g, dg, dgo,
+            splits, 1.0 / math.sqrt(dg), freqs, stream)
     _build.check_launch(lib, "mega_attention", code)
     launches += 1
     return out
