@@ -10,13 +10,15 @@ one process per source, all started together, into
 
   1. holds each forward kernel against its plain PyTorch version at the
      shapes of the VidVRD eval forward, and times both and the one-call
-     library equivalent (``F.scaled_dot_product_attention``), the
-     full-attention kernel (K7) also at the largest eval bucket (768) and at
-     VidOR's S/O cross-attention (B=8, H=8, T=512, d=64), each timed alone;
+     library equivalent (``F.scaled_dot_product_attention``), the band
+     kernel (K1) alone at each eval shape (T = 96, 48, 24, 12) beside its
+     bound, the full-attention kernel (K7) also at the largest eval bucket
+     (768) and at VidOR's S/O cross-attention (B=8, H=8, T=512, d=64),
+     each timed alone;
   2. holds the band attention's lse and its dQ and dK/dV backward kernels
      against autograd of the plain version at the train step's shapes
      (B*H = 24*4, d = 128, w = 3), with a nonzero upstream gradient on
-     invalid query rows, and times them;
+     invalid query rows, and times them and K1 with its lse alone;
   3. runs the full-width VidVRD ``MaskVRD`` eval forward
      (``configs/vidvrd.yaml``, random seeded weights) on the card against
      the same weights on the CPU, counts the kernel launches of one forward
@@ -42,8 +44,8 @@ one process per source, all started together, into
      its plain version at the streamed stem's and branches' shapes,
      ``BandAttentionPE``'s gradients against plain autograd, and the band
      (K1) and full-attention (K7) kernels against theirs at the shapes the
-     stream gives them and times each kernel alone (these checks too right
-     after 2), then streams
+     stream gives them and times each kernel alone, K4 and K1 beside SDPA
+     and their bounds (these checks too right after 2), then streams
      a synthetic SO-pair sequence of 6,000 positions through
      ``StreamingRunner`` at VidOR local-attention width
      (``configs/vidor_local.yaml`` with ``use_rel_pe``, random seeded
@@ -213,6 +215,32 @@ def compare(kernel, plain) -> tuple[float, float, float]:
     return err, (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def band_row(ba, label, kernel, plain_ms, library, q, mask, h, w, *,
+             pe: torch.Tensor | None = None, with_lse: bool = False) -> dict:
+    """One shape of K1 (K4 with ``pe``): the kernel alone (queued behind a
+    device sleep) beside ``plain_ms``, the library call and the bound, with
+    the instance the C side picked. Returns the row for the JSON line."""
+    b, t, c = q.shape
+    dev_ms = queued_device_ms(kernel)
+    lib_ms = time_ms(library)
+    n_bytes = (4 * (4 * q.numel() + (0 if pe is None else pe.numel())
+                    + (b * h * t if with_lse else 0)) + mask.numel())
+    bms, by = bound_ms(n_bytes, 4 * (c // h) * h * band_pairs(mask, w))
+    inst = ""
+    if hasattr(ba, "forward_instance"):  # absent before the redesign
+        i = ba.forward_instance(q.device.index or 0, b, t, h, c // h,
+                                2 * w + 1, pe is not None)
+        inst = (f" (instance {i['rows']} rows a tile, {i['per_block']} of "
+                f"{i['tiles']} tiles a block, d bucket {i['bucket']}"
+                f"{'' if i['vec'] else ', scalar'})")
+    name = "band_attention" if pe is None else "band_attention_pe"
+    print(f"{name} {label}{inst}: the kernel alone {dev_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by})")
+    return dict(shape=label, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+
 def attention_inputs(rng, b, tq, tk, c, device):
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, c))
                                 .astype(np.float32)).to(device)
@@ -226,11 +254,13 @@ def attention_inputs(rng, b, tq, tk, c, device):
 def check_kernels(cuda, ba, fa) -> dict:
     """The forward kernels at the eval forward's shapes. Returns, per
     kernel, its entry of the JSON line (all but ``launches``), with the
-    times at B=128, T=96, d=128."""
+    times at B=128, T=96, d=128; K1's ``by_shape`` holds its time alone at
+    each eval shape (the train step's and the stream's are added by
+    ``check_band_backward`` and ``check_stream_kernels``)."""
     rng = np.random.default_rng(0)
     h, w, d = 4, 3, 128
     worst = {"band_attention": 0.0, "masked_attention": 0.0}
-    entries = {}
+    entries, band_rows = {}, []
     for t in (96, 48, 24, 12, 768):
         q, k, v, mask = attention_inputs(rng, 128, t, t, h * d, cuda)
         kw = dict(n_head=h, window_size=2 * w + 1)
@@ -242,18 +272,19 @@ def check_kernels(cuda, ba, fa) -> dict:
         if not err <= KERNEL_TOL:
             raise AssertionError(f"band kernel off by {err} at T={t}")
         worst["band_attention"] = max(worst["band_attention"], err)
+        if t == 768:   # a check only: the timed forward is at T=96
+            continue
+        lib_mask = band_library_mask(mask, w)
+        row = band_row(
+            ba, f"B*H=128*4 T={t} d=128 w=3",
+            lambda: ba.band_attention_cuda(q, k, v, mask, **kw), plain_ms,
+            lambda: F.scaled_dot_product_attention(
+                heads(q, h), heads(k, h), heads(v, h), attn_mask=lib_mask),
+            q, mask, h, w)
+        band_rows.append(row)
         if t == T:
-            lib_mask = band_library_mask(mask, w)
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                heads(q, h), heads(k, h), heads(v, h), attn_mask=lib_mask))
-            n = q.numel()
-            bms, by = bound_ms(4 * 4 * n + mask.numel(),
-                               4 * d * h * band_pairs(mask, w))
-            entries["band_attention"] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=by, shape="B*H=128*4 T=96 d=128 w=3",
-                device_ms=queued_device_ms(
-                    lambda: ba.band_attention_cuda(q, k, v, mask, **kw)))
+            entries["band_attention"] = {**row, "ms": ms,
+                                         "by_shape": band_rows}
     # K7 at the eval forward's shapes (the cross-attention at 96 up to the
     # largest bucket, 768; the predictor's 9 queries), and at VidOR's S/O
     # cross-attention (B=8, H=8, T=512, d=64); the ones marked are also
@@ -302,12 +333,13 @@ def check_kernels(cuda, ba, fa) -> dict:
     return entries
 
 
-def check_band_backward(cuda, ba, mops) -> dict:
+def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
     """K1's lse and the K2 (dQ) and K3 (dK, dV) kernels through
     ``BandAttention`` against autograd of the plain version, at the train
     step's band shapes, with a nonzero upstream gradient everywhere
     (invalid query rows included). Returns the JSON entries of
-    ``band_attention_dq`` and ``band_attention_dkv``, timed at T=96."""
+    ``band_attention_dq`` and ``band_attention_dkv``, timed at T=96, and
+    appends K1 with its lse, timed alone at T=96, to ``band_rows``."""
     rng = np.random.default_rng(3)
     b, h, d, w = 24, 4, 128, 3
     kw = dict(n_head=h, window_size=2 * w + 1)
@@ -348,12 +380,23 @@ def check_band_backward(cuda, ba, mops) -> dict:
                                           *abs_errs[1:])
         if t != T:
             continue
+        lib_mask = band_library_mask(mask, w)
         with torch.no_grad():
             dr = ba.band_rowsum(dout, out, h)
+            band_rows.append(band_row(
+                ba, "B*H=24*4 T=96 d=128 w=3 with lse",
+                lambda: ba.band_attention_cuda(q, k, v, mask, with_lse=True,
+                                               **kw),
+                time_ms(lambda: (ba.band_attention_plain(q, k, v, mask, **kw),
+                                 ba.band_lse_plain(q, k, mask, **kw))),
+                lambda: F.scaled_dot_product_attention(
+                    heads(q, h), heads(k, h), heads(v, h),
+                    attn_mask=lib_mask),
+                q, mask, h, w, with_lse=True))
         args = (q, k, v, mask, lse, dr, dout)
         lib_in = [heads(x, h).detach().requires_grad_() for x in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(
-            *lib_in, attn_mask=band_library_mask(mask, w))
+        lib_out = F.scaled_dot_product_attention(*lib_in,
+                                                 attn_mask=lib_mask)
         lib_dout = heads(dout, h)
         n, bht = q.numel(), b * h * t
         pairs = h * band_pairs(mask, w)
@@ -1106,14 +1149,15 @@ def band_pe_library_mask(mask: torch.Tensor, rel_pe: torch.Tensor,
 def check_band_pe(cuda, ba, mops) -> tuple[dict, dict]:
     """K4 against its plain version at the streamed chunk's band shapes
     (B=8, H=8, d=64: the stem at T=768, the branches at 384, 192, 96), at
-    a T off the 16-row tile, at w=3 and at an even window, with invalid
+    a T off the row tile, at w=3 and at an even window, with invalid
     keys inside and after the valid stretch; ``BandAttentionPE``'s dq, dk,
     dv and d rel_pe against plain autograd at the stem's shape. Returns
-    K4's JSON entry, timed at the stem's shape, and the kernel alone at
-    each stream shape, {T: ms}."""
+    K4's JSON entry, timed at the stem's shape with the kernel alone,
+    SDPA and the bound at each stream shape in ``by_shape``, and the
+    kernel alone at each stream shape, {T: ms}."""
     rng = np.random.default_rng(11)
     b, h, d = 8, 8, 64
-    worst, entry, alone = 0.0, None, {}
+    worst, entry, alone, rows = 0.0, None, {}, []
     for t, ws in ((768, 9), (384, 9), (192, 9), (96, 9), (757, 9), (768, 7),
                   (768, 8)):
         q, k, v, mask = attention_inputs(rng, b, t, t, h * d, cuda)
@@ -1124,32 +1168,26 @@ def check_band_pe(cuda, ba, mops) -> tuple[dict, dict]:
         err, ms, plain_ms = compare(
             lambda: ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw),
             lambda: ba.band_attention_pe_plain(q, k, v, mask, pe, **kw))
-        stream_shape = ws == 9 and t % 96 == 0
-        if stream_shape:
-            alone[t] = queued_device_ms(
-                lambda: ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw))
         print(f"band_attention_pe B*H=8*8 d=64 window={ws} T={t}: "
-              f"max_abs_err {err:.3e}, kernel {ms:.4f} ms"
-              + (f" (alone {alone[t]:.4f} ms)" if stream_shape else "")
-              + f", plain {plain_ms:.4f} ms")
+              f"max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
         if not err <= KERNEL_TOL:
             raise AssertionError(f"K4 off by {err} at T={t} window={ws}")
         worst = max(worst, err)
-        if (t, ws) != (768, 9):
+        if not (ws == 9 and t % 96 == 0):
             continue
         lib_mask = band_pe_library_mask(mask, pe, ws)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            heads(q, h), heads(k, h), heads(v, h), attn_mask=lib_mask))
+        rows.append(band_row(
+            ba, f"B*H=8*8 T={t} d=64 window=9",
+            lambda: ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw),
+            plain_ms, lambda: F.scaled_dot_product_attention(
+                heads(q, h), heads(k, h), heads(v, h), attn_mask=lib_mask),
+            q, mask, h, ws // 2, pe=pe))
         del lib_mask
-        bms, by = bound_ms(4 * (4 * q.numel() + pe.numel()) + mask.numel(),
-                           4 * d * h * band_pairs(mask, ws // 2))
-        entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=bms, bound_by=by, device_ms=alone[t],
-                     shape="B*H=8*8 T=768 d=64 window=9")
-        print(f"band_attention_pe at {entry['shape']}: the kernel alone "
-              f"{alone[t]:.4f} ms (queued behind a sleep), library (SDPA, "
-              f"mask precomputed) {lib_ms:.4f} ms, bound {bms:.4f} ms "
-              f"({by})")
+        alone[t] = rows[-1]["device_ms"]
+        if t != 768:
+            continue
+        entry = {**rows[-1], "ms": ms, "by_shape": rows}
 
         # BandAttentionPE: the K4 forward, the dense form's autograd as the
         # backward, against plain autograd on the same inputs
@@ -1177,13 +1215,15 @@ def check_band_pe(cuda, ba, mops) -> tuple[dict, dict]:
     return entry, alone
 
 
-def check_stream_kernels(cuda, ba, fa) -> tuple[dict, dict]:
+def check_stream_kernels(cuda, ba, fa, band_rows: list
+                         ) -> tuple[dict, dict]:
     """K1 and K7 against their plain versions at the shapes the streamed
     chunk group gives them: K1 in the S/O mutual layers at B=8, T=768,
     H=8, d=64, window 9, with invalid keys inside and after the valid
     stretch; K7 in the predictor at B=8, H=8, d=32 with 9 queries over the
     9 queries (all valid) and over the 96 positions of the coarsest level.
-    Returns the worst error of each and the kernel alone at each shape."""
+    Returns the worst error of each and the kernel alone at each shape, and
+    appends K1's row (beside SDPA and its bound) to ``band_rows``."""
     rng = np.random.default_rng(13)
     worst = {"band_attention": 0.0, "masked_attention": 0.0}
     alone = {}
@@ -1202,9 +1242,18 @@ def check_stream_kernels(cuda, ba, fa) -> tuple[dict, dict]:
                       fa.full_attention_cuda(qf, kf, vf, mf, n_head=8),
                       lambda qf=qf, kf=kf, vf=vf, mf=mf:
                       fa.full_attention_plain(qf, kf, vf, mf, n_head=8)))
+    lib_mask = band_library_mask(mask, 4)
     for name, label, kernel, plain in cases:
         err, ms, plain_ms = compare(kernel, plain)
-        alone[name, label] = queued_device_ms(kernel)
+        if name == "band_attention":
+            band_rows.append(band_row(
+                ba, "B*H=8*8 T=768 d=64 w=4", kernel, plain_ms,
+                lambda: F.scaled_dot_product_attention(
+                    heads(q, 8), heads(k, 8), heads(v, 8),
+                    attn_mask=lib_mask), q, mask, 8, 4))
+            alone[name, label] = band_rows[-1]["device_ms"]
+        else:
+            alone[name, label] = queued_device_ms(kernel)
         print(f"{name} stream shape B=8 H=8 {label}: max_abs_err "
               f"{err:.3e}, kernel {ms:.4f} ms (alone "
               f"{alone[name, label]:.4f} ms), plain {plain_ms:.4f} ms")
@@ -1383,10 +1432,11 @@ def main(argv: list[str] | None = None) -> int:
     # eval forward's and the train step's, the detector's (K5, K6) and the
     # stream's (K4, and K1 and K7 at the stream's shapes)
     kernels = check_kernels(cuda, ba, fa)
-    kernels.update(check_band_backward(cuda, ba, mops))
+    band_rows = kernels["band_attention"]["by_shape"]
+    kernels.update(check_band_backward(cuda, ba, mops, band_rows))
     kernels.update(check_mega_kernels(cuda, pb, ma))
     kernels["band_attention_pe"], pe_alone = check_band_pe(cuda, ba, mops)
-    stream_worst, alone = check_stream_kernels(cuda, ba, fa)
+    stream_worst, alone = check_stream_kernels(cuda, ba, fa, band_rows)
     for name, err in stream_worst.items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     if args.only == "kernels":
@@ -1525,6 +1575,7 @@ def main(argv: list[str] | None = None) -> int:
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
          "bound_by": e["bound_by"], "library_ms": e["library_ms"],
          **({"device_ms": e["device_ms"]} if "device_ms" in e else {}),
+         **({"by_shape": e["by_shape"]} if "by_shape" in e else {}),
          "shape": e["shape"]}
         for name, e in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {

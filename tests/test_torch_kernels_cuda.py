@@ -65,7 +65,7 @@ def max_err(a, b):
     (300, 4, 64), (37, 9, 32), (5, 3, 128), (3, 9, 16), (1, 3, 8),
     (100, 15, 256), (64, 0, 64)])
 def test_band_kernel_matches_plain(cuda, t, w, d):
-    """Slice shapes (d 128, w 3), T off the 16-row tile, T < 2w + 1, the
+    """Slice shapes (d 128, w 3), T off the row tile, T < 2w + 1, the
     widest band and head dim the kernel takes, and w = 0."""
     b, h = 4, 4
     q, k, v, mask = streams(t * 31 + w, b, t, t, h * d,
@@ -203,7 +203,7 @@ def pe_table(seed, h, window_size, device):
     (96, 6, 128), (5, 9, 64), (1, 7, 8), (100, 31, 128), (64, 1, 64)])
 def test_band_pe_kernel_matches_plain(cuda, t, window_size, d):
     """K4 at the streamed stem's shape (T 768, w 4, d 64), even windows
-    (the bias index clamps), T off the 16-row tile, T < 2w + 1, the widest
+    (the bias index clamps), T off the row tile, T < 2w + 1, the widest
     band and w = 0, with invalid keys and queries."""
     b, h = 4, 8
     q, k, v, mask = streams(t * 13 + window_size, b, t, t, h * d,
@@ -259,6 +259,94 @@ def test_band_pe_autograd_matches_plain(cuda, t, window_size, d):
     for name, g, r in zip(("dq", "dk", "dv", "drel_pe"), got, want):
         assert max_err(g, r) <= 1e-5 * max(1.0, r.abs().max().item()), name
     assert (got[0][3] == 0).all()  # a batch row with no valid query
+
+
+def band_forward_case(cuda, seed, b, t, h, d, w):
+    """K1 with its lse, K4 with a random and with a zero table, against
+    their plain versions, on streams with an invalid key inside a valid
+    stretch, a batch row of one valid query and one with none."""
+    window_size = 2 * w + 1
+    lens = ([t, max(1, t // 2), 1, 0] + [t] * (b - 4) if b >= 4
+            else [t] * b)
+    q, k, v, mask = streams(seed, b, t, t, h * d, lens, cuda)
+    mask[0, t // 3] = False
+    kw = dict(n_head=h, window_size=window_size)
+    out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
+    assert max_err(out, ba.band_attention_plain(q, k, v, mask, **kw)) <= TOL
+    ref_lse = ba.band_lse_plain(q, k, mask, **kw)
+    assert ((lse - ref_lse).abs() / (1 + ref_lse.abs())).max() <= 1e-5
+    pe = pe_table(seed, h, window_size, cuda)
+    got = ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw)
+    assert max_err(got, ba.band_attention_pe_plain(q, k, v, mask, pe,
+                                                   **kw)) <= TOL
+    zero = torch.zeros_like(pe)
+    assert torch.equal(ba.band_attention_pe_cuda(q, k, v, mask, zero, **kw),
+                       out)
+    if b >= 4:
+        assert (out[3] == 0).all()  # no valid query (and no valid key)
+
+
+@pytest.mark.parametrize("t,w,d,b,h", [
+    # T one below, at and one above a multiple of each row tile the rule
+    # picks (16 up to 16 rows, 32, 48, 64; T = 96 and 48 take 48)
+    (15, 3, 128, 4, 4), (16, 3, 128, 4, 4), (17, 3, 128, 4, 4),
+    (31, 3, 64, 4, 4), (32, 3, 64, 4, 4), (33, 3, 64, 4, 4),
+    (47, 3, 128, 4, 4), (48, 3, 128, 4, 4), (49, 3, 128, 4, 4),
+    (63, 4, 64, 4, 8), (64, 4, 64, 4, 8), (65, 4, 64, 4, 8),
+    (95, 3, 128, 4, 4), (96, 3, 128, 4, 4), (97, 3, 128, 4, 4),
+    (767, 4, 64, 4, 8), (768, 4, 64, 4, 8), (769, 4, 64, 4, 8),
+    # the paths' shapes: the eval forward (B*H = 128*4, two 48-row tiles
+    # a block), the train step, the stream (B*H = 8*8, 64-row tiles)
+    (96, 3, 128, 128, 4), (12, 3, 128, 128, 4), (96, 3, 128, 24, 4),
+    (768, 4, 64, 8, 8), (96, 4, 64, 8, 8),
+    # the widest band and head dim (the slab fits one stage only), w = 0
+    (100, 15, 256, 4, 4), (40, 0, 32, 4, 4),
+    # head dims off their bucket: 20 takes the vector instance, 33, 18
+    # and 6 (d % 4 != 0) the scalar one
+    (96, 3, 20, 4, 3), (70, 4, 33, 4, 4), (50, 3, 18, 4, 3),
+    (40, 2, 6, 4, 5)])
+def test_band_forward_instances_match_plain(cuda, t, w, d, b, h):
+    """K1 (with its lse) and K4 at each row-tile instance's edges, at the
+    paths' shapes and at head dims off a multiple of 4; a zero table gives
+    K1's output bit for bit at each."""
+    inst = ba.forward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1)
+    assert inst["rows"] in (16, 32, 48, 64)
+    assert inst["tiles"] == -(-t // inst["rows"])
+    assert inst["vec"] == (d % 4 == 0)
+    band_forward_case(cuda, t * 7 + d, b, t, h, d, w)
+
+
+@pytest.mark.parametrize("t", [1500, 1630])
+def test_band_forward_walks_double_buffered_tiles(cuda, t):
+    """Enough row tiles (64 sequences of 24 or 26 tiles of 64 rows) that a
+    block walks several, double-buffered, the last one padded; on an H100
+    (264 block slots) 1630 leaves the last block of a sequence fewer tiles
+    than the others."""
+    inst = ba.forward_instance(cuda.index or 0, 8, t, 8, 64, 9)
+    assert inst["rows"] == 64 and inst["per_block"] > 1
+    band_forward_case(cuda, t, 8, t, 8, 64, 4)
+
+
+def test_band_forward_unaligned_streams_take_the_scalar_instance(cuda):
+    """Streams that start 4 bytes past a 16-byte boundary cannot be copied
+    16 bytes at a time: the scalar instance takes them, K1 and K4 alike."""
+    b, t, h, d = 4, 150, 8, 64
+    q, k, v, mask = streams(9, b, t, t, h * d, [t, 70, 1, 0], cuda)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+    qs, ks, vs = shifted(q), shifted(k), shifted(v)
+    assert qs.data_ptr() % 16 and qs.is_contiguous()
+    kw = dict(n_head=h, window_size=9)
+    assert max_err(ba.band_attention_cuda(qs, ks, vs, mask, **kw),
+                   ba.band_attention_plain(q, k, v, mask, **kw)) <= TOL
+    pe = pe_table(9, h, 9, cuda)
+    assert max_err(ba.band_attention_pe_cuda(qs, ks, vs, mask, pe, **kw),
+                   ba.band_attention_pe_plain(q, k, v, mask, pe, **kw)) \
+        <= TOL
 
 
 def test_kernels_without_backward_refuse_grad(cuda):

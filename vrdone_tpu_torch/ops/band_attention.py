@@ -17,7 +17,9 @@ the dQ and dK/dV kernels. ``BandAttentionPE`` is the one with a bias (the
 port of ``masked._band_pallas_pe``): the bias kernel forward and the dense
 form's autograd as the backward, as the JAX package pairs them.
 ``band_attention_cuda`` and ``band_attention_pe_cuda`` alone have no
-backward and refuse inputs that need one.
+backward and refuse inputs that need one. The C side picks the forward's
+instance (query rows a tile, tiles a block walks, head-dim bucket, vector or
+scalar copies) from the shape and the card; ``forward_instance`` reports it.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from . import _build
 from .heads import merge_heads, split_heads
 
 NEG_BIG = -1e4        # additive mask of an invalid in-band key
-MAX_HALF_WINDOW = 15  # the kernel gives one lane to each of 2w + 1 keys
+MAX_HALF_WINDOW = 15  # the 2w + 1 keys of a row fit one warp's lanes
 MAX_HEAD_DIM = 256
 
 # launches of each CUDA kernel since the counts were last set to 0
@@ -107,9 +109,31 @@ def _kernel() -> ctypes.CDLL:
     lib.band_attention_pe_forward.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p])
+    lib.band_attention_instance.restype = ctypes.c_int
+    lib.band_attention_instance.argtypes = (
+        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 5)
     lib.band_attention_error_string.restype = ctypes.c_char_p
     lib.band_attention_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def forward_instance(device: int, b: int, t: int, n_head: int, d: int,
+                     window_size: int, pe: bool = False) -> dict:
+    """The instance the forward kernel (K1, or K4 with ``pe``) takes on
+    ``device`` for 16-byte-aligned (B, T, n_head * d) streams: ``rows`` query
+    rows a tile, ``tiles`` row tiles a (batch, head), ``per_block`` tiles a
+    block walks (double-buffered when more than 1), the head-dim ``bucket``
+    and ``vec`` (16-byte copies; False for the scalar instance)."""
+    lib = _kernel()
+    vals = [ctypes.c_int() for _ in range(5)]
+    with torch.cuda.device(device):
+        code = lib.band_attention_instance(
+            b, t, n_head, d, window_size // 2, int(pe),
+            *(ctypes.byref(x) for x in vals))
+    _build.check_launch(lib, "band_attention", code)
+    rows, tiles, per_block, bucket, vec = (x.value for x in vals)
+    return dict(rows=rows, tiles=tiles, per_block=per_block, bucket=bucket,
+                vec=bool(vec))
 
 
 def _shape(q, k, v, kv_mask, n_head, window_size):
