@@ -18,7 +18,10 @@ one process per source, all started together, into
   2. holds the band attention's lse and its dQ and dK/dV backward kernels
      against autograd of the plain version at the train step's shapes
      (B*H = 24*4, d = 128, w = 3), with a nonzero upstream gradient on
-     invalid query rows, and times them and K1 with its lse alone;
+     invalid query rows, times K1 with its lse alone and the dQ (K2) and
+     dK/dV (K3) kernels alone at each train shape (T = 96, 48, 24, 12)
+     beside plain autograd, SDPA's backward and their bounds, with the
+     instance the C side picked;
   3. runs the full-width VidVRD ``MaskVRD`` eval forward
      (``configs/vidvrd.yaml``, random seeded weights) on the card against
      the same weights on the CPU, counts the kernel launches of one forward
@@ -105,6 +108,29 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
+
+
+def ptxas_usage(log: str) -> list[str]:
+    """Each kernel instance's registers and spills from nvcc's
+    ``-Xptxas -v`` output, as "name<template arguments>: N registers, S/L
+    bytes spilled" (stores/loads); nothing when the library was already
+    built."""
+    lines, entry, spill = [], None, ""
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            entry, spill = m[1], ""
+            if k := re.search(r"([a-z_]+_kernel)(I(?:L\w\d+E)+E)?", entry):
+                args = re.findall(r"L(\w)(\d+)E", k[2] or "")
+                entry = k[1] + (("<" + ", ".join(
+                    v if t != "b" else ("true" if v == "1" else "false")
+                    for t, v in args) + ">") if args else "")
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", ln):
+            spill = f"{m[1]}/{m[2]} bytes spilled"
+        elif (m := re.search(r"Used (\d+) registers", ln)) and entry:
+            lines.append(f"{entry}: {m[1]} registers, {spill}")
+            entry = None
+    return lines
 
 
 def band_pairs(mask: torch.Tensor, w: int) -> int:
@@ -333,18 +359,32 @@ def check_kernels(cuda, ba, fa) -> dict:
     return entries
 
 
+def band_backward_instance(ba, q, h, w, dkv) -> str:
+    """The backward instance the C side picks for q's shape, as text."""
+    if not hasattr(ba, "backward_instance"):  # absent before the redesign
+        return ""
+    b, t, c = q.shape
+    i = ba.backward_instance(q.device.index or 0, b, t, h, c // h, 2 * w + 1,
+                             dkv)
+    return (f" (instance {i['rows_warp']} rows a warp, {i['rows']} rows a "
+            f"tile, {i['per_block']} of {i['tiles']} tiles a block, d bucket "
+            f"{i['bucket']}{'' if i['vec'] else ', scalar'})")
+
+
 def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
     """K1's lse and the K2 (dQ) and K3 (dK, dV) kernels through
     ``BandAttention`` against autograd of the plain version, at the train
     step's band shapes, with a nonzero upstream gradient everywhere
     (invalid query rows included). Returns the JSON entries of
-    ``band_attention_dq`` and ``band_attention_dkv``, timed at T=96, and
-    appends K1 with its lse, timed alone at T=96, to ``band_rows``."""
+    ``band_attention_dq`` and ``band_attention_dkv``, timed at T=96, with
+    each kernel alone at every train shape (T=96, 48, 24, 12) beside plain
+    autograd, SDPA's backward and the bound in ``by_shape``, and appends K1
+    with its lse, timed alone at T=96, to ``band_rows``."""
     rng = np.random.default_rng(3)
     b, h, d, w = 24, 4, 128, 3
     kw = dict(n_head=h, window_size=2 * w + 1)
     worst = {"band_attention_dq": 0.0, "band_attention_dkv": 0.0}
-    entries = {}
+    entries = {name: {"by_shape": []} for name in worst}
     for t in (96, 48, 24, 12, 768):
         q, k, v, mask = attention_inputs(rng, b, t, t, h * d, cuda)
         mask[1, t // 3] = False   # an invalid key inside a valid stretch
@@ -378,21 +418,23 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
                                          abs_errs[0])
         worst["band_attention_dkv"] = max(worst["band_attention_dkv"],
                                           *abs_errs[1:])
-        if t != T:
+        if t == 768:   # a check only: the train step runs T <= 96
             continue
         lib_mask = band_library_mask(mask, w)
         with torch.no_grad():
             dr = ba.band_rowsum(dout, out, h)
-            band_rows.append(band_row(
-                ba, "B*H=24*4 T=96 d=128 w=3 with lse",
-                lambda: ba.band_attention_cuda(q, k, v, mask, with_lse=True,
-                                               **kw),
-                time_ms(lambda: (ba.band_attention_plain(q, k, v, mask, **kw),
-                                 ba.band_lse_plain(q, k, mask, **kw))),
-                lambda: F.scaled_dot_product_attention(
-                    heads(q, h), heads(k, h), heads(v, h),
-                    attn_mask=lib_mask),
-                q, mask, h, w, with_lse=True))
+            if t == T:
+                band_rows.append(band_row(
+                    ba, "B*H=24*4 T=96 d=128 w=3 with lse",
+                    lambda: ba.band_attention_cuda(q, k, v, mask,
+                                                   with_lse=True, **kw),
+                    time_ms(lambda: (ba.band_attention_plain(q, k, v, mask,
+                                                             **kw),
+                                     ba.band_lse_plain(q, k, mask, **kw))),
+                    lambda: F.scaled_dot_product_attention(
+                        heads(q, h), heads(k, h), heads(v, h),
+                        attn_mask=lib_mask),
+                    q, mask, h, w, with_lse=True))
         args = (q, k, v, mask, lse, dr, dout)
         lib_in = [heads(x, h).detach().requires_grad_() for x in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*lib_in,
@@ -400,6 +442,7 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
         lib_dout = heads(dout, h)
         n, bht = q.numel(), b * h * t
         pairs = h * band_pairs(mask, w)
+        shape = f"B*H=24*4 T={t} d=128 w=3"
         for name, kernel, plain_wrt, lib_wrt, out_elems, ops in (
                 ("band_attention_dq",
                  lambda: ba.band_attention_dq_cuda(*args, **kw),
@@ -418,15 +461,19 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
             p1, k1, k2, p2 = (time_ms(f) for f in (plain, kernel, kernel,
                                                    plain))
             bms, by = bound_ms(4 * (4 * n + 2 * bht + out_elems) + b * t, ops)
-            entries[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                                 library_ms=time_ms(library), bound_ms=bms,
-                                 bound_by=by, shape="B*H=24*4 T=96 d=128 w=3",
-                                 device_ms=queued_device_ms(kernel))
-            e = entries[name]
-            print(f"{name} at {e['shape']}: kernel {e['ms']:.4f} ms (alone "
-                  f"{e['device_ms']:.4f} ms), plain "
-                  f"autograd {e['plain_ms']:.4f} ms, library backward "
-                  f"{e['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+            row = dict(shape=shape, device_ms=queued_device_ms(kernel),
+                       plain_ms=(p1 + p2) / 2, library_ms=time_ms(library),
+                       bound_ms=bms, bound_by=by)
+            inst = band_backward_instance(ba, q, h, w,
+                                          name == "band_attention_dkv")
+            print(f"{name} {shape}{inst}: kernel {(k1 + k2) / 2:.4f} ms, "
+                  f"the kernel alone {row['device_ms']:.4f} ms, plain "
+                  f"autograd {row['plain_ms']:.4f} ms, library (SDPA) "
+                  f"backward {row['library_ms']:.4f} ms, bound {bms:.4f} ms "
+                  f"({by})")
+            entries[name]["by_shape"].append(row)
+            if t == T:
+                entries[name].update(row, ms=(k1 + k2) / 2)
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
     return entries
@@ -1424,9 +1471,9 @@ def main(argv: list[str] | None = None) -> int:
                                       pb._kernel)))
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     for name, (seconds, log) in _build.BUILD_LOG.items():
-        usage = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"  {name}: nvcc {seconds:.1f} s; " + " | ".join(usage))
+        print(f"  {name}: nvcc {seconds:.1f} s")
+        for line in ptxas_usage(log):
+            print(f"    {line}")
 
     # 2. each kernel against its plain version at the slices' shapes: the
     # eval forward's and the train step's, the detector's (K5, K6) and the

@@ -60,6 +60,15 @@ def max_err(a, b):
     return (a - b).abs().max().item()
 
 
+def shifted(x):
+    """A contiguous copy of x whose data start 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
 @pytest.mark.parametrize("t,w,d", [
     (96, 3, 128), (48, 3, 128), (24, 3, 128), (12, 3, 128), (768, 3, 128),
     (300, 4, 64), (37, 9, 32), (5, 3, 128), (3, 9, 16), (1, 3, 8),
@@ -134,12 +143,6 @@ def test_full_kernel_unaligned_streams_take_the_scalar_path(cuda):
     element."""
     b, tq, tk, h, d = 2, 70, 40, 4, 64
     q, k, v, mask = streams(5, b, tq, tk, h * d, [tk, 17], cuda)
-
-    def shifted(x):
-        buf = torch.empty(x.numel() + 1, device=cuda)
-        y = buf[1:].view(x.shape)
-        y.copy_(x)
-        return y
     qs, ks, vs = shifted(q), shifted(k), shifted(v)
     assert qs.data_ptr() % 16 and qs.is_contiguous()
     out = fa.full_attention_cuda(qs, ks, vs, mask, n_head=h)
@@ -332,12 +335,6 @@ def test_band_forward_unaligned_streams_take_the_scalar_instance(cuda):
     16 bytes at a time: the scalar instance takes them, K1 and K4 alike."""
     b, t, h, d = 4, 150, 8, 64
     q, k, v, mask = streams(9, b, t, t, h * d, [t, 70, 1, 0], cuda)
-
-    def shifted(x):
-        buf = torch.empty(x.numel() + 1, device=cuda)
-        y = buf[1:].view(x.shape)
-        y.copy_(x)
-        return y
     qs, ks, vs = shifted(q), shifted(k), shifted(v)
     assert qs.data_ptr() % 16 and qs.is_contiguous()
     kw = dict(n_head=h, window_size=9)
@@ -347,6 +344,156 @@ def test_band_forward_unaligned_streams_take_the_scalar_instance(cuda):
     assert max_err(ba.band_attention_pe_cuda(qs, ks, vs, mask, pe, **kw),
                    ba.band_attention_pe_plain(q, k, v, mask, pe, **kw)) \
         <= TOL
+
+
+def band_backward_case(cuda, seed, b, t, h, d, w, shift=False):
+    """K2 (dQ) and K3 (dK, dV) through ``BandAttention`` against autograd of
+    the plain version, one launch of each, on streams with an invalid key
+    inside a valid stretch, a batch row of one valid query and one with
+    none (dQ exactly 0 there), and a nonzero upstream gradient on the
+    invalid query rows. With ``shift`` q, k, v and dout start 4 bytes past
+    a 16-byte boundary."""
+    lens = ([t, max(1, t // 2), 1, 0] + [t] * (b - 4) if b >= 4
+            else [t] * b)
+    q, k, v, mask = streams(seed, b, t, t, h * d, lens, cuda)
+    mask[0, t // 3] = False
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        q.shape).astype(np.float32)).to(cuda)
+    move = shifted if shift else torch.clone
+    leaves = [move(x).requires_grad_() for x in (q, k, v)]
+    counts = (ba.dq_launches, ba.dkv_launches)
+    got = torch.autograd.grad(mops.band_attention(*leaves, mask, **kw),
+                              leaves, move(dout))
+    torch.cuda.synchronize()
+    assert (ba.dq_launches, ba.dkv_launches) == (counts[0] + 1,
+                                                 counts[1] + 1)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ba.band_attention_plain(*ref, mask, **kw),
+                               ref, dout)
+    for name, g, r in zip("qkv", got, want):
+        assert max_err(g, r) <= 1e-5 * max(1.0, r.abs().max().item()), name
+    assert (got[0][~mask] == 0).all()  # invalid query rows, row 3 whole
+
+
+@pytest.mark.parametrize("t,w,d,b,h", [
+    # T one below, at and one above a multiple of each row tile (16 rows
+    # up to w = 4, 32 up to 8, 48 up to 12, 64 above, at most 32 at 2 rows
+    # a warp), for few sequences (B*H = 16) and for many (B*H = 512)
+    (15, 3, 128, 4, 4), (16, 3, 128, 4, 4), (17, 3, 128, 4, 4),
+    (31, 6, 64, 4, 4), (32, 6, 64, 4, 4), (33, 6, 64, 4, 4),
+    (47, 10, 128, 128, 4), (48, 10, 128, 128, 4), (49, 10, 128, 128, 4),
+    (63, 14, 64, 64, 8), (64, 14, 64, 64, 8), (65, 14, 64, 64, 8),
+    (95, 3, 128, 128, 4), (96, 3, 128, 128, 4), (97, 3, 128, 128, 4),
+    # the train step's shapes
+    (96, 3, 128, 24, 4), (48, 3, 128, 24, 4), (24, 3, 128, 24, 4),
+    (12, 3, 128, 24, 4),
+    # the widest band and w = 0 at head dims 32 and 256; T < 2w + 1
+    (100, 15, 256, 4, 4), (64, 0, 256, 4, 4), (70, 15, 32, 4, 4),
+    (40, 0, 32, 4, 4), (5, 3, 128, 4, 4), (1, 3, 8, 4, 4),
+    # head dims off a multiple of 4: the scalar instance
+    (70, 4, 33, 4, 4), (50, 3, 18, 4, 3), (40, 2, 6, 4, 5)])
+def test_band_backward_instances_match_plain_autograd(cuda, t, w, d, b, h):
+    """K2 and K3 at each instance's edges, at the train step's shapes and
+    at head dims off a multiple of 4; the instance the C side reports is a
+    tiling of T."""
+    for dkv in (False, True):
+        inst = ba.backward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
+                                    dkv)
+        assert inst["rows_warp"] in (2, 4)
+        assert inst["rows"] in (16, 32, 48, 64)
+        assert inst["tiles"] == -(-t // inst["rows"])
+        assert 1 <= inst["per_block"] <= inst["tiles"]
+        assert inst["vec"] == (d % 4 == 0)
+    band_backward_case(cuda, t * 5 + d, b, t, h, d, w)
+
+
+@pytest.mark.parametrize("dkv", [False, True])
+@pytest.mark.parametrize("t", [96, 80])
+def test_band_backward_walks_double_buffered_tiles(cuda, t, dkv):
+    """A block walks two row tiles, double-buffered, where that puts every
+    block on the card at once: the first batch of 4-head sequences
+    (d 128, w 3) at which the kernel's instance walks, with T = 96 (six
+    16-row tiles) and T = 80 (five: a block walks one)."""
+    b = next((b for b in range(4, 129, 4) if ba.backward_instance(
+        cuda.index or 0, b, t, 4, 128, 7, dkv)["per_block"] > 1), None)
+    assert b is not None
+    band_backward_case(cuda, t + b, b, t, 4, 128, 3)
+
+
+def test_band_backward_unaligned_streams_take_the_scalar_instance(cuda):
+    """q, k, v and dout 4 bytes past a 16-byte boundary: K2 and K3 take
+    the scalar instance."""
+    band_backward_case(cuda, 9, 4, 150, 8, 64, 4, shift=True)
+
+
+def test_band_backward_invalid_queries_pass_nothing_back(cuda):
+    """An invalid query row's q and upstream gradient reach no gradient:
+    changing them leaves dQ, dK and dV bit for bit as they were, and dQ of
+    those rows is exactly 0."""
+    b, t, h, d, w = 4, 96, 4, 128, 3
+    q, k, v, mask = streams(11, b, t, t, h * d, [t, 50, 1, 0], cuda)
+    mask[0, 40] = False
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)
+                       ).to(cuda)
+    grads = []
+    for scale in (1.0, 100.0):
+        qx, dx = q.clone(), dout.clone()
+        qx[~mask] *= scale
+        dx[~mask] *= scale
+        leaves = [qx.requires_grad_(), k.clone().requires_grad_(),
+                  v.clone().requires_grad_()]
+        grads.append(torch.autograd.grad(
+            mops.band_attention(*leaves, mask, **kw), leaves, dx))
+    for g0, g1 in zip(*grads):
+        assert torch.equal(g0, g1)
+    assert (grads[0][0][~mask] == 0).all()
+
+
+def test_band_backward_instance_is_what_launches(cuda, tmp_path):
+    """The instance ``backward_instance`` reports is the one the C side
+    launches: the kernel's template arguments (head-dim bucket, vector or
+    scalar copies, K2 or K3, owner rows a warp), its grid and its block,
+    read from a ``torch.profiler`` trace."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    for b, t, h, d, w in ((24, 96, 4, 128, 3), (24, 12, 4, 128, 3),
+                          (128, 48, 4, 128, 3), (8, 1500, 8, 64, 4),
+                          (4, 70, 4, 33, 4)):
+        q, k, v, mask = streams(t + d, b, t, t, h * d, [t] * b, cuda)
+        kw = dict(n_head=h, window_size=2 * w + 1)
+        dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+            t)).to(cuda)
+        out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
+        args = (q, k, v, mask, lse, ba.band_rowsum(dout, out, h), dout)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ba.band_attention_dq_cuda(*args, **kw)
+                ba.band_attention_dkv_cuda(*args, **kw)
+                torch.cuda.synchronize()
+        trace = tmp_path / f"trace{t}.json"
+        prof.export_chrome_trace(str(trace))
+        seen = set()
+        for e in json.loads(trace.read_text())["traceEvents"]:
+            m = re.search(r"band_backward_kernel<(\d+), (true|false), "
+                          r"(true|false), (\d+)>", e.get("name", ""))
+            if e.get("cat") != "kernel" or m is None:
+                continue
+            dkv = m[3] == "true"
+            inst = ba.backward_instance(cuda.index or 0, b, t, h, d,
+                                        2 * w + 1, dkv)
+            assert (int(m[1]), m[2] == "true", int(m[4])) == (
+                inst["bucket"], inst["vec"], inst["rows_warp"])
+            blocks = b * h * -(-inst["tiles"] // inst["per_block"])
+            assert e["args"]["grid"] == [blocks, 1, 1]
+            assert e["args"]["block"] == [
+                32 * inst["rows"] // inst["rows_warp"], 1, 1]
+            seen.add(dkv)
+        assert seen == {False, True}, (b, t, h, d, w)
 
 
 def test_kernels_without_backward_refuse_grad(cuda):

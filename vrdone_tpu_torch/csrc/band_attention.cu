@@ -18,10 +18,10 @@
 //     K1 and K4 are one templated body, so a zero table gives K1's output
 //     bit for bit. The JAX package pairs this forward with the dense
 //     backward, and so does the port (no backward kernel);
-//   * band_attention_dq_kernel   <- _dq_kernel (dQ), launched by
-//     _band_core_bwd;
-//   * band_attention_dkv_kernel  <- _dkv_kernel (dK, dV), launched by
-//     _band_core_bwd.
+//   * band_backward_kernel<.., kKV = false> (K2) <- _dq_kernel (dQ),
+//     launched by _band_core_bwd;
+//   * band_backward_kernel<.., kKV = true> (K3) <- _dkv_kernel (dK, dV),
+//     launched by _band_core_bwd.
 // Semantics are those of the dense oracle vrdone_tpu/ops/masked.py::
 // band_attention: query i attends keys j with |i - j| <= w, scores scaled by
 // 1/sqrt(d), an in-band key that is masked invalid gets an additive -1e4
@@ -77,24 +77,60 @@
 //     off a multiple of 4 or a pointer off 16 bytes takes the scalar
 //     instance: the same design with 4-byte copies and loads.
 //
-// The backward kernels keep the first design: a block owns kRows = 16 rows,
-// one warp each, and stages its slab with plain loads. A lane rebuilds its
-// score as a serial fmaf chain over d, which sums in another order than the
-// forward's butterfly, so P = exp(s - lse) agrees with the forward's
-// probabilities to rounding (LSE_TOL and GRAD_TOL in chip_smoke.py hold the
-// two together), not bit for bit.
-//   * dq: a block owns kRows query rows and stages keys and values
-//     [i0 - w, i0 + kRows + w); lane l of warp r rebuilds P and dS of key
-//     i - w + l, then the warp sums dS . K over its band with lanes over the
-//     channels.
-//   * dkv: the mirror image. A block owns kRows key rows and stages queries,
-//     upstream gradients, lse and Dr of rows [j0 - w, j0 + kRows + w);
-//     lane l of warp r takes query j - w + l of key j's band.
-// Backward math, with P = exp(S - lse) rebuilt from the saved lse and
-// Dr = rowsum(dO * O) computed by the caller:
-//   dS = P * (dO . V^T - Dr),  dQ = scale * dS . K,
-//   dK = scale * dS^T . Q,     dV = P^T . dO.
-//
+// The backward, K2 (dQ) and K3 (dK, dV), is one templated body
+// (band_backward_kernel<.., kKV>), built from the forward's pieces. The two
+// kernels are mirrors: a block owns R consecutive owner rows of one (batch,
+// head) and stages the slab of R + 2w partner rows that their bands reach.
+//   * K2: owners are queries, held in registers as q (pre-scaled) and dO;
+//     partners are keys, staged as K and V. dQ += dS . k, times scale at
+//     the store.
+//   * K3: owners are keys, held as k (pre-scaled) and v; partners are
+//     queries, staged as Q and dO. dK += dS . q (times scale at the store),
+//     dV += P . dO.
+// With P = exp(s - lse) rebuilt from the saved lse, s = q . k * scale
+// (+ -1e4 for an in-band invalid key) and Dr = rowsum(dO * O) computed by
+// the caller: dS = P * (dO . v - Dr), dQ = scale * dS . K,
+// dK = scale * dS^T . Q, dV = P^T . dO. A pair whose query is invalid, or
+// whose partner lies outside the band or the sequence, has P = dS = 0, so
+// an invalid query row gets dQ = 0 and gives nothing to dK or dV.
+// What bounds it: each kernel reads its four (B, T, H*d) streams, lse and
+// Dr once and writes one (K2) or two (K3) streams: bytes again (0.0071 ms
+// for K2, 0.0085 for K3 at the train step's B*H = 24*4, T = 96, d = 128).
+// What the design does about it, step by step:
+//   * Lanes over channels (Lane<DB>), a warp owning RT consecutive owner
+//     rows (2 or 4, from the instance rule). Each partner row of the
+//     warp's reach is loaded once from shared memory, both of its streams,
+//     and dotted with all RT owner rows: 2 * RT partial dots, summed across
+//     the warp by one transposing butterfly (reduce_rows<2 * RT>: 9
+//     shuffles for 8 dots, where plain butterflies take 40). The dots go
+//     to two per-warp tiles, partner-major, 0 outside the band.
+//   * A pass with lanes over (owner, band offset) pairs turns them into P
+//     and dS in place; the band test, the masks and the exclusion of
+//     out-of-sequence partners (by position, never by the copy's zeros)
+//     live there only. K2's s is the forward's score bit for bit.
+//   * Accumulation rereads each partner row once and adds it into RT rows
+//     of register accumulators with the owners' dS (and for K3 P) as one
+//     broadcast vector.
+//   * Staging as in the forward: cp.async slabs of both partner streams
+//     (zero-filled outside [0, T) and past d), the slab rows' lse and Dr by
+//     4-byte cp.async and their mask bytes into shared memory, the owner
+//     rows straight into registers; double-buffered where a block walks
+//     two row tiles.
+//   * The instance rule (run_backward; band_attention_backward_instance
+//     exposes it). A train step's problem is small (24 * 4 sequences of
+//     96 rows: 2,304 warps of 4 rows against the card's 8,448 warp slots),
+//     so the rule fills the card first: rows a tile are the smallest of
+//     16, 32, 48, 64 that is at least 4w (16 at w = 3), and of (2 rows a
+//     warp, 1 tile a block), (4, 1), (2, 2), (4, 2) it takes the first
+//     whose blocks all fit the card's block slots at once, at that
+//     instance's occupancy; (4, 1) where none does. On an H100 at the
+//     train shape K2 takes (4, 1) and K3, whose 4-row instance holds 126
+//     registers a thread, (2, 2); T = 48, 24, 12 take (2, 1).
+// Measured alone by chip_smoke.py on an H100 SXM (700 W) at B*H = 24*4,
+// d = 128, w = 3: K2 0.0097-0.0098 ms at T = 96 (the first design's one
+// warp a row, a lane a key: 0.0299-0.0300), 0.0072, 0.0059, 0.0050 at
+// T = 48, 24, 12; K3 0.0129-0.0130 (0.0348-0.0353), 0.0078, 0.0064,
+// 0.0052. No instance spills.
 // Layout: q, k, v, out, dout, dq, dk, dv are (B, T, H*d) contiguous with
 // heads split head-major along the channels (channels [h*d, (h+1)*d) are
 // head h), as the JAX package's _split_heads lays them out, so no transpose
@@ -104,6 +140,7 @@
 // anything else before the launch.
 
 #include <cuda_runtime.h>
+#include <initializer_list>
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
@@ -111,41 +148,19 @@
 
 namespace {
 
-constexpr int kRows = 16;         // backward: owned rows a block, a warp each
-constexpr int kMaxD = 256;        // head dim bound (kMaxD / 32 floats a lane)
+constexpr int kMaxD = 256;        // head dim bound
 constexpr int kMaxW = 15;         // 2w + 1 <= 31: at most one warp of keys
-constexpr int kChan = kMaxD / 32; // channels a lane owns in a row sum
 constexpr float kNegBig = -1e4f;  // additive mask of an invalid in-band key
 
 constexpr int kRT = 4;            // forward: query rows a warp owns
-constexpr int kMaskStage = 128;   // forward: mask bytes a stage (R + 2w <= 94)
+constexpr int kStage = 128;       // mask bytes (backward: and lse, Dr) a
+                                  // stage; R + 2w <= 94
 constexpr size_t kSmemMax = 232448;  // shared memory a block may take
 
-__device__ __forceinline__ float dot_row(const float* a, const float* b,
-                                         int D) {
-  float dot = 0.f;
-  for (int c = 0; c < D; ++c) dot = fmaf(a[c], b[c], dot);
-  return dot;
-}
-
-// Stage rows [r0, r0 + rows) of one head of a (B, T, H*d) stream at `dst`
-// with row stride `stride`, zero outside [0, T), each value times `mul`.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           size_t base, int r0, int rows,
-                                           int T, int C, int D, int stride,
-                                           float mul) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    const int t = r0 + r;
-    dst[r * stride + c] =
-        (t >= 0 && t < T) ? src[base + (size_t)t * C + c] * mul : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The forward (K1, K4)
-// ---------------------------------------------------------------------------
+// Threads a backward block may have: 256 at d bucket 256, where a thread
+// of K3 holds 2 x 4 owner rows and 2 x 4 accumulator rows of 8 channels.
+template <int DB>
+constexpr int kBwdThreads = DB >= 256 ? 256 : 512;
 
 // How a lane holds a row of a head-dim bucket DB: kNC runs of kVW
 // consecutive channels, run c at channel c * 32 * kVW + lane * kVW.
@@ -208,6 +223,133 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// One head of a (B, T, H*d) stream: rows of C = H*d floats, the head's
+// channels [0, D) from `base`.
+struct Head {
+  size_t base;
+  int T, C, D;
+};
+
+// Copy rows [r0, r0 + n) of one head of the streams a and b into as and bs
+// (row stride DB floats), zero outside [0, T) and past D.
+template <int DB, bool kVec>
+__device__ __forceinline__ void copy_slab(float* as, float* bs,
+                                          const float* a, const float* b,
+                                          const Head& hd, int r0, int n) {
+  constexpr unsigned kW = kVec ? 4 : 1;   // floats a copy
+  constexpr unsigned kCh = DB / kW;       // copies a row
+  for (unsigned idx = threadIdx.x; idx < n * kCh; idx += blockDim.x) {
+    const unsigned r = idx / kCh;
+    const int c = kW * (int)(idx - r * kCh);
+    const int t = r0 + (int)r;
+    const bool live = t >= 0 && t < hd.T && c < hd.D;
+    const size_t off = live ? hd.base + (size_t)t * hd.C + c : 0;
+    if constexpr (kVec) {
+      cp_async16(as + r * DB + c, a + off, live);
+      cp_async16(bs + r * DB + c, b + off, live);
+    } else {
+      cp_async4(as + r * DB + c, a + off, live);
+      cp_async4(bs + r * DB + c, b + off, live);
+    }
+  }
+}
+
+// This lane's channels of the RT rows of stream x from i0, unscaled, 0 past
+// T and past D. Issued ahead of their use, so nothing here waits for the
+// loads.
+template <int DB, bool kVec, int RT>
+__device__ __forceinline__ void load_rows(float (&xr)[RT][Lane<DB>::kN],
+                                          const float* x, const Head& hd,
+                                          int i0, int lane) {
+  using L = Lane<DB>;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const bool live = i0 + r < hd.T;
+    const float* row = x + hd.base + (size_t)(i0 + r) * hd.C;
+#pragma unroll
+    for (int c = 0; c < L::kNC; ++c) {
+      const int ch = c * 32 * L::kVW + lane * L::kVW;
+      if constexpr (kVec) {
+        if (live && ch < hd.D) {
+          load_vec<L::kVW>(row + ch, xr[r] + c * L::kVW);
+        } else {
+#pragma unroll
+          for (int e = 0; e < L::kVW; ++e) xr[r][c * L::kVW + e] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < L::kVW; ++e)
+          xr[r][c * L::kVW + e] = live && ch + e < hd.D ? row[ch + e] : 0.f;
+      }
+    }
+  }
+}
+
+// Write this lane's channels of RT rows from i0 into stream x, each times
+// `mul`, the rows below T and the channels below D only.
+template <int DB, bool kVec, int RT>
+__device__ __forceinline__ void store_rows(float* x,
+                                           const float (&xr)[RT][Lane<DB>::kN],
+                                           float mul, const Head& hd, int i0,
+                                           int lane) {
+  using L = Lane<DB>;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if (i0 + r >= hd.T) break;
+    float* row = x + hd.base + (size_t)(i0 + r) * hd.C;
+#pragma unroll
+    for (int c = 0; c < L::kNC; ++c) {
+      const int ch = c * 32 * L::kVW + lane * L::kVW;
+      float y[L::kVW];
+#pragma unroll
+      for (int e = 0; e < L::kVW; ++e) y[e] = xr[r][c * L::kVW + e] * mul;
+      if constexpr (kVec) {
+        if (ch < hd.D) store_vec<L::kVW>(row + ch, y);
+      } else {
+#pragma unroll
+        for (int e = 0; e < L::kVW; ++e)
+          if (ch + e < hd.D) row[ch + e] = y[e];
+      }
+    }
+  }
+}
+
+// One transposing step of reduce_rows and the ones after it: a lane keeps
+// the upper half of its n values if (lane & o), else the lower half, and
+// adds to each the lane o apart's copy of it.
+template <int N, int n, int o>
+__device__ __forceinline__ void halve_rows(float (&v)[N], int lane) {
+  if constexpr (n > 1) {
+    const bool hi = lane & o;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float keep = hi ? v[n / 2 + i] : v[i];
+      const float send = hi ? v[i] : v[n / 2 + i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    halve_rows<N, n / 2, o / 2>(v, lane);
+  }
+}
+
+// Sums N per-lane partial dots across the warp (N a power of two <= 32): a
+// transposing butterfly halves the values a lane carries at lanes 16, 8,
+// ... apart until one is left, then plain steps finish. Every lane with
+// (lane >> (5 - log2 N)) & (N - 1) == n returns the full dot of value n.
+// Each sum is taken over the lanes in the same order whatever N is.
+template <int N>
+__device__ __forceinline__ float reduce_rows(float (&v)[N], int lane) {
+  halve_rows<N, N, 16>(v, lane);
+  float k = v[0];
+#pragma unroll
+  for (int o = 16 / N; o > 0; o >>= 1)
+    k += __shfl_xor_sync(0xffffffffu, k, o);
+  return k;
+}
+
+// ---------------------------------------------------------------------------
+// The forward (K1, K4)
+// ---------------------------------------------------------------------------
+
 // The problem a forward launch solves, with the instance pick_forward chose.
 struct BandProblem {
   const float* q;
@@ -223,88 +365,6 @@ struct BandProblem {
   int tiles;            // row tiles a (batch, head)
   int per_block;        // consecutive row tiles a block walks
 };
-
-// Copy the K and V rows [r0, r0 + n) of one head into ks and vs (row stride
-// DB floats), zero outside [0, T) and past D.
-template <int DB, bool kVec>
-__device__ __forceinline__ void copy_slab(float* ks, float* vs,
-                                          const BandProblem& p, size_t base,
-                                          int r0, int n) {
-  const int C = p.H * p.D;
-  if constexpr (kVec) {
-    constexpr unsigned kCh = DB / 4;  // 16-byte chunks a row
-    for (unsigned idx = threadIdx.x; idx < n * kCh; idx += blockDim.x) {
-      const unsigned r = idx / kCh;
-      const int c = 4 * (int)(idx - r * kCh);
-      const int t = r0 + (int)r;
-      const bool live = t >= 0 && t < p.T && c < p.D;
-      const size_t off = live ? base + (size_t)t * C + c : 0;
-      cp_async16(ks + r * DB + c, p.k + off, live);
-      cp_async16(vs + r * DB + c, p.v + off, live);
-    }
-  } else {
-    for (unsigned idx = threadIdx.x; idx < n * DB; idx += blockDim.x) {
-      const unsigned r = idx / DB;
-      const int c = (int)(idx - r * DB);
-      const int t = r0 + (int)r;
-      const bool live = t >= 0 && t < p.T && c < p.D;
-      const size_t off = live ? base + (size_t)t * C + c : 0;
-      cp_async4(ks + r * DB + c, p.k + off, live);
-      cp_async4(vs + r * DB + c, p.v + off, live);
-    }
-  }
-}
-
-// This lane's channels of the kRT query rows from i0, unscaled, 0 past T and
-// past D. Issued ahead of their use, so nothing here waits for the loads.
-template <int DB, bool kVec>
-__device__ __forceinline__ void load_queries(float (&qr)[kRT][Lane<DB>::kN],
-                                             const BandProblem& p,
-                                             size_t base, int i0, int lane) {
-  using L = Lane<DB>;
-  const int C = p.H * p.D;
-#pragma unroll
-  for (int r = 0; r < kRT; ++r) {
-    const bool live = i0 + r < p.T;
-    const float* row = p.q + base + (size_t)(i0 + r) * C;
-#pragma unroll
-    for (int c = 0; c < L::kNC; ++c) {
-      const int ch = c * 32 * L::kVW + lane * L::kVW;
-      if constexpr (kVec) {
-        if (live && ch < p.D) {
-          load_vec<L::kVW>(row + ch, qr[r] + c * L::kVW);
-        } else {
-#pragma unroll
-          for (int e = 0; e < L::kVW; ++e) qr[r][c * L::kVW + e] = 0.f;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < L::kVW; ++e)
-          qr[r][c * L::kVW + e] = live && ch + e < p.D ? row[ch + e] : 0.f;
-      }
-    }
-  }
-}
-
-// Sums four per-lane partial dots (one a query row) across the warp: a
-// transposing butterfly halves the values a lane carries at lanes 16 and 8
-// apart, then three plain steps finish. Every lane of the 8 with
-// (lane >> 3) & 3 == r returns the full dot of row r.
-__device__ __forceinline__ float reduce_rows(const float (&s)[kRT],
-                                             int lane) {
-  const bool hi = lane & 16;
-  float k0 = hi ? s[2] : s[0];
-  float k1 = hi ? s[3] : s[1];
-  k0 += __shfl_xor_sync(0xffffffffu, hi ? s[0] : s[2], 16);
-  k1 += __shfl_xor_sync(0xffffffffu, hi ? s[1] : s[3], 16);
-  const bool hi8 = lane & 8;
-  float k = hi8 ? k1 : k0;
-  k += __shfl_xor_sync(0xffffffffu, hi8 ? k0 : k1, 8);
-  k += __shfl_xor_sync(0xffffffffu, k, 4);
-  k += __shfl_xor_sync(0xffffffffu, k, 2);
-  k += __shfl_xor_sync(0xffffffffu, k, 1);
-  return k;
-}
 
 // The forward, K1 (kPE false) and K4 (kPE true). A block takes p.per_block
 // consecutive row tiles of one (batch, head), warp `warp` rows
@@ -326,7 +386,7 @@ band_forward_kernel(const BandProblem p) {
   float* vs = ks + stages * slab * DB;          // stages x slab x DB
   float* x = vs + stages * slab * DB + warp * xs;
   unsigned char* ms = reinterpret_cast<unsigned char*>(
-      vs + stages * slab * DB + (blockDim.x >> 5) * xs);  // stages x 128
+      vs + stages * slab * DB + (blockDim.x >> 5) * xs);  // stages x kStage
 
   const int chunks = (p.tiles + p.per_block - 1) / p.per_block;
   const int bh = blockIdx.x / chunks;
@@ -334,7 +394,8 @@ band_forward_kernel(const BandProblem p) {
   const int t_end = min(t_first + p.per_block, p.tiles);
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const size_t base = (size_t)b * T * p.H * p.D + (size_t)h * p.D;
+  const Head hd{(size_t)b * T * p.H * p.D + (size_t)h * p.D, T, p.H * p.D,
+                p.D};
   const unsigned char* mrow = p.mask + (size_t)b * T;
 
   // the softmax's lanes: segments of kseg lanes, lane n of a segment takes
@@ -346,7 +407,7 @@ band_forward_kernel(const BandProblem p) {
   float pe = 0.f;
   if (kPE && n <= 2 * w) pe = p.rel_pe[h * p.npe + min(n, p.npe - 1)];
 
-  copy_slab<DB, kVec>(ks, vs, p, base, t_first * R - w, slab);
+  copy_slab<DB, kVec>(ks, vs, p.k, p.v, hd, t_first * R - w, slab);
   cp_async_commit();
   for (int j = threadIdx.x; j < slab; j += blockDim.x) {
     const int t = t_first * R - w + j;
@@ -354,7 +415,7 @@ band_forward_kernel(const BandProblem p) {
   }
   for (int j = lane; j < xs; j += 32) x[j] = 0.f;  // 0 outside the band
   float qr[kRT][L::kN];
-  load_queries<DB, kVec>(qr, p, base, t_first * R + warp * kRT, lane);
+  load_rows<DB, kVec, kRT>(qr, p.q, hd, t_first * R + warp * kRT, lane);
   cp_async_wait_all();
   __syncthreads();
 
@@ -366,7 +427,7 @@ band_forward_kernel(const BandProblem p) {
     if (next) {  // the next tile's slab and mask bytes, under this tile
       const int r0 = (t + 1) * R - w;
       copy_slab<DB, kVec>(ks + (s ^ 1) * slab * DB, vs + (s ^ 1) * slab * DB,
-                          p, base, r0, slab);
+                          p.k, p.v, hd, r0, slab);
       cp_async_commit();
       if ((int)threadIdx.x < slab) {
         const int tt = r0 + threadIdx.x;
@@ -378,7 +439,7 @@ band_forward_kernel(const BandProblem p) {
       // this warp's slab: key rows i0 - w .. i0 + kRT - 1 + w
       const float* kt = ks + (s * slab + warp * kRT) * DB;
       const float* vt = vs + (s * slab + warp * kRT) * DB;
-      const unsigned char* mt = ms + s * kMaskStage + warp * kRT;
+      const unsigned char* mt = ms + s * kStage + warp * kRT;
 
       // 1. scores: each key row once, dotted with all kRT query rows
 #pragma unroll
@@ -400,11 +461,11 @@ band_forward_kernel(const BandProblem p) {
           for (int e = 0; e < L::kN; ++e) a = fmaf(qr[r][e], kx[e], a);
           part[r] = a;
         }
-        const float sc = reduce_rows(part, lane);
+        const float sc = reduce_rows<kRT>(part, lane);
         if (jj - rl >= 0 && jj - rl <= 2 * w) x[jj * kRT + rl] = sc;
       }
       if (next)  // the query rows are used up: fetch the next tile's
-        load_queries<DB, kVec>(qr, p, base, i0 + R, lane);
+        load_rows<DB, kVec, kRT>(qr, p.q, hd, i0 + R, lane);
       __syncwarp();
 
       // 2. softmax over each row's band, lanes over band offsets
@@ -458,190 +519,268 @@ band_forward_kernel(const BandProblem p) {
           for (int e = 0; e < L::kN; ++e)
             acc[r][e] = fmaf(pr[r], vx[e], acc[r][e]);
       }
-      const int C = p.H * p.D;
-#pragma unroll
-      for (int r = 0; r < kRT; ++r) {
-        if (i0 + r >= T) break;
-        float* orow = p.out + base + (size_t)(i0 + r) * C;
-#pragma unroll
-        for (int c = 0; c < L::kNC; ++c) {
-          const int ch = c * 32 * L::kVW + lane * L::kVW;
-          if constexpr (kVec) {
-            if (ch < p.D) store_vec<L::kVW>(orow + ch, acc[r] + c * L::kVW);
-          } else {
-#pragma unroll
-            for (int e = 0; e < L::kVW; ++e)
-              if (ch + e < p.D) orow[ch + e] = acc[r][c * L::kVW + e];
-          }
-        }
-      }
+      store_rows<DB, kVec, kRT>(p.out, acc, 1.f, hd, i0, lane);
     }
     if (next) {
       // every thread's share of the next slab has landed and every warp is
       // done with this stage (and its scores) before the next tile starts
       if ((int)threadIdx.x < slab)
-        ms[(s ^ 1) * kMaskStage + threadIdx.x] = mnext;
+        ms[(s ^ 1) * kStage + threadIdx.x] = mnext;
       cp_async_wait_all();
       __syncthreads();
     }
   }
 }
 
-__global__ void __launch_bounds__(kRows * 32)
-band_attention_dq_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const unsigned char* __restrict__ mask,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dr,
-                         const float* __restrict__ dout,
-                         float* __restrict__ dq,
-                         int T, int H, int D, int w, float scale) {
-  extern __shared__ float smem[];
-  const int slab = kRows + 2 * w;
-  const int stride = D + 1;
-  float* ks = smem;                    // slab x (D + 1)
-  float* vs = ks + slab * stride;      // slab x (D + 1)
-  float* qs = vs + slab * stride;      // kRows x D, pre-scaled
-  float* dos = qs + kRows * D;         // kRows x D
+// ---------------------------------------------------------------------------
+// The backward (K2, K3)
+// ---------------------------------------------------------------------------
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int i0 = blockIdx.y * kRows;
-  const int C = H * D;
-  const size_t base = (size_t)b * T * C + (size_t)h * D;
-  const unsigned char* mrow = mask + (size_t)b * T;
+// The problem a backward launch solves, with the instance pick_backward
+// chose.
+struct BandBwdProblem {
+  const float* q;
+  const float* k;
+  const float* v;
+  const unsigned char* mask;
+  const float* lse;     // (B, H, T)
+  const float* dr;      // (B, H, T): rowsum(dout * out)
+  const float* dout;
+  float* da;            // dQ (K2) or dK (K3)
+  float* db;            // dV (K3); null for K2
+  int T, H, D, w;
+  float scale;
+  int rows_warp;        // owner rows a warp: 32 * rows / rows_warp threads
+  int rows;             // owner rows a tile
+  int tiles;            // row tiles a (batch, head)
+  int per_block;        // consecutive row tiles a block walks
+};
 
-  stage_rows(ks, k, base, i0 - w, slab, T, C, D, stride, 1.f);
-  stage_rows(vs, v, base, i0 - w, slab, T, C, D, stride, 1.f);
-  stage_rows(qs, q, base, i0, kRows, T, C, D, D, scale);
-  stage_rows(dos, dout, base, i0, kRows, T, C, D, D, 1.f);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int i = i0 + warp;
-  if (i >= T) return;  // whole warp leaves together: no later barrier
-
-  float* dqrow = dq + base + (size_t)i * C;
-  if (!mrow[i]) {  // an invalid query row's output is constant 0
-    for (int c = lane; c < D; c += 32) dqrow[c] = 0.f;
-    return;
-  }
-  const int j = i - w + lane;
-  float ds = 0.f;
-  if (lane <= 2 * w && j >= 0 && j < T) {
-    const float s = dot_row(qs + warp * D, ks + (warp + lane) * stride, D) +
-                    (mrow[j] ? 0.f : kNegBig);
-    const float p = expf(s - lse[(size_t)bh * T + i]);
-    const float dp = dot_row(dos + warp * D, vs + (warp + lane) * stride, D);
-    ds = p * (dp - dr[(size_t)bh * T + i]);
-  }
-  float acc[kChan];
-#pragma unroll
-  for (int t = 0; t < kChan; ++t) acc[t] = 0.f;
-  for (int n = 0; n <= 2 * w; ++n) {
-    const float dn = __shfl_sync(0xffffffffu, ds, n);
-    const float* krow = ks + (warp + n) * stride;
-#pragma unroll
-    for (int t = 0; t < kChan; ++t) {
-      const int c = lane + 32 * t;
-      if (c < D) acc[t] = fmaf(dn, krow[c], acc[t]);
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < kChan; ++t) {
-    const int c = lane + 32 * t;
-    if (c < D) dqrow[c] = acc[t] * scale;
+// Copy the lse and Dr of rows [r0, r0 + n) of sequence bh into ls and ds,
+// 0 outside [0, T).
+__device__ __forceinline__ void copy_row_stats(float* ls, float* ds,
+                                               const BandBwdProblem& p,
+                                               size_t row0, int r0, int n) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const int t = r0 + j;
+    const bool live = t >= 0 && t < p.T;
+    const size_t off = live ? row0 + t : 0;
+    cp_async4(ls + j, p.lse + off, live);
+    cp_async4(ds + j, p.dr + off, live);
   }
 }
 
-__global__ void __launch_bounds__(kRows * 32)
-band_attention_dkv_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const unsigned char* __restrict__ mask,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ dr,
-                          const float* __restrict__ dout,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          int T, int H, int D, int w, float scale) {
-  extern __shared__ float smem[];
-  const int slab = kRows + 2 * w;
-  const int stride = D + 1;
-  float* qs = smem;                    // slab x (D + 1), pre-scaled
-  float* dos = qs + slab * stride;     // slab x (D + 1)
-  float* ks = dos + slab * stride;     // kRows x D
-  float* vs = ks + kRows * D;          // kRows x D
-  float* ls = vs + kRows * D;          // slab: lse of the slab's queries
-  float* drs = ls + slab;              // slab: Dr of the slab's queries
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int j0 = blockIdx.y * kRows;
-  const int C = H * D;
-  const size_t base = (size_t)b * T * C + (size_t)h * D;
-  const unsigned char* mrow = mask + (size_t)b * T;
-
-  stage_rows(qs, q, base, j0 - w, slab, T, C, D, stride, scale);
-  stage_rows(dos, dout, base, j0 - w, slab, T, C, D, stride, 1.f);
-  stage_rows(ks, k, base, j0, kRows, T, C, D, D, 1.f);
-  stage_rows(vs, v, base, j0, kRows, T, C, D, D, 1.f);
-  for (int r = threadIdx.x; r < slab; r += blockDim.x) {
-    const int t = j0 - w + r;
-    const bool in = t >= 0 && t < T;
-    ls[r] = in ? lse[(size_t)bh * T + t] : 0.f;
-    drs[r] = in ? dr[(size_t)bh * T + t] : 0.f;
-  }
-  __syncthreads();
-
+// The backward, K2 (kKV false: owners are queries, partners keys) and K3
+// (kKV true: owners are keys, partners queries). A block takes p.per_block
+// consecutive row tiles of one (batch, head), warp `warp` owner rows
+// warp * RT .. + RT - 1 of each; the warp's partners are the slab rows
+// warp * RT .. warp * RT + RT - 1 + 2w, so owner r and partner slab row jj
+// (both from the warp's first) are a band pair when 0 <= jj - r <= 2w.
+template <int DB, bool kVec, bool kKV, int RT>
+__global__ void __launch_bounds__(kBwdThreads<DB>)
+band_backward_kernel(const BandBwdProblem p) {
+  using L = Lane<DB>;
+  constexpr int kSh = RT == 4 ? 2 : 3;  // 5 - log2(2 * RT)
+  extern __shared__ __align__(16) float bwd_smem[];
+  const int w = p.w, R = p.rows, T = p.T;
+  const int slab = R + 2 * w;                   // partner rows a tile reaches
+  const int stages = p.per_block > 1 ? 2 : 1;
+  const int xs = (RT + 2 * w) * RT;             // a warp's tile, partner-major
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int j = j0 + warp;
-  if (j >= T) return;  // whole warp leaves together: no later barrier
+  float* as = bwd_smem;                         // stages x slab x DB
+  float* bs = as + stages * slab * DB;          // stages x slab x DB
+  float* ls = bs + stages * slab * DB;          // stages x kStage: lse
+  float* ds = ls + stages * kStage;             // stages x kStage: Dr
+  float* xp = ds + stages * kStage + warp * 2 * xs;  // s, then P
+  float* xd = xp + xs;                               // dO . v, then dS
+  unsigned char* ms = reinterpret_cast<unsigned char*>(
+      ds + stages * kStage + (blockDim.x >> 5) * 2 * xs);  // stages x kStage
 
-  // lane l takes query i = j - w + l, at slab row warp + l; an invalid
-  // query row has no share in dK or dV
-  const int i = j - w + lane;
-  float p = 0.f, ds = 0.f;
-  if (lane <= 2 * w && i >= 0 && i < T && mrow[i]) {
-    const int r = warp + lane;
-    const float s = dot_row(qs + r * stride, ks + warp * D, D) +
-                    (mrow[j] ? 0.f : kNegBig);
-    p = expf(s - ls[r]);
-    const float dp = dot_row(dos + r * stride, vs + warp * D, D);
-    ds = p * (dp - drs[r]);
+  // owner streams in registers, partner streams in the slab
+  const float* own_a = kKV ? p.k : p.q;
+  const float* own_b = kKV ? p.v : p.dout;
+  const float* part_a = kKV ? p.q : p.k;
+  const float* part_b = kKV ? p.dout : p.v;
+
+  const int chunks = (p.tiles + p.per_block - 1) / p.per_block;
+  const int bh = blockIdx.x / chunks;
+  const int t_first = (blockIdx.x - bh * chunks) * p.per_block;
+  const int t_end = min(t_first + p.per_block, p.tiles);
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const Head hd{(size_t)b * T * p.H * p.D + (size_t)h * p.D, T, p.H * p.D,
+                p.D};
+  const size_t row0 = (size_t)bh * T;
+  const unsigned char* mrow = p.mask + (size_t)b * T;
+
+  // the pair pass's lanes: segments of kseg lanes, lane n of a segment
+  // takes band offset n of one owner row, 32 / kseg owner rows a pass
+  int kseg = 1;
+  while (kseg < 2 * w + 1) kseg <<= 1;
+  const int n = lane & (kseg - 1);
+  const int seg_row = lane / kseg;
+
+  copy_slab<DB, kVec>(as, bs, part_a, part_b, hd, t_first * R - w, slab);
+  copy_row_stats(ls, ds, p, row0, t_first * R - w, slab);
+  cp_async_commit();
+  for (int j = threadIdx.x; j < slab; j += blockDim.x) {
+    const int t = t_first * R - w + j;
+    ms[j] = t >= 0 && t < T ? mrow[t] : 0;
   }
-  float acck[kChan], accv[kChan];
-#pragma unroll
-  for (int t = 0; t < kChan; ++t) acck[t] = accv[t] = 0.f;
-  for (int n = 0; n <= 2 * w; ++n) {
-    const float pn = __shfl_sync(0xffffffffu, p, n);
-    const float dn = __shfl_sync(0xffffffffu, ds, n);
-    const float* qrow = qs + (warp + n) * stride;
-    const float* dorow = dos + (warp + n) * stride;
-#pragma unroll
-    for (int t = 0; t < kChan; ++t) {
-      const int c = lane + 32 * t;
-      if (c < D) {
-        acck[t] = fmaf(dn, qrow[c], acck[t]);  // q is staged times scale
-        accv[t] = fmaf(pn, dorow[c], accv[t]);
+  for (int j = lane; j < 2 * xs; j += 32) xp[j] = 0.f;  // 0 outside the band
+  float oa[RT][L::kN], ob[RT][L::kN];
+  load_rows<DB, kVec, RT>(oa, own_a, hd, t_first * R + warp * RT, lane);
+  load_rows<DB, kVec, RT>(ob, own_b, hd, t_first * R + warp * RT, lane);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the value this lane ends the butterfly with: the first dot of owner
+  // row vl & (RT - 1) when vl < RT, else its second
+  const int vl = (lane >> kSh) & (2 * RT - 1);
+  float* const xv = vl < RT ? xp : xd;
+  const int rl = vl & (RT - 1);
+  for (int t = t_first; t < t_end; ++t) {
+    const int s = (t - t_first) & (stages - 1);
+    const bool next = t + 1 < t_end;
+    unsigned char mnext = 0;
+    if (next) {  // the next tile's slab, row stats and mask bytes
+      const int r0 = (t + 1) * R - w;
+      copy_slab<DB, kVec>(as + (s ^ 1) * slab * DB, bs + (s ^ 1) * slab * DB,
+                          part_a, part_b, hd, r0, slab);
+      copy_row_stats(ls + (s ^ 1) * kStage, ds + (s ^ 1) * kStage, p, row0,
+                     r0, slab);
+      cp_async_commit();
+      if ((int)threadIdx.x < slab) {
+        const int tt = r0 + threadIdx.x;
+        mnext = tt >= 0 && tt < T ? mrow[tt] : 0;
       }
     }
-  }
-  float* dkrow = dk + base + (size_t)j * C;
-  float* dvrow = dv + base + (size_t)j * C;
+    const int i0 = t * R + warp * RT;  // this warp's first owner row
+    if (i0 < T) {
+      const float* at = as + (s * slab + warp * RT) * DB;
+      const float* bt = bs + (s * slab + warp * RT) * DB;
+      const float* lt = ls + s * kStage + warp * RT;
+      const float* dt = ds + s * kStage + warp * RT;
+      const unsigned char* mt = ms + s * kStage + warp * RT;
+
+      // 1. both dots of every band pair: each partner row once, dotted
+      // with all RT owner rows, s = a_own . a_part and dO . v
 #pragma unroll
-  for (int t = 0; t < kChan; ++t) {
-    const int c = lane + 32 * t;
-    if (c < D) {
-      dkrow[c] = acck[t];
-      dvrow[c] = accv[t];
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int e = 0; e < L::kN; ++e) oa[r][e] *= p.scale;
+#pragma unroll 2
+      for (int jj = 0; jj < RT + 2 * w; ++jj) {
+        float ax[L::kN], bx[L::kN];
+#pragma unroll
+        for (int c = 0; c < L::kNC; ++c) {
+          const int ch = jj * DB + c * 32 * L::kVW + lane * L::kVW;
+          load_vec<L::kVW>(at + ch, ax + c * L::kVW);
+          load_vec<L::kVW>(bt + ch, bx + c * L::kVW);
+        }
+        float part[2 * RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          float a = 0.f, d = 0.f;
+#pragma unroll
+          for (int e = 0; e < L::kN; ++e) {
+            a = fmaf(oa[r][e], ax[e], a);
+            d = fmaf(ob[r][e], bx[e], d);
+          }
+          part[r] = a;
+          part[RT + r] = d;
+        }
+        const float val = reduce_rows<2 * RT>(part, lane);
+        if (jj - rl >= 0 && jj - rl <= 2 * w) xv[jj * RT + rl] = val;
+      }
+      if (next) {  // the owner rows are used up: fetch the next tile's
+        load_rows<DB, kVec, RT>(oa, own_a, hd, i0 + R, lane);
+        load_rows<DB, kVec, RT>(ob, own_b, hd, i0 + R, lane);
+      }
+      __syncwarp();
+
+      // 2. P and dS of each band pair, lanes over (owner, band offset);
+      // the owner sits at slab row r + w of the warp's, the partner at
+      // r + n. A partner outside the sequence is out by its position.
+      for (int r0 = 0; r0 < RT; r0 += 32 / kseg) {
+        const int r = r0 + seg_row;
+        if (r < RT && n <= 2 * w) {
+          const int own = r + w, prt = r + n;
+          const int qi = kKV ? prt : own;   // the pair's query
+          const int ki = kKV ? own : prt;   // and its key
+          const int tp = i0 - w + prt;
+          float pv = 0.f, dv = 0.f;
+          if (tp >= 0 && tp < T && mt[qi]) {
+            const float sc = xp[prt * RT + r] + (mt[ki] ? 0.f : kNegBig);
+            pv = expf(sc - lt[qi]);
+            dv = pv * (xd[prt * RT + r] - dt[qi]);
+          }
+          xp[prt * RT + r] = pv;
+          xd[prt * RT + r] = dv;
+        }
+      }
+      __syncwarp();
+
+      // 3. accumulate: each partner row once, with the RT owners' dS (K3:
+      // and P) as one broadcast
+      float acc_a[RT][L::kN], acc_b[kKV ? RT : 1][L::kN];
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int e = 0; e < L::kN; ++e) acc_a[r][e] = 0.f;
+      if constexpr (kKV) {
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+          for (int e = 0; e < L::kN; ++e) acc_b[r][e] = 0.f;
+      }
+#pragma unroll 2
+      for (int jj = 0; jj < RT + 2 * w; ++jj) {
+        float ax[L::kN], cd[RT];
+#pragma unroll
+        for (int c = 0; c < L::kNC; ++c)
+          load_vec<L::kVW>(at + jj * DB + c * 32 * L::kVW + lane * L::kVW,
+                           ax + c * L::kVW);
+        load_vec<RT>(xd + jj * RT, cd);
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+          for (int e = 0; e < L::kN; ++e)
+            acc_a[r][e] = fmaf(cd[r], ax[e], acc_a[r][e]);
+        if constexpr (kKV) {
+          float bx[L::kN], pc[RT];
+#pragma unroll
+          for (int c = 0; c < L::kNC; ++c)
+            load_vec<L::kVW>(bt + jj * DB + c * 32 * L::kVW + lane * L::kVW,
+                             bx + c * L::kVW);
+          load_vec<RT>(xp + jj * RT, pc);
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+#pragma unroll
+            for (int e = 0; e < L::kN; ++e)
+              acc_b[r][e] = fmaf(pc[r], bx[e], acc_b[r][e]);
+        }
+      }
+      // the partner stream a is unscaled: dQ and dK take the scale here
+      store_rows<DB, kVec, RT>(p.da, acc_a, p.scale, hd, i0, lane);
+      if constexpr (kKV) store_rows<DB, kVec, RT>(p.db, acc_b, 1.f, hd, i0,
+                                                  lane);
+    }
+    if (next) {
+      // every thread's share of the next slab has landed and every warp is
+      // done with this stage (and its tiles) before the next tile starts
+      if ((int)threadIdx.x < slab)
+        ms[(s ^ 1) * kStage + threadIdx.x] = mnext;
+      cp_async_wait_all();
+      __syncthreads();
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Instances and launches
+// ---------------------------------------------------------------------------
 
 bool bad_shape(int B, int T, int H, int D, int w) {
   return B < 1 || T < 1 || H < 1 || D < 1 || D > kMaxD || w < 0 ||
@@ -654,12 +793,51 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+cudaError_t sm_count(int* sms) {
+  int dev;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// The card's block slots for `kernel` at `threads` threads and `smem` bytes
+// of shared memory a block: the SM count times the blocks an SM holds
+// (at least 1).
+template <typename Kernel>
+cudaError_t block_slots(Kernel kernel, int threads, size_t smem,
+                        long long* slots) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int sms, per_sm;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  *slots = (long long)sms * (per_sm > 1 ? per_sm : 1);
+  return cudaSuccess;
+}
+
 // Shared memory of a forward block: the K and V slabs of each stage, the
 // warps' score tiles and the stages' mask bytes.
 size_t forward_smem(int DB, int rows, int w, int stages) {
   return sizeof(float) * ((size_t)stages * 2 * (rows + 2 * w) * DB +
                           (size_t)(rows / kRT) * (kRT + 2 * w) * kRT) +
-         (size_t)stages * kMaskStage;
+         (size_t)stages * kStage;
+}
+
+// Shared memory of a backward block: the two partner slabs, lse and Dr of
+// each stage, the warps' two tiles and the stages' mask bytes.
+size_t backward_smem(int DB, int rows, int rows_warp, int w, int stages) {
+  return sizeof(float) * ((size_t)stages * (2 * (rows + 2 * w) * DB +
+                                            2 * kStage) +
+                          (size_t)(rows / rows_warp) * 2 *
+                              (rows_warp + 2 * w) * rows_warp) +
+         (size_t)stages * kStage;
+}
+
+// Blocks of a launch: one a run of per_block tiles of each sequence.
+long long grid_blocks(int B, int H, int tiles, int per_block) {
+  return (long long)B * H * ((tiles + per_block - 1) / per_block);
 }
 
 // The forward's instance for B*H sequences of T rows, half window w, head
@@ -688,16 +866,9 @@ cudaError_t pick_forward(Kernel kernel, int DB, int BH, BandProblem* p,
   *smem = forward_smem(DB, p->rows, w, 1);
   const size_t smem2 = forward_smem(DB, p->rows, w, 2);
   if (p->tiles == 1 || smem2 > kSmemMax) return cudaSuccess;
-  cudaError_t err = allow_smem(kernel, smem2);
+  long long slots;
+  const cudaError_t err = block_slots(kernel, 8 * p->rows, smem2, &slots);
   if (err != cudaSuccess) return err;
-  int dev, sms, per_sm;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      8 * p->rows, smem2);
-  if (err != cudaSuccess) return err;
-  const long long slots = (long long)sms * (per_sm > 1 ? per_sm : 1);
   long long walk = ((long long)BH * p->tiles + slots / 2) / slots;
   if (walk > p->tiles) walk = p->tiles;
   if (walk > 1) {
@@ -717,11 +888,91 @@ cudaError_t run_forward(BandProblem* p, int B, cudaStream_t stream,
   cudaError_t err = pick_forward(kernel, DB, B * p->H, p, &smem);
   if (err != cudaSuccess || !launch) return err;
   if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
-  const long long blocks = (long long)B * p->H *
-                           ((p->tiles + p->per_block - 1) / p->per_block);
+  const long long blocks = grid_blocks(B, p->H, p->tiles, p->per_block);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, 8 * p->rows, smem, stream>>>(*p);
   return cudaGetLastError();
+}
+
+// Sets *p to the backward's instance of RT owner rows a warp and at most
+// `walk` tiles a block, its rows a tile the smallest of 16, 32, 48, 64 that
+// is at least 4w (the slab rereads at most half a row a row), or the most
+// a block of RT rows a warp takes; *slots receives the card's block slots
+// for it (0 where its shared memory does not fit) and *smem its shared
+// memory.
+template <int DB, bool kVec, bool kKV, int RT>
+cudaError_t set_backward(BandBwdProblem* p, int walk, long long* slots,
+                         size_t* smem) {
+  int rows = 16;
+  while (rows < 4 * p->w && rows < 64) rows += 16;
+  p->rows_warp = RT;
+  p->rows = min(rows, RT * kBwdThreads<DB> / 32);
+  p->tiles = (p->T + p->rows - 1) / p->rows;
+  p->per_block = min(walk, p->tiles);
+  *smem = backward_smem(DB, p->rows, RT, p->w, p->per_block > 1 ? 2 : 1);
+  *slots = 0;
+  if (*smem > kSmemMax) return cudaSuccess;
+  return block_slots(band_backward_kernel<DB, kVec, kKV, RT>,
+                     32 * p->rows / RT, *smem, slots);
+}
+
+template <int DB, bool kVec, bool kKV, int RT>
+cudaError_t launch_backward(const BandBwdProblem& p, int B, size_t smem,
+                            cudaStream_t stream) {
+  auto kernel = band_backward_kernel<DB, kVec, kKV, RT>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = grid_blocks(B, p.H, p.tiles, p.per_block);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, 32 * p.rows / RT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Picks the instance of the backward (K2, or K3 with kKV) for *p and, with
+// `launch`, launches it. The rule: the first of (2 owner rows a warp, one
+// tile a block), (4, 1), (2, 2), (4, 2) whose blocks all fit the card's
+// block slots at once, at that instance's occupancy; (4, 1) where none
+// does. Fewer rows a warp make more and shorter warps, which a problem of
+// a few thousand rows needs to fill the card; more rows a warp and tiles a
+// block reread less once it is full.
+template <int DB, bool kVec, bool kKV>
+cudaError_t run_backward(BandBwdProblem* p, int B, cudaStream_t stream,
+                         bool launch) {
+  constexpr int kChoices[][2] = {{2, 1}, {4, 1}, {2, 2}, {4, 2}};
+  size_t smem = 0;
+  bool fits = false;
+  for (const auto& c : kChoices) {
+    long long slots;
+    const cudaError_t err =
+        c[0] == 2 ? set_backward<DB, kVec, kKV, 2>(p, c[1], &slots, &smem)
+                  : set_backward<DB, kVec, kKV, 4>(p, c[1], &slots, &smem);
+    if (err != cudaSuccess) return err;
+    if ((fits = grid_blocks(B, p->H, p->tiles, p->per_block) <= slots))
+      break;
+  }
+  if (!fits) {
+    long long slots;
+    const cudaError_t err =
+        set_backward<DB, kVec, kKV, 4>(p, 1, &slots, &smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (!launch) return cudaSuccess;
+  return p->rows_warp == 2
+             ? launch_backward<DB, kVec, kKV, 2>(*p, B, smem, stream)
+             : launch_backward<DB, kVec, kKV, 4>(*p, B, smem, stream);
+}
+
+// The smallest head-dim bucket that holds D.
+int head_bucket(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+
+// Whether D and every stream allow 16-byte copies (the vector instance) or
+// not (the scalar one).
+bool vector_streams(int D, std::initializer_list<const void*> streams) {
+  uintptr_t bits = 0;
+  for (const void* s : streams) bits |= reinterpret_cast<uintptr_t>(s);
+  return D % 4 == 0 && (bits & 15) == 0;
 }
 
 template <bool kVec, bool kPE>
@@ -735,28 +986,36 @@ cudaError_t run_bucket(int bucket, BandProblem* p, int B,
   }
 }
 
-// The smallest head-dim bucket that holds D, and whether the streams can be
-// copied 16 bytes at a time (the vector instance) or not (the scalar one).
-int head_bucket(int D) {
-  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
-}
-
-bool vector_streams(const BandProblem& p) {
-  return p.D % 4 == 0 && ((reinterpret_cast<uintptr_t>(p.q) |
-                           reinterpret_cast<uintptr_t>(p.k) |
-                           reinterpret_cast<uintptr_t>(p.v) |
-                           reinterpret_cast<uintptr_t>(p.out)) & 15) == 0;
-}
-
 cudaError_t forward(BandProblem* p, int B, bool pe, cudaStream_t stream,
                     bool launch) {
   const int bucket = head_bucket(p->D);
-  const bool vec = vector_streams(*p);
+  const bool vec = vector_streams(p->D, {p->q, p->k, p->v, p->out});
   if (pe)
     return vec ? run_bucket<true, true>(bucket, p, B, stream, launch)
                : run_bucket<false, true>(bucket, p, B, stream, launch);
   return vec ? run_bucket<true, false>(bucket, p, B, stream, launch)
              : run_bucket<false, false>(bucket, p, B, stream, launch);
+}
+
+template <bool kVec, bool kKV>
+cudaError_t run_backward_bucket(int bucket, BandBwdProblem* p, int B,
+                                cudaStream_t stream, bool launch) {
+  switch (bucket) {
+    case 32: return run_backward<32, kVec, kKV>(p, B, stream, launch);
+    case 64: return run_backward<64, kVec, kKV>(p, B, stream, launch);
+    case 128: return run_backward<128, kVec, kKV>(p, B, stream, launch);
+    default: return run_backward<256, kVec, kKV>(p, B, stream, launch);
+  }
+}
+
+template <bool kKV>
+cudaError_t backward(BandBwdProblem* p, int B, cudaStream_t stream,
+                     bool launch) {
+  const int bucket = head_bucket(p->D);
+  const bool vec = vector_streams(
+      p->D, {p->q, p->k, p->v, p->dout, p->da, p->db});
+  return vec ? run_backward_bucket<true, kKV>(bucket, p, B, stream, launch)
+             : run_backward_bucket<false, kKV>(bucket, p, B, stream, launch);
 }
 
 }  // namespace
@@ -810,7 +1069,7 @@ extern "C" int band_attention_instance(int B, int T, int H, int D, int w,
   *tiles = p.tiles;
   *per_block = p.per_block;
   *bucket = head_bucket(D);
-  *vec = vector_streams(p);
+  *vec = vector_streams(D, {});
   return (int)err;
 }
 
@@ -821,16 +1080,9 @@ extern "C" int band_attention_backward_dq(
     const float* dout, float* dq, int B, int T, int H, int D, int w,
     float scale, void* stream) {
   if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
-  const int slab = kRows + 2 * w;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)slab * (D + 1) + 2 * (size_t)kRows * D);
-  cudaError_t err = allow_smem(band_attention_dq_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (T + kRows - 1) / kRows);
-  band_attention_dq_kernel<<<grid, kRows * 32, smem,
-                             (cudaStream_t)stream>>>(
-      q, k, v, mask, lse, dr, dout, dq, T, H, D, w, scale);
-  return (int)cudaGetLastError();
+  BandBwdProblem p{q, k, v, mask, lse, dr, dout, dq, nullptr, T, H, D, w,
+                   scale, 0, 0, 0, 0};
+  return (int)backward<false>(&p, B, (cudaStream_t)stream, true);
 }
 
 // dK and dV from the same inputs as band_attention_backward_dq.
@@ -840,17 +1092,30 @@ extern "C" int band_attention_backward_dkv(
     const float* dout, float* dk, float* dv, int B, int T, int H, int D,
     int w, float scale, void* stream) {
   if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
-  const int slab = kRows + 2 * w;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)slab * (D + 1) + 2 * (size_t)kRows * D +
-                       2 * (size_t)slab);
-  cudaError_t err = allow_smem(band_attention_dkv_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (T + kRows - 1) / kRows);
-  band_attention_dkv_kernel<<<grid, kRows * 32, smem,
-                              (cudaStream_t)stream>>>(
-      q, k, v, mask, lse, dr, dout, dk, dv, T, H, D, w, scale);
-  return (int)cudaGetLastError();
+  BandBwdProblem p{q, k, v, mask, lse, dr, dout, dk, dv, T, H, D, w, scale,
+                   0, 0, 0, 0};
+  return (int)backward<true>(&p, B, (cudaStream_t)stream, true);
+}
+
+// The instance the dQ kernel (K2), or with `dkv` the dK/dV kernel (K3),
+// takes on the current device for 16-byte-aligned streams of this shape:
+// owner rows a warp, owner rows a tile, row tiles a (batch, head), tiles a
+// block walks and the head-dim bucket; `vec` as for the forward.
+extern "C" int band_attention_backward_instance(
+    int B, int T, int H, int D, int w, int dkv, int* rows_warp, int* rows,
+    int* tiles, int* per_block, int* bucket, int* vec) {
+  if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
+  BandBwdProblem p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, nullptr, T, H, D, w, 1.f, 0, 0, 0, 0};
+  const cudaError_t err = dkv ? backward<true>(&p, B, nullptr, false)
+                              : backward<false>(&p, B, nullptr, false);
+  *rows_warp = p.rows_warp;
+  *rows = p.rows;
+  *tiles = p.tiles;
+  *per_block = p.per_block;
+  *bucket = head_bucket(D);
+  *vec = vector_streams(D, {});
+  return (int)err;
 }
 
 // The message of a code returned above, for the Python wrapper's error.

@@ -17,9 +17,10 @@ the dQ and dK/dV kernels. ``BandAttentionPE`` is the one with a bias (the
 port of ``masked._band_pallas_pe``): the bias kernel forward and the dense
 form's autograd as the backward, as the JAX package pairs them.
 ``band_attention_cuda`` and ``band_attention_pe_cuda`` alone have no
-backward and refuse inputs that need one. The C side picks the forward's
-instance (query rows a tile, tiles a block walks, head-dim bucket, vector or
-scalar copies) from the shape and the card; ``forward_instance`` reports it.
+backward and refuse inputs that need one. The C side picks each kernel's
+instance (rows a tile, tiles a block walks, head-dim bucket, vector or
+scalar copies; for the backward also owner rows a warp) from the shape and
+the card; ``forward_instance`` and ``backward_instance`` report it.
 """
 
 from __future__ import annotations
@@ -112,9 +113,24 @@ def _kernel() -> ctypes.CDLL:
     lib.band_attention_instance.restype = ctypes.c_int
     lib.band_attention_instance.argtypes = (
         [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 5)
+    lib.band_attention_backward_instance.restype = ctypes.c_int
+    lib.band_attention_backward_instance.argtypes = (
+        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 6)
     lib.band_attention_error_string.restype = ctypes.c_char_p
     lib.band_attention_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _read_instance(device: int, fn, args: tuple, keys: tuple) -> dict:
+    """Call the C instance report ``fn`` on ``device`` with ``args`` and
+    one int out-parameter for each of ``keys``."""
+    vals = [ctypes.c_int() for _ in keys]
+    with torch.cuda.device(device):
+        code = fn(*args, *(ctypes.byref(x) for x in vals))
+    _build.check_launch(_kernel(), "band_attention", code)
+    inst = {k: x.value for k, x in zip(keys, vals)}
+    inst["vec"] = bool(inst["vec"])
+    return inst
 
 
 def forward_instance(device: int, b: int, t: int, n_head: int, d: int,
@@ -124,16 +140,23 @@ def forward_instance(device: int, b: int, t: int, n_head: int, d: int,
     rows a tile, ``tiles`` row tiles a (batch, head), ``per_block`` tiles a
     block walks (double-buffered when more than 1), the head-dim ``bucket``
     and ``vec`` (16-byte copies; False for the scalar instance)."""
-    lib = _kernel()
-    vals = [ctypes.c_int() for _ in range(5)]
-    with torch.cuda.device(device):
-        code = lib.band_attention_instance(
-            b, t, n_head, d, window_size // 2, int(pe),
-            *(ctypes.byref(x) for x in vals))
-    _build.check_launch(lib, "band_attention", code)
-    rows, tiles, per_block, bucket, vec = (x.value for x in vals)
-    return dict(rows=rows, tiles=tiles, per_block=per_block, bucket=bucket,
-                vec=bool(vec))
+    return _read_instance(
+        device, _kernel().band_attention_instance,
+        (b, t, n_head, d, window_size // 2, int(pe)),
+        ("rows", "tiles", "per_block", "bucket", "vec"))
+
+
+def backward_instance(device: int, b: int, t: int, n_head: int, d: int,
+                      window_size: int, dkv: bool = False) -> dict:
+    """The instance the dQ kernel (K2), or with ``dkv`` the dK/dV kernel
+    (K3), takes on ``device`` for 16-byte-aligned (B, T, n_head * d)
+    streams: ``rows_warp`` owner rows a warp, and ``rows``, ``tiles``,
+    ``per_block``, ``bucket`` and ``vec`` as ``forward_instance`` has
+    them."""
+    return _read_instance(
+        device, _kernel().band_attention_backward_instance,
+        (b, t, n_head, d, window_size // 2, int(dkv)),
+        ("rows_warp", "rows", "tiles", "per_block", "bucket", "vec"))
 
 
 def _shape(q, k, v, kv_mask, n_head, window_size):
