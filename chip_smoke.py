@@ -34,15 +34,21 @@ one process per source, all started together, into
      at 24 pairs, and times the step at 24 and 96 pairs;
   6. runs ``train_torch.py`` for one epoch on a tiny synthetic corpus on
      the card, then ``eval_torch.py`` on its checkpoint;
-  7. holds MEGA's position-bias and fused set-attention kernels against
-     their plain versions at the detector's shapes and times the fused one
-     alone at each of a frame's five shapes beside SDPA and its bound
-     (right after 2, with every other kernel check), runs ``detect_video`` at
-     full width (R-101-C4, 608x1088, 300 key / 75 reference proposals,
-     window 25, global 10, 16 frames, random seeded weights) through the
-     fused attention and again through the position-bias kernel, checks a
-     small detector on the card against the CPU, stage by stage and whole,
-     and runs ``detect_torch.py`` on the card;
+  7. holds MEGA's position-bias kernel (K6) and the ``bias_factors``
+     kernel (the torch ``pe_setup``'s port) against their plain versions
+     at a frame's three local-stage shapes and times each alone beside its
+     wrapper, its plain version and its bound; holds the fused
+     set-attention kernel (K5) against its plain version at the detector's
+     shapes and times it alone at each of a frame's five shapes beside its
+     wrapper, SDPA and its bound (right after 2, with every other kernel
+     check); runs ``detect_video`` at full width (R-101-C4, 608x1088, 300
+     key / 75 reference proposals, window 25, global 10, 16 frames, random
+     seeded weights) through the fused attention and again through the
+     position-bias kernel, with the launches of each (one ``bias_factors``
+     before each biased K5 or K6 call), each route's phase times and its
+     stream phase's kernels a frame; checks a small detector on the card
+     against the CPU, stage by stage and whole, and runs
+     ``detect_torch.py`` on the card;
   8. holds the band kernel with the relative-position bias (K4) against
      its plain version at the streamed stem's and branches' shapes,
      ``BandAttentionPE``'s gradients against plain autograd, and the band
@@ -99,13 +105,16 @@ B_CHECK, B_RATE, T = 8, 128, 96
 TRAIN_PAIRS = (8, 24, 96)   # checked on both devices; timed; timed
 STREAM_T = 6000             # feature positions of the streamed sequence
 PEAK_FLOPS = 67e12          # H100 SXM fp32 without tensor cores
+PEAK_FP16_MMA = 989e12      # H100 SXM dense fp16 on the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FLOPS
+             ) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the fp32 peak."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS
+    memory rate and the operations over the peak of the type they run in
+    (fp32 by default)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -187,30 +196,6 @@ def device_events(prof) -> list:
             and str(e.device_type).endswith("CUDA")]
 
 
-def kernel_device_ms(fn, kernel_name: str,
-                     iters: int = 5) -> tuple[float, int]:
-    """(ms, launches seen): device time of one launch of the named kernel,
-    from ``torch.profiler`` over ``iters`` calls that launch it once each.
-    It is the kernel alone, where the CUDA events of ``time_ms`` also hold
-    the host work of the wrapper whenever that is the slower side. The mean
-    is over the launches the profiler saw: of a kernel launched outside
-    PyTorch's dispatcher it can miss some (all of them with the CPU
-    activity off). Seeing none raises."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in device_events(prof) if kernel_name in e.key]
-    seen = sum(e.count for e in hits)
-    if not seen:
-        raise AssertionError(f"the profiler saw no {kernel_name}")
-    return sum(dev_us(e) for e in hits) / 1e3 / seen, seen
-
-
 def queued_device_ms(fn, iters: int = 20) -> float:
     """Device time of one call of ``fn``, whose work on the card is one
     kernel, with the host's part kept out and no profiler: the card first
@@ -252,13 +237,11 @@ def band_row(ba, label, kernel, plain_ms, library, q, mask, h, w, *,
     n_bytes = (4 * (4 * q.numel() + (0 if pe is None else pe.numel())
                     + (b * h * t if with_lse else 0)) + mask.numel())
     bms, by = bound_ms(n_bytes, 4 * (c // h) * h * band_pairs(mask, w))
-    inst = ""
-    if hasattr(ba, "forward_instance"):  # absent before the redesign
-        i = ba.forward_instance(q.device.index or 0, b, t, h, c // h,
-                                2 * w + 1, pe is not None)
-        inst = (f" (instance {i['rows']} rows a tile, {i['per_block']} of "
-                f"{i['tiles']} tiles a block, d bucket {i['bucket']}"
-                f"{'' if i['vec'] else ', scalar'})")
+    i = ba.forward_instance(q.device.index or 0, b, t, h, c // h, 2 * w + 1,
+                            pe is not None)
+    inst = (f" (instance {i['rows']} rows a tile, {i['per_block']} of "
+            f"{i['tiles']} tiles a block, d bucket {i['bucket']}"
+            f"{'' if i['vec'] else ', scalar'})")
     name = "band_attention" if pe is None else "band_attention_pe"
     print(f"{name} {label}{inst}: the kernel alone {dev_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library (SDPA) {lib_ms:.4f} ms, bound "
@@ -361,8 +344,6 @@ def check_kernels(cuda, ba, fa) -> dict:
 
 def band_backward_instance(ba, q, h, w, dkv) -> str:
     """The backward instance the C side picks for q's shape, as text."""
-    if not hasattr(ba, "backward_instance"):  # absent before the redesign
-        return ""
     b, t, c = q.shape
     i = ba.backward_instance(q.device.index or 0, b, t, h, c // h, 2 * w + 1,
                              dkv)
@@ -871,47 +852,125 @@ def cached_bias_operands(ma, extra):
         ma.bias_operands = real
 
 
+# the position bias's shapes on the fused_attention=False route: a frame's
+# three local stages (the key rows over the memory and window, then over
+# the window twice)
+LOCAL_SHAPES = ((675, 3750), (675, 750), (300, 750))
+
+
+def bias_launches(pb, ops, out, w):
+    """Launches of the position-bias kernel (K6) alone and of the
+    bias_factors kernel alone (from Wg ``w``, into ``ops``' factors) on the
+    operands ``ops`` of ``bias_operands``, no wrapper and no count: (K6,
+    factors)."""
+    lib = pb._kernel()
+    q, k, a, b_t, wt, b, freqs = ops
+    g, n, m = out.shape
+
+    def k6():
+        lib.position_bias_forward(
+            q.data_ptr(), k.data_ptr(), a.data_ptr(), b_t.data_ptr(),
+            wt.data_ptr(), b.data_ptr(), out.data_ptr(), n, m, g, freqs,
+            torch.cuda.current_stream().cuda_stream)
+
+    def factors():
+        lib.bias_factors_forward(
+            q.data_ptr(), k.data_ptr(), w.data_ptr(), w.stride(0),
+            w.stride(1), a.data_ptr(), b_t.data_ptr(), wt.data_ptr(), n, m,
+            g, freqs, torch.cuda.current_stream().cuda_stream)
+
+    return k6, factors
+
+
+def check_position_bias(cuda, pb) -> dict:
+    """The position-bias kernel (K6) and the bias_factors kernel at each
+    local stage's shape: K6 against its plain version (gate space, and log
+    space above -8), bias_factors against the torch pe_setup (1e-5 of
+    1 + max |A| on A, 1e-5 on Bt, wt exact); each kernel alone (queued
+    behind a device sleep, on operands built once), K6's wrapper, the plain
+    versions, the bounds. Returns both kernels' JSON entries (K6's first
+    shape is stage 0's)."""
+    rng = np.random.default_rng(7)
+    g = 16
+    rows, frows = [], []
+    for n, m in LOCAL_SHAPES:
+        *_, qr, kr, w, b = mega_case(rng, g, n, m, 1, 1, 1.0, cuda)
+        got, want = pb.position_bias_cuda(qr, kr, w, b), \
+            pb.position_bias_plain(qr, kr, w, b)
+        gate_err = (got.exp() - want.exp()).abs()
+        if not (gate_err <= BIAS_ATOL + BIAS_RTOL * want.exp()).all():
+            raise AssertionError(f"position bias {n}x{m} off in gate space "
+                                 f"by {gate_err.max().item()}")
+        log_err = {th: (got - want)[want > th].abs().max().item()
+                   for th in (-10, -8)}
+        if not log_err[-8] <= 3e-2 + 1e-3 * 8:
+            raise AssertionError(f"position bias {n}x{m} off in log space: "
+                                 f"{log_err}")
+        p1, k1, k2, p2 = (time_ms(f) for f in (
+            lambda: pb.position_bias_plain(qr, kr, w, b),
+            lambda: pb.position_bias_cuda(qr, kr, w, b),
+            lambda: pb.position_bias_cuda(qr, kr, w, b),
+            lambda: pb.position_bias_plain(qr, kr, w, b)))
+        ops = pb.bias_operands(qr, kr, w, b, 64, 1000.0)
+        k6, factors = bias_launches(pb, ops, got, w)
+        alone = [queued_device_ms(k6) for _ in range(2)]
+        # bytes: the rois, Wg and b in, the bias out; operations: the
+        # 64-deep contraction as the kernel runs it, three fp16 MMAs a
+        # product (hi.hi, hi.lo, lo.hi)
+        bms, by = bound_ms(4 * (4 * n + 4 * m + 65 * g + g * n * m),
+                           3 * 2 * 64 * g * n * m, PEAK_FP16_MMA)
+        shape = f"G=16 N={n} M={m}"
+        rows.append(dict(shape=shape, device_ms=sum(alone) / 2,
+                         ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                         bound_ms=bms, bound_by=by,
+                         max_abs_err=gate_err.max().item()))
+        print(f"position_bias {shape}: gate-space max_abs_err "
+              f"{gate_err.max().item():.3e}; log-space max err above -10 "
+              f"{log_err[-10]:.3e}, above -8 {log_err[-8]:.3e}; the kernel "
+              f"alone {alone[0]:.4f} / {alone[1]:.4f} ms, wrapper "
+              f"{(k1 + k2) / 2:.4f} ms ({(k1 + k2) / sum(alone):.2f}x the "
+              f"kernel alone), plain {(p1 + p2) / 2:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})")
+        del got, want, gate_err
+        ref = pb.pe_setup(qr, kr, w)
+        a_err = (ops[2] - ref[1]).abs().max().item()
+        bt_err = (ops[3] - ref[2]).abs().max().item()
+        if not (a_err <= 1e-5 * (1 + ref[1].abs().max().item())
+                and bt_err <= 1e-5 and torch.equal(ops[4], ref[3])):
+            raise AssertionError(f"bias_factors {n}x{m}: A off by {a_err}, "
+                                 f"Bt by {bt_err}")
+        f_alone = [queued_device_ms(factors) for _ in range(2)]
+        fp1, fk1, fk2, fp2 = (time_ms(f) for f in (
+            lambda: pb.pe_setup(qr, kr, w),
+            lambda: pb.bias_operands(qr, kr, w, b, 64, 1000.0),
+            lambda: pb.bias_operands(qr, kr, w, b, 64, 1000.0),
+            lambda: pb.pe_setup(qr, kr, w)))
+        # bytes: the rois and Wg in, A, Bt and wt out; operations: the fold,
+        # 3 a factor and group
+        fbms, fby = bound_ms(4 * (4 * (n + m) + 64 * g + 32 * g * n + 32 * m
+                                  + 32 * g), 3 * 32 * g * n)
+        frows.append(dict(shape=shape, device_ms=sum(f_alone) / 2,
+                          ms=(fk1 + fk2) / 2, plain_ms=(fp1 + fp2) / 2,
+                          bound_ms=fbms,
+                          bound_by=fby, max_abs_err=max(a_err, bt_err)))
+        print(f"bias_factors {shape}: A max_abs_err {a_err:.3e}, Bt "
+              f"{bt_err:.3e}; the kernel alone {f_alone[0]:.4f} / "
+              f"{f_alone[1]:.4f} ms, wrapper (bias_operands) "
+              f"{(fk1 + fk2) / 2:.4f} ms, plain (pe_setup) "
+              f"{(fp1 + fp2) / 2:.4f} ms, bound {fbms:.4f} ms ({fby})")
+    return {name: dict(r[0], max_abs_err=max(e["max_abs_err"] for e in r),
+                       library_ms=None, by_shape=r)
+            for name, r in (("position_bias", rows), ("bias_factors", frows))}
+
+
 def check_mega_kernels(cuda, pb, ma) -> dict:
-    """The position-bias kernel (K6) at the stage-0 shape, and the fused
+    """The position-bias kernels (``check_position_bias``), and the fused
     set-attention kernel (K5) at every shape of a full-width frame, bias on
     and off, at ragged shapes and with all keys invalid, against their
-    plain versions. Returns both kernels' JSON entries."""
+    plain versions. Returns the kernels' JSON entries."""
+    entries = check_position_bias(cuda, pb)
     rng = np.random.default_rng(7)
     g, dg = 16, 64
-    entries = {}
-
-    *_, qr, kr, w, b = mega_case(rng, g, 675, 3750, 1, 1, 1.0, cuda)
-    got, want = pb.position_bias_cuda(qr, kr, w, b), pb.position_bias_plain(
-        qr, kr, w, b)
-    gate_err = (got.exp() - want.exp()).abs()
-    if not (gate_err <= BIAS_ATOL + BIAS_RTOL * want.exp()).all():
-        raise AssertionError(f"position bias off in gate space by "
-                             f"{gate_err.max().item()}")
-    log_err = {th: (got - want)[want > th].abs().max().item()
-               for th in (-10, -8)}
-    if not log_err[-8] <= 3e-2 + 1e-3 * 8:
-        raise AssertionError(f"position bias off in log space: {log_err}")
-    p1, k1, k2, p2 = (time_ms(f) for f in (
-        lambda: pb.position_bias_plain(qr, kr, w, b),
-        lambda: pb.position_bias_cuda(qr, kr, w, b),
-        lambda: pb.position_bias_cuda(qr, kr, w, b),
-        lambda: pb.position_bias_plain(qr, kr, w, b)))
-    n, m = 675, 3750
-    bms, by = bound_ms(4 * (4 * n + 4 * m + 65 * g + g * n * m),
-                       2 * 64 * g * n * m)
-    dev_ms, seen = kernel_device_ms(
-        lambda: pb.position_bias_cuda(qr, kr, w, b), "position_bias_kernel")
-    entries["position_bias"] = dict(
-        ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=None,
-        bound_ms=bms, bound_by=by, max_abs_err=gate_err.max().item(),
-        device_ms=dev_ms, shape="G=16 N=675 M=3750")
-    print(f"position_bias G=16 N=675 M=3750: gate-space max_abs_err "
-          f"{gate_err.max().item():.3e}; log-space max err above -10 "
-          f"{log_err[-10]:.3e}, above -8 {log_err[-8]:.3e}; wrapper "
-          f"{(k1 + k2) / 2:.4f} ms (the kernel alone {dev_ms:.4f} ms, "
-          f"{seen} launches seen), plain {(p1 + p2) / 2:.4f} ms, bound "
-          f"{bms:.4f} ms ({by})")
-    del got, want, gate_err
 
     worst = 0.0
     for label, gg, n, m, dgq, dgo, p_valid, bias in (
@@ -969,7 +1028,9 @@ def check_mega_kernels(cuda, pb, ma) -> dict:
             + (2 * 64 * gg * pairs if bias else 0))
         splits = ma.key_splits(cuda.index, n, m, gg, dgq, dgo)
         print(f"mega_attention {label}: the kernel alone {alone[0]:.4f} / "
-              f"{alone[1]:.4f} ms, library (SDPA, mask precomputed) "
+              f"{alone[1]:.4f} ms, wrapper {(k1 + k2) / 2:.4f} ms "
+              f"({(k1 + k2) / sum(alone):.2f}x the kernel alone), "
+              f"library (SDPA, mask precomputed) "
               f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); {splits} key "
               f"splits, scratch "
               f"{4 * splits * gg * n * (dgo + 2) / 1e6 if splits > 1 else 0:.2f}"
@@ -988,6 +1049,7 @@ def check_detect_video(cuda, pb, ma) -> dict:
     """detect_video at full width on the card: the launches of one video
     through each attention route, phase times, memory, a profile, and the
     memory property. Returns the launches by route."""
+    from vrdone_tpu_torch.models import detector
     from vrdone_tpu_torch.models.detector import MegaDetector, detect_video
     det = MegaDetector(num_classes=31, device=torch.device("cpu"),
                        generator=torch.Generator().manual_seed(0)).to(cuda)
@@ -995,23 +1057,37 @@ def check_detect_video(cuda, pb, ma) -> dict:
     t = DETECT_FRAMES
     images = rng.integers(0, 256, (t, *CANVAS, 3), dtype=np.uint8)
     hw = np.asarray(CANVAS, np.float32)
-    launches = {}
-    outs = {}
-    for route, kw in (("detect_video", {}),
-                      ("detect_video_pe_bias", dict(fused_attention=False))):
+    routes = {"detect_video": {},
+              "detect_video_pe_bias": dict(fused_attention=False)}
+    launches, outs, streams = {}, {}, {}
+    real_stream = detector.stream_video
+    for route, kw in routes.items():
+        def capture(*args, route=route, **kwargs):
+            streams[route] = (args, kwargs)
+            return real_stream(*args, **kwargs)
+
         torch.cuda.synchronize()
-        ma.launches = pb.launches = 0
-        outs[route] = detect_video(det, images, hw, **kw)
+        ma.launches = pb.launches = pb.factor_launches = 0
+        detector.stream_video = capture
+        try:
+            outs[route] = detect_video(det, images, hw, **kw)
+        finally:
+            detector.stream_video = real_stream
         torch.cuda.synchronize()
         launches[route] = {"mega_attention": ma.launches,
-                           "position_bias": pb.launches}
+                           "position_bias": pb.launches,
+                           "bias_factors": pb.factor_launches}
         print(f"{route}: {t} frames, kernel launches {launches[route]}")
         for key, v in outs[route].items():
             if not np.isfinite(v).all():
                 raise AssertionError(f"{route}: non-finite {key}")
-    expect = {"detect_video": {"mega_attention": 6 * t, "position_bias": 0},
+    # one factor launch before each biased K5 or K6 call: 3 local stages a
+    # frame on either route
+    expect = {"detect_video": {"mega_attention": 6 * t, "position_bias": 0,
+                               "bias_factors": 3 * t},
               "detect_video_pe_bias": {"mega_attention": 0,
-                                       "position_bias": 3 * t}}
+                                       "position_bias": 3 * t,
+                                       "bias_factors": 3 * t}}
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     out = outs["detect_video"]
@@ -1026,17 +1102,28 @@ def check_detect_video(cuda, pb, ma) -> dict:
           f"weights saturate MEGA's softmax, so near-ties may flip between "
           f"routes; reported, not a check)")
 
-    for _ in range(2):
-        timings = {}
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        detect_video(det, images, hw, timings=timings)
-        wall = time.perf_counter() - t0
-        print(f"detect_video {t} frames {CANVAS[0]}x{CANVAS[1]} fp32: "
-              + ", ".join(f"{k} {1e3 * v / t:.2f} ms/frame"
-                          for k, v in timings.items())
-              + f"; {t / wall:.2f} frames/s; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # each route's phases, twice, and its stream phase alone under the
+    # profiler: kernels and device time a frame
+    for route, kw in routes.items():
+        for _ in range(2):
+            timings = {}
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            detect_video(det, images, hw, timings=timings, **kw)
+            wall = time.perf_counter() - t0
+            print(f"{route} {t} frames {CANVAS[0]}x{CANVAS[1]} fp32: "
+                  + ", ".join(f"{k} {1e3 * v / t:.2f} ms/frame"
+                              for k, v in timings.items())
+                  + f"; {t / wall:.2f} frames/s; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        args, kwargs = streams[route]
+        with torch.no_grad():
+            busy, wall, kernels = profile_device(
+                lambda: real_stream(*args, **kwargs), 1,
+                "video's stream phase")
+        print(f"{route} stream phase: {sum(e.count for e in kernels) / t:.1f}"
+              f" kernels and {busy / t:.3f} ms of device time a frame, wall "
+              f"{wall / t:.2f} ms a frame (profiler on)")
 
     _, _, kernels = profile_device(lambda: detect_video(det, images, hw), 1,
                                    "video")
@@ -1596,7 +1683,10 @@ def main(argv: list[str] | None = None) -> int:
                "mega_attention": ("vrdone_tpu_torch/csrc/mega_attention.cu",
                                   "vrdone_tpu/ops/pallas/mega_attention.py:56"),
                "position_bias": ("vrdone_tpu_torch/csrc/position_bias.cu",
-                                 "vrdone_tpu/ops/pallas/position_bias.py:95")}
+                                 "vrdone_tpu/ops/pallas/position_bias.py:95"),
+               "bias_factors": ("vrdone_tpu_torch/csrc/position_bias.cu",
+                                "vrdone_tpu/ops/pallas/position_bias.py:108 "
+                                "(pe_setup, XLA-side: not a TPU kernel)")}
     # launches: the eval forward's for the forward band and full-attention
     # kernels, the train step's for the backward ones, detect_video's for
     # the fused set-attention and, with the fused attention off, for the
@@ -1610,6 +1700,7 @@ def main(argv: list[str] | None = None) -> int:
                for name in sources}
     main_path = {"mega_attention": "detect_video",
                  "position_bias": "detect_video_pe_bias",
+                 "bias_factors": "detect_video",
                  "band_attention_pe": "stream"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

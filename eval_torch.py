@@ -58,10 +58,11 @@ def parse_args():
     p.add_argument("--topk", type=int, default=10)
     p.add_argument("--save_result", default=False, action="store_true")
     p.add_argument("--multihost", action="store_true", default=False,
-                   help="not ported yet (ROADMAP.md queue 1, item 7)")
+                   help="not ported yet (ROADMAP.md queue 1, data "
+                        "parallelism)")
     p.add_argument("--eval_dp", type=int, default=1,
                    help="not ported yet beyond 1 (ROADMAP.md queue 1, "
-                        "item 7)")
+                        "data parallelism)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the forward, e.g. cuda or cpu")
     return p.parse_args()
@@ -81,7 +82,7 @@ def main():
     if args.multihost or args.eval_dp != 1:
         raise NotImplementedError(
             "--multihost and --eval_dp > 1 are not ported yet; see "
-            "ROADMAP.md queue 1, item 7")
+            "ROADMAP.md queue 1, data parallelism")
     device = torch.device(args.device)
     config = load_yaml_config(args.cfg_path)
     if args.epochs is not None:

@@ -19,6 +19,7 @@ bias, then a softmax over up to 3750 keys).
 """
 
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -717,6 +718,91 @@ def test_position_bias_kernel_matches_plain(cuda, n, m, g):
     gate_space_ok(got, want)
 
 
+def bias_args(seed, g, n, m, cuda, *, size=(8, 300), w_scale=0.01,
+              b_scale=0.01):
+    """Rois of widths and heights drawn apart in ``size`` on the detector's
+    canvas, and Wg (64, g) as the head passes it (``l_Wg.weight.T``, a
+    transposed view) with its bias."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 1, (n + m, 2)) * (1088, 608)
+    rois = np.concatenate([xy, xy + rng.uniform(*size, (n + m, 2))], 1)
+    w = rng.normal(0, w_scale, (g, 64)).astype(np.float32)
+    b = rng.normal(0, b_scale, (g,)).astype(np.float32)
+    qr, kr, w, b = (torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+                    for a in (rois[:n], rois[n:], w, b))
+    return qr, kr, w.T, b
+
+
+@pytest.mark.parametrize("n,m,g", [
+    (675, 3750, 16), (675, 750, 16), (300, 750, 16),   # the local stages
+    (13, 77, 1), (1, 1, 4), (37, 101, 5), (9, 130, 32), (5, 0, 4)])
+def test_bias_factors_match_pe_setup(cuda, n, m, g):
+    """One bias_factors launch against the torch chain it replaces, both
+    fp32 sines of the same angles on the card."""
+    qr, kr, w, b = bias_args(n * m + g, g, n, m, cuda)
+    before = pb.factor_launches
+    _, _, a, b_t, wt, _, freqs = pb.bias_operands(qr, kr, w, b)
+    torch.cuda.synchronize()
+    assert pb.factor_launches == before + 1
+    f_ref, a_ref, bt_ref, wt_ref = pb.pe_setup(qr, kr, w)
+    assert tuple(freqs) == f_ref
+    assert (a.shape, b_t.shape, wt.shape) == ((g, n, 32), (32, m), (g, 32))
+    assert torch.equal(wt, wt_ref)
+    assert max_err(a, a_ref) <= 1e-5 * (1 + a_ref.abs().max().item())
+    assert m == 0 or max_err(b_t, bt_ref) <= 1e-5
+
+
+@pytest.mark.parametrize("case", [
+    "two m-tiles", "one group", "padded groups", "one row", "one key",
+    "odd keys", "large aspect ratios", "near-zero gates"])
+def test_position_bias_kernel_edges(cuda, case):
+    """G = 32 (two m-tiles), G < 16 (zero-padded weights, rows not
+    stored), N or M of 1, an odd M (scalar stores), boxes of extreme aspect
+    ratios (angles near the top of the range), and gates near the relu's
+    zero; in gate space as above."""
+    n, m, g, kw = {
+        "two m-tiles": (300, 750, 32, {}),
+        "one group": (37, 130, 1, {}),
+        "padded groups": (675, 750, 5, {}),
+        "one row": (1, 3750, 16, {}),
+        "one key": (675, 1, 16, {}),
+        "odd keys": (13, 777, 16, {}),
+        "large aspect ratios": (300, 750, 16, dict(size=(1, 1000))),
+        "near-zero gates": (300, 750, 16, dict(w_scale=1e-3, b_scale=0.0)),
+    }[case]
+    qr, kr, w, b = bias_args(n + 3 * m + g, g, n, m, cuda, **kw)
+    before = (pb.launches, pb.factor_launches)
+    got = pb.fused_position_bias(qr, kr, w, b)
+    torch.cuda.synchronize()
+    assert (pb.launches, pb.factor_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    want = pb.position_bias_plain(qr, kr, w, b)
+    assert got.shape == (g, n, m) and torch.isfinite(got).all()
+    gate_space_ok(got, want)
+
+
+def test_pe_setup_is_off_the_card_path(cuda, monkeypatch):
+    """The torch chain never runs for a CUDA tensor: with pe_setup made to
+    raise, the position bias and a biased set-attention still run, each
+    through one bias_factors launch."""
+    q, k, vp, ub, valid, *bias = mega_case(9, 16, 300, 750, 64, 64, 0.9,
+                                           cuda)
+    want_bias = pb.position_bias_plain(*bias)
+    want = ma.mega_attention_plain(q, k, vp, ub, valid, *bias)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("pe_setup ran on the card path")
+
+    monkeypatch.setattr(pb, "pe_setup", refuse)
+    before = pb.factor_launches
+    got_bias = pb.fused_position_bias(*bias)
+    got = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    torch.cuda.synchronize()
+    assert pb.factor_launches == before + 2
+    gate_space_ok(got_bias, want_bias)
+    assert max_err(got, want) <= 1e-4 * (1 + want.abs().max().item())
+
+
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("g,n,m,dg,dgo,p_valid", [
     (16, 675, 3750, 64, 64, 0.9),     # local stage 0
@@ -786,26 +872,66 @@ def dense_with_bias(q, k, vp, ub, valid, bias):
     return out.transpose(0, 1).reshape(q.shape[1], -1).float()
 
 
+def softmax_bounds(scores, gate):
+    """The least and the most of softmax(scores + log gate') over the last
+    axis, in float64, for every gate' within the position bias's gate-space
+    tolerance of ``gate`` (relu + 1e-6, so never below 1e-6): each
+    probability rises with its own gate and falls with the others'."""
+    d = 1e-5 + 2e-5 * gate
+    up = scores + torch.log(gate + d)
+    down = scores + torch.log((gate - d).clamp_min(1e-6))
+    eye = torch.eye(gate.shape[-1], dtype=torch.bool, device=gate.device)
+
+    def prob(own, others):
+        rest = (others[..., None, :] - own[..., :, None]).masked_fill(
+            eye, -math.inf)
+        return 1 / (1 + rest.exp().sum(-1))
+
+    return prob(down, up), prob(up, down)
+
+
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_mega_attention_valid_keys_in_one_split_only(cuda, with_bias):
     """Valid keys only in the last tile of M = 3750: every split but the
     last has no valid key and must weigh nothing in the merge. With five
-    valid keys the softmax follows each key's bias closely, and the plain
-    bias embeds dw and dh where the kernels fold them, which near the
-    relu's zero differ by more than the tolerance in log space (the
-    position-bias tests compare in gate space for that); so the reference
-    takes the position-bias kernel's bias, the same fold as the fused one."""
+    valid keys the softmax follows each key's bias closely, and near the
+    relu's zero any two computations of the bias differ by more than the
+    tolerance in log space (the position-bias tests compare in gate space
+    for that). So with the bias the merge is held to the kernel itself on
+    the five keys alone, one split and no merge, whose bias of a pair is the
+    same arithmetic wherever the key sits (the same lanes of a tile, too:
+    3744 is a multiple of 32); and the attention to the plain version in
+    probability space: with one-hot values the output is each row's five
+    probabilities, which must lie, within the set-attention's tolerance,
+    between the least and the most that a bias within the gate-space
+    tolerance of the plain bias gives."""
     q, k, vp, ub, valid, bias = mega_split_case(5, 675, 3750, cuda,
                                                 with_bias)
     valid[:] = False
     valid[3744:3749] = True
     got = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    if bias:
+        sel = valid.nonzero()[:, 0]
+        qr, kr, w, b = bias
+        assert ma.key_splits(q.device.index, 675, 5, 16, 64, 64) == 1
+        want = ma.fused_mega_attention(q, k[:, sel], vp[:, sel], ub[:, sel],
+                                       valid[sel], qr, kr[sel], w, b)
+    else:
+        want = dense_with_bias(q, k, vp, ub, valid, torch.zeros(()).to(cuda))
     torch.cuda.synchronize()
-    want = dense_with_bias(q, k, vp, ub, valid,
-                           pb.fused_position_bias(*bias) if bias else
-                           torch.zeros(()).to(cuda))
     assert torch.isfinite(got).all()
     assert max_err(got, want) <= 1e-4 * (1 + want.abs().max().item())
+    if bias:
+        one_hot = torch.zeros_like(vp)
+        one_hot[:, sel, torch.arange(5, device=cuda)] = 1.0
+        out = ma.fused_mega_attention(q, k, one_hot, ub, valid, *bias)
+        prob = out.view(675, 16, 64)[..., :5].permute(1, 0, 2).double()
+        scores = (torch.einsum("gnd,gmd->gnm", q.double(), k[:, sel].double())
+                  / 8 + ub[:, None, sel].double())
+        gate = pb.position_bias_plain(qr, kr[sel], w, b).double().exp()
+        least, most = softmax_bounds(scores, gate)
+        tol = 1e-4 * (1 + most.max().item())
+        assert ((prob >= least - tol) & (prob <= most + tol)).all()
 
 
 @pytest.mark.parametrize("with_bias", [True, False])

@@ -63,17 +63,30 @@ def randomize(shapes, seed):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def test_pe_setup_matches_jax():
-    """Same factors at the one embedding width both packages take (the JAX
-    package hard-codes the 64-dim slice bounds W[32:40] .. W[56:64])."""
+@pytest.mark.parametrize("g,n,m", [(1, 13, 29), (5, 7, 130), (16, 13, 29),
+                                   (32, 40, 3)])
+def test_pe_setup_matches_jax(g, n, m):
+    """The bias kernels' operands as ``bias_operands`` hands them over on
+    the CPU (contiguous A (g, N, 32), B_t (32, M), wt (g, 32) and the fp32
+    rates: the layout the ``bias_factors`` kernel writes on the card)
+    against JAX's pe_setup, at the one embedding width both packages take
+    (the JAX package hard-codes the 64-dim slice bounds W[32:40] ..
+    W[56:64]). Wg comes transposed, as the head passes ``l_Wg.weight.T``."""
     embed_dim = 64
-    rng = np.random.default_rng(0)
-    q, k = rand_rois(rng, 13), rand_rois(rng, 29)
-    w = rng.normal(0, 0.1, (64, 16)).astype(np.float32)
+    rng = np.random.default_rng(g * n * m)
+    q, k = rand_rois(rng, n), rand_rois(rng, m)
+    w = rng.normal(0, 0.1, (g, 64)).astype(np.float32)
+    b = rng.normal(0, 0.1, (g,)).astype(np.float32)
     jf, ja, jb, jw = jpb.pe_setup(jnp.asarray(q), jnp.asarray(k),
-                                  jnp.asarray(w), embed_dim, 1000.0)
-    tf, ta, tb, tw = tpb.pe_setup(t(q), t(k), t(w), embed_dim, 1000.0)
-    assert tf == jf
+                                  jnp.asarray(w.T), embed_dim, 1000.0)
+    tq, tk, ta, tb, tw, tbias, tf = tpb.bias_operands(
+        t(q), t(k), t(w).T, t(b), embed_dim, 1000.0)
+    assert tuple(tf) == jf
+    assert (ta.shape, tb.shape, tw.shape) == ((g, n, 32), (32, m), (g, 32))
+    for x in (tq, tk, ta, tb, tw, tbias):
+        assert x.is_contiguous() and x.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), q)
+    np.testing.assert_array_equal(tbias.numpy(), b)
     for ours, theirs in ((ta, ja), (tb, jb), (tw, jw)):
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs),
                                    rtol=0, atol=1e-4)

@@ -47,17 +47,19 @@ def parse_args():
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=[None, "float32", "bfloat16"])
     p.add_argument("--remat", action="store_true", default=False,
-                   help="not ported (ROADMAP.md queue 1, item 5)")
+                   help="not ported (ROADMAP.md queue 1, remat)")
     p.add_argument("--remat_policy", type=str, default=None,
                    choices=[None, "full", "dots"])
     p.add_argument("--n_dp", type=int, default=None,
-                   help="not ported beyond 1 (ROADMAP.md queue 1, item 7)")
+                   help="not ported beyond 1 (ROADMAP.md queue 1, data "
+                        "parallelism)")
     p.add_argument("--n_sp", type=int, default=1,
-                   help="not ported beyond 1 (ROADMAP.md queue 1, item 7)")
+                   help="not ported beyond 1 (ROADMAP.md queue 1, data "
+                        "parallelism)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 10-20")
     p.add_argument("--multihost", action="store_true", default=False,
-                   help="not ported (ROADMAP.md queue 1, item 7)")
+                   help="not ported (ROADMAP.md queue 1, data parallelism)")
     p.add_argument("--auto_resume", action="store_true", default=False,
                    help="resume from <exp_dir>/model_last.ckpt if present")
     p.add_argument("--device", type=str, default="cuda",
@@ -70,10 +72,10 @@ def main():
     if args.multihost or (args.n_dp or 1) > 1 or args.n_sp > 1:
         raise NotImplementedError(
             "--multihost, --n_dp > 1 and --n_sp > 1 are not ported yet; see "
-            "ROADMAP.md queue 1, item 7")
+            "ROADMAP.md queue 1, data parallelism")
     if args.remat:
         raise NotImplementedError(
-            "--remat is not ported; see ROADMAP.md queue 1, item 5")
+            "--remat is not ported; see ROADMAP.md queue 1, remat")
     device = torch.device(args.device)
     config = load_yaml_config(args.cfg_path)
     config["training_config"]["seed"] = args.seed

@@ -32,7 +32,7 @@ PIXEL_MEAN = np.array([102.9801, 115.9465, 122.7717], np.float32)
 
 BF16_NOT_PORTED = (
     "compute_dtype bfloat16 is not ported yet: the detector runs in float32; "
-    "see ROADMAP.md 'Next', item 2 (bf16 serving)")
+    "see ROADMAP.md queue 1, the bf16 compute path")
 
 
 # host constants kept on each device: a copy from pageable host memory

@@ -4,7 +4,7 @@
 Plain PyTorch on whatever device the tensors lie: none of these is a Pallas
 kernel in the JAX package, and torchvision, whose compiled versions the
 reference calls, is not installed. A CUDA NMS and RoIAlign are later work
-(ROADMAP.md queue 1, item 8).
+(ROADMAP.md queue 1, the benchmark (CUDA NMS)).
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ and a query row with no valid key gives 0. The output is (N, g * dgo) in
 caller. The value projection and ub stay outside the kernel, one matrix
 product each, as in the JAX package. The kernel source is
 ``csrc/mega_attention.cu`` (with the bias device code shared with the
-position-bias kernel through ``csrc/mega_bias.cuh``). The kernel cuts the
+position-bias kernel through ``csrc/mega_bias.cuh``); with the bias, one
+launch of the ``bias_factors`` kernel (``ops/position_bias.py::
+bias_operands``) builds its per-box factors first. The kernel cuts the
 keys into splits that fill the card; with more than one, the wrapper
 allocates S * g * N * (dgo + 2) floats of scratch for their partial softmax
 states, which a second kernel merges.

@@ -11,10 +11,11 @@ with PE the 64-dim sinusoid embedding of the pair's log-space geometry
 dh are a query term minus a key term, so their 32 sin/cos features fold
 through the angle-addition identities into per-box factors:
 ``Wg[32:64] . pe_dwdh == A[g, n] . B[:, m]`` with A (g, N, 32) and B (32, M),
-built by ``pe_setup`` in O(N + M). Only dx and dy need per-pair sines and
-cosines, which the kernel (``csrc/position_bias.cu``) computes once per pair
-for all groups. ``fused_position_bias`` launches the kernel on CUDA tensors
-and takes the plain version on CPU tensors.
+built in O(N + M) by ``pe_setup`` (the plain version) or, on the card, by
+one launch of the ``bias_factors`` kernel. Only dx and dy need per-pair
+sines and cosines, which the kernel (``csrc/position_bias.cu``) computes once
+per pair for all groups. ``fused_position_bias`` launches the two kernels on
+CUDA tensors and takes the plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -32,8 +33,10 @@ Tensor = torch.Tensor
 EMBED_DIM = 64   # pe_setup's slice bounds and the kernels are for 64 only
 MAX_GROUPS = 32
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernels since the counts were last set to 0: the
+# position bias, and the factors before each biased K5 or K6 launch
 launches = 0
+factor_launches = 0
 
 
 def _log_wh(rois: Tensor) -> tuple[Tensor, Tensor]:
@@ -111,12 +114,23 @@ def position_bias_plain(q_rois: Tensor, k_rois: Tensor, wg_kernel: Tensor,
     return torch.log(wg + 1e-6).permute(2, 0, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _c_frequencies(embed_dim: int, wave_length: float) -> ctypes.Array:
+    freqs = frequencies(embed_dim, wave_length)
+    return (ctypes.c_float * len(freqs))(*freqs)
+
+
 @functools.cache
 def _kernel() -> ctypes.CDLL:
     lib = _build.load_library("position_bias")
     fn = lib.position_bias_forward
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                   + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p])
+    fn = lib.bias_factors_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p])
     lib.position_bias_error_string.restype = ctypes.c_char_p
     lib.position_bias_error_string.argtypes = [ctypes.c_int]
@@ -147,23 +161,45 @@ def check_bias_inputs(q_rois, k_rois, wg_kernel, wg_bias,
             f"wg_bias {tuple(wg_bias.shape)} (groups at most {MAX_GROUPS})")
 
 
-def bias_operands(q_rois, k_rois, wg_kernel, wg_bias, embed_dim,
-                  wave_length):
-    """The kernels' contiguous operands and the fp32 frequencies as a C
-    array: (q, k, A, B_t, wt, b, freqs)."""
-    q = q_rois.contiguous()
-    k = k_rois.contiguous()
-    freqs, a, b_t, wt = pe_setup(q, k, wg_kernel, embed_dim, wave_length)
-    return (q, k, a.contiguous(), b_t.contiguous(), wt.contiguous(),
-            wg_bias.contiguous(), (ctypes.c_float * len(freqs))(*freqs))
+def bias_operands(q_rois, k_rois, wg_kernel, wg_bias,
+                  embed_dim: int = EMBED_DIM, wave_length: float = 1000.0):
+    """The bias kernels' operands, contiguous: (q, k, A (g, N, 32), B_t
+    (32, M), wt (g, 32), b, the fp32 frequencies as a C array). On CUDA
+    tensors (checked by ``check_bias_inputs``) one launch of the
+    ``bias_factors`` kernel builds A, B_t and wt; on CPU tensors
+    ``pe_setup``, its plain version."""
+    global factor_launches
+    q, k = q_rois.contiguous(), k_rois.contiguous()
+    freqs = _c_frequencies(embed_dim, wave_length)
+    if q.device.type == "cpu":
+        _, a, b_t, wt = pe_setup(q, k, wg_kernel, embed_dim, wave_length)
+        return (q, k, a.contiguous(), b_t.contiguous(), wt.contiguous(),
+                wg_bias.contiguous(), freqs)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    n, m, g = q.shape[0], k.shape[0], wg_bias.shape[0]
+    a = torch.empty((g, n, 32), device=q.device)
+    b_t = torch.empty((32, m), device=q.device)
+    wt = torch.empty((g, 32), device=q.device)
+    lib = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.bias_factors_forward(
+            q.data_ptr(), k.data_ptr(), wg_kernel.data_ptr(),
+            wg_kernel.stride(0), wg_kernel.stride(1), a.data_ptr(),
+            b_t.data_ptr(), wt.data_ptr(), n, m, g, freqs, stream)
+    _build.check_launch(lib, "position_bias", code)
+    factor_launches += 1
+    return q, k, a, b_t, wt, wg_bias.contiguous(), freqs
 
 
 def position_bias_cuda(q_rois: Tensor, k_rois: Tensor, wg_kernel: Tensor,
                        wg_bias: Tensor, *, embed_dim: int = EMBED_DIM,
                        wave_length: float = 1000.0) -> Tensor:
-    """The hand-written kernel: same contract as ``position_bias_plain``
-    for fp32 CUDA tensors. Raises on what the kernel does not take, and
-    when an input needs a gradient (the kernel has no backward)."""
+    """The hand-written kernels, ``bias_factors`` then the bias: same
+    contract as ``position_bias_plain`` for fp32 CUDA tensors. Raises on
+    what the kernels do not take, and when an input needs a gradient (they
+    have no backward)."""
     global launches
     _build.refuse_grad("position_bias_cuda", q_rois, k_rois, wg_kernel,
                        wg_bias)

@@ -8,7 +8,8 @@ and backward on the card; full attention runs its dense form, as the JAX
 package trains through it.
 
 Not ported (each raises): ``remat``, ``compute_dtype: bfloat16`` and a
-device mesh; see ROADMAP.md queue 1, items 5 and 7.
+device mesh; see ROADMAP.md queue 1, the bf16 compute path, remat and
+data parallelism.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def create_train_state(cfg: ModelConfig, training_config: dict,
     flax parameters ``flax_params``), its EMA copy and the optimizer."""
     if cfg.remat:
         raise NotImplementedError(
-            "remat is not ported; see ROADMAP.md queue 1, item 5")
+            "remat is not ported; see ROADMAP.md queue 1, remat")
     if (generator is None) == (flax_params is None):
         raise ValueError("give exactly one of generator and flax_params")
     # built and filled on the CPU, where the generator draws, then moved:
