@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --only kernels  # the build and the kernel checks
-                                          # of 1, 2, 7 and 8; no ``ok`` line
+                                          # of 1, 2, 7 and 8 (with 1's
+                                          # bf16 ones); no ``ok`` line
 
 Builds the hand-written CUDA kernels from ``vrdone_tpu_torch/csrc`` (nvcc,
 one process per source, all started together, into
@@ -14,7 +15,11 @@ one process per source, all started together, into
      kernel (K1) alone at each eval shape (T = 96, 48, 24, 12) beside its
      bound, the full-attention kernel (K7) also at the largest eval bucket
      (768) and at VidOR's S/O cross-attention (B=8, H=8, T=512, d=64),
-     each timed alone;
+     each timed alone; then the bf16 instances of K1 and K7 against their
+     bf16 plain versions (``BF16_KERNEL_TOL``) at the shapes of the bf16
+     forward at VidVRD B=128 T=96 and VidOR B=16 T=512 (K7 also at the
+     eval runner's 384 and 768 buckets), each timed alone beside SDPA in
+     bf16 and its bound at the dense bf16 rate;
   2. holds the band attention's lse and its dQ and dK/dV backward kernels
      against autograd of the plain version at the train step's shapes
      (B*H = 24*4, d = 128, w = 3), with a nonzero upstream gradient on
@@ -59,7 +64,16 @@ one process per source, all started together, into
      ``StreamingRunner`` at VidOR local-attention width
      (``configs/vidor_local.yaml`` with ``use_rel_pe``, random seeded
      weights), counts its launches, holds the first chunk group against the
-     CPU and times it.
+     CPU and times it;
+  9. (run right after 4) bf16 serving at VidVRD B=128 T=96 and VidOR B=16
+     T=512 (``configs/vidvrd.yaml``, ``configs/vidor.yaml``, random seeded
+     weights): the ``cast_floating`` copy of each fp32 model, its bf16
+     forward held against the port's bf16 CPU run (B=8, B=2) within
+     ``BF16_MODEL_TOL`` with the gap to the fp32 forward printed, the
+     launches of one bf16 eval step (the forward and bench.py's decode-side
+     softmax, top-k and mask sigmoid: only bf16 instances of K1 and K7, in
+     the counts the config gives), and the pairs a second of fp32 and bf16
+     eval steps, timed in turns.
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
@@ -98,6 +112,17 @@ LOSS_TOL = 1e-4     # CUDA vs CPU train-step losses, times 1 + |loss|
 STEP_GRAD_TOL = 1e-4  # CUDA vs CPU step-0 gradients, |dg| / |g| over all
 DRIFT_TOL = 5e-2    # CUDA vs CPU params after 3 steps / (leaf max + sum lr)
 MEGA_TOL = 1e-4     # fused set-attention vs plain, times 1 + max |out|
+# bf16 kernel vs its bf16 plain version, times 1 + max |plain|: both round
+# P and the output to bf16 (K7's P unnormalised, the plain version's
+# normalised), so one bf16 step of the largest value is the expected gap;
+# on an H100 the largest seen at the serving shapes was 5.1e-3 (K7 at
+# 512x512, an error of one step, 2^-6, at values near 2), half the limit
+BF16_KERNEL_TOL = 1e-2
+# bf16 forward, card vs the port's CPU run, times max |ref|: the limit the
+# CPU parity test holds the port's bf16 forward to against JAX's
+# (tests/test_torch_bf16.py::MODEL_TOL); both sides round to bf16 in their
+# own places
+BF16_MODEL_TOL = 5e-2
 BIAS_RTOL, BIAS_ATOL = 2e-5, 1e-5   # position bias vs plain, gate space
 DETECT_TOL = 1e-3   # small detector, CUDA vs CPU, times max |x|
 DETECT_FRAMES, CANVAS = 16, (608, 1088)
@@ -106,6 +131,10 @@ TRAIN_PAIRS = (8, 24, 96)   # checked on both devices; timed; timed
 STREAM_T = 6000             # feature positions of the streamed sequence
 PEAK_FLOPS = 67e12          # H100 SXM fp32 without tensor cores
 PEAK_FP16_MMA = 989e12      # H100 SXM dense fp16 on the tensor cores
+PEAK_BF16_MMA = 989e12      # H100 SXM dense bf16 on the tensor cores
+# bf16 serving at the two widths the JAX bench serves (bench.py:127-129,
+# 244-265): config, pairs held against the CPU, pairs timed, top-k
+BF16_SERVING = (("vidvrd.yaml", 8, 128, 8), ("vidor.yaml", 2, 16, 6))
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
 
@@ -128,11 +157,14 @@ def ptxas_usage(log: str) -> list[str]:
     for ln in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", ln):
             entry, spill = m[1], ""
-            if k := re.search(r"([a-z_]+_kernel)(I(?:L\w\d+E)+E)?", entry):
-                args = re.findall(r"L(\w)(\d+)E", k[2] or "")
+            if k := re.search(r"([a-z_]+_kernel)"
+                              r"(I(?:L\w\d+E|f|13__nv_bfloat16)+E)?", entry):
+                args = re.findall(r"L(\w)(\d+)E|(f|13__nv_bfloat16)",
+                                  k[2] or "")
                 entry = k[1] + (("<" + ", ".join(
-                    v if t != "b" else ("true" if v == "1" else "false")
-                    for t, v in args) + ">") if args else "")
+                    ("float" if e == "f" else "bf16") if e
+                    else v if t != "b" else ("true" if v == "1" else "false")
+                    for t, v, e in args) + ">") if args else "")
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", ln):
             spill = f"{m[1]}/{m[2]} bytes spilled"
@@ -342,6 +374,111 @@ def check_kernels(cuda, ba, fa) -> dict:
     return entries
 
 
+def bf16_shapes(cfg, b: int) -> tuple[list, list]:
+    """The shapes the bf16 forward of ``cfg`` at ``b`` pairs gives its band
+    (K1) and full-attention (K7) kernels, read from the config as the
+    forward derives them: K1 (b, h, d, w, T) at each stem and branch level,
+    K7 (b, h, d, Tq, Tk) for the S/O cross-attention at T and the
+    predictor's queries against themselves and the coarsest level."""
+    t, arch, sf = cfg.max_seq_len, cfg.backbone_arch, cfg.scale_factor
+    w = cfg.mha_win_size[0] // 2
+    band = [(b, cfg.n_head, cfg.embd_dim // cfg.n_head, w, t // sf ** i)
+            for i in range(arch[2] + 1)]
+    p = cfg.predictor
+    dp, q = p.n_embd // p.n_head, p.num_queries
+    full = [(b, cfg.fuse_head, cfg.embd_dim // cfg.fuse_head, t, t),
+            (b, p.n_head, dp, q, q), (b, p.n_head, dp, q, t // sf ** arch[2])]
+    return band, full
+
+
+def bf16_case(name, label, kernel, plain, library, n_bytes, flops) -> dict:
+    """One shape of a bf16 kernel: its error against the bf16 plain version
+    (held to BF16_KERNEL_TOL), its wrapper and alone times, the plain
+    version's, SDPA's in bf16 and the bound at the dense bf16 rate."""
+    out, ref = kernel(), plain()
+    if not out.dtype == ref.dtype == torch.bfloat16:
+        raise AssertionError(f"{name} {label}: {out.dtype} output, plain "
+                             f"{ref.dtype}")
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs().max().item()
+    limit = BF16_KERNEL_TOL * (1 + ref.abs().max().item())
+    p1, k1, k2, p2 = (time_ms(f) for f in (plain, kernel, kernel, plain))
+    dev_ms, lib_ms = queued_device_ms(kernel), time_ms(library)
+    bms, by = bound_ms(n_bytes, flops, PEAK_BF16_MMA)
+    print(f"{name} {label}: max_abs_err {err:.3e} (limit {limit:.3e}), "
+          f"kernel {(k1 + k2) / 2:.4f} ms, alone {dev_ms:.4f} ms, plain "
+          f"{(p1 + p2) / 2:.4f} ms, library (SDPA, bf16) {lib_ms:.4f} ms, "
+          f"bound {bms:.4f} ms ({by})")
+    if not err <= limit:
+        raise AssertionError(f"{name} off by {err} at {label}")
+    return dict(shape=label, max_abs_err=err, ms=(k1 + k2) / 2,
+                device_ms=dev_ms, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by)
+
+
+def check_bf16_kernels(cuda, ba, fa) -> dict:
+    """The bf16 instances of K1 and K7 against their bf16 plain versions at
+    the shapes of the bf16 forward at VidVRD B=128 T=96 and VidOR B=16
+    T=512 (K7 also at the eval runner's 384 and 768 buckets), each timed
+    alone beside SDPA in bf16 and the bound. Returns the JSON entries
+    ``band_attention_bf16`` and ``masked_attention_bf16`` (all but
+    ``launches``) at VidVRD's T=96, each with ``by_shape``."""
+    from vrdone_tpu_torch.config import load_yaml_config, model_config_from_yaml
+    rng = np.random.default_rng(3)
+    bf = torch.bfloat16
+    band, full = [], []
+    for yaml, _, b, _ in BF16_SERVING:
+        cfg = model_config_from_yaml(load_yaml_config(
+            str(ROOT / "configs" / yaml)))
+        k1, k7 = bf16_shapes(cfg, b)
+        band += k1
+        full += k7
+        if yaml == "vidvrd.yaml":   # the eval runner's larger buckets
+            b0, h0, d0 = k7[0][:3]
+            full += [(b0, h0, d0, t, t) for t in (384, 768)]
+    rows = {"band_attention_bf16": [], "masked_attention_bf16": []}
+    for b, h, d, w, t in band:
+        q, k, v, mask = (x.to(bf) if x.is_floating_point() else x
+                         for x in attention_inputs(rng, b, t, t, h * d, cuda))
+        kw = dict(n_head=h, window_size=2 * w + 1)
+        i = ba.forward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
+                                dtype=bf)
+        lib_mask = band_library_mask(mask, w).to(bf)
+        rows["band_attention_bf16"].append(bf16_case(
+            "band_attention_bf16",
+            f"B*H={b}*{h} T={t} d={d} w={w} (instance {i['rows']} rows a "
+            f"tile, {i['per_block']} of {i['tiles']} tiles a block, d "
+            f"bucket {i['bucket']}{'' if i['vec'] else ', scalar'})",
+            lambda: ba.band_attention_cuda(q, k, v, mask, **kw),
+            lambda: ba.band_attention_plain(q, k, v, mask, **kw),
+            lambda: F.scaled_dot_product_attention(
+                heads(q, h), heads(k, h), heads(v, h), attn_mask=lib_mask),
+            2 * 4 * q.numel() + mask.numel(),
+            4 * d * h * band_pairs(mask, w)))
+    for b, h, d, tq, tk in full:
+        q, k, v, mask = (x.to(bf) if x.is_floating_point() else x
+                         for x in attention_inputs(rng, b, tq, tk, h * d,
+                                                   cuda))
+        r, bucket = fa._variant(tq, d)
+        rows["masked_attention_bf16"].append(bf16_case(
+            "masked_attention_bf16",
+            f"B*H={b}*{h} Tq={tq} Tk={tk} d={d} (instance {r} rows, d "
+            f"bucket {bucket})",
+            lambda: fa.full_attention_cuda(q, k, v, mask, n_head=h),
+            lambda: fa.full_attention_plain(q, k, v, mask, n_head=h),
+            lambda: F.scaled_dot_product_attention(
+                heads(q, h), heads(k, h), heads(v, h),
+                attn_mask=mask[:, None, None, :]),
+            2 * (2 * q.numel() + 2 * k.numel()) + mask.numel(),
+            4 * d * h * tq * int(mask.sum())))
+    entries = {}
+    for name, by_shape in rows.items():
+        main = by_shape[0]   # VidVRD's first shape: T=96 (K1), 96x96 (K7)
+        entries[name] = {**main, "max_abs_err": max(
+            r["max_abs_err"] for r in by_shape), "by_shape": by_shape}
+    return entries
+
+
 def band_backward_instance(ba, q, h, w, dkv) -> str:
     """The backward instance the C side picks for q's shape, as text."""
     b, t, c = q.shape
@@ -484,6 +621,116 @@ def packed_batch(rng, cfg, b, t):
     mask = np.arange(t)[None] < lens[:, None]
     x = rng.standard_normal((b, t, c)).astype(np.float32) * mask[..., None]
     return torch.from_numpy(x), torch.from_numpy(mask)
+
+
+def serve(model, x, mask, topk: int):
+    """One eval step as the JAX bench times it (bench.py:130-140): the
+    forward and the decode-side math (class softmax, top-k, mask
+    sigmoid > 0.5)."""
+    out = model(x, mask)
+    probs = torch.softmax(out["pred_logits"], dim=-1)
+    scores, catids = torch.topk(probs[..., 1:], topk, dim=-1)
+    return out, scores, catids, torch.sigmoid(out["pred_masks"]) > 0.5
+
+
+def forward_ms(fn, iters: int = 10) -> float:
+    """Host-clock ms of one call of ``fn`` (three warm-up calls, then
+    ``iters`` calls ended by a synchronize)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def check_bf16_serving(cuda, ba, fa) -> dict:
+    """bf16 serving at VidVRD B=128 T=96 and VidOR B=16 T=512: the fp32
+    model of each config and its ``cast_floating`` copy, the bf16 forward
+    held against the port's bf16 CPU run (B=8, B=2) within BF16_MODEL_TOL,
+    its gap to the fp32 forward on the card printed, the launches of one
+    bf16 eval step (only bf16 instances of K1 and K7, in the counts the
+    config gives) and the rates of fp32 and bf16 eval steps, timed in
+    turns. Returns the launches of each width's bf16 step by kernel (the
+    fp32 names count fp32 instances only)."""
+    from vrdone_tpu_torch.config import load_yaml_config, model_config_from_yaml
+    from vrdone_tpu_torch.utils.precision import cast_floating
+    bf = torch.bfloat16
+    rng = np.random.default_rng(4)
+    counts = {}
+    for yaml, b_check, b_rate, topk in BF16_SERVING:
+        width = yaml.split(".")[0]
+        cfg = model_config_from_yaml(load_yaml_config(
+            str(ROOT / "configs" / yaml)))
+        t = cfg.max_seq_len
+        cpu32, gpu32 = build_models(cfg, cuda)
+        cpu16, gpu16 = cast_floating(cpu32), cast_floating(gpu32)
+        del cpu32
+        x, mask = packed_batch(rng, cfg, b_check, t)
+        with torch.inference_mode():
+            ref = cpu16(x.to(bf), mask)
+            out16 = gpu16(x.to(cuda, bf), mask.to(cuda))
+            out32 = gpu32(x.to(cuda), mask.to(cuda))
+            for key in ("pred_logits", "pred_masks"):
+                if out16[key].dtype != torch.float32:
+                    raise AssertionError(f"{key} is {out16[key].dtype}")
+                err = (out16[key].cpu() - ref[key]).abs().max().item()
+                top = ref[key].abs().max().item()
+                gap = ((out16[key] - out32[key]).abs().max().item()
+                       / out32[key].abs().max().item())
+                print(f"{width} bf16 forward B={b_check} T={t} {key} "
+                      f"{tuple(out16[key].shape)}: CUDA vs CPU max_abs_err "
+                      f"{err:.3e} (limit {BF16_MODEL_TOL * top:.3e}, "
+                      f"{err / top:.3e} of max |ref|); bf16 vs fp32 on the "
+                      f"card {gap:.3e} of max |fp32|")
+                if not err <= BF16_MODEL_TOL * top:
+                    raise AssertionError(f"{width} bf16 {key} off by {err}")
+            del cpu16, ref, out16, out32
+
+            x, mask = packed_batch(rng, cfg, b_rate, t)
+            x, mask = x.to(cuda), mask.to(cuda)
+            x16 = x.to(bf)
+            ba.launches = ba.bf16_launches = 0
+            fa.launches = fa.bf16_launches = 0
+            _, scores, catids, masks_bin = serve(gpu16, x16, mask, topk)
+            torch.cuda.synchronize()
+            got = {"band_attention": ba.launches - ba.bf16_launches,
+                   "band_attention_bf16": ba.bf16_launches,
+                   "masked_attention": fa.launches - fa.bf16_launches,
+                   "masked_attention_bf16": fa.bf16_launches}
+            arch, nq = cfg.backbone_arch, cfg.predictor.num_queries
+            expect = {"band_attention": 0,
+                      "band_attention_bf16": arch[1] * 2 + arch[2],
+                      "masked_attention": 0,
+                      "masked_attention_bf16": arch[1] * 4
+                      + cfg.predictor.num_layers * 2}
+            print(f"{width} bf16 eval step B={b_rate} T={t}: kernel "
+                  f"launches {got}")
+            if got != expect:
+                raise AssertionError(f"launches {got}, expected {expect}")
+            if (scores.shape != (b_rate, nq, topk)
+                    or masks_bin.shape != (b_rate, nq, t)
+                    or not torch.isfinite(scores).all()):
+                raise AssertionError(f"{width} bf16 step: scores "
+                                     f"{tuple(scores.shape)}, masks "
+                                     f"{tuple(masks_bin.shape)}")
+            counts[width] = got
+            steps = {"fp32": lambda: serve(gpu32, x, mask, topk),
+                     "bf16": lambda: serve(gpu16, x16, mask, topk)}
+            ms = {k: [] for k in steps}
+            for k in ("fp32", "bf16", "bf16", "fp32"):
+                ms[k].append(forward_ms(steps[k]))
+            for k, v in ms.items():
+                print(f"{width} {k} eval step B={b_rate} T={t}: "
+                      f"{v[0]:.2f} / {v[1]:.2f} ms, "
+                      f"{1e3 * b_rate / v[0]:.1f} / "
+                      f"{1e3 * b_rate / v[1]:.1f} pairs/s")
+                profile_device(steps[k], 3, "step")
+        del gpu16, gpu32
+        torch.cuda.empty_cache()
+    return counts
 
 
 def train_pairs(rng, cfg, n, num_gt):
@@ -1566,6 +1813,7 @@ def main(argv: list[str] | None = None) -> int:
     # eval forward's and the train step's, the detector's (K5, K6) and the
     # stream's (K4, and K1 and K7 at the stream's shapes)
     kernels = check_kernels(cuda, ba, fa)
+    kernels.update(check_bf16_kernels(cuda, ba, fa))
     band_rows = kernels["band_attention"]["by_shape"]
     kernels.update(check_band_backward(cuda, ba, mops, band_rows))
     kernels.update(check_mega_kernels(cuda, pb, ma))
@@ -1657,6 +1905,9 @@ def main(argv: list[str] | None = None) -> int:
         n_triplets += n
     print(f"InferenceRunner + decode_video: {n_triplets} triplets")
 
+    # 9. bf16 serving at VidVRD's and VidOR's widths
+    bf16_launches = check_bf16_serving(cuda, ba, fa)
+
     # 5. the full-width train step
     train_launches = check_train_step(cfg, raw, cuda, ba, fa)
 
@@ -1674,12 +1925,15 @@ def main(argv: list[str] | None = None) -> int:
 
     band = "vrdone_tpu_torch/csrc/band_attention.cu"
     pallas = "vrdone_tpu/ops/pallas/band_attention.py"
+    masked = "vrdone_tpu_torch/csrc/masked_attention.cu"
     sources = {"band_attention": (band, f"{pallas}:42"),
+               "band_attention_bf16": (band, f"{pallas}:42 (bf16 operands)"),
                "band_attention_pe": (band, f"{pallas}:42 (with_pe)"),
                "band_attention_dq": (band, f"{pallas}:112"),
                "band_attention_dkv": (band, f"{pallas}:146"),
-               "masked_attention": ("vrdone_tpu_torch/csrc/masked_attention.cu",
-                                    "vrdone_tpu/ops/masked.py:203"),
+               "masked_attention": (masked, "vrdone_tpu/ops/masked.py:203"),
+               "masked_attention_bf16": (masked, "vrdone_tpu/ops/masked.py:"
+                                         "203 (bf16 operands)"),
                "mega_attention": ("vrdone_tpu_torch/csrc/mega_attention.cu",
                                   "vrdone_tpu/ops/pallas/mega_attention.py:56"),
                "position_bias": ("vrdone_tpu_torch/csrc/position_bias.cu",
@@ -1690,18 +1944,23 @@ def main(argv: list[str] | None = None) -> int:
     # launches: the eval forward's for the forward band and full-attention
     # kernels, the train step's for the backward ones, detect_video's for
     # the fused set-attention and, with the fused attention off, for the
-    # position bias, the streaming run's for the bias band kernel; every
-    # path is in launches_by_path
+    # position bias, the streaming run's for the bias band kernel, the
+    # VidVRD bf16 eval step's for the bf16 instances; every path is in
+    # launches_by_path
     by_path = {name: {"eval_forward": launches.get(name, 0),
                       "train_step": train_launches.get(name, 0),
                       **{route: c.get(name, 0)
                          for route, c in detect_launches.items()},
-                      "stream": stream_launches.get(name, 0)}
+                      "stream": stream_launches.get(name, 0),
+                      **{f"serve_bf16_{width}": c.get(name, 0)
+                         for width, c in bf16_launches.items()}}
                for name in sources}
     main_path = {"mega_attention": "detect_video",
                  "position_bias": "detect_video_pe_bias",
                  "bias_factors": "detect_video",
-                 "band_attention_pe": "stream"}
+                 "band_attention_pe": "stream",
+                 "band_attention_bf16": "serve_bf16_vidvrd",
+                 "masked_attention_bf16": "serve_bf16_vidvrd"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],

@@ -22,6 +22,7 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "vrdone_tpu"))
 print(len(names), "modules")
+assert "vrdone_tpu_torch.utils.precision" in names, names
 assert not bad, bad
 """
 
@@ -34,6 +35,6 @@ def test_port_imports_nothing_of_jax():
     assert r.returncode == 0, r.stderr[-3000:]
     n = int(r.stdout.split()[0])
     # the package's modules: config, convert, data (9), eval (4, streaming
-    # among them), models (10), ops (9), train (3), utils (1), and the
-    # subpackages themselves
-    assert n >= 44, r.stdout
+    # among them), models (10), ops (9), train (3), utils (2, precision
+    # among them), and the subpackages themselves
+    assert n >= 45, r.stdout

@@ -15,7 +15,11 @@ in gate space (rtol 2e-5, atol 1e-5: the log magnifies rounding near the
 relu's zero, and the kernel folds dw/dh through angle identities where the
 plain version embeds them), and in log space where it is above -8; the
 fused set-attention to 1e-4 of 1 + max |out| (its bias against the plain
-bias, then a softmax over up to 3750 keys).
+bias, then a softmax over up to 3750 keys). The bf16 instances of the band
+and full-attention kernels are held to their bf16 plain versions within
+1e-2 of 1 + max |plain| (``BF16_TOL``, ``chip_smoke.py``'s
+``BF16_KERNEL_TOL``): both round P and the output to bf16, K7 its
+unnormalised P, the plain version the normalised one.
 """
 
 import ctypes
@@ -33,10 +37,12 @@ from vrdone_tpu_torch.ops import full_attention as fa
 from vrdone_tpu_torch.ops import masked as mops
 from vrdone_tpu_torch.ops import mega_attention as ma
 from vrdone_tpu_torch.ops import position_bias as pb
+from vrdone_tpu_torch.utils.precision import cast_floating
 
 pytestmark = pytest.mark.cuda
 
 TOL = 2e-5
+BF16_TOL = 1e-2
 
 
 @pytest.fixture
@@ -62,9 +68,9 @@ def max_err(a, b):
 
 
 def shifted(x):
-    """A contiguous copy of x whose data start 4 bytes past a 16-byte
-    boundary."""
-    buf = torch.empty(x.numel() + 1, device=x.device)
+    """A contiguous copy of x whose data start one element (4 bytes in
+    fp32, 2 in bf16) past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
     y = buf[1:].view(x.shape)
     y.copy_(x)
     return y
@@ -1025,3 +1031,206 @@ def test_mega_head_on_card_matches_cpu(cuda):
     scale = want.abs().max().item()
     assert max_err(fused, want) <= 2e-4 * scale
     assert max_err(biased, want) <= 2e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# bf16 instances of the band (K1) and full-attention (K7) kernels
+# ---------------------------------------------------------------------------
+
+def to_bf16(*xs):
+    return [x.to(torch.bfloat16) for x in xs]
+
+
+def bf16_err(out, ref):
+    """max |out - ref| over 1 + max |ref|, both bf16."""
+    assert out.dtype == ref.dtype == torch.bfloat16
+    ref = ref.float()
+    return ((out.float() - ref).abs().max() / (1 + ref.abs().max())).item()
+
+
+@pytest.mark.parametrize("t,w,d,b,h", [
+    # the bf16 forward's shapes: VidVRD (B*H = 128*4, d = 128, w = 3) and
+    # VidOR (16*8, d = 64, w = 4)
+    (96, 3, 128, 128, 4), (12, 3, 128, 128, 4), (512, 4, 64, 16, 8),
+    (64, 4, 64, 16, 8),
+    # each head-dim bucket; T one off a row tile (16, 48 and 64 rows)
+    (40, 3, 32, 4, 4), (100, 15, 256, 4, 4), (15, 3, 128, 4, 4),
+    (17, 3, 128, 4, 4), (47, 3, 128, 4, 4), (49, 3, 128, 4, 4),
+    (63, 4, 64, 4, 8), (65, 4, 64, 4, 8),
+    # d % 8 != 0: the scalar instance (d = 20 is a vector one in fp32)
+    (96, 3, 20, 4, 3), (70, 4, 33, 4, 4), (40, 2, 6, 4, 5)])
+def test_band_bf16_instances_match_plain(cuda, t, w, d, b, h):
+    """K1's bf16 instances against the bf16 plain version, with an fp32 lse
+    against the plain logsumexp; a batch row without a valid key (and so
+    without a valid query) is 0; only the bf16 count of the launches
+    moves apart from the total."""
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    inst = ba.forward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
+                               dtype=torch.bfloat16)
+    assert inst["vec"] == (d % 8 == 0)
+    q, k, v, mask = streams(t * 5 + d, b, t, t, h * d,
+                            [t, max(1, t // 2), 1, 0] + [t] * (b - 4), cuda)
+    mask[0, t // 3] = False
+    q, k, v = to_bf16(q, k, v)
+    before, before16 = ba.launches, ba.bf16_launches
+    out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert (ba.launches, ba.bf16_launches) == (before + 1, before16 + 1)
+    assert bf16_err(out, ba.band_attention_plain(q, k, v, mask, **kw)) \
+        <= BF16_TOL
+    ref_lse = ba.band_lse_plain(q, k, mask, **kw)
+    assert lse.dtype == torch.float32
+    assert ((lse - ref_lse).abs() / (1 + ref_lse.abs())).max() <= 1e-5
+    assert (out[3] == 0).all()
+
+
+@pytest.mark.parametrize("tq,tk,d,h", [
+    # the bf16 forward's shapes: VidVRD's S/O cross-attention and eval
+    # buckets (d = 128) and predictor (d = 64), VidOR's (d = 64; the
+    # predictor's d = 32 against itself and the coarsest level)
+    (96, 96, 128, 4), (384, 384, 128, 4), (9, 9, 64, 4), (9, 12, 64, 4),
+    (512, 512, 64, 8), (9, 9, 32, 8), (9, 64, 32, 8),
+    # the tiles' edges and each head-dim bucket
+    (63, 31, 128, 4), (65, 33, 32, 4), (97, 65, 256, 4), (17, 32, 64, 4),
+    (49, 33, 64, 4), (16, 65, 256, 4),
+    # d % 8 != 0: the scalar instance
+    (96, 96, 20, 4), (17, 40, 30, 4), (9, 12, 12, 4)])
+def test_full_bf16_instances_match_plain(cuda, tq, tk, d, h):
+    """K7's bf16 instances against the bf16 plain version; a batch row
+    with no valid key is 0 in both."""
+    b = 4
+    q, k, v, mask = streams(tq * 3 + tk, b, tq, tk, h * d,
+                            [tk, max(1, tk // 3), 1, 0], cuda)
+    q, k, v = to_bf16(q, k, v)
+    before, before16 = fa.launches, fa.bf16_launches
+    out = fa.full_attention_cuda(q, k, v, mask, n_head=h)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bf16_launches) == (before + 1, before16 + 1)
+    assert torch.isfinite(out.float()).all()
+    assert bf16_err(out, fa.full_attention_plain(q, k, v, mask, n_head=h)) \
+        <= BF16_TOL
+    assert (out[3] == 0).all()
+
+
+def test_bf16_unaligned_streams_take_the_scalar_instance(cuda):
+    """bf16 streams that start 2 bytes past a 16-byte boundary: both
+    kernels take their scalar instance (plain 2-byte loads)."""
+    b, t, h, d = 4, 150, 8, 64
+    q, k, v, mask = streams(11, b, t, t, h * d, [t, 70, 1, 0], cuda)
+    q, k, v = to_bf16(q, k, v)
+    qs, ks, vs = shifted(q), shifted(k), shifted(v)
+    assert qs.data_ptr() % 16 and qs.is_contiguous()
+    kw = dict(n_head=h, window_size=9)
+    assert bf16_err(ba.band_attention_cuda(qs, ks, vs, mask, **kw),
+                    ba.band_attention_plain(q, k, v, mask, **kw)) <= BF16_TOL
+    assert bf16_err(fa.full_attention_cuda(qs, ks, vs, mask, n_head=h),
+                    fa.full_attention_plain(q, k, v, mask, n_head=h)) \
+        <= BF16_TOL
+
+
+def test_kernels_refuse_mixed_dtypes_and_bf16_where_fp32_only(cuda):
+    """q, k and v in one dtype only; K4 and the backward kernels take fp32
+    only and refuse bf16 naming the ROADMAP item."""
+    q, k, v, mask = streams(2, 2, 16, 16, 64, [16, 8], cuda)
+    q16, k16, v16 = to_bf16(q, k, v)
+    with pytest.raises(TypeError, match="one dtype"):
+        ba.band_attention_cuda(q16, k, v16, mask, n_head=4, window_size=7)
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.full_attention_cuda(q, k16, v, mask, n_head=4)
+    with pytest.raises(TypeError, match="ROADMAP"):
+        ba.band_attention_pe_cuda(q16, k16, v16, mask,
+                                  torch.zeros(4, 7, device=cuda), n_head=4,
+                                  window_size=7)
+    out, lse = ba.band_attention_cuda(q16, k16, v16, mask, n_head=4,
+                                      window_size=7, with_lse=True)
+    args = (q16, k16, v16, mask, lse,
+            ba.band_rowsum(out.float(), out.float(), 4), out)
+    for fn in (ba.band_attention_dq_cuda, ba.band_attention_dkv_cuda):
+        with pytest.raises(TypeError, match="ROADMAP"):
+            fn(*args, n_head=4, window_size=7)
+
+
+def test_bf16_instance_is_what_launches(cuda, tmp_path):
+    """A bf16 call launches the bf16 instance: the kernels' template
+    arguments (element type, head-dim bucket and vector copies of K1, rows
+    and bucket of K7), grid and block, read from a ``torch.profiler``
+    trace, against ``forward_instance`` and ``_variant``."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    for b, t, h, d, w, tq in ((128, 96, 4, 128, 3, 9), (16, 512, 8, 64, 4, 9),
+                              (4, 70, 4, 20, 4, 70)):
+        q, k, v, mask = streams(t + d, b, t, t, h * d, [t] * b, cuda)
+        q, k, v = to_bf16(q, k, v)
+        kw = dict(n_head=h, window_size=2 * w + 1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ba.band_attention_cuda(q, k, v, mask, **kw)
+                fa.full_attention_cuda(q[:, :tq].contiguous(), k, v, mask,
+                                       n_head=h)
+                torch.cuda.synchronize()
+        trace = tmp_path / f"trace{t}.json"
+        prof.export_chrome_trace(str(trace))
+        seen = set()
+        for e in json.loads(trace.read_text())["traceEvents"]:
+            if e.get("cat") != "kernel":
+                continue
+            name = e.get("name", "")
+            if m := re.search(r"band_forward_kernel<(\d+), (true|false), "
+                              r"false, (\w+)>", name):
+                inst = ba.forward_instance(cuda.index or 0, b, t, h, d,
+                                           2 * w + 1, dtype=torch.bfloat16)
+                assert m[3] == "__nv_bfloat16"
+                assert (int(m[1]), m[2] == "true") == (inst["bucket"],
+                                                      inst["vec"])
+                assert e["args"]["grid"] == [
+                    b * h * -(-inst["tiles"] // inst["per_block"]), 1, 1]
+                assert e["args"]["block"] == [8 * inst["rows"], 1, 1]
+                seen.add("band")
+            elif m := re.search(r"masked_attention_fwd_kernel<(\d+), "
+                                r"(\d+), (\w+)>", name):
+                rows, bucket = fa._variant(tq, d)
+                assert m[3] == "__nv_bfloat16"
+                assert (int(m[1]), 16 * int(m[2])) == (bucket, rows)
+                assert e["args"]["grid"] == [b * h * -(-tq // rows), 1, 1]
+                seen.add("full")
+        assert seen == {"band", "full"}, (b, t, h, d)
+
+
+def test_model_bf16_forward_on_card_matches_cpu(cuda):
+    """A small MaskVRD's ``cast_floating`` copy: the bf16 forward on the
+    card (bf16 instances only) against the bf16 forward on the CPU (plain
+    versions) within 5e-2 of max |ref| (tests/test_torch_bf16.py's
+    MODEL_TOL), its heads fp32."""
+    cfg = ModelConfig(visual_dim=24, embd_dim=32, fpn_dim=16,
+                      max_seq_len=48, predictor=PredictorConfig(
+                          n_input=32, n_embd=16, n_hidden=64, num_layers=3))
+    gen = torch.Generator().manual_seed(0)
+    cpu = MaskVRD(cfg, device=torch.device("cpu"), generator=gen)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, AffineDropPath):
+                m.scale.uniform_(0.5, 1.5, generator=gen)
+    gpu = MaskVRD(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu, gpu = cast_floating(cpu), cast_floating(gpu)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(
+        (3, 48, 2 * 24 + 5 + 16)).astype(np.float32)).to(torch.bfloat16)
+    mask = torch.from_numpy(np.arange(48)[None]
+                            < np.array([48, 24, 11])[:, None])
+    ba.launches = ba.bf16_launches = fa.launches = fa.bf16_launches = 0
+    with torch.no_grad():
+        out = gpu(x.to(cuda), mask.to(cuda))
+        torch.cuda.synchronize()
+        k1 = 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
+        k7 = 4 * cfg.backbone_arch[1] + 2 * cfg.predictor.num_layers
+        assert (ba.launches, ba.bf16_launches) == (k1, k1)
+        assert (fa.launches, fa.bf16_launches) == (k7, k7)
+        ref = cpu(x, mask)
+    for key in ("pred_logits", "pred_masks"):
+        assert out[key].dtype == torch.float32
+        top = ref[key].abs().max().item()
+        assert max_err(out[key].cpu(), ref[key]) <= 5e-2 * top, key

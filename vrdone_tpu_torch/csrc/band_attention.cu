@@ -1,6 +1,6 @@
-// Banded (sliding-window) attention for Hopper (sm_90a), fp32: the forward
-// with its per-row log-sum-exp, the forward with a relative-position bias,
-// and the two backward kernels.
+// Banded (sliding-window) attention for Hopper (sm_90a): the forward with
+// its per-row log-sum-exp (fp32 and bf16 streams), the forward with a
+// relative-position bias and the two backward kernels (fp32).
 //
 // Replaces the TPU kernels of vrdone_tpu/ops/pallas/band_attention.py:
 //   * band_forward_kernel<.., kPE = false> (K1) <- _band_kernel (forward, no
@@ -77,6 +77,23 @@
 //     off a multiple of 4 or a pointer off 16 bytes takes the scalar
 //     instance: the same design with 4-byte copies and loads.
 //
+// The bf16 forward (band_attention_forward_bf16, K1 on the bf16 serving
+// path) is the same body with __nv_bfloat16 streams (E in the templates):
+// the K/V slabs are staged as bf16 (half the shared memory, so the instance
+// rule sees other slab sizes and occupancies; a 16-byte cp.async carries 8
+// values, so the vector instance needs d % 8 == 0, and the scalar instance
+// copies with plain 2-byte loads, below cp.async's 4-byte least), the query
+// rows are widened to fp32 in registers and scaled there (the dense form's
+// fp32 q * scale; Pallas scales the fp32 dot instead), every dot, the
+// softmax and P.V run in fp32, P (divided by the row sum, as the dense form
+// rounds it) is rounded to bf16 before P.V, as the Pallas kernel rounds its
+// P to v's dtype, the lse stays fp32 and the output is written once in bf16.
+// What bounds it is the bytes again, half of fp32's (0.015 ms at the eval
+// forward's B*H = 128*4, T = 96, d = 128; 0.010 ms at VidOR's 16*8, 512,
+// 64); measured alone on an H100 SXM (700 W) it takes 0.032 and 0.029 ms,
+// the fp32 instance 0.046 ms at the first. It is not a tensor-core design
+// (ROADMAP queue 2). K4 and the backward take fp32 only.
+//
 // The backward, K2 (dQ) and K3 (dK, dV), is one templated body
 // (band_backward_kernel<.., kKV>), built from the forward's pieces. The two
 // kernels are mirrors: a block owns R consecutive owner rows of one (batch,
@@ -134,7 +151,8 @@
 // Layout: q, k, v, out, dout, dq, dk, dv are (B, T, H*d) contiguous with
 // heads split head-major along the channels (channels [h*d, (h+1)*d) are
 // head h), as the JAX package's _split_heads lays them out, so no transpose
-// is needed around the calls. mask is (B, T) bool (one byte each); lse and
+// is needed around the calls; q, k, v and out are all fp32 or (forward
+// without a bias only) all bf16. mask is (B, T) bool (one byte each); lse and
 // Dr are (B, H, T) fp32; rel_pe is (H, window_size) fp32. Takes any T (no
 // padding), 1 <= d <= 256 and 0 <= w <= 15; the Python wrapper rejects
 // anything else before the launch.
@@ -146,7 +164,13 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "element.cuh"
+
 namespace {
+
+using element::bf16;
 
 constexpr int kMaxD = 256;        // head dim bound
 constexpr int kMaxW = 15;         // 2w + 1 <= 31: at most one warp of keys
@@ -171,35 +195,7 @@ struct Lane {
   static constexpr int kN = kVW * kNC;  // channels a lane holds
 };
 
-template <int VW>
-__device__ __forceinline__ void load_vec(const float* p, float* x) {
-  if constexpr (VW == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    x[0] = t.x;
-    x[1] = t.y;
-    x[2] = t.z;
-    x[3] = t.w;
-  } else if constexpr (VW == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    x[0] = t.x;
-    x[1] = t.y;
-  } else {
-    x[0] = *p;
-  }
-}
-
-template <int VW>
-__device__ __forceinline__ void store_vec(float* p, const float* x) {
-  if constexpr (VW == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  } else if constexpr (VW == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-  } else {
-    *p = x[0];
-  }
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool fill) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -231,13 +227,14 @@ struct Head {
 };
 
 // Copy rows [r0, r0 + n) of one head of the streams a and b into as and bs
-// (row stride DB floats), zero outside [0, T) and past D.
-template <int DB, bool kVec>
-__device__ __forceinline__ void copy_slab(float* as, float* bs,
-                                          const float* a, const float* b,
-                                          const Head& hd, int r0, int n) {
-  constexpr unsigned kW = kVec ? 4 : 1;   // floats a copy
-  constexpr unsigned kCh = DB / kW;       // copies a row
+// (row stride DB elements), zero outside [0, T) and past D. The scalar bf16
+// instance copies with plain loads (cp.async copies at least 4 bytes).
+template <int DB, bool kVec, typename E>
+__device__ __forceinline__ void copy_slab(E* as, E* bs, const E* a,
+                                          const E* b, const Head& hd, int r0,
+                                          int n) {
+  constexpr unsigned kW = kVec ? 16 / sizeof(E) : 1;  // elements a copy
+  constexpr unsigned kCh = DB / kW;                   // copies a row
   for (unsigned idx = threadIdx.x; idx < n * kCh; idx += blockDim.x) {
     const unsigned r = idx / kCh;
     const int c = kW * (int)(idx - r * kCh);
@@ -247,9 +244,12 @@ __device__ __forceinline__ void copy_slab(float* as, float* bs,
     if constexpr (kVec) {
       cp_async16(as + r * DB + c, a + off, live);
       cp_async16(bs + r * DB + c, b + off, live);
-    } else {
+    } else if constexpr (std::is_same_v<E, float>) {
       cp_async4(as + r * DB + c, a + off, live);
       cp_async4(bs + r * DB + c, b + off, live);
+    } else {
+      as[r * DB + c] = live ? a[off] : element::from_f32<E>(0.f);
+      bs[r * DB + c] = live ? b[off] : element::from_f32<E>(0.f);
     }
   }
 }
@@ -257,21 +257,21 @@ __device__ __forceinline__ void copy_slab(float* as, float* bs,
 // This lane's channels of the RT rows of stream x from i0, unscaled, 0 past
 // T and past D. Issued ahead of their use, so nothing here waits for the
 // loads.
-template <int DB, bool kVec, int RT>
+template <int DB, bool kVec, int RT, typename E>
 __device__ __forceinline__ void load_rows(float (&xr)[RT][Lane<DB>::kN],
-                                          const float* x, const Head& hd,
+                                          const E* x, const Head& hd,
                                           int i0, int lane) {
   using L = Lane<DB>;
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const bool live = i0 + r < hd.T;
-    const float* row = x + hd.base + (size_t)(i0 + r) * hd.C;
+    const E* row = x + hd.base + (size_t)(i0 + r) * hd.C;
 #pragma unroll
     for (int c = 0; c < L::kNC; ++c) {
       const int ch = c * 32 * L::kVW + lane * L::kVW;
       if constexpr (kVec) {
         if (live && ch < hd.D) {
-          load_vec<L::kVW>(row + ch, xr[r] + c * L::kVW);
+          element::load<L::kVW>(row + ch, xr[r] + c * L::kVW);
         } else {
 #pragma unroll
           for (int e = 0; e < L::kVW; ++e) xr[r][c * L::kVW + e] = 0.f;
@@ -279,16 +279,17 @@ __device__ __forceinline__ void load_rows(float (&xr)[RT][Lane<DB>::kN],
       } else {
 #pragma unroll
         for (int e = 0; e < L::kVW; ++e)
-          xr[r][c * L::kVW + e] = live && ch + e < hd.D ? row[ch + e] : 0.f;
+          xr[r][c * L::kVW + e] =
+              live && ch + e < hd.D ? element::to_f32(row[ch + e]) : 0.f;
       }
     }
   }
 }
 
 // Write this lane's channels of RT rows from i0 into stream x, each times
-// `mul`, the rows below T and the channels below D only.
-template <int DB, bool kVec, int RT>
-__device__ __forceinline__ void store_rows(float* x,
+// `mul` (rounded to E), the rows below T and the channels below D only.
+template <int DB, bool kVec, int RT, typename E>
+__device__ __forceinline__ void store_rows(E* x,
                                            const float (&xr)[RT][Lane<DB>::kN],
                                            float mul, const Head& hd, int i0,
                                            int lane) {
@@ -296,7 +297,7 @@ __device__ __forceinline__ void store_rows(float* x,
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     if (i0 + r >= hd.T) break;
-    float* row = x + hd.base + (size_t)(i0 + r) * hd.C;
+    E* row = x + hd.base + (size_t)(i0 + r) * hd.C;
 #pragma unroll
     for (int c = 0; c < L::kNC; ++c) {
       const int ch = c * 32 * L::kVW + lane * L::kVW;
@@ -304,11 +305,11 @@ __device__ __forceinline__ void store_rows(float* x,
 #pragma unroll
       for (int e = 0; e < L::kVW; ++e) y[e] = xr[r][c * L::kVW + e] * mul;
       if constexpr (kVec) {
-        if (ch < hd.D) store_vec<L::kVW>(row + ch, y);
+        if (ch < hd.D) element::store<L::kVW>(row + ch, y);
       } else {
 #pragma unroll
         for (int e = 0; e < L::kVW; ++e)
-          if (ch + e < hd.D) row[ch + e] = y[e];
+          if (ch + e < hd.D) row[ch + e] = element::from_f32<E>(y[e]);
       }
     }
   }
@@ -350,14 +351,16 @@ __device__ __forceinline__ float reduce_rows(float (&v)[N], int lane) {
 // The forward (K1, K4)
 // ---------------------------------------------------------------------------
 
-// The problem a forward launch solves, with the instance pick_forward chose.
+// The problem a forward launch solves, its streams of element type E, with
+// the instance pick_forward chose.
+template <typename E>
 struct BandProblem {
-  const float* q;
-  const float* k;
-  const float* v;
+  const E* q;
+  const E* k;
+  const E* v;
   const unsigned char* mask;
   const float* rel_pe;  // (H, npe), read by K4 only
-  float* out;
+  E* out;
   float* lse;           // (B, H, T) or null
   int T, H, D, w, npe;
   float scale;
@@ -371,9 +374,9 @@ struct BandProblem {
 // warp * kRT .. + kRT - 1 of each. With kPE, the score of band offset n gets
 // rel_pe[h, min(n, npe - 1)] between the scaled dot product and the key
 // mask, the order of the dense form's additions.
-template <int DB, bool kVec, bool kPE>
+template <int DB, bool kVec, bool kPE, typename E>
 __global__ void __launch_bounds__(512)
-band_forward_kernel(const BandProblem p) {
+band_forward_kernel(const BandProblem<E> p) {
   using L = Lane<DB>;
   extern __shared__ __align__(16) float fwd_smem[];
   const int w = p.w, R = p.rows, T = p.T;
@@ -382,11 +385,12 @@ band_forward_kernel(const BandProblem p) {
   const int xs = (kRT + 2 * w) * kRT;           // a warp's scores, key-major
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* ks = fwd_smem;                         // stages x slab x DB
-  float* vs = ks + stages * slab * DB;          // stages x slab x DB
-  float* x = vs + stages * slab * DB + warp * xs;
+  E* ks = reinterpret_cast<E*>(fwd_smem);       // stages x slab x DB
+  E* vs = ks + stages * slab * DB;              // stages x slab x DB
+  float* xw = reinterpret_cast<float*>(vs + stages * slab * DB);
+  float* x = xw + warp * xs;
   unsigned char* ms = reinterpret_cast<unsigned char*>(
-      vs + stages * slab * DB + (blockDim.x >> 5) * xs);  // stages x kStage
+      xw + (blockDim.x >> 5) * xs);             // stages x kStage
 
   const int chunks = (p.tiles + p.per_block - 1) / p.per_block;
   const int bh = blockIdx.x / chunks;
@@ -437,8 +441,8 @@ band_forward_kernel(const BandProblem p) {
     const int i0 = t * R + warp * kRT;  // this warp's first query row
     if (i0 < T) {
       // this warp's slab: key rows i0 - w .. i0 + kRT - 1 + w
-      const float* kt = ks + (s * slab + warp * kRT) * DB;
-      const float* vt = vs + (s * slab + warp * kRT) * DB;
+      const E* kt = ks + (s * slab + warp * kRT) * DB;
+      const E* vt = vs + (s * slab + warp * kRT) * DB;
       const unsigned char* mt = ms + s * kStage + warp * kRT;
 
       // 1. scores: each key row once, dotted with all kRT query rows
@@ -451,8 +455,9 @@ band_forward_kernel(const BandProblem p) {
         float kx[L::kN];
 #pragma unroll
         for (int c = 0; c < L::kNC; ++c)
-          load_vec<L::kVW>(kt + jj * DB + c * 32 * L::kVW + lane * L::kVW,
-                           kx + c * L::kVW);
+          element::load<L::kVW>(
+              kt + jj * DB + c * 32 * L::kVW + lane * L::kVW,
+              kx + c * L::kVW);
         float part[kRT];
 #pragma unroll
         for (int r = 0; r < kRT; ++r) {
@@ -491,7 +496,8 @@ band_forward_kernel(const BandProblem p) {
           l += __shfl_xor_sync(0xffffffffu, l, o);
         if (band) {
           const bool valid_row = i < T && mt[r + w];
-          x[(r + n) * kRT + r] = valid_row ? e / l : 0.f;
+          x[(r + n) * kRT + r] =
+              valid_row ? element::round_to<E>(e / l) : 0.f;
           if (p.lse != nullptr && n == 0 && i < T)
             p.lse[(size_t)bh * T + i] = m + logf(l);
         }
@@ -509,8 +515,9 @@ band_forward_kernel(const BandProblem p) {
         float vx[L::kN];
 #pragma unroll
         for (int c = 0; c < L::kNC; ++c)
-          load_vec<L::kVW>(vt + jj * DB + c * 32 * L::kVW + lane * L::kVW,
-                           vx + c * L::kVW);
+          element::load<L::kVW>(
+              vt + jj * DB + c * 32 * L::kVW + lane * L::kVW,
+              vx + c * L::kVW);
         const float4 pj = *reinterpret_cast<const float4*>(x + jj * kRT);
         const float pr[kRT] = {pj.x, pj.y, pj.z, pj.w};
 #pragma unroll
@@ -676,8 +683,8 @@ band_backward_kernel(const BandBwdProblem p) {
 #pragma unroll
         for (int c = 0; c < L::kNC; ++c) {
           const int ch = jj * DB + c * 32 * L::kVW + lane * L::kVW;
-          load_vec<L::kVW>(at + ch, ax + c * L::kVW);
-          load_vec<L::kVW>(bt + ch, bx + c * L::kVW);
+          element::load<L::kVW>(at + ch, ax + c * L::kVW);
+          element::load<L::kVW>(bt + ch, bx + c * L::kVW);
         }
         float part[2 * RT];
 #pragma unroll
@@ -740,9 +747,10 @@ band_backward_kernel(const BandBwdProblem p) {
         float ax[L::kN], cd[RT];
 #pragma unroll
         for (int c = 0; c < L::kNC; ++c)
-          load_vec<L::kVW>(at + jj * DB + c * 32 * L::kVW + lane * L::kVW,
-                           ax + c * L::kVW);
-        load_vec<RT>(xd + jj * RT, cd);
+          element::load<L::kVW>(
+              at + jj * DB + c * 32 * L::kVW + lane * L::kVW,
+              ax + c * L::kVW);
+        element::load<RT>(xd + jj * RT, cd);
 #pragma unroll
         for (int r = 0; r < RT; ++r)
 #pragma unroll
@@ -752,9 +760,10 @@ band_backward_kernel(const BandBwdProblem p) {
           float bx[L::kN], pc[RT];
 #pragma unroll
           for (int c = 0; c < L::kNC; ++c)
-            load_vec<L::kVW>(bt + jj * DB + c * 32 * L::kVW + lane * L::kVW,
-                             bx + c * L::kVW);
-          load_vec<RT>(xp + jj * RT, pc);
+            element::load<L::kVW>(
+                bt + jj * DB + c * 32 * L::kVW + lane * L::kVW,
+                bx + c * L::kVW);
+          element::load<RT>(xp + jj * RT, pc);
 #pragma unroll
           for (int r = 0; r < RT; ++r)
 #pragma unroll
@@ -817,11 +826,12 @@ cudaError_t block_slots(Kernel kernel, int threads, size_t smem,
   return cudaSuccess;
 }
 
-// Shared memory of a forward block: the K and V slabs of each stage, the
-// warps' score tiles and the stages' mask bytes.
-size_t forward_smem(int DB, int rows, int w, int stages) {
-  return sizeof(float) * ((size_t)stages * 2 * (rows + 2 * w) * DB +
-                          (size_t)(rows / kRT) * (kRT + 2 * w) * kRT) +
+// Shared memory of a forward block: the K and V slabs of each stage (of
+// `elem`-byte elements), the warps' fp32 score tiles and the stages' mask
+// bytes.
+size_t forward_smem(int DB, int elem, int rows, int w, int stages) {
+  return (size_t)elem * stages * 2 * (rows + 2 * w) * DB +
+         sizeof(float) * (size_t)(rows / kRT) * (kRT + 2 * w) * kRT +
          (size_t)stages * kStage;
 }
 
@@ -848,23 +858,24 @@ long long grid_blocks(int B, int H, int tiles, int per_block) {
 // double-buffered block, rounded to the nearest; 1 where that block does
 // not fit). Sets p->rows, p->tiles, p->per_block and the block's shared
 // memory.
-template <typename Kernel>
-cudaError_t pick_forward(Kernel kernel, int DB, int BH, BandProblem* p,
+template <typename Kernel, typename E>
+cudaError_t pick_forward(Kernel kernel, int DB, int BH, BandProblem<E>* p,
                          size_t* smem) {
   const int T = p->T, w = p->w;
+  constexpr int kElem = sizeof(E);
   constexpr int kTileRows[] = {64, 48, 32, 16};
   long long best = LLONG_MAX;
   for (const int r : kTileRows) {
     const long long cost = (long long)((T + r - 1) / r) * (r + 2 * w);
-    if (cost < best && forward_smem(DB, r, w, 1) <= kSmemMax) {
+    if (cost < best && forward_smem(DB, kElem, r, w, 1) <= kSmemMax) {
       best = cost;
       p->rows = r;
     }
   }
   p->tiles = (T + p->rows - 1) / p->rows;
   p->per_block = 1;
-  *smem = forward_smem(DB, p->rows, w, 1);
-  const size_t smem2 = forward_smem(DB, p->rows, w, 2);
+  *smem = forward_smem(DB, kElem, p->rows, w, 1);
+  const size_t smem2 = forward_smem(DB, kElem, p->rows, w, 2);
   if (p->tiles == 1 || smem2 > kSmemMax) return cudaSuccess;
   long long slots;
   const cudaError_t err = block_slots(kernel, 8 * p->rows, smem2, &slots);
@@ -880,10 +891,10 @@ cudaError_t pick_forward(Kernel kernel, int DB, int BH, BandProblem* p,
 }
 
 // Picks the instance of the forward for *p and, with `launch`, launches it.
-template <int DB, bool kVec, bool kPE>
-cudaError_t run_forward(BandProblem* p, int B, cudaStream_t stream,
+template <int DB, bool kVec, bool kPE, typename E>
+cudaError_t run_forward(BandProblem<E>* p, int B, cudaStream_t stream,
                         bool launch) {
-  auto kernel = band_forward_kernel<DB, kVec, kPE>;
+  auto kernel = band_forward_kernel<DB, kVec, kPE, E>;
   size_t smem;
   cudaError_t err = pick_forward(kernel, DB, B * p->H, p, &smem);
   if (err != cudaSuccess || !launch) return err;
@@ -967,16 +978,18 @@ int head_bucket(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
-// Whether D and every stream allow 16-byte copies (the vector instance) or
-// not (the scalar one).
-bool vector_streams(int D, std::initializer_list<const void*> streams) {
+// Whether D and every stream of `elem`-byte elements allow 16-byte copies
+// (the vector instance: 4 fp32 or 8 bf16 channels a copy) or not (the
+// scalar one).
+bool vector_streams(int D, int elem,
+                    std::initializer_list<const void*> streams) {
   uintptr_t bits = 0;
   for (const void* s : streams) bits |= reinterpret_cast<uintptr_t>(s);
-  return D % 4 == 0 && (bits & 15) == 0;
+  return D % (16 / elem) == 0 && (bits & 15) == 0;
 }
 
-template <bool kVec, bool kPE>
-cudaError_t run_bucket(int bucket, BandProblem* p, int B,
+template <bool kVec, bool kPE, typename E>
+cudaError_t run_bucket(int bucket, BandProblem<E>* p, int B,
                        cudaStream_t stream, bool launch) {
   switch (bucket) {
     case 32: return run_forward<32, kVec, kPE>(p, B, stream, launch);
@@ -986,13 +999,19 @@ cudaError_t run_bucket(int bucket, BandProblem* p, int B,
   }
 }
 
-cudaError_t forward(BandProblem* p, int B, bool pe, cudaStream_t stream,
+// K1, or K4 with `pe` (fp32 streams only).
+template <typename E>
+cudaError_t forward(BandProblem<E>* p, int B, bool pe, cudaStream_t stream,
                     bool launch) {
   const int bucket = head_bucket(p->D);
-  const bool vec = vector_streams(p->D, {p->q, p->k, p->v, p->out});
-  if (pe)
-    return vec ? run_bucket<true, true>(bucket, p, B, stream, launch)
-               : run_bucket<false, true>(bucket, p, B, stream, launch);
+  const bool vec =
+      vector_streams(p->D, sizeof(E), {p->q, p->k, p->v, p->out});
+  if (pe) {
+    if constexpr (std::is_same_v<E, float>)
+      return vec ? run_bucket<true, true>(bucket, p, B, stream, launch)
+                 : run_bucket<false, true>(bucket, p, B, stream, launch);
+    return cudaErrorInvalidValue;
+  }
   return vec ? run_bucket<true, false>(bucket, p, B, stream, launch)
              : run_bucket<false, false>(bucket, p, B, stream, launch);
 }
@@ -1013,9 +1032,22 @@ cudaError_t backward(BandBwdProblem* p, int B, cudaStream_t stream,
                      bool launch) {
   const int bucket = head_bucket(p->D);
   const bool vec = vector_streams(
-      p->D, {p->q, p->k, p->v, p->dout, p->da, p->db});
+      p->D, sizeof(float), {p->q, p->k, p->v, p->dout, p->da, p->db});
   return vec ? run_backward_bucket<true, kKV>(bucket, p, B, stream, launch)
              : run_backward_bucket<false, kKV>(bucket, p, B, stream, launch);
+}
+
+// The forward's instance for streams of element type E (no launch).
+template <typename E>
+cudaError_t forward_instance(int B, int T, int H, int D, int w, bool pe,
+                             int* rows, int* tiles, int* per_block) {
+  BandProblem<E> p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   nullptr, T, H, D, w, 2 * w + 1, 1.f, 0, 0, 0};
+  const cudaError_t err = forward(&p, B, pe, nullptr, false);
+  *rows = p.rows;
+  *tiles = p.tiles;
+  *per_block = p.per_block;
+  return err;
 }
 
 }  // namespace
@@ -1032,8 +1064,21 @@ extern "C" int band_attention_forward(const float* q, const float* k,
                                       float* lse, int B, int T, int H, int D,
                                       int w, float scale, void* stream) {
   if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
-  BandProblem p{q, k, v, mask, nullptr, out, lse, T, H, D, w, 1, scale,
-                0, 0, 0};
+  BandProblem<float> p{q, k, v, mask, nullptr, out, lse, T, H, D, w, 1,
+                       scale, 0, 0, 0};
+  return (int)forward(&p, B, false, (cudaStream_t)stream, true);
+}
+
+// The same forward with bf16 streams (q, k, v and out); lse stays fp32.
+extern "C" int band_attention_forward_bf16(const bf16* q, const bf16* k,
+                                           const bf16* v,
+                                           const unsigned char* mask,
+                                           bf16* out, float* lse, int B,
+                                           int T, int H, int D, int w,
+                                           float scale, void* stream) {
+  if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
+  BandProblem<bf16> p{q, k, v, mask, nullptr, out, lse, T, H, D, w, 1,
+                      scale, 0, 0, 0};
   return (int)forward(&p, B, false, (cudaStream_t)stream, true);
 }
 
@@ -1048,29 +1093,29 @@ extern "C" int band_attention_pe_forward(const float* q, const float* k,
                                          void* stream) {
   if (bad_shape(B, T, H, D, w) || window_size < 1)
     return (int)cudaErrorInvalidValue;
-  BandProblem p{q, k, v, mask, rel_pe, out, nullptr, T, H, D, w,
-                window_size, scale, 0, 0, 0};
+  BandProblem<float> p{q, k, v, mask, rel_pe, out, nullptr, T, H, D, w,
+                       window_size, scale, 0, 0, 0};
   return (int)forward(&p, B, true, (cudaStream_t)stream, true);
 }
 
 // The instance the forward (K1, or K4 with `pe`) takes on the current
-// device for 16-byte-aligned streams of this shape: query rows a tile,
-// row tiles a (batch, head), tiles a block walks and the head-dim bucket;
-// `vec` is 1 for the vector instance (d % 4 == 0), 0 for the scalar one.
+// device for 16-byte-aligned streams of this shape and `elem`-byte elements
+// (4 for fp32, 2 for bf16; K4 takes fp32 only): query rows a tile, row
+// tiles a (batch, head), tiles a block walks and the head-dim bucket; `vec`
+// is 1 for the vector instance (d % 4 == 0 in fp32, d % 8 == 0 in bf16), 0
+// for the scalar one.
 extern "C" int band_attention_instance(int B, int T, int H, int D, int w,
-                                       int pe, int* rows, int* tiles,
-                                       int* per_block, int* bucket,
-                                       int* vec) {
-  if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
-  BandProblem p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                nullptr, T, H, D, w, 2 * w + 1, 1.f, 0, 0, 0};
-  const cudaError_t err = forward(&p, B, pe != 0, nullptr, false);
-  *rows = p.rows;
-  *tiles = p.tiles;
-  *per_block = p.per_block;
+                                       int pe, int elem, int* rows,
+                                       int* tiles, int* per_block,
+                                       int* bucket, int* vec) {
+  if (bad_shape(B, T, H, D, w) || (elem != 4 && elem != 2))
+    return (int)cudaErrorInvalidValue;
   *bucket = head_bucket(D);
-  *vec = vector_streams(D, {});
-  return (int)err;
+  *vec = vector_streams(D, elem, {});
+  return (int)(elem == 4 ? forward_instance<float>(B, T, H, D, w, pe != 0,
+                                                   rows, tiles, per_block)
+                         : forward_instance<bf16>(B, T, H, D, w, pe != 0,
+                                                  rows, tiles, per_block));
 }
 
 // dQ from the forward's inputs, its lse, Dr = rowsum(dout * out) and dout.
@@ -1114,7 +1159,7 @@ extern "C" int band_attention_backward_instance(
   *tiles = p.tiles;
   *per_block = p.per_block;
   *bucket = head_bucket(D);
-  *vec = vector_streams(D, {});
+  *vec = vector_streams(D, sizeof(float), {});
   return (int)err;
 }
 

@@ -1,4 +1,4 @@
-// Key-masked full attention forward for Hopper (sm_90a), fp32.
+// Key-masked full attention forward for Hopper (sm_90a), fp32 and bf16.
 //
 // Replaces the TPU path vrdone_tpu/ops/masked.py::_full_attention_flash, which
 // called the Pallas library kernel
@@ -52,6 +52,20 @@
 //   zero). At d = 128 and 64 rows a block takes 106.5 KB of shared memory
 //   and 168 registers a thread: 2 blocks (8 warps) an SM.
 //
+// The bf16 instances (masked_attention_forward_bf16, the bf16 serving path)
+// are the same body with __nv_bfloat16 streams (E in the templates): K and V
+// tiles are staged as bf16 (half the shared memory; a 16-byte cp.async
+// carries 8 values, so the vector copies need d % 8 == 0, and the scalar
+// instance, for any other d or an unaligned stream, copies with plain
+// 2-byte loads, below cp.async's 4-byte least), the query tile is widened
+// to fp32 and scaled in shared memory as in the fp32 instances, and every
+// dot, the online softmax (m, l) and P.V accumulate in fp32. Where the
+// dense form rounds the normalised P, this kernel rounds the unnormalised
+// exp(s - m) to bf16 before P.V, as the Pallas flash kernels do (l sums the
+// unrounded values), and writes the output once in bf16. At bf16 the bytes
+// halve and SDPA can take its flash backend: this simple instance runs on
+// the fp32 FMA pipes, not the tensor cores (ROADMAP queue 2).
+//
 // What still holds it back (PERF.md): a warp's 16-byte shared load delivers
 // 512 bytes and seems to take 4 cycles of the SM's shared-memory bandwidth
 // however many lanes share an address (the timings fit that, not the
@@ -60,7 +74,8 @@
 // Larger register tiles need more rows a block, and their shared memory then
 // leaves one block an SM: 128-row blocks of 8 x 4 tiles were slower.
 //
-// Layout: q and out are (B, Tq, H*d), k and v (B, Tk, H*d), contiguous, heads
+// Layout: q and out are (B, Tq, H*d), k and v (B, Tk, H*d), contiguous, all
+// four fp32 or all four bf16 (the _bf16 entry point), heads
 // split head-major along the channels as the JAX package's _split_heads lays
 // them out. mask is (B, Tk) bool (one byte each). Takes any Tq and Tk and
 // 1 <= d <= 256; the Python wrapper rejects anything else before the launch.
@@ -73,26 +88,37 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "element.cuh"
+
 namespace {
+
+using element::bf16;
 
 constexpr int kThreads = 128;  // 4 warps, each 4 row groups of 8 lanes
 constexpr int kTile = 32;      // keys a tile: 8 lanes x 4 keys
 constexpr int kMaxD = 256;
 
-template <int DB, int TM>
+// Shared-memory tiles of an instance whose K/V elements are E; the query
+// tile and P are fp32 in both.
+template <int DB, int TM, typename E>
 struct Tiles {
   static constexpr int kRows = 16 * TM;  // 4 warps x 4 row groups x TM
-  static constexpr int kKS = DB + 4;     // Q and K row stride (floats)
+  static constexpr int kQS = DB + 4;     // Q row stride (floats)
+  // K row stride (elements): 16 bytes past the row, so rows stay 16-byte
+  // aligned for cp.async and a quarter-warp's K loads hit distinct banks
+  static constexpr int kKS = DB + 16 / (int)sizeof(E);
   static constexpr int kPS = kRows + 4;  // P row stride (floats)
-  static constexpr int kQ = kRows * kKS;
+  static constexpr int kQ = kRows * kQS;
   static constexpr int kK = kTile * kKS;
   static constexpr int kV = kTile * DB;
   static constexpr int kP = kTile * kPS;
   static constexpr size_t kBytes =
-      sizeof(float) * (kQ + 2 * kK + 2 * kV + kP);
+      sizeof(float) * (kQ + kP) + sizeof(E) * (2 * kK + 2 * kV);
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool fill) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -120,33 +146,35 @@ __device__ __forceinline__ int next_tile(const unsigned char* mrow, int t,
   }
 }
 
-// The problem a launch solves (the kernels' one argument).
+// The problem a launch solves (the kernels' one argument), its streams of
+// element type E.
+template <typename E>
 struct Problem {
-  const float* q;
-  const float* k;
-  const float* v;
+  const E* q;
+  const E* k;
+  const E* v;
   const unsigned char* mask;
-  float* out;
+  E* out;
   int B, Tq, Tk, H, D;
   float scale;
 };
 
-// One K/V tile of keys j0 .. j0 + kTile - 1 into ks (stride DB + 4) and vs
+// One K/V tile of keys j0 .. j0 + kTile - 1 into ks (stride kKS) and vs
 // (stride DB); keys past Tk, invalid keys and channels past D are 0.
-template <int DB>
-__device__ __forceinline__ void load_kv(float* ks, float* vs,
-                                        const Problem p,
+template <int DB, typename E>
+__device__ __forceinline__ void load_kv(E* ks, E* vs, const Problem<E> p,
                                         const unsigned char* mrow,
                                         size_t kbase, int j0, bool vec) {
-  constexpr int kKS = DB + 4;
+  constexpr int kKS = DB + 16 / (int)sizeof(E);
   const int C = p.H * p.D;
   if (vec) {
-    constexpr int kChunks = DB / 4;  // 16-byte chunks a row
+    constexpr int kPer = 16 / (int)sizeof(E);  // elements a 16-byte copy
+    constexpr int kChunks = DB / kPer;         // copies a row
 #pragma unroll
     for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
       const int idx = threadIdx.x + it * kThreads;
       const int n = idx / kChunks;
-      const int c = 4 * (idx - n * kChunks);
+      const int c = kPer * (idx - n * kChunks);
       const int j = j0 + n;
       const bool live = j < p.Tk && c < p.D && mrow[j];
       const size_t off = live ? kbase + (size_t)j * C + c : 0;
@@ -162,21 +190,22 @@ __device__ __forceinline__ void load_kv(float* ks, float* vs,
       const int j = j0 + n;
       const bool live = j < p.Tk && c < p.D && mrow[j];
       const size_t off = kbase + (size_t)j * C + c;
-      ks[n * kKS + c] = live ? p.k[off] : 0.f;
-      vs[n * DB + c] = live ? p.v[off] : 0.f;
+      ks[n * kKS + c] = live ? p.k[off] : element::from_f32<E>(0.f);
+      vs[n * DB + c] = live ? p.v[off] : element::from_f32<E>(0.f);
     }
   }
 }
 
-template <int DB, int TM>
+template <int DB, int TM, typename E>
 __global__ void __launch_bounds__(kThreads)
-masked_attention_fwd_kernel(const Problem p, int row_tiles, bool vec) {
-  using T = Tiles<DB, TM>;
+masked_attention_fwd_kernel(const Problem<E> p, int row_tiles, bool vec) {
+  using T = Tiles<DB, TM, E>;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;               // kRows x kKS, pre-scaled
-  float* ks = qs + T::kQ;         // 2 stages of kTile x kKS
-  float* vs = ks + 2 * T::kK;     // 2 stages of kTile x DB
-  float* ps = vs + 2 * T::kV;     // kTile x kPS, key-major
+  float* qs = smem;                                 // kRows x kQS, scaled
+  E* ks = reinterpret_cast<E*>(qs + T::kQ);         // 2 stages, kTile x kKS
+  E* vs = ks + 2 * T::kK;                           // 2 stages, kTile x DB
+  float* ps = reinterpret_cast<float*>(vs + 2 * T::kV);  // kTile x kPS,
+                                                         // key-major
 
   const int bh = blockIdx.x / row_tiles;
   const int i0 = (blockIdx.x - bh * row_tiles) * T::kRows;
@@ -188,39 +217,53 @@ masked_attention_fwd_kernel(const Problem p, int row_tiles, bool vec) {
   const unsigned char* mrow = p.mask + (size_t)b * Tk;
   const int n_tiles = (Tk + kTile - 1) / kTile;
 
-  // the query tile and the first K/V tile are copied together; the query
-  // tile is scaled in place once it has landed
-  if (vec) {
+  // the query tile and the first K/V tile are copied together; an fp32
+  // query tile is scaled in place once it has landed, a bf16 one is widened
+  // and scaled on its way in
+  constexpr bool kF32 = std::is_same_v<E, float>;
+  if (vec && kF32) {
 #pragma unroll
     for (int it = 0; it < T::kRows * DB / 4 / kThreads; ++it) {
       const int idx = threadIdx.x + it * kThreads;
       const int r = idx / (DB / 4);
       const int c = 4 * (idx - r * (DB / 4));
       const bool live = i0 + r < Tq && c < D;
-      cp_async16(qs + r * T::kKS + c,
+      cp_async16(qs + r * T::kQS + c,
                  p.q + (live ? qbase + (size_t)(i0 + r) * C + c : 0), live);
+    }
+  } else if (vec) {
+    for (int idx = threadIdx.x; idx < T::kRows * DB / 4; idx += kThreads) {
+      const int r = idx / (DB / 4);
+      const int c = 4 * (idx - r * (DB / 4));
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (i0 + r < Tq && c < D)
+        element::load<4>(p.q + qbase + (size_t)(i0 + r) * C + c, x);
+      *reinterpret_cast<float4*>(qs + r * T::kQS + c) = make_float4(
+          x[0] * p.scale, x[1] * p.scale, x[2] * p.scale, x[3] * p.scale);
     }
   } else {
     for (int idx = threadIdx.x; idx < T::kRows * DB; idx += kThreads) {
       const int r = idx / DB;
       const int c = idx - r * DB;
       const int i = i0 + r;
-      qs[r * T::kKS + c] =
-          i < Tq && c < D ? p.q[qbase + (size_t)i * C + c] * p.scale : 0.f;
+      qs[r * T::kQS + c] =
+          i < Tq && c < D
+              ? element::to_f32(p.q[qbase + (size_t)i * C + c]) * p.scale
+              : 0.f;
     }
   }
   cp_async_commit();
   int t = next_tile(mrow, 0, n_tiles, Tk);
   if (t < n_tiles) load_kv<DB>(ks, vs, p, mrow, kbase, t * kTile, vec);
   cp_async_commit();
-  if (vec) {
+  if (vec && kF32) {
     cp_async_wait<1>();  // this thread's part of the query tile
 #pragma unroll
     for (int it = 0; it < T::kRows * DB / 4 / kThreads; ++it) {
       const int idx = threadIdx.x + it * kThreads;
       const int r = idx / (DB / 4);
       float4* x = reinterpret_cast<float4*>(
-          qs + r * T::kKS + 4 * (idx - r * (DB / 4)));
+          qs + r * T::kQS + 4 * (idx - r * (DB / 4)));
       float4 y = *x;
       y.x *= p.scale;
       y.y *= p.scale;
@@ -259,8 +302,8 @@ masked_attention_fwd_kernel(const Problem p, int row_tiles, bool vec) {
       load_kv<DB>(ks + (stage ^ 1) * T::kK, vs + (stage ^ 1) * T::kV, p,
                   mrow, kbase, t_next * kTile, vec);
     cp_async_commit();
-    const float* kt = ks + stage * T::kK;
-    const float* vt = vs + stage * T::kV;
+    const E* kt = ks + stage * T::kK;
+    const E* vt = vs + stage * T::kV;
     const int j0 = t * kTile;
 
     float s[TM][4];
@@ -270,29 +313,30 @@ masked_attention_fwd_kernel(const Problem p, int row_tiles, bool vec) {
       for (int jn = 0; jn < 4; ++jn) s[i][jn] = 0.f;
 #pragma unroll 8
     for (int c = 0; c < DB; c += 4) {
-      float4 qv[TM], kv[4];
+      float4 qv[TM];
+      float kv[4][4];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
         qv[i] = *reinterpret_cast<const float4*>(
-            qs + (row0 + 4 * i) * T::kKS + c);
+            qs + (row0 + 4 * i) * T::kQS + c);
 #pragma unroll
       for (int jn = 0; jn < 4; ++jn)
-        kv[jn] = *reinterpret_cast<const float4*>(
-            kt + (col + 8 * jn) * T::kKS + c);
+        element::load<4>(kt + (col + 8 * jn) * T::kKS + c, kv[jn]);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int jn = 0; jn < 4; ++jn) {
           float a = s[i][jn];
-          a = fmaf(qv[i].x, kv[jn].x, a);
-          a = fmaf(qv[i].y, kv[jn].y, a);
-          a = fmaf(qv[i].z, kv[jn].z, a);
-          a = fmaf(qv[i].w, kv[jn].w, a);
+          a = fmaf(qv[i].x, kv[jn][0], a);
+          a = fmaf(qv[i].y, kv[jn][1], a);
+          a = fmaf(qv[i].z, kv[jn][2], a);
+          a = fmaf(qv[i].w, kv[jn][3], a);
           s[i][jn] = a;
         }
     }
 
-    // online softmax; the tile holds a valid key, so every row max is finite
+    // online softmax; the tile holds a valid key, so every row max is
+    // finite. l sums exp(s - m) unrounded; P is stored rounded to E
     bool valid[4];
 #pragma unroll
     for (int jn = 0; jn < 4; ++jn) {
@@ -331,15 +375,18 @@ masked_attention_fwd_kernel(const Problem p, int row_tiles, bool vec) {
 #pragma unroll
         for (int i = 0; i < TM; i += 4)
           *reinterpret_cast<float4*>(prow + i) = make_float4(
-              s[i][jn], s[i + 1][jn], s[i + 2][jn], s[i + 3][jn]);
+              element::round_to<E>(s[i][jn]),
+              element::round_to<E>(s[i + 1][jn]),
+              element::round_to<E>(s[i + 2][jn]),
+              element::round_to<E>(s[i + 3][jn]));
       } else {
 #pragma unroll
-        for (int i = 0; i < TM; ++i) prow[i] = s[i][jn];
+        for (int i = 0; i < TM; ++i) prow[i] = element::round_to<E>(s[i][jn]);
       }
     }
     __syncthreads();  // P of the whole tile is in shared memory
 
-    const float* vcol = vt + 4 * col;
+    const E* vcol = vt + 4 * col;
 #pragma unroll 4
     for (int n = 0; n < kTile; ++n) {
       float pn[TM];
@@ -359,14 +406,14 @@ masked_attention_fwd_kernel(const Problem p, int row_tiles, bool vec) {
       }
 #pragma unroll
       for (int jc = 0; jc < DB / 32; ++jc) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(vcol + n * DB + 32 * jc);
+        float x[4];
+        element::load<4>(vcol + n * DB + 32 * jc, x);
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
-          acc[i][4 * jc + 0] = fmaf(pn[i], x.x, acc[i][4 * jc + 0]);
-          acc[i][4 * jc + 1] = fmaf(pn[i], x.y, acc[i][4 * jc + 1]);
-          acc[i][4 * jc + 2] = fmaf(pn[i], x.z, acc[i][4 * jc + 2]);
-          acc[i][4 * jc + 3] = fmaf(pn[i], x.w, acc[i][4 * jc + 3]);
+          acc[i][4 * jc + 0] = fmaf(pn[i], x[0], acc[i][4 * jc + 0]);
+          acc[i][4 * jc + 1] = fmaf(pn[i], x[1], acc[i][4 * jc + 1]);
+          acc[i][4 * jc + 2] = fmaf(pn[i], x[2], acc[i][4 * jc + 2]);
+          acc[i][4 * jc + 3] = fmaf(pn[i], x[3], acc[i][4 * jc + 3]);
         }
       }
     }
@@ -379,28 +426,27 @@ masked_attention_fwd_kernel(const Problem p, int row_tiles, bool vec) {
     const int row = i0 + row0 + 4 * i;
     if (row >= Tq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    float* orow = p.out + qbase + (size_t)row * C;
+    E* orow = p.out + qbase + (size_t)row * C;
 #pragma unroll
     for (int jc = 0; jc < DB / 32; ++jc) {
       const int c = 4 * col + 32 * jc;
+      const float y[4] = {acc[i][4 * jc] * inv, acc[i][4 * jc + 1] * inv,
+                          acc[i][4 * jc + 2] * inv, acc[i][4 * jc + 3] * inv};
       if (vec) {
-        if (c < D)
-          *reinterpret_cast<float4*>(orow + c) = make_float4(
-              acc[i][4 * jc] * inv, acc[i][4 * jc + 1] * inv,
-              acc[i][4 * jc + 2] * inv, acc[i][4 * jc + 3] * inv);
+        if (c < D) element::store<4>(orow + c, y);
       } else {
 #pragma unroll
         for (int x = 0; x < 4; ++x)
-          if (c + x < D) orow[c + x] = acc[i][4 * jc + x] * inv;
+          if (c + x < D) orow[c + x] = element::from_f32<E>(y[x]);
       }
     }
   }
 }
 
-template <int DB, int TM>
-cudaError_t launch(const Problem& p, cudaStream_t stream) {
-  using T = Tiles<DB, TM>;
-  auto kernel = masked_attention_fwd_kernel<DB, TM>;
+template <int DB, int TM, typename E>
+cudaError_t launch(const Problem<E>& p, cudaStream_t stream) {
+  using T = Tiles<DB, TM, E>;
+  auto kernel = masked_attention_fwd_kernel<DB, TM, E>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kBytes);
   if (err != cudaSuccess) return err;
@@ -411,7 +457,8 @@ cudaError_t launch(const Problem& p, cudaStream_t stream) {
   const int row_tiles = (p.Tq + T::kRows - 1) / T::kRows;
   const long long blocks = (long long)p.B * p.H * row_tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const bool vec = p.D % 4 == 0 &&
+  // 16-byte copies: 4 fp32 or 8 bf16 channels each
+  const bool vec = p.D % (16 / (int)sizeof(E)) == 0 &&
                    ((reinterpret_cast<uintptr_t>(p.q) |
                      reinterpret_cast<uintptr_t>(p.k) |
                      reinterpret_cast<uintptr_t>(p.v) |
@@ -421,8 +468,8 @@ cudaError_t launch(const Problem& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int TM>
-cudaError_t launch_bucket(int bucket, const Problem& p,
+template <int TM, typename E>
+cudaError_t launch_bucket(int bucket, const Problem<E>& p,
                           cudaStream_t stream) {
   switch (bucket) {
     case 32: return launch<32, TM>(p, stream);
@@ -434,10 +481,27 @@ cudaError_t launch_bucket(int bucket, const Problem& p,
 
 // The instance for Tq queries of head dim D: rows a block (16 up to Tq =
 // 16, else 48 where it pads fewer rows than 64) and the smallest head-dim
-// bucket that holds D (ops/full_attention.py::_variant).
+// bucket that holds D (ops/full_attention.py::_variant). The same for
+// both element types: only the choice of vector or scalar copies, made at
+// the launch, depends on it.
 void pick_instance(int Tq, int D, int* rows, int* bucket) {
   *rows = Tq <= 16 ? 16 : (48 - Tq % 48) % 48 < (64 - Tq % 64) % 64 ? 48 : 64;
   *bucket = D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+
+template <typename E>
+int forward(const E* q, const E* k, const E* v, const unsigned char* mask,
+            E* out, int B, int Tq, int Tk, int H, int D, float scale,
+            void* stream) {
+  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || D < 1 || D > kMaxD)
+    return (int)cudaErrorInvalidValue;
+  int rows, bucket;
+  pick_instance(Tq, D, &rows, &bucket);
+  const Problem<E> p{q, k, v, mask, out, B, Tq, Tk, H, D, scale};
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(rows == 16   ? launch_bucket<1>(bucket, p, s)
+                : rows == 48 ? launch_bucket<3>(bucket, p, s)
+                             : launch_bucket<4>(bucket, p, s));
 }
 
 }  // namespace
@@ -451,15 +515,17 @@ extern "C" int masked_attention_forward(const float* q, const float* k,
                                         float* out, int B, int Tq, int Tk,
                                         int H, int D, float scale,
                                         void* stream) {
-  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || D < 1 || D > kMaxD)
-    return (int)cudaErrorInvalidValue;
-  int rows, bucket;
-  pick_instance(Tq, D, &rows, &bucket);
-  const Problem p{q, k, v, mask, out, B, Tq, Tk, H, D, scale};
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(rows == 16   ? launch_bucket<1>(bucket, p, s)
-                : rows == 48 ? launch_bucket<3>(bucket, p, s)
-                             : launch_bucket<4>(bucket, p, s));
+  return forward(q, k, v, mask, out, B, Tq, Tk, H, D, scale, stream);
+}
+
+// The same with bf16 streams (q, k, v and out).
+extern "C" int masked_attention_forward_bf16(const bf16* q, const bf16* k,
+                                             const bf16* v,
+                                             const unsigned char* mask,
+                                             bf16* out, int B, int Tq,
+                                             int Tk, int H, int D,
+                                             float scale, void* stream) {
+  return forward(q, k, v, mask, out, B, Tq, Tk, H, D, scale, stream);
 }
 
 // The instance masked_attention_forward takes for Tq queries of head dim D

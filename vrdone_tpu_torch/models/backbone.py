@@ -145,6 +145,13 @@ class SOSBackbone(nn.Module):
             o_feat = self._norm_relu(norm, conv(o_feat, mask)[0])
 
         if self.use_abs_pe:
+            if s_feat.dtype != torch.float32:
+                # the fp32 table promotes the streams to fp32, and the JAX
+                # package's next convolution then refuses fp32 inputs with
+                # bf16 weights (lax.conv_general_dilated): no bf16 path
+                raise TypeError(
+                    f"use_abs_pe takes float32 features and parameters, got "
+                    f"{s_feat.dtype}, as in the JAX package")
             pe = self._pe(s_feat.shape[1])[None]
             s_feat = s_feat + pe * mask_f
             o_feat = o_feat + pe * mask_f

@@ -35,10 +35,6 @@ class MaskVRD(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = config
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype!r}: the port serves fp32 "
-                "only so far; see ROADMAP.md")
         self.config = cfg
         self.backbone = SOSBackbone(
             n_visual=cfg.visual_dim,
@@ -88,13 +84,31 @@ class MaskVRD(nn.Module):
 
     def forward(self, feats: Tensor, mask: Tensor,
                 generator: Optional[torch.Generator] = None) -> dict:
-        """feats: (B, T, C_packed) fp32, mask: (B, T) bool -> predictions
-        dict (pred_logits, pred_masks, aux_outputs, output_mask). In
-        training mode ``generator`` draws the drop-path and dropout masks."""
+        """feats: (B, T, C_packed), mask: (B, T) bool -> predictions dict
+        (pred_logits, pred_masks, aux_outputs, output_mask). In training
+        mode ``generator`` draws the drop-path and dropout masks.
+
+        Precision, as in the JAX package: the network computes in the float
+        dtype its parameters and ``feats`` carry (both bf16 for bf16
+        serving: ``utils.precision.cast_floating``); LayerNorm statistics
+        and the attention softmax run in fp32 inside, and the heads come
+        back in fp32. ``compute_dtype`` is not read here (the JAX train
+        loop reads it)."""
         pyramid, masks = self.backbone(feats, mask, generator)
         fpn_feat, _ = self.neck(pyramid, masks)
-        return self.predictor(pyramid[-1], fpn_feat, masks[-1],
-                              output_mask=masks[0], generator=generator)
+        preds = self.predictor(pyramid[-1], fpn_feat, masks[-1],
+                               output_mask=masks[0], generator=generator)
+        return _heads_to_f32(preds)
+
+
+def _heads_to_f32(x):
+    """Every floating tensor of the predictions (nested in lists and dicts)
+    in fp32; the bool output mask as it is."""
+    if isinstance(x, dict):
+        return {k: _heads_to_f32(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_heads_to_f32(v) for v in x]
+    return x.float() if x.is_floating_point() else x
 
 
 # ---------------------------------------------------------------------------

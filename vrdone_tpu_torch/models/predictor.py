@@ -71,7 +71,10 @@ class MaskedTransformerPredictor(nn.Module):
         invalid = ~output_mask                                 # (B, T0)
         if self.deep_supervision:
             mask_embed = self.mask_embed(hs, generator)        # (L, B, Q, C)
-            seg = torch.einsum("lbqc,btc->lbqt", mask_embed, mask_features)
+            # fp32 products of the operands, as JAX's einsum with
+            # preferred_element_type=float32 takes them under bf16
+            seg = torch.einsum("lbqc,btc->lbqt", mask_embed.float(),
+                               mask_features.float())
             seg = seg.masked_fill(invalid[None, :, None, :], NON_ATTN_CONST)
             out["pred_masks"] = seg[-1]
             out["aux_outputs"] = [
@@ -79,7 +82,8 @@ class MaskedTransformerPredictor(nn.Module):
                 for i in range(seg.shape[0] - 1)]
         else:
             mask_embed = self.mask_embed(hs[-1], generator)    # (B, Q, C)
-            seg = torch.einsum("bqc,btc->bqt", mask_embed, mask_features)
+            seg = torch.einsum("bqc,btc->bqt", mask_embed.float(),
+                               mask_features.float())
             out["pred_masks"] = seg.masked_fill(invalid[:, None, :],
                                                 NON_ATTN_CONST)
         out["output_mask"] = output_mask

@@ -89,8 +89,8 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
 
 def check_attention_inputs(q, k, v, kv_mask) -> None:
     """The checks both attention kernels need before their pointers are
-    passed: one CUDA device, fp32 (B, T, C) streams, a (B, Tk) bool key
-    mask, all contiguous."""
+    passed: one CUDA device, (B, T, C) streams all fp32 or all bf16, a
+    (B, Tk) bool key mask, all contiguous."""
     tensors = {"q": q, "k": k, "v": v, "kv_mask": kv_mask}
     for n, t in tensors.items():
         if t.device.type != "cuda" or t.device != q.device:
@@ -98,9 +98,12 @@ def check_attention_inputs(q, k, v, kv_mask) -> None:
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{n} must be contiguous")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k and v must share one dtype, got {q.dtype}, "
+                        f"{k.dtype} and {v.dtype}")
     for n in ("q", "k", "v"):
-        if tensors[n].dtype != torch.float32:
-            raise TypeError(f"{n} must be float32, got {tensors[n].dtype}")
         if tensors[n].dim() != 3:
             raise ValueError(f"{n} must be (B, T, C), got {tuple(tensors[n].shape)}")
     if kv_mask.dtype != torch.bool:

@@ -21,6 +21,13 @@ backward and refuse inputs that need one. The C side picks each kernel's
 instance (rows a tile, tiles a block walks, head-dim bucket, vector or
 scalar copies; for the backward also owner rows a warp) from the shape and
 the card; ``forward_instance`` and ``backward_instance`` report it.
+
+The forward without a bias (K1) also takes bf16 streams (bf16 serving); its
+plain version then follows the JAX dense form's promotions: the scores in
+fp32 from the widened operands (q scaled in fp32, as the dense form's numpy
+scale makes it; Pallas scales the fp32 dot instead), softmax in fp32, P
+rounded to bf16 before P.V, a bf16 output and an fp32 lse. The bias forward
+(K4) and the backward (K2/K3) take fp32 only and refuse bf16.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ MAX_HALF_WINDOW = 15  # the 2w + 1 keys of a row fit one warp's lanes
 MAX_HEAD_DIM = 256
 
 # launches of each CUDA kernel since the counts were last set to 0
-launches = 0       # forward
+launches = 0       # forward, either dtype
+bf16_launches = 0  # forward, its bf16 instances alone
 pe_launches = 0    # forward with the relative-position bias
 dq_launches = 0    # backward, dQ
 dkv_launches = 0   # backward, dK and dV
@@ -52,7 +60,7 @@ def _band_scores(q, k, kv_mask, n_head, window_size, rel_pe=None):
     w = window_size // 2
     d = q.shape[-1] // n_head
     scale = 1.0 / math.sqrt(d)
-    qh, kh = split_heads(q, n_head), split_heads(k, n_head)
+    qh, kh = split_heads(q, n_head).float(), split_heads(k, n_head).float()
     att = torch.einsum("bhqd,bhkd->bhqk", qh * scale, kh)
     idx = torch.arange(t, device=q.device)
     relpos = idx[None, :] - idx[:, None]               # j - i
@@ -66,8 +74,10 @@ def _band_plain(q, k, v, kv_mask, n_head, window_size, rel_pe=None):
     att = torch.softmax(_band_scores(q, k, kv_mask, n_head, window_size,
                                      rel_pe), dim=-1)
     att = att * kv_mask[:, None, :, None].to(att.dtype)
+    att = att.to(v.dtype).float()      # P in the streams' precision
     return merge_heads(torch.einsum("bhqk,bhkd->bhqd", att,
-                                    split_heads(v, n_head)))
+                                    split_heads(v, n_head).float())
+                       ).to(v.dtype)
 
 
 def band_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,7 +85,9 @@ def band_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window_size: int) -> torch.Tensor:
     """Dense band-masked attention over (B, T, C) streams (the reference
     the kernels are held to; its autograd backward is what the backward
-    kernels are held to). kv_mask: (B, T) bool. q is unscaled."""
+    kernels are held to). kv_mask: (B, T) bool. q is unscaled. fp32 or bf16
+    streams; every product is taken in fp32 and the output has their
+    dtype."""
     return _band_plain(q, k, v, kv_mask, n_head, window_size)
 
 
@@ -91,8 +103,8 @@ def band_attention_pe_plain(q: torch.Tensor, k: torch.Tensor,
 
 def band_lse_plain(q: torch.Tensor, k: torch.Tensor, kv_mask: torch.Tensor,
                    *, n_head: int, window_size: int) -> torch.Tensor:
-    """(B, H, T) log-sum-exp of each row's band scores: the plain version of
-    the forward kernel's ``lse`` output."""
+    """(B, H, T) fp32 log-sum-exp of each row's band scores: the plain
+    version of the forward kernel's ``lse`` output."""
     return torch.logsumexp(_band_scores(q, k, kv_mask, n_head, window_size),
                            dim=-1)
 
@@ -102,6 +114,7 @@ def _kernel() -> ctypes.CDLL:
     lib = _build.load_library("band_attention")
     tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     for fn, n_ptr in ((lib.band_attention_forward, 6),
+                      (lib.band_attention_forward_bf16, 6),
                       (lib.band_attention_backward_dq, 8),
                       (lib.band_attention_backward_dkv, 9)):
         fn.restype = ctypes.c_int
@@ -112,7 +125,7 @@ def _kernel() -> ctypes.CDLL:
         + [ctypes.c_float, ctypes.c_void_p])
     lib.band_attention_instance.restype = ctypes.c_int
     lib.band_attention_instance.argtypes = (
-        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 5)
+        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 5)
     lib.band_attention_backward_instance.restype = ctypes.c_int
     lib.band_attention_backward_instance.argtypes = (
         [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 6)
@@ -134,15 +147,17 @@ def _read_instance(device: int, fn, args: tuple, keys: tuple) -> dict:
 
 
 def forward_instance(device: int, b: int, t: int, n_head: int, d: int,
-                     window_size: int, pe: bool = False) -> dict:
+                     window_size: int, pe: bool = False,
+                     dtype: torch.dtype = torch.float32) -> dict:
     """The instance the forward kernel (K1, or K4 with ``pe``) takes on
-    ``device`` for 16-byte-aligned (B, T, n_head * d) streams: ``rows`` query
-    rows a tile, ``tiles`` row tiles a (batch, head), ``per_block`` tiles a
-    block walks (double-buffered when more than 1), the head-dim ``bucket``
-    and ``vec`` (16-byte copies; False for the scalar instance)."""
+    ``device`` for 16-byte-aligned (B, T, n_head * d) streams of ``dtype``
+    (fp32, or bf16 for K1): ``rows`` query rows a tile, ``tiles`` row tiles
+    a (batch, head), ``per_block`` tiles a block walks (double-buffered when
+    more than 1), the head-dim ``bucket`` and ``vec`` (16-byte copies; False
+    for the scalar instance)."""
     return _read_instance(
         device, _kernel().band_attention_instance,
-        (b, t, n_head, d, window_size // 2, int(pe)),
+        (b, t, n_head, d, window_size // 2, int(pe), dtype.itemsize),
         ("rows", "tiles", "per_block", "bucket", "vec"))
 
 
@@ -180,27 +195,39 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _refuse_bf16(name: str, x: torch.Tensor, why: str) -> None:
+    """K4 and the backward kernels have fp32 instances only."""
+    if x.dtype == torch.bfloat16:
+        raise TypeError(f"{name} takes float32 streams only, got bfloat16: "
+                        f"{why}")
+
+
 def band_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_mask: torch.Tensor, *, n_head: int,
                         window_size: int, with_lse: bool = False):
     """The forward kernel: same contract as ``band_attention_plain``, for
-    fp32 CUDA tensors. With ``with_lse`` it returns ``(out, lse)``, lse
-    (B, H, T) fp32. Raises on anything the kernel does not take, and when
-    an input needs a gradient (use ``BandAttention`` for that)."""
-    global launches
+    fp32 or bf16 CUDA tensors (one dtype; the bf16 instances with bf16
+    streams). With ``with_lse`` it returns ``(out, lse)``, lse (B, H, T)
+    fp32. Raises on anything the kernel does not take, and when an input
+    needs a gradient (use ``BandAttention`` for that)."""
+    global launches, bf16_launches
     _build.refuse_grad("band_attention_cuda", q, k, v)
     b, t, d, w, scale = _shape(q, k, v, kv_mask, n_head, window_size)
     lib = _kernel()
+    bf16 = q.dtype == torch.bfloat16
+    fn = (lib.band_attention_forward_bf16 if bf16
+          else lib.band_attention_forward)
     out = torch.empty_like(q)
     lse = (torch.empty((b, n_head, t), dtype=torch.float32, device=q.device)
            if with_lse else None)
     with torch.cuda.device(q.device):
-        code = lib.band_attention_forward(
+        code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             b, t, n_head, d, w, scale, _stream(q))
     _build.check_launch(lib, "band_attention", code)
     launches += 1
+    bf16_launches += bf16
     return (out, lse) if with_lse else out
 
 
@@ -215,6 +242,9 @@ def band_attention_pe_cuda(q: torch.Tensor, k: torch.Tensor,
     ``BandAttentionPE`` for that)."""
     global pe_launches
     _build.refuse_grad("band_attention_pe_cuda", q, k, v, rel_pe)
+    _refuse_bf16("band_attention_pe_cuda", q,
+                 "the rel-PE stream has no bf16 path in the JAX package "
+                 "(ROADMAP.md queue 1, the bf16 compute path)")
     b, t, d, w, scale = _shape(q, k, v, kv_mask, n_head, window_size)
     if (rel_pe.shape != (n_head, window_size)
             or rel_pe.dtype != torch.float32 or rel_pe.device != q.device
@@ -245,6 +275,8 @@ def band_rowsum(dout: torch.Tensor, out: torch.Tensor, n_head: int
 
 
 def _backward_args(q, k, v, kv_mask, lse, dr, dout, n_head, window_size):
+    _refuse_bf16("the band backward (K2/K3)", q,
+                 "ROADMAP.md queue 1, the bf16 compute path (training)")
     b, t, d, w, scale = _shape(q, k, v, kv_mask, n_head, window_size)
     if (dout.shape != q.shape or dout.dtype != torch.float32
             or dout.device != q.device or not dout.is_contiguous()):

@@ -7,9 +7,10 @@ global-norm clip, AdamW, EMA. Band attention runs its CUDA kernels forward
 and backward on the card; full attention runs its dense form, as the JAX
 package trains through it.
 
-Not ported (each raises): ``remat``, ``compute_dtype: bfloat16`` and a
-device mesh; see ROADMAP.md queue 1, the bf16 compute path, remat and
-data parallelism.
+Not ported (each raises): ``remat``, ``compute_dtype: bfloat16`` (here,
+where the JAX train loop reads the field; the model itself computes in the
+dtype of its parameters and inputs) and a device mesh; see ROADMAP.md
+queue 1, the bf16 compute path (training), remat and data parallelism.
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ def create_train_state(cfg: ModelConfig, training_config: dict,
     if cfg.remat:
         raise NotImplementedError(
             "remat is not ported; see ROADMAP.md queue 1, remat")
+    if cfg.compute_dtype == "bfloat16":
+        raise NotImplementedError(
+            "compute_dtype bfloat16 is not ported for training; see "
+            "ROADMAP.md queue 1, the bf16 compute path (training)")
     if (generator is None) == (flax_params is None):
         raise ValueError("give exactly one of generator and flax_params")
     # built and filled on the CPU, where the generator draws, then moved:
