@@ -26,7 +26,11 @@ one process per source, all started together, into
      invalid query rows, times K1 with its lse alone and the dQ (K2) and
      dK/dV (K3) kernels alone at each train shape (T = 96, 48, 24, 12)
      beside plain autograd, SDPA's backward and their bounds, with the
-     instance the C side picked;
+     instance the C side picked; then the bf16 instances of K2 and K3
+     against ``band_backward_plain`` on the same bf16 streams
+     (``BF16_KERNEL_TOL``) and K1 bf16's lse at the same shapes, each
+     timed alone beside its fp32 instance, the plain version, SDPA's bf16
+     backward and the bound at the dense bf16 rate;
   3. runs the full-width VidVRD ``MaskVRD`` eval forward
      (``configs/vidvrd.yaml``, random seeded weights) on the card against
      the same weights on the CPU, counts the kernel launches of one forward
@@ -36,7 +40,14 @@ one process per source, all started together, into
   5. runs three full-width VidVRD train steps at 8 pairs on the card and
      on the CPU from the same weights, batch and drop-path draws (losses,
      matches, parameters and EMA compared), counts the launches of one step
-     at 24 pairs, and times the step at 24 and 96 pairs;
+     at 24 pairs; then in bf16 (``compute_dtype: bfloat16``) three steps at
+     8 pairs on the card against the port's bf16 CPU steps (losses within
+     ``BF16_LOSS_TOL``, matchings equal or near-ties within
+     ``MATCH_TIE_TOL``), the launches of one bf16 step at 24 pairs (K1, K2
+     and K3 bf16, 7 each; K1 14 under remat), one fp32 remat step under
+     each policy against the plain step (losses within ``LOSS_TOL``, drop
+     path on), and fp32 and bf16 steps at 24 and 96 pairs timed in turns
+     and profiled;
   6. runs ``train_torch.py`` for one epoch on a tiny synthetic corpus on
      the card, then ``eval_torch.py`` on its checkpoint;
   7. holds MEGA's position-bias kernel (K6) and the ``bias_factors``
@@ -123,6 +134,17 @@ BF16_KERNEL_TOL = 1e-2
 # (tests/test_torch_bf16.py::MODEL_TOL); both sides round to bf16 in their
 # own places
 BF16_MODEL_TOL = 5e-2
+# bf16 train step, card vs the port's CPU run, each loss term times
+# 1 + |loss|: the limit JAX's own test holds its bf16 step to against fp32
+# (tests/test_train_step.py::test_bf16_train_step; the CPU parity test,
+# tests/test_torch_bf16_train.py, holds the port to JAX's at it); both
+# sides round to bf16 in their own places, and the card's backward keeps
+# P in fp32 where autograd of the plain version reads the rounded one
+BF16_LOSS_TOL = 5e-2
+# a matching that bf16 flips on a near-tie: its cost under the CPU's cost
+# matrix within this share of the CPU's optimum
+# (tests/test_torch_bf16_train.py::MATCH_TIE_TOL)
+MATCH_TIE_TOL = 1e-2
 BIAS_RTOL, BIAS_ATOL = 2e-5, 1e-5   # position bias vs plain, gate space
 DETECT_TOL = 1e-3   # small detector, CUDA vs CPU, times max |x|
 DETECT_FRAMES, CANVAS = 16, (608, 1088)
@@ -479,11 +501,11 @@ def check_bf16_kernels(cuda, ba, fa) -> dict:
     return entries
 
 
-def band_backward_instance(ba, q, h, w, dkv) -> str:
+def band_backward_instance(ba, q, h, w, dkv, dtype=torch.float32) -> str:
     """The backward instance the C side picks for q's shape, as text."""
     b, t, c = q.shape
     i = ba.backward_instance(q.device.index or 0, b, t, h, c // h, 2 * w + 1,
-                             dkv)
+                             dkv, dtype)
     return (f" (instance {i['rows_warp']} rows a warp, {i['rows']} rows a "
             f"tile, {i['per_block']} of {i['tiles']} tiles a block, d bucket "
             f"{i['bucket']}{'' if i['vec'] else ', scalar'})")
@@ -594,6 +616,121 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
                 entries[name].update(row, ms=(k1 + k2) / 2)
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
+    return entries
+
+
+def check_band_backward_bf16(cuda, ba, band_rows: list) -> dict:
+    """The bf16 instances of K2 (dQ) and K3 (dK, dV) against
+    ``band_backward_plain`` on the same bf16 streams, fp32 lse and Dr, and
+    K1 bf16's lse against the plain logsumexp, at the train step's band
+    shapes (B*H = 24*4, d = 128, w = 3, T = 96, 48, 24, 12), with a nonzero
+    upstream gradient everywhere (invalid query rows included). Each kernel
+    is timed alone beside its fp32 instance on the same values, the plain
+    version, SDPA's bf16 backward and the bound at the dense bf16 rate.
+    Returns the JSON entries ``band_attention_dq_bf16`` and
+    ``band_attention_dkv_bf16`` (all but ``launches``), timed at T=96, and
+    appends K1 bf16 with its lse, alone at T=96, to ``band_rows``."""
+    rng = np.random.default_rng(6)
+    bf = torch.bfloat16
+    b, h, d, w = 24, 4, 128, 3
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    names = ("band_attention_dq_bf16", "band_attention_dkv_bf16")
+    entries = {name: {"by_shape": [], "max_abs_err": 0.0} for name in names}
+    for t in (96, 48, 24, 12):
+        q32, k32, v32, mask = attention_inputs(rng, b, t, t, h * d, cuda)
+        mask[1, t // 3] = False   # an invalid key inside a valid stretch
+        dout32 = torch.from_numpy(rng.standard_normal(q32.shape)
+                                  .astype(np.float32)).to(cuda)
+        q, k, v, dout = (x.to(bf) for x in (q32, k32, v32, dout32))
+        q32, k32, v32, dout32 = (x.float() for x in (q, k, v, dout))
+        with torch.no_grad():
+            out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True,
+                                              **kw)
+            ref_lse = ba.band_lse_plain(q, k, mask, **kw)
+            lse_err = ((lse - ref_lse).abs() / (1 + ref_lse.abs())).max(
+                ).item()
+            dr = ba.band_rowsum(dout, out, h)
+            out32, lse32 = ba.band_attention_cuda(q32, k32, v32, mask,
+                                                  with_lse=True, **kw)
+            dr32 = ba.band_rowsum(dout32, out32, h)
+        args = (q, k, v, mask, lse, dr, dout)
+        args32 = (q32, k32, v32, mask, lse32, dr32, dout32)
+        got = (ba.band_attention_dq_cuda(*args, **kw),
+               *ba.band_attention_dkv_cuda(*args, **kw))
+        want = ba.band_backward_plain(*args, **kw)
+        errs, limits = [], []
+        for g, r in zip(got, want):
+            if not g.dtype == r.dtype == bf:
+                raise AssertionError(f"bf16 backward: {g.dtype} gradient, "
+                                     f"plain {r.dtype}")
+            errs.append((g.float() - r.float()).abs().max().item())
+            limits.append(BF16_KERNEL_TOL * (1 + r.float().abs().max()
+                                             .item()))
+        shape = f"B*H=24*4 T={t} d=128 w=3"
+        print(f"band backward bf16 {shape}: lse rel err {lse_err:.3e}; "
+              f"dQ, dK, dV max_abs_err {errs[0]:.3e}, {errs[1]:.3e}, "
+              f"{errs[2]:.3e} (limits {limits[0]:.3e}, {limits[1]:.3e}, "
+              f"{limits[2]:.3e})")
+        if not (lse_err <= LSE_TOL
+                and all(e <= lim for e, lim in zip(errs, limits))):
+            raise AssertionError(f"bf16 band backward off at T={t}: lse "
+                                 f"{lse_err}, grads {errs}")
+        if not (got[0][~mask] == 0).all():
+            raise AssertionError("bf16 dQ of an invalid query row is not 0")
+        entries[names[0]]["max_abs_err"] = max(
+            entries[names[0]]["max_abs_err"], errs[0])
+        entries[names[1]]["max_abs_err"] = max(
+            entries[names[1]]["max_abs_err"], *errs[1:])
+        lib_mask = band_library_mask(mask, w).to(bf)
+        if t == T:
+            band_rows.append(bf16_case(
+                "band_attention_bf16", "B*H=24*4 T=96 d=128 w=3 with lse",
+                lambda: ba.band_attention_cuda(q, k, v, mask, with_lse=True,
+                                               **kw)[0],
+                lambda: ba.band_attention_plain(q, k, v, mask, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    heads(q, h), heads(k, h), heads(v, h),
+                    attn_mask=lib_mask),
+                2 * 4 * q.numel() + 4 * b * h * t + mask.numel(),
+                4 * d * h * band_pairs(mask, w)))
+        lib_in = [heads(x, h).detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=lib_mask)
+        lib_dout = heads(dout, h)
+        n, bht = q.numel(), b * h * t
+        pairs = h * band_pairs(mask, w)
+        for name, kernel, kernel32, plain, lib_wrt, out_elems, ops in (
+                (names[0], lambda: ba.band_attention_dq_cuda(*args, **kw),
+                 lambda: ba.band_attention_dq_cuda(*args32, **kw),
+                 lambda: ba.band_backward_plain(*args, **kw)[0],
+                 lib_in[:1], n, 6 * d * pairs),
+                (names[1], lambda: ba.band_attention_dkv_cuda(*args, **kw),
+                 lambda: ba.band_attention_dkv_cuda(*args32, **kw),
+                 lambda: ba.band_backward_plain(*args, **kw)[1:],
+                 lib_in[1:], 2 * n, 8 * d * pairs)):
+            def library(wrt=lib_wrt):
+                return torch.autograd.grad(lib_out, wrt, lib_dout,
+                                           retain_graph=True)
+
+            p1, k1, k2, p2 = (time_ms(f) for f in (plain, kernel, kernel,
+                                                   plain))
+            alone = [queued_device_ms(f) for f in (kernel32, kernel, kernel,
+                                                   kernel32)]
+            bms, by = bound_ms(2 * (4 * n + out_elems) + 4 * 2 * bht + b * t,
+                               ops, PEAK_BF16_MMA)
+            row = dict(shape=shape, device_ms=(alone[1] + alone[2]) / 2,
+                       fp32_device_ms=(alone[0] + alone[3]) / 2,
+                       plain_ms=(p1 + p2) / 2, library_ms=time_ms(library),
+                       bound_ms=bms, bound_by=by)
+            inst = band_backward_instance(ba, q, h, w, name == names[1], bf)
+            print(f"{name} {shape}{inst}: kernel {(k1 + k2) / 2:.4f} ms, "
+                  f"the kernel alone {alone[1]:.4f} / {alone[2]:.4f} ms "
+                  f"(fp32 instance alone {alone[0]:.4f} / {alone[3]:.4f}), "
+                  f"plain {row['plain_ms']:.4f} ms, library (SDPA, bf16) "
+                  f"backward {row['library_ms']:.4f} ms, bound {bms:.4f} ms "
+                  f"({by})")
+            entries[name]["by_shape"].append(row)
+            if t == T:
+                entries[name].update(row, ms=(k1 + k2) / 2)
     return entries
 
 
@@ -787,11 +924,11 @@ class PoolReplay:
         return out.transpose(1, 2)
 
 
-def check_train_step(cfg, raw, cuda, ba, fa) -> dict:
+def check_train_step(cfg, raw, cuda, ba, fa):
     """Three full-width train steps at 8 pairs on the card and on the CPU
     from the same weights, batch and drop-path draws; the launches of one
-    step at 24 pairs; the step time at 24 and 96 pairs. Returns the
-    launches of that one step per kernel."""
+    step at 24 pairs. Returns the card's train state and the launches of
+    that one step per kernel."""
     from vrdone_tpu_torch.models.layers import AffineDropPath
     from vrdone_tpu_torch.models.maskvrd import match
     from vrdone_tpu_torch.ops import masked as mops
@@ -915,45 +1052,246 @@ def check_train_step(cfg, raw, cuda, ba, fa) -> dict:
                   band_attention_dkv=expect["band_attention"],
                   masked_attention=0)
     dense_expect = 4 * cfg.backbone_arch[1] + 2 * cfg.predictor.num_layers
-    launches = None
-    for n_pairs in TRAIN_PAIRS[1:]:
-        tb = batch_to_device(train_batch(rng, cfg, n_pairs, num_gt), cuda)
-        if launches is None:
-            torch.cuda.synchronize()
-            ba.launches = ba.dq_launches = ba.dkv_launches = 0
-            fa.launches = fa.dense_calls = 0
-            train_step(state, tb, step_generator(0, state.step))
-            torch.cuda.synchronize()
-            launches = {"band_attention": ba.launches,
-                        "band_attention_dq": ba.dq_launches,
-                        "band_attention_dkv": ba.dkv_launches,
-                        "masked_attention": fa.launches}
-            print(f"train step at {n_pairs} pairs: kernel launches "
-                  f"{launches}, dense full-attention calls {fa.dense_calls}")
-            if launches != expect or fa.dense_calls != dense_expect:
-                raise AssertionError(f"launches {launches} / dense "
-                                     f"{fa.dense_calls}, expected {expect} "
-                                     f"/ {dense_expect}")
-        for _ in range(3):
-            train_step(state, tb, step_generator(0, state.step))
+    tb = batch_to_device(train_batch(rng, cfg, TRAIN_PAIRS[1], num_gt), cuda)
+    torch.cuda.synchronize()
+    ba.launches = ba.dq_launches = ba.dkv_launches = 0
+    fa.launches = fa.dense_calls = 0
+    train_step(state, tb, step_generator(0, state.step))
+    torch.cuda.synchronize()
+    launches = {"band_attention": ba.launches,
+                "band_attention_dq": ba.dq_launches,
+                "band_attention_dkv": ba.dkv_launches,
+                "masked_attention": fa.launches}
+    print(f"train step at {TRAIN_PAIRS[1]} pairs: kernel launches "
+          f"{launches}, dense full-attention calls {fa.dense_calls}")
+    if launches != expect or fa.dense_calls != dense_expect:
+        raise AssertionError(f"launches {launches} / dense "
+                             f"{fa.dense_calls}, expected {expect} "
+                             f"/ {dense_expect}")
+    return state, launches
+
+
+def band_counts(ba, fa) -> dict:
+    """The launches of the band kernels (K1, K2, K3), fp32 and bf16
+    instances apart, and of K7 since the counts were last set to 0."""
+    return {"band_attention": ba.launches - ba.bf16_launches,
+            "band_attention_bf16": ba.bf16_launches,
+            "band_attention_dq": ba.dq_launches - ba.bf16_dq_launches,
+            "band_attention_dq_bf16": ba.bf16_dq_launches,
+            "band_attention_dkv": ba.dkv_launches - ba.bf16_dkv_launches,
+            "band_attention_dkv_bf16": ba.bf16_dkv_launches,
+            "masked_attention": fa.launches}
+
+
+def zero_counts(ba, fa) -> None:
+    ba.launches = ba.bf16_launches = 0
+    ba.dq_launches = ba.bf16_dq_launches = 0
+    ba.dkv_launches = ba.bf16_dkv_launches = 0
+    fa.launches = fa.dense_calls = 0
+
+
+def level_costs(cfg, preds, tb):
+    """The matching costs (L, B, Q, G) of every level of ``preds`` and the
+    rows the matcher assigns them (L, B, G), on the CPU."""
+    from vrdone_tpu_torch.models import losses as LO
+    from vrdone_tpu_torch.models.maskvrd import match
+    logits = torch.stack([preds["pred_logits"], *[
+        a["pred_logits"] for a in preds["aux_outputs"]]])
+    masks = torch.stack([preds["pred_masks"], *[
+        a["pred_masks"] for a in preds["aux_outputs"]]])
+    cost = LO.matching_cost(
+        logits, masks, tb["gt_labels"], tb["gt_masks"], tb["gt_segs"],
+        tb["gt_valid"], tb["seq_mask"], cost_class=cfg.cost_class,
+        cost_mask=cfg.cost_mask, cost_dice=cfg.cost_dice,
+        scale_range=cfg.scale_range if cfg.with_fuzzy else None)
+    return cost.cpu(), match(cfg, logits, masks, tb)[0].cpu()
+
+
+def check_train_step_bf16(cfg, raw, cuda, ba, fa, state32) -> dict:
+    """The bf16 train step at full width (``compute_dtype: bfloat16``):
+    three steps at 8 pairs on the card against the port's bf16 CPU steps
+    from the same weights, batch and drop-path draws (losses within
+    BF16_LOSS_TOL, matchings equal or near-ties within MATCH_TIE_TOL, step
+    0's CPU run replaying the card's max-pool picks); the launches of one bf16 step at 24 pairs (only
+    bf16 instances of K1, K2 and K3, 7 each, no K7) and of one under remat
+    (K1 14); one remat step under each policy against the plain step from
+    the same fp32 state (losses within LOSS_TOL, drop path on), with peak
+    memory; then fp32 and bf16 steps at 24 and 96 pairs, timed in turns
+    and profiled. Returns the launches of the bf16 step at 24 pairs by
+    kernel."""
+    import copy
+
+    from vrdone_tpu_torch.models.layers import AffineDropPath
+    from vrdone_tpu_torch.ops import masked as mops
+    from vrdone_tpu_torch.train.loop import (batch_to_device,
+                                             create_train_state,
+                                             step_generator, train_step)
+    from vrdone_tpu_torch.utils.precision import cast_tensors
+    tc = raw["training_config"]
+    num_gt = raw["training_dataset_config"]["proposal_max_preds"]
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    states = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("cuda", cuda)):
+        gen = torch.Generator().manual_seed(0)
+        state, _ = create_train_state(cfg16, tc, 100, device=dev,
+                                      generator=gen)
+        with torch.no_grad():
+            for m in state.model.modules():
+                if isinstance(m, AffineDropPath):
+                    m.scale.copy_(torch.empty_like(m.scale, device="cpu")
+                                  .uniform_(0.5, 1.5, generator=gen))
+        state.ema_params = [p.detach().clone() for p in state.params()]
+        states[name] = state
+    rng = np.random.default_rng(7)
+    batch = train_batch(rng, cfg, TRAIN_PAIRS[0], num_gt)
+    valid = batch["gt_valid"]
+    max_pool1d, pool = mops.max_pool1d, PoolReplay()
+    for step in range(3):
+        costs, rows, losses, seconds = {}, {}, {}, {}
+        # the card first: step 0's CPU run replays its max-pool picks
+        for name in ("cuda", "cpu"):
+            state = states[name]
+            dev = next(state.model.parameters()).device
+            tb = batch_to_device(batch, dev)
+            model = state.model.train()
+            with torch.no_grad():
+                preds = torch.func.functional_call(
+                    model, cast_tensors(model),
+                    (tb["feats"].to(torch.bfloat16), tb["seq_mask"],
+                     step_generator(0, step)))
+                costs[name], rows[name] = level_costs(cfg16, preds, tb)
+            if step == 0:
+                pool.replay = name == "cpu"
+                mops.max_pool1d = pool
+            t0 = time.perf_counter()
+            try:
+                _, losses[name] = train_step(state, tb,
+                                             step_generator(0, step))
+            finally:
+                mops.max_pool1d = max_pool1d
+            seconds[name] = time.perf_counter() - t0
+        errs = {k: abs(losses["cuda"][k].item() - v.item())
+                / (1 + abs(v.item())) for k, v in losses["cpu"].items()}
+        worst = max(errs, key=errs.get)
+        flips, ties = 0, 0.0
+        for lvl in range(rows["cpu"].shape[0]):
+            for b in range(valid.shape[0]):
+                cols = torch.from_numpy(np.nonzero(valid[b])[0])
+                mine, ref = rows["cuda"][lvl, b, cols], rows["cpu"][lvl, b,
+                                                                    cols]
+                if torch.equal(mine, ref):
+                    continue
+                flips += 1
+                cost = costs["cpu"][lvl, b][:, cols]
+                idx = torch.arange(len(cols))
+                best = cost[ref, idx].sum().item()
+                gap = (cost[mine, idx].sum().item() - best) / abs(best)
+                ties = max(ties, gap)
+                if gap > MATCH_TIE_TOL:
+                    raise AssertionError(f"bf16 matching at step {step} "
+                                         f"level {lvl} item {b} costs {gap} "
+                                         "above the CPU's")
+        replayed = (f"; max-pool picks replayed that differ {pool.flips} of "
+                    f"{pool.windows}" if step == 0 else "")
+        print(f"bf16 train step {step} at {TRAIN_PAIRS[0]} pairs (the CPU "
+              f"bf16 step {seconds['cpu']:.1f} s): total_loss cpu "
+              f"{losses['cpu']['total_loss'].item():.6f} cuda "
+              f"{losses['cuda']['total_loss'].item():.6f}; worst loss term "
+              f"{worst} rel err {errs[worst]:.3e} (limit {BF16_LOSS_TOL})"
+              f"{replayed}; matchings that differ {flips} of "
+              f"{rows['cpu'].shape[0] * valid.shape[0]}, the worst "
+              f"{ties:.2e} above the CPU's optimum (limit {MATCH_TIE_TOL})")
+        if errs[worst] > BF16_LOSS_TOL:
+            raise AssertionError(f"bf16 train step {step}: {worst} off by "
+                                 f"{errs[worst]}")
+    if not all(p.dtype == torch.float32 for s in states.values()
+               for p in [*s.params(), *s.ema_params,
+                         *s.optimizer.moments["mu"]]):
+        raise AssertionError("bf16 step: masters, EMA or moments not fp32")
+    del states["cpu"]
+
+    # the launches of one bf16 step at 24 pairs, and of one under remat
+    state16 = states["cuda"]
+    band = 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
+    tb = batch_to_device(train_batch(rng, cfg, TRAIN_PAIRS[1], num_gt), cuda)
+    counts = {}
+    for remat in (False, True):
+        state16.model.config = dataclasses.replace(cfg16, remat=remat,
+                                                   remat_policy="dots")
+        torch.cuda.synchronize()
+        zero_counts(ba, fa)
+        train_step(state16, tb, step_generator(0, state16.step))
+        torch.cuda.synchronize()
+        counts[remat] = band_counts(ba, fa)
+        expect = {name: 0 for name in counts[remat]}
+        expect.update(band_attention_bf16=2 * band if remat else band,
+                      band_attention_dq_bf16=band,
+                      band_attention_dkv_bf16=band)
+        print(f"bf16 train step at {TRAIN_PAIRS[1]} pairs"
+              f"{' with remat (dots)' if remat else ''}: kernel launches "
+              f"{counts[remat]}, dense full-attention calls "
+              f"{fa.dense_calls}")
+        if counts[remat] != expect:
+            raise AssertionError(f"launches {counts[remat]}, expected "
+                                 f"{expect}")
+    state16.model.config = cfg16
+
+    # remat under each policy against the plain step, fp32, from copies of
+    # one state, with drop path on
+    remat_losses = {}
+    for policy in (None, "full", "dots"):
+        st = copy.deepcopy(state32)
+        st.model.config = dataclasses.replace(
+            cfg, remat=policy is not None, remat_policy=policy or "full")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        iters = 10
         t0 = time.perf_counter()
-        for _ in range(iters):
-            _, losses = train_step(state, tb, step_generator(0, state.step))
+        _, remat_losses[policy] = train_step(st, tb, step_generator(0, 99))
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        if not all(torch.isfinite(v) for v in losses.values()):
-            raise AssertionError(f"non-finite losses at {n_pairs} pairs")
-        print(f"vidvrd train step {n_pairs} pairs T={T} fp32: "
-              f"{1e3 * seconds / iters:.2f} ms per step, "
-              f"{n_pairs * iters / seconds:.1f} pairs/s, peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_device(lambda: train_step(state, tb,
-                                          step_generator(0, state.step)),
-                       3, "step")
-    return launches
+        print(f"fp32 train step at {TRAIN_PAIRS[1]} pairs, remat "
+              f"{policy or 'off'}: {1e3 * (time.perf_counter() - t0):.2f} "
+              f"ms (one step, first of its kind), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"total_loss {remat_losses[policy]['total_loss'].item():.6f}")
+        del st
+    for policy in ("full", "dots"):
+        errs = {k: abs(remat_losses[policy][k].item() - v.item())
+                / (1 + abs(v.item())) for k, v in remat_losses[None].items()}
+        if max(errs.values()) > LOSS_TOL:
+            raise AssertionError(f"remat {policy}: losses off by {errs}")
+
+    # fp32 and bf16 steps at 24 and 96 pairs, in turns
+    for n_pairs in TRAIN_PAIRS[1:]:
+        tb = batch_to_device(train_batch(rng, cfg, n_pairs, num_gt), cuda)
+        steps = {"fp32": state32, "bf16": state16}
+        for st in steps.values():
+            for _ in range(3):
+                train_step(st, tb, step_generator(0, st.step))
+        torch.cuda.synchronize()
+        ms, peak = {k: [] for k in steps}, {}
+        for k in ("fp32", "bf16", "bf16", "fp32"):
+            st = steps[k]
+            torch.cuda.reset_peak_memory_stats()
+            iters = 10
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                _, losses = train_step(st, tb, step_generator(0, st.step))
+            torch.cuda.synchronize()
+            ms[k].append(1e3 * (time.perf_counter() - t0) / iters)
+            if not all(torch.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"non-finite {k} losses at {n_pairs} "
+                                     "pairs")
+            peak[k] = torch.cuda.max_memory_allocated() / 2**30
+        for k, v in ms.items():
+            print(f"vidvrd train step {n_pairs} pairs T={T} {k}: "
+                  f"{v[0]:.2f} / {v[1]:.2f} ms per step, "
+                  f"{1e3 * n_pairs / v[0]:.1f} / {1e3 * n_pairs / v[1]:.1f} "
+                  f"pairs/s, peak memory {peak[k]:.2f} GiB")
+            st = steps[k]
+            profile_device(lambda: train_step(st, tb,
+                                              step_generator(0, st.step)),
+                           3, "step")
+    return counts[False]
 
 
 def profile_device(fn, runs: int, unit: str) -> tuple[float, float, list]:
@@ -1816,6 +2154,10 @@ def main(argv: list[str] | None = None) -> int:
     kernels.update(check_bf16_kernels(cuda, ba, fa))
     band_rows = kernels["band_attention"]["by_shape"]
     kernels.update(check_band_backward(cuda, ba, mops, band_rows))
+    band16 = kernels["band_attention_bf16"]
+    kernels.update(check_band_backward_bf16(cuda, ba, band16["by_shape"]))
+    band16["max_abs_err"] = max(r["max_abs_err"]
+                                for r in band16["by_shape"])
     kernels.update(check_mega_kernels(cuda, pb, ma))
     kernels["band_attention_pe"], pe_alone = check_band_pe(cuda, ba, mops)
     stream_worst, alone = check_stream_kernels(cuda, ba, fa, band_rows)
@@ -1908,8 +2250,12 @@ def main(argv: list[str] | None = None) -> int:
     # 9. bf16 serving at VidVRD's and VidOR's widths
     bf16_launches = check_bf16_serving(cuda, ba, fa)
 
-    # 5. the full-width train step
-    train_launches = check_train_step(cfg, raw, cuda, ba, fa)
+    # 5. the full-width train step: fp32, then bf16 and remat, and both
+    # dtypes timed in turns
+    state32, train_launches = check_train_step(cfg, raw, cuda, ba, fa)
+    train16_launches = check_train_step_bf16(cfg, raw, cuda, ba, fa, state32)
+    del state32
+    torch.cuda.empty_cache()
 
     # 6. train_torch.py -> eval_torch.py
     check_train_cli(raw)
@@ -1931,6 +2277,10 @@ def main(argv: list[str] | None = None) -> int:
                "band_attention_pe": (band, f"{pallas}:42 (with_pe)"),
                "band_attention_dq": (band, f"{pallas}:112"),
                "band_attention_dkv": (band, f"{pallas}:146"),
+               "band_attention_dq_bf16": (band, f"{pallas}:112 (bf16 "
+                                          "operands)"),
+               "band_attention_dkv_bf16": (band, f"{pallas}:146 (bf16 "
+                                           "operands)"),
                "masked_attention": (masked, "vrdone_tpu/ops/masked.py:203"),
                "masked_attention_bf16": (masked, "vrdone_tpu/ops/masked.py:"
                                          "203 (bf16 operands)"),
@@ -1942,13 +2292,15 @@ def main(argv: list[str] | None = None) -> int:
                                 "vrdone_tpu/ops/pallas/position_bias.py:108 "
                                 "(pe_setup, XLA-side: not a TPU kernel)")}
     # launches: the eval forward's for the forward band and full-attention
-    # kernels, the train step's for the backward ones, detect_video's for
+    # kernels, the train step's for the backward ones (the bf16 train
+    # step's for their bf16 instances), detect_video's for
     # the fused set-attention and, with the fused attention off, for the
     # position bias, the streaming run's for the bias band kernel, the
     # VidVRD bf16 eval step's for the bf16 instances; every path is in
     # launches_by_path
     by_path = {name: {"eval_forward": launches.get(name, 0),
                       "train_step": train_launches.get(name, 0),
+                      "train_step_bf16": train16_launches.get(name, 0),
                       **{route: c.get(name, 0)
                          for route, c in detect_launches.items()},
                       "stream": stream_launches.get(name, 0),
@@ -1960,6 +2312,8 @@ def main(argv: list[str] | None = None) -> int:
                  "bias_factors": "detect_video",
                  "band_attention_pe": "stream",
                  "band_attention_bf16": "serve_bf16_vidvrd",
+                 "band_attention_dq_bf16": "train_step_bf16",
+                 "band_attention_dkv_bf16": "train_step_bf16",
                  "masked_attention_bf16": "serve_bf16_vidvrd"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

@@ -217,8 +217,8 @@ def test_abs_pe_has_no_bf16_path():
 def test_bfloat16_config_builds_and_serves_fp32():
     """``compute_dtype: bfloat16`` is read by the train loop only, as in the
     JAX package: the model builds from such a config and gives the fp32
-    config's heads on the same weights, and ``create_train_state`` refuses
-    it with the ROADMAP pointer."""
+    config's heads on the same weights, and ``create_train_state`` accepts
+    it and keeps fp32 masters, EMA and optimizer moments."""
     cfg = small_cfg()
     _, params = jax_model_and_params(cfg)
     flat = flatten_params(params)
@@ -234,8 +234,10 @@ def test_bfloat16_config_builds_and_serves_fp32():
         assert heads[1][key].dtype == torch.float32
         assert torch.equal(heads[0][key], heads[1][key])
     bcfg = dataclasses.replace(port_config(cfg), compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md queue 1, the bf16 compute path "
-                             r"\(training\)"):
-        create_train_state(bcfg, {}, 5, device=CPU,
-                           generator=torch.Generator().manual_seed(0))
+    state, _ = create_train_state(
+        bcfg, {"type": "AdamW", "training_lr": 1e-3, "total_epoch": 2,
+               "warmup": False, "schedule_type": "cosine"}, 5, device=CPU,
+        flax_params=flat)
+    for tensors in (state.params(), state.ema_params,
+                    *state.optimizer.moments.values()):
+        assert tensors and all(x.dtype == torch.float32 for x in tensors)

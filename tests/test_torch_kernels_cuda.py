@@ -19,7 +19,10 @@ bias, then a softmax over up to 3750 keys). The bf16 instances of the band
 and full-attention kernels are held to their bf16 plain versions within
 1e-2 of 1 + max |plain| (``BF16_TOL``, ``chip_smoke.py``'s
 ``BF16_KERNEL_TOL``): both round P and the output to bf16, K7 its
-unnormalised P, the plain version the normalised one.
+unnormalised P, the plain version the normalised one. The bf16 instances
+of the backward kernels (K2, K3) are held to ``band_backward_plain`` on the
+same bf16 streams, lse and Dr within the same limit: the same promotions,
+each gradient rounded to bf16 once, sums taken in another order.
 """
 
 import ctypes
@@ -487,9 +490,10 @@ def test_band_backward_instance_is_what_launches(cuda, tmp_path):
         seen = set()
         for e in json.loads(trace.read_text())["traceEvents"]:
             m = re.search(r"band_backward_kernel<(\d+), (true|false), "
-                          r"(true|false), (\d+)>", e.get("name", ""))
+                          r"(true|false), (\d+), (\w+)>", e.get("name", ""))
             if e.get("cat") != "kernel" or m is None:
                 continue
+            assert m[5] == "float"
             dkv = m[3] == "true"
             inst = ba.backward_instance(cuda.index or 0, b, t, h, d,
                                         2 * w + 1, dkv)
@@ -529,12 +533,9 @@ def test_kernels_without_backward_refuse_grad(cuda):
                                rel_pe=pe).grad_fn is not None
 
 
-def test_train_step_on_card_matches_cpu(cuda):
-    """One train step of a small MaskVRD with drop path on: the card (band
-    kernels forward and backward, dense full attention) against the CPU on
-    the same weights, batch and drop-path draws."""
-    from vrdone_tpu_torch.train.loop import (create_train_state,
-                                             step_generator, train_step)
+def small_train_case():
+    """A small MaskVRD's config (drop path on), a training config and a
+    batch of 4 items with 1 to 3 ground-truth segments each."""
     cfg = ModelConfig(visual_dim=24, embd_dim=32, fpn_dim=16,
                       max_seq_len=48, with_fuzzy=True, scale_range=0.85,
                       predictor=PredictorConfig(
@@ -543,10 +544,6 @@ def test_train_step_on_card_matches_cpu(cuda):
     tc = {"type": "AdamW", "training_lr": 1e-4, "weight_decay": 0.05,
           "clip_grad_l2norm": 1.0, "warmup": True, "warmup_epochs": 1,
           "total_epoch": 2}
-    states = {}
-    for dev in (torch.device("cpu"), cuda):
-        states[dev.type], _ = create_train_state(
-            cfg, tc, 1, device=dev, generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(2)
     b, t, g = 4, 48, 9
     lens = np.array([48, 30, 17, 5])
@@ -564,6 +561,20 @@ def test_train_step_on_card_matches_cpu(cuda):
              "seq_mask": seq, "item_valid": np.ones(b, bool),
              "gt_labels": rng.integers(1, 133, (b, g)).astype(np.int32),
              "gt_masks": gm, "gt_segs": segs, "gt_valid": gv}
+    return cfg, tc, batch
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of a small MaskVRD with drop path on: the card (band
+    kernels forward and backward, dense full attention) against the CPU on
+    the same weights, batch and drop-path draws."""
+    from vrdone_tpu_torch.train.loop import (create_train_state,
+                                             step_generator, train_step)
+    cfg, tc, batch = small_train_case()
+    states = {}
+    for dev in (torch.device("cpu"), cuda):
+        states[dev.type], _ = create_train_state(
+            cfg, tc, 1, device=dev, generator=torch.Generator().manual_seed(0))
     losses = {}
     ba.launches = ba.dq_launches = ba.dkv_launches = fa.launches = 0
     for name, state in states.items():
@@ -588,6 +599,48 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert max_err(m.cpu(), r) <= 1e-3 * r.abs().max().item() + 1e-7
     for p, r in zip(states["cuda"].params(), states["cpu"].params()):
         assert max_err(p.cpu(), r) <= 2e-4
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_bf16_train_step_on_card_matches_cpu(cuda, remat):
+    """One bf16 train step of a small MaskVRD with drop path on (with and
+    without remat, policy "dots"): the card launches only the bf16
+    instances of the band kernels, K1 once a band layer (twice under remat,
+    whose recompute runs the forward again) and K2 and K3 once, and its
+    losses agree with the CPU's bf16 step on the same weights, batch and
+    draws within 5e-2 of 1 + |loss| (tests/test_torch_bf16_train.py's
+    BF16_LOSS_TOL: both round to bf16 in their own places, and the kernels'
+    backward keeps P in fp32 where autograd of the plain version reads the
+    forward's rounded P); the masters stay fp32."""
+    import dataclasses
+
+    from vrdone_tpu_torch.train.loop import (create_train_state,
+                                             step_generator, train_step)
+    cfg, tc, batch = small_train_case()
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", remat=remat,
+                              remat_policy="dots")
+    losses = {}
+    counts = dict(launches=0, bf16_launches=0, dq_launches=0,
+                  bf16_dq_launches=0, dkv_launches=0, bf16_dkv_launches=0)
+    for name, value in counts.items():
+        setattr(ba, name, value)
+    fa.launches = 0
+    for dev in (torch.device("cpu"), cuda):
+        state, _ = create_train_state(
+            cfg, tc, 1, device=dev, generator=torch.Generator().manual_seed(0))
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _, losses[dev.type] = train_step(state, tb, step_generator(0, 0))
+        assert all(x.dtype == torch.float32 for x in state.params())
+    torch.cuda.synchronize()
+    band = 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
+    k1 = 2 * band if remat else band
+    assert {n: getattr(ba, n) for n in counts} == dict(
+        launches=k1, bf16_launches=k1, dq_launches=band,
+        bf16_dq_launches=band, dkv_launches=band, bf16_dkv_launches=band)
+    assert fa.launches == 0
+    for k, v in losses["cpu"].items():
+        assert abs(losses["cuda"][k].item() - v.item()) <= 5e-2 * (
+            1 + abs(v.item())), k
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -1128,9 +1181,169 @@ def test_bf16_unaligned_streams_take_the_scalar_instance(cuda):
         <= BF16_TOL
 
 
+def band_backward_bf16_case(cuda, seed, b, t, h, d, w, shift=False):
+    """K2 (dQ) and K3 (dK, dV) in bf16 against ``band_backward_plain`` on
+    the same bf16 streams, fp32 lse (K1's bf16 instance) and Dr, one launch
+    of each, counted as bf16; streams with an invalid key inside a valid
+    stretch, a batch row of one valid query and one with none (dQ exactly 0
+    there), and a nonzero upstream gradient on the invalid query rows. With
+    ``shift`` q, k, v and dout start 2 bytes past a 16-byte boundary."""
+    lens = ([t, max(1, t // 2), 1, 0] + [t] * (b - 4) if b >= 4
+            else [t] * b)
+    q, k, v, mask = streams(seed, b, t, t, h * d, lens, cuda)
+    mask[0, t // 3] = False
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        q.shape).astype(np.float32)).to(cuda)
+    q, k, v, dout = to_bf16(q, k, v, dout)
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
+    dr = ba.band_rowsum(dout, out, h)
+    move = shifted if shift else torch.clone
+    args = (move(q), move(k), move(v), mask, lse, dr, move(dout))
+    names = ("dq_launches", "bf16_dq_launches", "dkv_launches",
+             "bf16_dkv_launches")
+    before = [getattr(ba, n) for n in names]
+    dq = ba.band_attention_dq_cuda(*args, **kw)
+    dk, dv = ba.band_attention_dkv_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(ba, n) for n in names] == [x + 1 for x in before]
+    want = ba.band_backward_plain(q, k, v, mask, lse, dr, dout, **kw)
+    for name, g, r in zip("qkv", (dq, dk, dv), want):
+        assert bf16_err(g, r) <= BF16_TOL, name
+    assert (dq[~mask] == 0).all()
+
+
+@pytest.mark.parametrize("t,w,d,b,h", [
+    # the train step's shapes (B*H = 24*4, d = 128, w = 3)
+    (96, 3, 128, 24, 4), (48, 3, 128, 24, 4), (24, 3, 128, 24, 4),
+    (12, 3, 128, 24, 4),
+    # T one below, at and one above a row tile (16 rows up to w = 4, 64
+    # at w = 15, at most 32 at 2 rows a warp), each head-dim bucket, for
+    # few sequences and for many (B*H = 512)
+    (15, 1, 32, 4, 4), (16, 1, 32, 4, 4), (17, 1, 32, 4, 4),
+    (31, 3, 64, 4, 4), (33, 3, 64, 4, 4), (63, 15, 64, 8, 8),
+    (65, 15, 128, 4, 4), (100, 15, 256, 4, 4), (47, 3, 256, 4, 4),
+    (95, 3, 128, 128, 4), (97, 3, 128, 128, 4), (5, 3, 128, 4, 4),
+    # d % 8 != 0: the scalar instance (d = 20 and 36 are vector ones in
+    # fp32)
+    (96, 3, 20, 4, 3), (70, 15, 36, 4, 2), (50, 1, 33, 4, 4),
+    (40, 3, 6, 4, 5)])
+def test_band_backward_bf16_instances_match_plain(cuda, t, w, d, b, h):
+    """K2's and K3's bf16 instances at each instance's edges against the
+    plain version; the instance the C side reports for bf16 is a tiling of
+    T, with vector copies exactly when d % 8 == 0."""
+    for dkv in (False, True):
+        inst = ba.backward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
+                                    dkv, dtype=torch.bfloat16)
+        assert inst["rows_warp"] in (2, 4)
+        assert inst["rows"] in (16, 32, 48, 64)
+        assert inst["tiles"] == -(-t // inst["rows"])
+        assert 1 <= inst["per_block"] <= inst["tiles"]
+        assert inst["vec"] == (d % 8 == 0)
+    band_backward_bf16_case(cuda, t * 5 + d, b, t, h, d, w)
+
+
+@pytest.mark.parametrize("dkv", [False, True])
+def test_band_backward_bf16_walks_double_buffered_tiles(cuda, dkv):
+    """A bf16 block walks two row tiles, double-buffered: the first batch
+    of 4-head sequences (T = 96, d 128, w 3) at which the bf16 instance
+    walks."""
+    b = next((b for b in range(4, 129, 4) if ba.backward_instance(
+        cuda.index or 0, b, 96, 4, 128, 7, dkv,
+        dtype=torch.bfloat16)["per_block"] > 1), None)
+    assert b is not None
+    band_backward_bf16_case(cuda, b, b, 96, 4, 128, 3)
+
+
+def test_band_backward_bf16_unaligned_streams_take_the_scalar_instance(
+        cuda):
+    """bf16 q, k, v and dout 2 bytes past a 16-byte boundary: K2 and K3
+    take their scalar instance (plain 2-byte loads)."""
+    band_backward_bf16_case(cuda, 9, 4, 150, 8, 64, 4, shift=True)
+
+
+def test_band_backward_bf16_through_autograd(cuda):
+    """bf16 leaves that need a gradient go through ``BandAttention``: K1's
+    bf16 instance with its lse, then K2's and K3's, with bf16 gradients
+    equal to ``band_backward_plain`` of the same lse and Dr."""
+    b, t, h, d, w = 24, 96, 4, 128, 3
+    q, k, v, mask = streams(5, b, t, t, h * d, [t, 50, 1, 0] + [t] * 20,
+                            cuda)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)
+                       ).to(cuda)
+    q, k, v, dout = to_bf16(q, k, v, dout)
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ba.launches = ba.bf16_launches = 0
+    ba.dq_launches = ba.bf16_dq_launches = 0
+    ba.dkv_launches = ba.bf16_dkv_launches = 0
+    out = mops.band_attention(*leaves, mask, **kw)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (ba.launches, ba.bf16_launches, ba.dq_launches,
+            ba.bf16_dq_launches, ba.dkv_launches,
+            ba.bf16_dkv_launches) == (1, 1, 1, 1, 1, 1)
+    with torch.no_grad():
+        _, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
+        want = ba.band_backward_plain(q, k, v, mask, lse,
+                                      ba.band_rowsum(dout, out, h), dout,
+                                      **kw)
+    for name, g, r in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16
+        assert bf16_err(g, r) <= BF16_TOL, name
+
+
+def test_band_backward_bf16_instance_is_what_launches(cuda, tmp_path):
+    """The bf16 instance ``backward_instance`` reports is the one the C
+    side launches: element type, head-dim bucket, vector copies, K2 or K3
+    and owner rows a warp, grid and block, from a ``torch.profiler``
+    trace."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    bf = torch.bfloat16
+    for b, t, h, d, w in ((24, 96, 4, 128, 3), (24, 12, 4, 128, 3),
+                          (8, 1500, 8, 64, 4), (4, 70, 4, 20, 4)):
+        q, k, v, mask = streams(t + d, b, t, t, h * d, [t] * b, cuda)
+        dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+            t)).to(cuda)
+        q, k, v, dout = to_bf16(q, k, v, dout)
+        kw = dict(n_head=h, window_size=2 * w + 1)
+        out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
+        args = (q, k, v, mask, lse, ba.band_rowsum(dout, out, h), dout)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ba.band_attention_dq_cuda(*args, **kw)
+                ba.band_attention_dkv_cuda(*args, **kw)
+                torch.cuda.synchronize()
+        trace = tmp_path / f"trace{t}.json"
+        prof.export_chrome_trace(str(trace))
+        seen = set()
+        for e in json.loads(trace.read_text())["traceEvents"]:
+            m = re.search(r"band_backward_kernel<(\d+), (true|false), "
+                          r"(true|false), (\d+), (\w+)>", e.get("name", ""))
+            if e.get("cat") != "kernel" or m is None:
+                continue
+            assert m[5] == "__nv_bfloat16"
+            dkv = m[3] == "true"
+            inst = ba.backward_instance(cuda.index or 0, b, t, h, d,
+                                        2 * w + 1, dkv, dtype=bf)
+            assert (int(m[1]), m[2] == "true", int(m[4])) == (
+                inst["bucket"], inst["vec"], inst["rows_warp"])
+            blocks = b * h * -(-inst["tiles"] // inst["per_block"])
+            assert e["args"]["grid"] == [blocks, 1, 1]
+            assert e["args"]["block"] == [
+                32 * inst["rows"] // inst["rows_warp"], 1, 1]
+            seen.add(dkv)
+        assert seen == {False, True}, (b, t, h, d, w)
+
+
 def test_kernels_refuse_mixed_dtypes_and_bf16_where_fp32_only(cuda):
-    """q, k and v in one dtype only; K4 and the backward kernels take fp32
-    only and refuse bf16 naming the ROADMAP item."""
+    """q, k and v in one dtype only, and dout in theirs for the backward
+    kernels; K4 alone takes fp32 only and refuses bf16 naming the ROADMAP
+    item."""
     q, k, v, mask = streams(2, 2, 16, 16, 64, [16, 8], cuda)
     q16, k16, v16 = to_bf16(q, k, v)
     with pytest.raises(TypeError, match="one dtype"):
@@ -1143,11 +1356,14 @@ def test_kernels_refuse_mixed_dtypes_and_bf16_where_fp32_only(cuda):
                                   window_size=7)
     out, lse = ba.band_attention_cuda(q16, k16, v16, mask, n_head=4,
                                       window_size=7, with_lse=True)
-    args = (q16, k16, v16, mask, lse,
-            ba.band_rowsum(out.float(), out.float(), 4), out)
+    dr = ba.band_rowsum(out, out, 4)
     for fn in (ba.band_attention_dq_cuda, ba.band_attention_dkv_cuda):
-        with pytest.raises(TypeError, match="ROADMAP"):
-            fn(*args, n_head=4, window_size=7)
+        with pytest.raises(TypeError, match="dout must have q's dtype"):
+            fn(q16, k16, v16, mask, lse, dr, out.float(), n_head=4,
+               window_size=7)
+        with pytest.raises(TypeError, match="one dtype"):
+            fn(q16, k, v16, mask, lse, dr, out, n_head=4, window_size=7)
+        fn(q16, k16, v16, mask, lse, dr, out, n_head=4, window_size=7)
 
 
 def test_bf16_instance_is_what_launches(cuda, tmp_path):

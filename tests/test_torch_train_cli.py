@@ -1,7 +1,8 @@
 """``train_torch.py`` end to end on the CPU: two epochs on the synthetic
 VidVRD corpus, a third after ``--auto_resume``, then ``eval_torch.py`` on
 its checkpoint, whose metric dict has ``eval.py``'s keys and finite
-values."""
+values; and one epoch each in bf16, in bf16 with remat and in fp32 with
+remat, each checkpoint evaluated."""
 
 import math
 import os
@@ -9,6 +10,7 @@ import re
 import subprocess
 import sys
 
+import pytest
 import torch
 import yaml
 
@@ -68,4 +70,45 @@ def test_train_resume_then_eval(tmp_path):
     assert set(metrics) == {"RelDet_mAP", "RelDet_AR@50", "RelDet_AR@100",
                             "RelTag_AP@1", "RelTag_AP@5", "RelTag_AP@10"}
     assert all(map(math.isfinite, metrics.values()))
+    assert "Eval done." in out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--compute_dtype", "bfloat16"],
+    ["--compute_dtype", "bfloat16", "--remat", "--remat_policy", "dots"],
+    ["--remat"]])
+def test_train_bf16_or_remat_epoch_then_eval(tmp_path, flags):
+    """One epoch of ``train_torch.py`` in bf16, in bf16 with remat, and in
+    fp32 with remat: finite losses, a checkpoint of fp32 masters (EMA and
+    optimizer moments included), which ``eval_torch.py`` evaluates as it
+    is."""
+    root = str(tmp_path)
+    dirs = make_vidvrd_corpus(root, n_videos=4, n_frames=40, seed=0)
+    dirs.update(make_vidvrd_test_corpus(root, n_videos=2, seed=1))
+    cfg = tiny_yaml(root, dirs)
+    cfg["training_config"]["training_epoch"] = 1
+    path = os.path.join(root, "cfg.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    exp = os.path.join(root, "exp")
+    common = ["--data_name", "vidvrd", "--cfg_path", path, "--exp_dir", exp,
+              "--device", "cpu"]
+    out = run("train_torch.py", *common, *flags)
+    assert "Training Over..." in out
+    losses = [float(x) for x in re.findall(r"Total loss=([0-9.]+)", out)]
+    assert losses and all(map(math.isfinite, losses))
+    with open(os.path.join(exp, "config.yaml")) as f:
+        model_cfg = yaml.safe_load(f)["model_config"]
+    assert model_cfg.get("compute_dtype", "float32") == (
+        "bfloat16" if "bfloat16" in flags else "float32")
+    assert model_cfg.get("remat", False) == ("--remat" in flags)
+    ckpt = torch.load(os.path.join(exp, "model_last.ckpt"),
+                      weights_only=True)
+    floats = [*ckpt["params"].values(), *ckpt["ema_params"].values(),
+              *(t for ts in ckpt["opt_state"]["moments"].values()
+                for t in ts)]
+    assert all(t.dtype == torch.float32 for t in floats
+               if t.is_floating_point())
+    out = run("eval_torch.py", *common, "--ckpt_path",
+              os.path.join(exp, "model_last.ckpt"), "--topk", "3")
     assert "Eval done." in out

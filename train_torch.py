@@ -4,15 +4,20 @@ The counterpart of ``train.py`` on ``vrdone_tpu_torch``: the same flags
 and YAML configs, plus ``--device`` (default ``cuda``). One process on one
 device: forward, Hungarian matching and losses, backward, clip, AdamW and
 EMA per step (``vrdone_tpu_torch/train/loop.py``), with band attention on
-its CUDA kernels forward and backward. Checkpoints are ``torch.save`` files
-(``model_epoch_<n>_<data>.ckpt`` and ``model_last.ckpt`` in ``--exp_dir``)
-that ``eval_torch.py --ckpt_path`` reads.
+its CUDA kernels forward and backward. ``--compute_dtype bfloat16`` runs
+the forward in bf16 on a cast of the fp32 master parameters (the bf16
+instances of the band kernels), ``--remat`` recomputes the forward in the
+backward (``--remat_policy full`` or ``dots``). Checkpoints are
+``torch.save`` files (``model_epoch_<n>_<data>.ckpt`` and
+``model_last.ckpt`` in ``--exp_dir``) holding the fp32 masters, which
+``eval_torch.py --ckpt_path`` reads whatever the compute dtype was.
 
 Not ported (each raises): ``--multihost``, ``--n_dp`` or ``--n_sp`` above
-1, ``--remat`` and ``--compute_dtype bfloat16``; see ROADMAP.md queue 1.
+1; see ROADMAP.md queue 1.
 
     python train_torch.py --data_name vidvrd --cfg_path configs/vidvrd.yaml \
-        --exp_dir experiments/vidvrd_torch --device cuda
+        --exp_dir experiments/vidvrd_torch --device cuda \
+        [--compute_dtype bfloat16] [--remat --remat_policy dots]
 """
 
 from __future__ import annotations
@@ -47,9 +52,11 @@ def parse_args():
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=[None, "float32", "bfloat16"])
     p.add_argument("--remat", action="store_true", default=False,
-                   help="not ported (ROADMAP.md queue 1, remat)")
+                   help="rematerialize the forward in the backward")
     p.add_argument("--remat_policy", type=str, default=None,
-                   choices=[None, "full", "dots"])
+                   choices=[None, "full", "dots"],
+                   help="remat policy (dots = save the Dense layers' "
+                        "matrix products, full = recompute everything)")
     p.add_argument("--n_dp", type=int, default=None,
                    help="not ported beyond 1 (ROADMAP.md queue 1, data "
                         "parallelism)")
@@ -73,15 +80,14 @@ def main():
         raise NotImplementedError(
             "--multihost, --n_dp > 1 and --n_sp > 1 are not ported yet; see "
             "ROADMAP.md queue 1, data parallelism")
-    if args.remat:
-        raise NotImplementedError(
-            "--remat is not ported; see ROADMAP.md queue 1, remat")
     device = torch.device(args.device)
     config = load_yaml_config(args.cfg_path)
     config["training_config"]["seed"] = args.seed
     config["dataset_config"].update(config["training_dataset_config"])
     if args.compute_dtype:
         config["model_config"]["compute_dtype"] = args.compute_dtype
+    if args.remat:
+        config["model_config"]["remat"] = True
     if args.remat_policy:
         config["model_config"]["remat_policy"] = args.remat_policy
     model_cfg = model_config_from_yaml(config)

@@ -1,6 +1,6 @@
 // Banded (sliding-window) attention for Hopper (sm_90a): the forward with
-// its per-row log-sum-exp (fp32 and bf16 streams), the forward with a
-// relative-position bias and the two backward kernels (fp32).
+// its per-row log-sum-exp and the two backward kernels (fp32 and bf16
+// streams each), and the forward with a relative-position bias (fp32).
 //
 // Replaces the TPU kernels of vrdone_tpu/ops/pallas/band_attention.py:
 //   * band_forward_kernel<.., kPE = false> (K1) <- _band_kernel (forward, no
@@ -92,7 +92,7 @@
 // forward's B*H = 128*4, T = 96, d = 128; 0.010 ms at VidOR's 16*8, 512,
 // 64); measured alone on an H100 SXM (700 W) it takes 0.032 and 0.029 ms,
 // the fp32 instance 0.046 ms at the first. It is not a tensor-core design
-// (ROADMAP queue 2). K4 and the backward take fp32 only.
+// (ROADMAP queue 2). K4 takes fp32 only.
 //
 // The backward, K2 (dQ) and K3 (dK, dV), is one templated body
 // (band_backward_kernel<.., kKV>), built from the forward's pieces. The two
@@ -148,11 +148,28 @@
 // warp a row, a lane a key: 0.0299-0.0300), 0.0072, 0.0059, 0.0050 at
 // T = 48, 24, 12; K3 0.0129-0.0130 (0.0348-0.0353), 0.0078, 0.0064,
 // 0.0052. No instance spills.
+// The bf16 backward (band_attention_backward_{dq,dkv}_bf16, K2 and K3 of
+// the bf16 train step) is the same body with __nv_bfloat16 streams, as
+// the Pallas kernels take bf16 q, k, v and dO (_dq_kernel, _dkv_kernel):
+// the partner slabs are staged as bf16 (half the shared memory, so the
+// instance rule sees other slab sizes and occupancies; vector copies need
+// d % 8 == 0, the scalar instance copies with plain 2-byte loads), the
+// owner rows and every slab row are widened to fp32 as they are read, the
+// score is rebuilt in fp32 as the bf16 forward builds it (so P sums to 1
+// against its lse), P stays fp32 (the forward rounded it to bf16 before
+// P.V; the Pallas backward does not), dP, dS and the accumulators are
+// fp32, lse and Dr stay fp32, and dQ, dK and dV are rounded to bf16 once,
+// at the store. K2's 4-row instance runs its partner loops a row at a time
+// (kUnroll), so that it holds the fp32 instance's 94 registers and the
+// train step's T = 96 keeps it; its scalar 2-row instance at d bucket 128
+// spills 4 bytes, no other instance spills. What bounds it is the bytes, half of fp32's streams
+// (0.0035 ms for K2, 0.0042 for K3 at the train step's B*H = 24*4, T = 96,
+// d = 128).
 // Layout: q, k, v, out, dout, dq, dk, dv are (B, T, H*d) contiguous with
 // heads split head-major along the channels (channels [h*d, (h+1)*d) are
 // head h), as the JAX package's _split_heads lays them out, so no transpose
-// is needed around the calls; q, k, v and out are all fp32 or (forward
-// without a bias only) all bf16. mask is (B, T) bool (one byte each); lse and
+// is needed around the calls; q, k, v, out, dout and the gradients are
+// all fp32 or (all but K4) all bf16. mask is (B, T) bool (one byte each); lse and
 // Dr are (B, H, T) fp32; rel_pe is (H, window_size) fp32. Takes any T (no
 // padding), 1 <= d <= 256 and 0 <= w <= 15; the Python wrapper rejects
 // anything else before the launch.
@@ -543,18 +560,19 @@ band_forward_kernel(const BandProblem<E> p) {
 // The backward (K2, K3)
 // ---------------------------------------------------------------------------
 
-// The problem a backward launch solves, with the instance pick_backward
-// chose.
+// The problem a backward launch solves, its streams of element type E
+// (lse and Dr fp32 whatever E is), with the instance run_backward chose.
+template <typename E>
 struct BandBwdProblem {
-  const float* q;
-  const float* k;
-  const float* v;
+  const E* q;
+  const E* k;
+  const E* v;
   const unsigned char* mask;
   const float* lse;     // (B, H, T)
-  const float* dr;      // (B, H, T): rowsum(dout * out)
-  const float* dout;
-  float* da;            // dQ (K2) or dK (K3)
-  float* db;            // dV (K3); null for K2
+  const float* dr;      // (B, H, T): rowsum(dout * out), in fp32
+  const E* dout;
+  E* da;                // dQ (K2) or dK (K3)
+  E* db;                // dV (K3); null for K2
   int T, H, D, w;
   float scale;
   int rows_warp;        // owner rows a warp: 32 * rows / rows_warp threads
@@ -565,8 +583,9 @@ struct BandBwdProblem {
 
 // Copy the lse and Dr of rows [r0, r0 + n) of sequence bh into ls and ds,
 // 0 outside [0, T).
+template <typename E>
 __device__ __forceinline__ void copy_row_stats(float* ls, float* ds,
-                                               const BandBwdProblem& p,
+                                               const BandBwdProblem<E>& p,
                                                size_t row0, int r0, int n) {
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const int t = r0 + j;
@@ -583,11 +602,23 @@ __device__ __forceinline__ void copy_row_stats(float* ls, float* ds,
 // warp * RT .. + RT - 1 of each; the warp's partners are the slab rows
 // warp * RT .. warp * RT + RT - 1 + 2w, so owner r and partner slab row jj
 // (both from the warp's first) are a band pair when 0 <= jj - r <= 2w.
-template <int DB, bool kVec, bool kKV, int RT>
+// K2's score is the forward's bit for bit: the query's channels times the
+// scale, each product with the key's channel, summed in the forward's
+// order. So is bf16 K3's, which scales each partner (query) row as it
+// loads it; fp32 K3 scales its owner (key) rows, one rounding apart.
+template <int DB, bool kVec, bool kKV, int RT, typename E>
 __global__ void __launch_bounds__(kBwdThreads<DB>)
-band_backward_kernel(const BandBwdProblem p) {
+band_backward_kernel(const BandBwdProblem<E> p) {
   using L = Lane<DB>;
   constexpr int kSh = RT == 4 ? 2 : 3;  // 5 - log2(2 * RT)
+  // the partner loops run two rows at once, but K2's 4-row bf16 instance
+  // runs one: unrolled, its bf16 unpacking holds 105 registers (fp32 94),
+  // which leaves an H100 4 blocks an SM and the train step's T = 96 then
+  // takes the slower 2-row instance
+  constexpr int kUnroll = std::is_same_v<E, bf16> && !kKV && RT == 4 ? 1 : 2;
+  // which side of s carries the scale: the query's (K2, bf16 K3) or the
+  // key's (fp32 K3)
+  constexpr bool kScalePartner = kKV && std::is_same_v<E, bf16>;
   extern __shared__ __align__(16) float bwd_smem[];
   const int w = p.w, R = p.rows, T = p.T;
   const int slab = R + 2 * w;                   // partner rows a tile reaches
@@ -595,9 +626,10 @@ band_backward_kernel(const BandBwdProblem p) {
   const int xs = (RT + 2 * w) * RT;             // a warp's tile, partner-major
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* as = bwd_smem;                         // stages x slab x DB
-  float* bs = as + stages * slab * DB;          // stages x slab x DB
-  float* ls = bs + stages * slab * DB;          // stages x kStage: lse
+  E* as = reinterpret_cast<E*>(bwd_smem);       // stages x slab x DB
+  E* bs = as + stages * slab * DB;              // stages x slab x DB
+  float* ls = reinterpret_cast<float*>(bs + stages * slab * DB);
+                                                // stages x kStage: lse
   float* ds = ls + stages * kStage;             // stages x kStage: Dr
   float* xp = ds + stages * kStage + warp * 2 * xs;  // s, then P
   float* xd = xp + xs;                               // dO . v, then dS
@@ -605,10 +637,10 @@ band_backward_kernel(const BandBwdProblem p) {
       ds + stages * kStage + (blockDim.x >> 5) * 2 * xs);  // stages x kStage
 
   // owner streams in registers, partner streams in the slab
-  const float* own_a = kKV ? p.k : p.q;
-  const float* own_b = kKV ? p.v : p.dout;
-  const float* part_a = kKV ? p.q : p.k;
-  const float* part_b = kKV ? p.dout : p.v;
+  const E* own_a = kKV ? p.k : p.q;
+  const E* own_b = kKV ? p.v : p.dout;
+  const E* part_a = kKV ? p.q : p.k;
+  const E* part_b = kKV ? p.dout : p.v;
 
   const int chunks = (p.tiles + p.per_block - 1) / p.per_block;
   const int bh = blockIdx.x / chunks;
@@ -665,19 +697,21 @@ band_backward_kernel(const BandBwdProblem p) {
     }
     const int i0 = t * R + warp * RT;  // this warp's first owner row
     if (i0 < T) {
-      const float* at = as + (s * slab + warp * RT) * DB;
-      const float* bt = bs + (s * slab + warp * RT) * DB;
+      const E* at = as + (s * slab + warp * RT) * DB;
+      const E* bt = bs + (s * slab + warp * RT) * DB;
       const float* lt = ls + s * kStage + warp * RT;
       const float* dt = ds + s * kStage + warp * RT;
       const unsigned char* mt = ms + s * kStage + warp * RT;
 
       // 1. both dots of every band pair: each partner row once, dotted
       // with all RT owner rows, s = a_own . a_part and dO . v
+      if constexpr (!kScalePartner) {
 #pragma unroll
-      for (int r = 0; r < RT; ++r)
+        for (int r = 0; r < RT; ++r)
 #pragma unroll
-        for (int e = 0; e < L::kN; ++e) oa[r][e] *= p.scale;
-#pragma unroll 2
+          for (int e = 0; e < L::kN; ++e) oa[r][e] *= p.scale;
+      }
+#pragma unroll (kUnroll)
       for (int jj = 0; jj < RT + 2 * w; ++jj) {
         float ax[L::kN], bx[L::kN];
 #pragma unroll
@@ -685,6 +719,10 @@ band_backward_kernel(const BandBwdProblem p) {
           const int ch = jj * DB + c * 32 * L::kVW + lane * L::kVW;
           element::load<L::kVW>(at + ch, ax + c * L::kVW);
           element::load<L::kVW>(bt + ch, bx + c * L::kVW);
+        }
+        if constexpr (kScalePartner) {
+#pragma unroll
+          for (int e = 0; e < L::kN; ++e) ax[e] *= p.scale;
         }
         float part[2 * RT];
 #pragma unroll
@@ -742,7 +780,7 @@ band_backward_kernel(const BandBwdProblem p) {
 #pragma unroll
           for (int e = 0; e < L::kN; ++e) acc_b[r][e] = 0.f;
       }
-#pragma unroll 2
+#pragma unroll (kUnroll)
       for (int jj = 0; jj < RT + 2 * w; ++jj) {
         float ax[L::kN], cd[RT];
 #pragma unroll
@@ -835,11 +873,13 @@ size_t forward_smem(int DB, int elem, int rows, int w, int stages) {
          (size_t)stages * kStage;
 }
 
-// Shared memory of a backward block: the two partner slabs, lse and Dr of
-// each stage, the warps' two tiles and the stages' mask bytes.
-size_t backward_smem(int DB, int rows, int rows_warp, int w, int stages) {
-  return sizeof(float) * ((size_t)stages * (2 * (rows + 2 * w) * DB +
-                                            2 * kStage) +
+// Shared memory of a backward block: the two partner slabs of each stage
+// (of `elem`-byte elements), the stages' fp32 lse and Dr, the warps' two
+// fp32 tiles and the stages' mask bytes.
+size_t backward_smem(int DB, int elem, int rows, int rows_warp, int w,
+                     int stages) {
+  return (size_t)elem * stages * 2 * (rows + 2 * w) * DB +
+         sizeof(float) * ((size_t)stages * 2 * kStage +
                           (size_t)(rows / rows_warp) * 2 *
                               (rows_warp + 2 * w) * rows_warp) +
          (size_t)stages * kStage;
@@ -911,8 +951,8 @@ cudaError_t run_forward(BandProblem<E>* p, int B, cudaStream_t stream,
 // a block of RT rows a warp takes; *slots receives the card's block slots
 // for it (0 where its shared memory does not fit) and *smem its shared
 // memory.
-template <int DB, bool kVec, bool kKV, int RT>
-cudaError_t set_backward(BandBwdProblem* p, int walk, long long* slots,
+template <int DB, bool kVec, bool kKV, int RT, typename E>
+cudaError_t set_backward(BandBwdProblem<E>* p, int walk, long long* slots,
                          size_t* smem) {
   int rows = 16;
   while (rows < 4 * p->w && rows < 64) rows += 16;
@@ -920,17 +960,18 @@ cudaError_t set_backward(BandBwdProblem* p, int walk, long long* slots,
   p->rows = min(rows, RT * kBwdThreads<DB> / 32);
   p->tiles = (p->T + p->rows - 1) / p->rows;
   p->per_block = min(walk, p->tiles);
-  *smem = backward_smem(DB, p->rows, RT, p->w, p->per_block > 1 ? 2 : 1);
+  *smem = backward_smem(DB, sizeof(E), p->rows, RT, p->w,
+                        p->per_block > 1 ? 2 : 1);
   *slots = 0;
   if (*smem > kSmemMax) return cudaSuccess;
-  return block_slots(band_backward_kernel<DB, kVec, kKV, RT>,
+  return block_slots(band_backward_kernel<DB, kVec, kKV, RT, E>,
                      32 * p->rows / RT, *smem, slots);
 }
 
-template <int DB, bool kVec, bool kKV, int RT>
-cudaError_t launch_backward(const BandBwdProblem& p, int B, size_t smem,
+template <int DB, bool kVec, bool kKV, int RT, typename E>
+cudaError_t launch_backward(const BandBwdProblem<E>& p, int B, size_t smem,
                             cudaStream_t stream) {
-  auto kernel = band_backward_kernel<DB, kVec, kKV, RT>;
+  auto kernel = band_backward_kernel<DB, kVec, kKV, RT, E>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = grid_blocks(B, p.H, p.tiles, p.per_block);
@@ -946,8 +987,8 @@ cudaError_t launch_backward(const BandBwdProblem& p, int B, size_t smem,
 // does. Fewer rows a warp make more and shorter warps, which a problem of
 // a few thousand rows needs to fill the card; more rows a warp and tiles a
 // block reread less once it is full.
-template <int DB, bool kVec, bool kKV>
-cudaError_t run_backward(BandBwdProblem* p, int B, cudaStream_t stream,
+template <int DB, bool kVec, bool kKV, typename E>
+cudaError_t run_backward(BandBwdProblem<E>* p, int B, cudaStream_t stream,
                          bool launch) {
   constexpr int kChoices[][2] = {{2, 1}, {4, 1}, {2, 2}, {4, 2}};
   size_t smem = 0;
@@ -1016,8 +1057,8 @@ cudaError_t forward(BandProblem<E>* p, int B, bool pe, cudaStream_t stream,
              : run_bucket<false, false>(bucket, p, B, stream, launch);
 }
 
-template <bool kVec, bool kKV>
-cudaError_t run_backward_bucket(int bucket, BandBwdProblem* p, int B,
+template <bool kVec, bool kKV, typename E>
+cudaError_t run_backward_bucket(int bucket, BandBwdProblem<E>* p, int B,
                                 cudaStream_t stream, bool launch) {
   switch (bucket) {
     case 32: return run_backward<32, kVec, kKV>(p, B, stream, launch);
@@ -1027,12 +1068,12 @@ cudaError_t run_backward_bucket(int bucket, BandBwdProblem* p, int B,
   }
 }
 
-template <bool kKV>
-cudaError_t backward(BandBwdProblem* p, int B, cudaStream_t stream,
+template <bool kKV, typename E>
+cudaError_t backward(BandBwdProblem<E>* p, int B, cudaStream_t stream,
                      bool launch) {
   const int bucket = head_bucket(p->D);
   const bool vec = vector_streams(
-      p->D, sizeof(float), {p->q, p->k, p->v, p->dout, p->da, p->db});
+      p->D, sizeof(E), {p->q, p->k, p->v, p->dout, p->da, p->db});
   return vec ? run_backward_bucket<true, kKV>(bucket, p, B, stream, launch)
              : run_backward_bucket<false, kKV>(bucket, p, B, stream, launch);
 }
@@ -1118,16 +1159,48 @@ extern "C" int band_attention_instance(int B, int T, int H, int D, int w,
                                                   rows, tiles, per_block));
 }
 
+namespace {
+
+// dQ (K2), or with kKV dK and dV (K3), for streams of element type E.
+template <bool kKV, typename E>
+int backward_launch(const E* q, const E* k, const E* v,
+                    const unsigned char* mask, const float* lse,
+                    const float* dr, const E* dout, E* da, E* db, int B,
+                    int T, int H, int D, int w, float scale, void* stream) {
+  if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
+  BandBwdProblem<E> p{q, k, v, mask, lse, dr, dout, da, db, T, H, D, w,
+                      scale, 0, 0, 0, 0};
+  return (int)backward<kKV>(&p, B, (cudaStream_t)stream, true);
+}
+
+// The backward's instance for streams of element type E (no launch).
+template <typename E>
+cudaError_t backward_instance(int B, int T, int H, int D, int w, bool dkv,
+                              int* rows_warp, int* rows, int* tiles,
+                              int* per_block) {
+  BandBwdProblem<E> p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, nullptr, nullptr, T, H, D, w, 1.f, 0, 0, 0,
+                      0};
+  const cudaError_t err = dkv ? backward<true>(&p, B, nullptr, false)
+                              : backward<false>(&p, B, nullptr, false);
+  *rows_warp = p.rows_warp;
+  *rows = p.rows;
+  *tiles = p.tiles;
+  *per_block = p.per_block;
+  return err;
+}
+
+}  // namespace
+
 // dQ from the forward's inputs, its lse, Dr = rowsum(dout * out) and dout.
 extern "C" int band_attention_backward_dq(
     const float* q, const float* k, const float* v,
     const unsigned char* mask, const float* lse, const float* dr,
     const float* dout, float* dq, int B, int T, int H, int D, int w,
     float scale, void* stream) {
-  if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
-  BandBwdProblem p{q, k, v, mask, lse, dr, dout, dq, nullptr, T, H, D, w,
-                   scale, 0, 0, 0, 0};
-  return (int)backward<false>(&p, B, (cudaStream_t)stream, true);
+  return backward_launch<false>(q, k, v, mask, lse, dr, dout, dq,
+                                (float*)nullptr, B, T, H, D, w, scale,
+                                stream);
 }
 
 // dK and dV from the same inputs as band_attention_backward_dq.
@@ -1136,31 +1209,48 @@ extern "C" int band_attention_backward_dkv(
     const unsigned char* mask, const float* lse, const float* dr,
     const float* dout, float* dk, float* dv, int B, int T, int H, int D,
     int w, float scale, void* stream) {
-  if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
-  BandBwdProblem p{q, k, v, mask, lse, dr, dout, dk, dv, T, H, D, w, scale,
-                   0, 0, 0, 0};
-  return (int)backward<true>(&p, B, (cudaStream_t)stream, true);
+  return backward_launch<true>(q, k, v, mask, lse, dr, dout, dk, dv, B, T,
+                               H, D, w, scale, stream);
+}
+
+// The same two with bf16 streams (q, k, v, dout and the gradients); lse and
+// Dr stay fp32.
+extern "C" int band_attention_backward_dq_bf16(
+    const bf16* q, const bf16* k, const bf16* v, const unsigned char* mask,
+    const float* lse, const float* dr, const bf16* dout, bf16* dq, int B,
+    int T, int H, int D, int w, float scale, void* stream) {
+  return backward_launch<false>(q, k, v, mask, lse, dr, dout, dq,
+                                (bf16*)nullptr, B, T, H, D, w, scale,
+                                stream);
+}
+
+extern "C" int band_attention_backward_dkv_bf16(
+    const bf16* q, const bf16* k, const bf16* v, const unsigned char* mask,
+    const float* lse, const float* dr, const bf16* dout, bf16* dk, bf16* dv,
+    int B, int T, int H, int D, int w, float scale, void* stream) {
+  return backward_launch<true>(q, k, v, mask, lse, dr, dout, dk, dv, B, T,
+                               H, D, w, scale, stream);
 }
 
 // The instance the dQ kernel (K2), or with `dkv` the dK/dV kernel (K3),
-// takes on the current device for 16-byte-aligned streams of this shape:
-// owner rows a warp, owner rows a tile, row tiles a (batch, head), tiles a
-// block walks and the head-dim bucket; `vec` as for the forward.
+// takes on the current device for 16-byte-aligned streams of this shape
+// and `elem`-byte elements (4 for fp32, 2 for bf16): owner rows a warp,
+// owner rows a tile, row tiles a (batch, head), tiles a block walks and the
+// head-dim bucket; `vec` as for the forward.
 extern "C" int band_attention_backward_instance(
-    int B, int T, int H, int D, int w, int dkv, int* rows_warp, int* rows,
-    int* tiles, int* per_block, int* bucket, int* vec) {
-  if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
-  BandBwdProblem p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                   nullptr, nullptr, nullptr, T, H, D, w, 1.f, 0, 0, 0, 0};
-  const cudaError_t err = dkv ? backward<true>(&p, B, nullptr, false)
-                              : backward<false>(&p, B, nullptr, false);
-  *rows_warp = p.rows_warp;
-  *rows = p.rows;
-  *tiles = p.tiles;
-  *per_block = p.per_block;
+    int B, int T, int H, int D, int w, int dkv, int elem, int* rows_warp,
+    int* rows, int* tiles, int* per_block, int* bucket, int* vec) {
+  if (bad_shape(B, T, H, D, w) || (elem != 4 && elem != 2))
+    return (int)cudaErrorInvalidValue;
   *bucket = head_bucket(D);
-  *vec = vector_streams(D, sizeof(float), {});
-  return (int)err;
+  *vec = vector_streams(D, elem, {});
+  return (int)(elem == 4
+                   ? backward_instance<float>(B, T, H, D, w, dkv != 0,
+                                              rows_warp, rows, tiles,
+                                              per_block)
+                   : backward_instance<bf16>(B, T, H, D, w, dkv != 0,
+                                             rows_warp, rows, tiles,
+                                             per_block));
 }
 
 // The message of a code returned above, for the Python wrapper's error.

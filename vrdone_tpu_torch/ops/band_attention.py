@@ -22,12 +22,14 @@ instance (rows a tile, tiles a block walks, head-dim bucket, vector or
 scalar copies; for the backward also owner rows a warp) from the shape and
 the card; ``forward_instance`` and ``backward_instance`` report it.
 
-The forward without a bias (K1) also takes bf16 streams (bf16 serving); its
-plain version then follows the JAX dense form's promotions: the scores in
-fp32 from the widened operands (q scaled in fp32, as the dense form's numpy
-scale makes it; Pallas scales the fp32 dot instead), softmax in fp32, P
-rounded to bf16 before P.V, a bf16 output and an fp32 lse. The bias forward
-(K4) and the backward (K2/K3) take fp32 only and refuse bf16.
+The forward without a bias (K1) also takes bf16 streams (bf16 serving and
+training); its plain version then follows the JAX dense form's promotions:
+the scores in fp32 from the widened operands (q scaled in fp32, as the
+dense form's numpy scale makes it; Pallas scales the fp32 dot instead),
+softmax in fp32, P rounded to bf16 before P.V, a bf16 output and an fp32
+lse. The backward (K2/K3) takes bf16 streams too (bf16 training), with the
+Pallas backward's promotions: ``band_backward_plain`` is its plain version.
+The bias forward (K4) takes fp32 only and refuses bf16.
 """
 
 from __future__ import annotations
@@ -46,11 +48,13 @@ MAX_HALF_WINDOW = 15  # the 2w + 1 keys of a row fit one warp's lanes
 MAX_HEAD_DIM = 256
 
 # launches of each CUDA kernel since the counts were last set to 0
-launches = 0       # forward, either dtype
-bf16_launches = 0  # forward, its bf16 instances alone
-pe_launches = 0    # forward with the relative-position bias
-dq_launches = 0    # backward, dQ
-dkv_launches = 0   # backward, dK and dV
+launches = 0           # forward, either dtype
+bf16_launches = 0      # forward, its bf16 instances alone
+pe_launches = 0        # forward with the relative-position bias
+dq_launches = 0        # backward, dQ, either dtype
+dkv_launches = 0       # backward, dK and dV, either dtype
+bf16_dq_launches = 0   # backward, dQ, its bf16 instances alone
+bf16_dkv_launches = 0  # backward, dK and dV, its bf16 instances alone
 
 
 def _band_scores(q, k, kv_mask, n_head, window_size, rel_pe=None):
@@ -109,6 +113,36 @@ def band_lse_plain(q: torch.Tensor, k: torch.Tensor, kv_mask: torch.Tensor,
                            dim=-1)
 
 
+def band_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_mask: torch.Tensor, lse: torch.Tensor,
+                        dr: torch.Tensor, dout: torch.Tensor, *, n_head: int,
+                        window_size: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) of the band attention for the upstream gradient
+    ``dout``, from the forward's (B, H, T) fp32 ``lse`` and
+    ``dr = band_rowsum(dout, out)``: the plain version of the dQ (K2) and
+    dK/dV (K3) kernels. The Pallas backward's promotions
+    (``_dq_kernel``, ``_dkv_kernel``): the streams widened to fp32, the
+    scores rebuilt as the forward builds them, P = exp(s - lse) and dS =
+    P * (dO . V - Dr) in fp32 (P is not rounded, where the forward rounded
+    it before P.V), and each gradient rounded to the streams' dtype once.
+    An invalid query row has P = 0: dQ = 0 there, and it gives nothing to
+    dK or dV."""
+    d = q.shape[-1] // n_head
+    scale = 1.0 / math.sqrt(d)
+    s = _band_scores(q, k, kv_mask, n_head, window_size)
+    p = torch.exp(s - lse[..., None]) * kv_mask[:, None, :, None]
+    qh, kh, vh, doh = (split_heads(x, n_head).float()
+                       for x in (q, k, v, dout))
+    dp = torch.einsum("bhqd,bhkd->bhqk", doh, vh)
+    ds = p * (dp - dr[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, doh)
+    return tuple(merge_heads(g).to(x.dtype)
+                 for g, x in ((dq, q), (dk, k), (dv, v)))
+
+
 @functools.cache
 def _kernel() -> ctypes.CDLL:
     lib = _build.load_library("band_attention")
@@ -116,7 +150,9 @@ def _kernel() -> ctypes.CDLL:
     for fn, n_ptr in ((lib.band_attention_forward, 6),
                       (lib.band_attention_forward_bf16, 6),
                       (lib.band_attention_backward_dq, 8),
-                      (lib.band_attention_backward_dkv, 9)):
+                      (lib.band_attention_backward_dq_bf16, 8),
+                      (lib.band_attention_backward_dkv, 9),
+                      (lib.band_attention_backward_dkv_bf16, 9)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
     lib.band_attention_pe_forward.restype = ctypes.c_int
@@ -128,7 +164,7 @@ def _kernel() -> ctypes.CDLL:
         [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 5)
     lib.band_attention_backward_instance.restype = ctypes.c_int
     lib.band_attention_backward_instance.argtypes = (
-        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 6)
+        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 6)
     lib.band_attention_error_string.restype = ctypes.c_char_p
     lib.band_attention_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -162,15 +198,16 @@ def forward_instance(device: int, b: int, t: int, n_head: int, d: int,
 
 
 def backward_instance(device: int, b: int, t: int, n_head: int, d: int,
-                      window_size: int, dkv: bool = False) -> dict:
+                      window_size: int, dkv: bool = False,
+                      dtype: torch.dtype = torch.float32) -> dict:
     """The instance the dQ kernel (K2), or with ``dkv`` the dK/dV kernel
     (K3), takes on ``device`` for 16-byte-aligned (B, T, n_head * d)
-    streams: ``rows_warp`` owner rows a warp, and ``rows``, ``tiles``,
-    ``per_block``, ``bucket`` and ``vec`` as ``forward_instance`` has
-    them."""
+    streams of ``dtype`` (fp32 or bf16): ``rows_warp`` owner rows a warp,
+    and ``rows``, ``tiles``, ``per_block``, ``bucket`` and ``vec`` as
+    ``forward_instance`` has them."""
     return _read_instance(
         device, _kernel().band_attention_backward_instance,
-        (b, t, n_head, d, window_size // 2, int(dkv)),
+        (b, t, n_head, d, window_size // 2, int(dkv), dtype.itemsize),
         ("rows_warp", "rows", "tiles", "per_block", "bucket", "vec"))
 
 
@@ -196,7 +233,7 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _refuse_bf16(name: str, x: torch.Tensor, why: str) -> None:
-    """K4 and the backward kernels have fp32 instances only."""
+    """K4 has fp32 instances only."""
     if x.dtype == torch.bfloat16:
         raise TypeError(f"{name} takes float32 streams only, got bfloat16: "
                         f"{why}")
@@ -267,20 +304,21 @@ def band_attention_pe_cuda(q: torch.Tensor, k: torch.Tensor,
 
 def band_rowsum(dout: torch.Tensor, out: torch.Tensor, n_head: int
                 ) -> torch.Tensor:
-    """Dr = rowsum(dO * O): (B, H, T) fp32, a plain op (as in JAX,
-    ``band_attention.py:251-252``)."""
+    """Dr = rowsum(dO * O): (B, H, T) fp32, a plain op on the streams
+    widened to fp32 (as in JAX, ``band_attention.py:251-252``)."""
     b, t, c = out.shape
-    return ((dout * out).view(b, t, n_head, c // n_head).sum(-1)
-            .transpose(1, 2).contiguous())
+    return ((dout.float() * out.float()).view(b, t, n_head, c // n_head)
+            .sum(-1).transpose(1, 2).contiguous())
 
 
 def _backward_args(q, k, v, kv_mask, lse, dr, dout, n_head, window_size):
-    _refuse_bf16("the band backward (K2/K3)", q,
-                 "ROADMAP.md queue 1, the bf16 compute path (training)")
     b, t, d, w, scale = _shape(q, k, v, kv_mask, n_head, window_size)
-    if (dout.shape != q.shape or dout.dtype != torch.float32
-            or dout.device != q.device or not dout.is_contiguous()):
-        raise ValueError("dout must be a contiguous fp32 tensor like q")
+    if dout.dtype != q.dtype:
+        raise TypeError(f"dout must have q's dtype {q.dtype}, got "
+                        f"{dout.dtype}: q, k, v and dout share one dtype")
+    if (dout.shape != q.shape or dout.device != q.device
+            or not dout.is_contiguous()):
+        raise ValueError("dout must be a contiguous tensor like q")
     for name, x in (("lse", lse), ("dr", dr)):
         if (x.shape != (b, n_head, t) or x.dtype != torch.float32
                 or x.device != q.device or not x.is_contiguous()):
@@ -295,17 +333,22 @@ def band_attention_dq_cuda(q, k, v, kv_mask, lse, dr, dout, *, n_head: int,
                            window_size: int) -> torch.Tensor:
     """dQ of the band attention for the upstream gradient ``dout``, from
     the forward's lse and ``band_rowsum(dout, out)``: one launch of the dQ
-    kernel."""
-    global dq_launches
+    kernel, for fp32 or bf16 streams (q, k, v and dout in one dtype; the
+    bf16 instance with bf16 streams) with fp32 lse and dr. Same contract as
+    ``band_backward_plain``'s dQ."""
+    global dq_launches, bf16_dq_launches
     ptrs, dims = _backward_args(q, k, v, kv_mask, lse, dr, dout, n_head,
                                 window_size)
     lib = _kernel()
+    bf16 = q.dtype == torch.bfloat16
+    fn = (lib.band_attention_backward_dq_bf16 if bf16
+          else lib.band_attention_backward_dq)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        code = lib.band_attention_backward_dq(*ptrs, dq.data_ptr(), *dims,
-                                              _stream(q))
+        code = fn(*ptrs, dq.data_ptr(), *dims, _stream(q))
     _build.check_launch(lib, "band_attention", code)
     dq_launches += 1
+    bf16_dq_launches += bf16
     return dq
 
 
@@ -313,25 +356,28 @@ def band_attention_dkv_cuda(q, k, v, kv_mask, lse, dr, dout, *, n_head: int,
                             window_size: int
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV), from the same inputs as ``band_attention_dq_cuda``: one
-    launch of the dK/dV kernel."""
-    global dkv_launches
+    launch of the dK/dV kernel (its bf16 instance with bf16 streams)."""
+    global dkv_launches, bf16_dkv_launches
     ptrs, dims = _backward_args(q, k, v, kv_mask, lse, dr, dout, n_head,
                                 window_size)
     lib = _kernel()
+    bf16 = q.dtype == torch.bfloat16
+    fn = (lib.band_attention_backward_dkv_bf16 if bf16
+          else lib.band_attention_backward_dkv)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        code = lib.band_attention_backward_dkv(*ptrs, dk.data_ptr(),
-                                               dv.data_ptr(), *dims,
-                                               _stream(q))
+        code = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, _stream(q))
     _build.check_launch(lib, "band_attention", code)
     dkv_launches += 1
+    bf16_dkv_launches += bf16
     return dk, dv
 
 
 class BandAttention(torch.autograd.Function):
     """Differentiable band attention on the card: the forward kernel with
     its lse, and the dQ and dK/dV kernels as the backward (the port of the
-    JAX package's ``_band_core`` custom VJP)."""
+    JAX package's ``_band_core`` custom VJP); fp32 or bf16 streams, the
+    lse and Dr fp32 either way."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, n_head, window_size):

@@ -179,13 +179,20 @@ def resize_pe_linear(pe: torch.Tensor, new_len: int) -> torch.Tensor:
 # stochastic depth and dropout
 # ---------------------------------------------------------------------------
 
-def _uniform(shape, generator: torch.Generator,
-             like: torch.Tensor) -> torch.Tensor:
-    """U[0, 1) draws from ``generator`` on its own device, moved to
-    ``like``'s. With a CPU generator a CPU run and a card run from one seed
-    draw the same numbers."""
+def _uniform(shape, generator: torch.Generator, like: torch.Tensor,
+             dtype: torch.dtype | None = None) -> torch.Tensor:
+    """U[0, 1) draws of ``dtype`` (``like``'s by default) from
+    ``generator`` on its own device, moved to ``like``'s. With a CPU
+    generator a CPU run and a card run from one seed draw the same numbers.
+    Below fp32's precision the fp32 draws are cut down to the dtype's
+    mantissa, multiples of its eps in [0, 1 - eps], as ``jax.random.
+    uniform`` draws them (rounding to nearest would give 1.0)."""
+    dtype = like.dtype if dtype is None else dtype
     u = torch.rand(shape, generator=generator, device=generator.device)
-    return u.to(device=like.device, dtype=like.dtype)
+    eps = torch.finfo(dtype).eps
+    if eps > torch.finfo(u.dtype).eps:
+        u = torch.floor(u / eps) * eps
+    return u.to(device=like.device, dtype=dtype)
 
 
 def drop_path_with(x: torch.Tensor, u: torch.Tensor,
@@ -214,10 +221,11 @@ def drop_path(x: torch.Tensor, drop_prob: float, training: bool,
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: torch.Generator | None) -> torch.Tensor:
     """Elementwise dropout as flax ``nn.Dropout``: keep with probability
-    1 - p, kept values scale by 1/(1 - p); identity at eval or p == 0."""
+    1 - p (fp32 uniforms whatever x's dtype, as ``random.bernoulli`` draws
+    them), kept values scale by 1/(1 - p); identity at eval or p == 0."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    keep = _uniform(x.shape, generator, x) < 1.0 - p
+    keep = _uniform(x.shape, generator, x, torch.float32) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))

@@ -7,24 +7,41 @@ global-norm clip, AdamW, EMA. Band attention runs its CUDA kernels forward
 and backward on the card; full attention runs its dense form, as the JAX
 package trains through it.
 
-Not ported (each raises): ``remat``, ``compute_dtype: bfloat16`` (here,
-where the JAX train loop reads the field; the model itself computes in the
-dtype of its parameters and inputs) and a device mesh; see ROADMAP.md
-queue 1, the bf16 compute path (training), remat and data parallelism.
+``compute_dtype: bfloat16`` (read here, as the JAX train loop reads it;
+the model computes in the dtype of its parameters and inputs) runs the
+forward on a differentiable bf16 cast of the fp32 masters with bf16
+features: the optimizer, its moments and the EMA stay fp32, the heads come
+back in fp32 and matching and the losses run in fp32. ``remat`` recomputes
+the forward, the cast included, in the backward (``remat_policy`` "full",
+or "dots": the outputs of the plain matrix products are kept).
+
+Not ported (it raises in ``train_torch.py``): a device mesh; see
+ROADMAP.md queue 1, data parallelism.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint
 
 from ..config import ModelConfig
 from ..convert import load_params
 from ..models.maskvrd import MaskVRD, compute_losses
+from ..utils.precision import cast_tensors
 from . import optim
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+REMAT_POLICIES = ("full", "dots")
+# what remat policy "dots" keeps, as JAX's dots_with_no_batch_dims_saveable:
+# the outputs of the products without a batch dimension (the Dense
+# layers'); the attention's batched products and everything elementwise
+# are recomputed
+DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
 @dataclasses.dataclass
@@ -52,14 +69,14 @@ def create_train_state(cfg: ModelConfig, training_config: dict,
                        flax_params: Optional[dict] = None
                        ) -> tuple[TrainState, optim.Schedule]:
     """Build the model (random init from ``generator``, or the flattened
-    flax parameters ``flax_params``), its EMA copy and the optimizer."""
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is not ported; see ROADMAP.md queue 1, remat")
-    if cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute_dtype bfloat16 is not ported for training; see "
-            "ROADMAP.md queue 1, the bf16 compute path (training)")
+    flax parameters ``flax_params``), its EMA copy and the optimizer. The
+    parameters are fp32 whatever ``cfg.compute_dtype`` is."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}, not one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}, not one of "
+                         f"{REMAT_POLICIES}")
     if (generator is None) == (flax_params is None):
         raise ValueError("give exactly one of generator and flax_params")
     # built and filled on the CPU, where the generator draws, then moved:
@@ -89,6 +106,39 @@ def batch_to_device(batch: dict[str, np.ndarray],
             for k, v in batch.items()}
 
 
+def _forward(model: MaskVRD, batch: dict[str, torch.Tensor],
+             generator: Optional[torch.Generator]) -> dict:
+    """The step's forward in training mode, as the JAX train step's
+    ``forward``: in bf16 on ``cast_tensors`` of the fp32 parameters with
+    bf16 features, and with ``remat`` under ``checkpoint``. The drop-path
+    and dropout masks come from a generator rebuilt from ``generator``'s
+    state at each run, so the recompute draws the masks the forward drew
+    (``checkpoint`` restores the default generators, not this one);
+    ``generator`` itself is not advanced."""
+    cfg = model.config
+    dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+    rng = None if generator is None else generator.get_state()
+
+    def run():
+        gen = None
+        if rng is not None:
+            gen = torch.Generator(generator.device)
+            gen.set_state(rng)
+        feats = batch["feats"].to(dtype)
+        if dtype == torch.float32:
+            return model(feats, batch["seq_mask"], gen)
+        return torch.func.functional_call(
+            model, cast_tensors(model, dtype), (feats, batch["seq_mask"], gen))
+
+    if not cfg.remat:
+        return run()
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, DOTS_SAVED)
+    return checkpoint.checkpoint(run, use_reentrant=False, **kw)
+
+
 def train_step(state: TrainState, batch: dict[str, torch.Tensor],
                generator: Optional[torch.Generator]
                ) -> tuple[TrainState, dict[str, torch.Tensor]]:
@@ -96,7 +146,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor],
     Updates ``state`` in place and returns it with the detached losses."""
     model = state.model
     model.train()
-    preds = model(batch["feats"], batch["seq_mask"], generator)
+    preds = _forward(model, batch, generator)
     losses = compute_losses(model.config, preds, batch)
     params = state.params()
     grads = torch.autograd.grad(losses["total_loss"], params,

@@ -1,9 +1,11 @@
 """Mixed-precision helpers (counterpart of ``vrdone_tpu/utils/precision.py``).
 
 bf16 serving runs the network body in bfloat16: take a ``cast_floating``
-copy of the model and hand it bf16 features. LayerNorm statistics, the
-attention scores and softmax, and the heads stay fp32 inside the model
-(``MaskVRD.forward``).
+copy of the model and hand it bf16 features. bf16 training keeps the fp32
+masters and runs the forward on ``cast_tensors`` of them inside autograd
+(``train/loop.py``), as the JAX train step casts its parameters inside
+``jax.grad``. Either way LayerNorm statistics, the attention scores and
+softmax, and the heads stay fp32 inside the model (``MaskVRD.forward``).
 """
 
 from __future__ import annotations
@@ -20,3 +22,17 @@ def cast_floating(module: nn.Module,
     ``dtype``; integer and bool buffers keep theirs, and ``module`` is left
     as it was (as JAX's ``cast_floating`` returns a new tree)."""
     return copy.deepcopy(module).to(dtype)
+
+
+def cast_tensors(module: nn.Module, dtype: torch.dtype = torch.bfloat16
+                 ) -> dict[str, torch.Tensor]:
+    """``module``'s parameters and buffers by ``state_dict`` name, the
+    floating ones cast to ``dtype`` (integer and bool buffers as they are,
+    as ``cast_floating`` leaves them), for ``torch.func.functional_call``.
+    The cast is differentiable: gradients reach the parameters in their own
+    dtype (fp32 masters get fp32 gradients, each the cast of the ``dtype``
+    gradient, as JAX's cast inside ``jax.grad`` gives them)."""
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    return {k: t.to(dtype) if t.is_floating_point() else t
+            for k, t in tensors.items()}
