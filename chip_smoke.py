@@ -56,15 +56,21 @@ one process per source, all started together, into
      wrapper, its plain version and its bound; holds the fused
      set-attention kernel (K5) against its plain version at the detector's
      shapes and times it alone at each of a frame's five shapes beside its
-     wrapper, SDPA and its bound (right after 2, with every other kernel
-     check); runs ``detect_video`` at full width (R-101-C4, 608x1088, 300
-     key / 75 reference proposals, window 25, global 10, 16 frames, random
-     seeded weights) through the fused attention and again through the
-     position-bias kernel, with the launches of each (one ``bias_factors``
-     before each biased K5 or K6 call), each route's phase times and its
-     stream phase's kernels a frame; checks a small detector on the card
-     against the CPU, stage by stage and whole, and runs
-     ``detect_torch.py`` on the card;
+     wrapper, SDPA and its bound, and K5's bf16 instance against its bf16
+     plain version (``BF16_KERNEL_TOL``) at the five shapes with and
+     without the bias, each timed alone beside the fp32 instance, SDPA in
+     bf16 and its bound (right after 2, with every other kernel check);
+     runs ``detect_video`` at full width (R-101-C4, 608x1088, 300 key / 75
+     reference proposals, window 25, global 10, 16 frames, random seeded
+     weights) through the fused attention, again through the
+     position-bias kernel and in bf16 (``compute_dtype="bfloat16"``: K5's
+     bf16 instance only), with the launches of each (one ``bias_factors``
+     before each biased K5 or K6 call), each route's phase times (fp32 and
+     bf16 in turns) and its stream phase's kernels a frame; checks a small
+     detector on the card against the CPU, stage by stage and whole, and
+     in bf16 against the port's bf16 CPU run stage by stage
+     (``BF16_DETECT_MAX``, ``BF16_DETECT_MEAN``), and runs
+     ``detect_torch.py`` on the card (bf16, its default);
   8. holds the band kernel with the relative-position bias (K4) against
      its plain version at the streamed stem's and branches' shapes,
      ``BandAttentionPE``'s gradients against plain autograd, and the band
@@ -147,6 +153,11 @@ BF16_LOSS_TOL = 5e-2
 MATCH_TIE_TOL = 1e-2
 BIAS_RTOL, BIAS_ATOL = 2e-5, 1e-5   # position bias vs plain, gate space
 DETECT_TOL = 1e-3   # small detector, CUDA vs CPU, times max |x|
+# small bf16 detector, card vs the port's bf16 CPU run, times max |ref|: the
+# largest and the mean gap JAX's own tests allow its bf16 precompute and
+# stream against fp32 (tests/test_detector.py::test_bf16_precompute_parity,
+# test_bf16_stream_parity); both sides round to bf16 in their own places
+BF16_DETECT_MAX, BF16_DETECT_MEAN = 5e-2, 5e-3
 DETECT_FRAMES, CANVAS = 16, (608, 1088)
 B_CHECK, B_RATE, T = 8, 128, 96
 TRAIN_PAIRS = (8, 24, 96)   # checked on both devices; timed; timed
@@ -1611,7 +1622,7 @@ def check_mega_kernels(cuda, pb, ma) -> dict:
                  + n * gg * dgo + (4 * (n + m) + 65 * gg if bias else 0))
             + m, 2 * gg * pairs * (dgq + dgo)
             + (2 * 64 * gg * pairs if bias else 0))
-        splits = ma.key_splits(cuda.index, n, m, gg, dgq, dgo)
+        splits = ma.launch_plan(cuda.index, n, m, gg, dgq, dgo)[1]
         print(f"mega_attention {label}: the kernel alone {alone[0]:.4f} / "
               f"{alone[1]:.4f} ms, wrapper {(k1 + k2) / 2:.4f} ms "
               f"({(k1 + k2) / sum(alone):.2f}x the kernel alone), "
@@ -1627,13 +1638,115 @@ def check_mega_kernels(cuda, pb, ma) -> dict:
                 bound_ms=bms, bound_by=by, device_ms=sum(alone) / 2,
                 shape="G=16 N=675 M=3750 dg=64")
     entries["mega_attention"]["max_abs_err"] = worst
+    entries["mega_attention_bf16"] = check_mega_bf16(cuda, pb, ma)
     return entries
+
+
+# the fused set-attention's five shapes in a full-width detect_video frame
+MEGA_DETECT_CASES = (("local stage 0", 675, 3750),
+                     ("local stage 1", 675, 750),
+                     ("local stage 2", 300, 750),
+                     ("global, key rows", 300, 750),
+                     ("global, window rows", 1875, 750))
+
+
+def check_mega_bf16(cuda, pb, ma) -> dict:
+    """K5's bf16 instance against its bf16 plain version at the detector's
+    five shapes, each with and without the bias, within BF16_KERNEL_TOL;
+    each timed alone beside the fp32 instance alone, the wrapper, the plain
+    version, SDPA in bf16 (the bias, u-term and validity as one bf16
+    additive mask built outside the timing) and the bound: the largest of
+    the products at the dense bf16 rate, the bias's fp32 work at the fp32
+    rate and the bytes (bf16 q, k, vproj and output; fp32 ub, rois and
+    Wg) at the memory rate. Prints each instance's rows and key splits
+    and nvcc's registers and spills of both element types. Returns the
+    JSON entry
+    ``mega_attention_bf16`` (stage 0 with the bias; all ten in
+    ``by_shape``)."""
+    from vrdone_tpu_torch.ops import _build
+    bf = torch.bfloat16
+    usage = [ln for ln in ptxas_usage(_build.BUILD_LOG.get(
+        "mega_attention", (0.0, ""))[1]) if "mega_attention" in ln]
+    print("mega_attention instances, nvcc (-Xptxas -v): "
+          + ("; ".join(usage) or "not compiled in this process"))
+    rng = np.random.default_rng(11)
+    g, dg = 16, 64
+    rows = []
+    for label, n, m in MEGA_DETECT_CASES:
+        q, k, vp, ub, valid, *extra = mega_case(rng, g, n, m, dg, dg, 0.9,
+                                                cuda)
+        q16, k16, vp16 = (x.to(bf) for x in (q, k, vp))
+        plan16 = ma.launch_plan(cuda.index, n, m, g, dg, dg, True)
+        plan32 = ma.launch_plan(cuda.index, n, m, g, dg, dg)
+        for bias in (True, False):
+            ex = extra if bias else []
+
+            def kernel():
+                return ma.mega_attention_cuda(q16, k16, vp16, ub, valid, *ex)
+
+            def plain():
+                return ma.mega_attention_plain(q16, k16, vp16, ub, valid, *ex)
+
+            out, ref = kernel(), plain()
+            if not out.dtype == ref.dtype == bf:
+                raise AssertionError(f"mega_attention_bf16 {label}: "
+                                     f"{out.dtype} output, plain {ref.dtype}")
+            err = (out.float() - ref.float()).abs().max().item()
+            limit = BF16_KERNEL_TOL * (1 + ref.float().abs().max().item())
+            if not (torch.isfinite(out.float()).all() and err <= limit):
+                raise AssertionError(f"mega_attention_bf16 off by {err} "
+                                     f"({label}, bias={bias})")
+            p1, k1, k2, p2 = (time_ms(f) for f in (plain, kernel, kernel,
+                                                   plain))
+            with cached_bias_operands(ma, ex):
+                alone = queued_device_ms(kernel)
+                alone32 = queued_device_ms(lambda: ma.mega_attention_cuda(
+                    q, k, vp, ub, valid, *ex))
+            with torch.no_grad():
+                lib_mask = (pb.position_bias_plain(*ex) if bias else 0.0) \
+                    + ub[:, None, :].expand(g, n, m)
+                lib_mask = lib_mask.masked_fill(
+                    ~valid[None, None, :], float("-inf")).to(bf)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q16[None], k16[None], vp16[None], attn_mask=lib_mask[None],
+                scale=1.0 / math.sqrt(dg)))
+            del lib_mask
+            pairs = n * int(valid.sum())
+            n_bytes = (2 * (q.numel() + k.numel() + vp.numel() + n * g * dg)
+                       + 4 * ub.numel() + m
+                       + (4 * (4 * (n + m) + 65 * g) if bias else 0))
+            # the products and the bias's fp32 work run on other pipes,
+            # so the least time takes the slower of the two
+            t_bytes = n_bytes / PEAK_BYTES
+            t_ops = max(2 * g * pairs * 2 * dg / PEAK_BF16_MMA,
+                        2 * 64 * g * pairs / PEAK_FLOPS if bias else 0.0)
+            bms = 1e3 * max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            shape = (f"{label} G={g} N={n} M={m} dg=dgo={dg} "
+                     f"{'with' if bias else 'no'} bias")
+            print(f"mega_attention_bf16 {shape} (instance {plan16[0]} rows a "
+                  f"block, {plan16[1]} key splits; fp32 {plan32[0]} rows, "
+                  f"{plan32[1]} splits): max_abs_err {err:.3e} (limit "
+                  f"{limit:.3e}), the kernel alone {alone:.4f} ms (fp32 "
+                  f"instance alone {alone32:.4f} ms), wrapper "
+                  f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms, "
+                  f"library (SDPA, bf16, mask precomputed) {lib_ms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by})")
+            rows.append(dict(shape=shape, max_abs_err=err, ms=(k1 + k2) / 2,
+                             device_ms=alone, fp32_device_ms=alone32,
+                             plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                             bound_ms=bms, bound_by=by))
+    return {**rows[0], "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "by_shape": rows}
 
 
 def check_detect_video(cuda, pb, ma) -> dict:
     """detect_video at full width on the card: the launches of one video
-    through each attention route, phase times, memory, a profile, and the
-    memory property. Returns the launches by route."""
+    through each attention route and in bf16 (the fused route, K5's bf16
+    instance only), phase times (fp32 and bf16 in turns), memory, the
+    stream phase's kernels a frame, the busy share of a whole video, and
+    the memory property. Returns the launches by route (the fp32 names
+    count fp32 instances only)."""
     from vrdone_tpu_torch.models import detector
     from vrdone_tpu_torch.models.detector import MegaDetector, detect_video
     det = MegaDetector(num_classes=31, device=torch.device("cpu"),
@@ -1643,7 +1756,8 @@ def check_detect_video(cuda, pb, ma) -> dict:
     images = rng.integers(0, 256, (t, *CANVAS, 3), dtype=np.uint8)
     hw = np.asarray(CANVAS, np.float32)
     routes = {"detect_video": {},
-              "detect_video_pe_bias": dict(fused_attention=False)}
+              "detect_video_pe_bias": dict(fused_attention=False),
+              "detect_video_bf16": dict(compute_dtype="bfloat16")}
     launches, outs, streams = {}, {}, {}
     real_stream = detector.stream_video
     for route, kw in routes.items():
@@ -1652,14 +1766,16 @@ def check_detect_video(cuda, pb, ma) -> dict:
             return real_stream(*args, **kwargs)
 
         torch.cuda.synchronize()
-        ma.launches = pb.launches = pb.factor_launches = 0
+        ma.launches = ma.bf16_launches = 0
+        pb.launches = pb.factor_launches = 0
         detector.stream_video = capture
         try:
             outs[route] = detect_video(det, images, hw, **kw)
         finally:
             detector.stream_video = real_stream
         torch.cuda.synchronize()
-        launches[route] = {"mega_attention": ma.launches,
+        launches[route] = {"mega_attention": ma.launches - ma.bf16_launches,
+                           "mega_attention_bf16": ma.bf16_launches,
                            "position_bias": pb.launches,
                            "bias_factors": pb.factor_launches}
         print(f"{route}: {t} frames, kernel launches {launches[route]}")
@@ -1667,12 +1783,18 @@ def check_detect_video(cuda, pb, ma) -> dict:
             if not np.isfinite(v).all():
                 raise AssertionError(f"{route}: non-finite {key}")
     # one factor launch before each biased K5 or K6 call: 3 local stages a
-    # frame on either route
-    expect = {"detect_video": {"mega_attention": 6 * t, "position_bias": 0,
+    # frame on either route and in either dtype
+    expect = {"detect_video": {"mega_attention": 6 * t,
+                               "mega_attention_bf16": 0, "position_bias": 0,
                                "bias_factors": 3 * t},
               "detect_video_pe_bias": {"mega_attention": 0,
+                                       "mega_attention_bf16": 0,
                                        "position_bias": 3 * t,
-                                       "bias_factors": 3 * t}}
+                                       "bias_factors": 3 * t},
+              "detect_video_bf16": {"mega_attention": 0,
+                                    "mega_attention_bf16": 6 * t,
+                                    "position_bias": 0,
+                                    "bias_factors": 3 * t}}
     if launches != expect:
         raise AssertionError(f"launches {launches}, expected {expect}")
     out = outs["detect_video"]
@@ -1686,21 +1808,39 @@ def check_detect_video(cuda, pb, ma) -> dict:
           f"it in {(apart > 1e-3 * scale).mean():.2%} of the values (random "
           f"weights saturate MEGA's softmax, so near-ties may flip between "
           f"routes; reported, not a check)")
+    out16 = outs["detect_video_bf16"]
+    for key in ("visual", "cls_logits"):
+        if out16[key].dtype != np.float32:
+            raise AssertionError(f"bf16 detect_video: {key} is "
+                                 f"{out16[key].dtype}")
+    same = sum(np.array_equal(out16["proposals"][f], out["proposals"][f])
+               for f in range(t))
+    print(f"detect_video_bf16 outputs: visual {out16['visual'].shape} fp32, "
+          f"max |visual| {np.abs(out16['visual']).max():.3e}; frames whose "
+          f"proposals equal fp32's: {same} of {t}; visual differs from "
+          f"fp32's by at most "
+          f"{np.abs(out16['visual'] - out['visual']).max() / scale:.3e} of "
+          f"max |visual| (reported, not a check: bf16 moves the RPN's "
+          f"near-ties and MEGA's saturated softmax)")
 
-    # each route's phases, twice, and its stream phase alone under the
-    # profiler: kernels and device time a frame
-    for route, kw in routes.items():
-        for _ in range(2):
-            timings = {}
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            detect_video(det, images, hw, timings=timings, **kw)
-            wall = time.perf_counter() - t0
-            print(f"{route} {t} frames {CANVAS[0]}x{CANVAS[1]} fp32: "
-                  + ", ".join(f"{k} {1e3 * v / t:.2f} ms/frame"
-                              for k, v in timings.items())
-                  + f"; {t / wall:.2f} frames/s; peak memory "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # each route's phases, twice (fp32 and bf16 in turns), and its stream
+    # phase alone under the profiler: kernels and device time a frame
+    order = ("detect_video", "detect_video_bf16", "detect_video_bf16",
+             "detect_video", "detect_video_pe_bias", "detect_video_pe_bias")
+    for route in order:
+        kw = routes[route]
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        detect_video(det, images, hw, timings=timings, **kw)
+        wall = time.perf_counter() - t0
+        print(f"{route} {t} frames {CANVAS[0]}x{CANVAS[1]} "
+              f"{kw.get('compute_dtype', 'float32')}: "
+              + ", ".join(f"{k} {1e3 * v / t:.2f} ms/frame"
+                          for k, v in timings.items())
+              + f"; {t / wall:.2f} frames/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for route in routes:
         args, kwargs = streams[route]
         with torch.no_grad():
             busy, wall, kernels = profile_device(
@@ -1710,12 +1850,14 @@ def check_detect_video(cuda, pb, ma) -> dict:
               f" kernels and {busy / t:.3f} ms of device time a frame, wall "
               f"{wall / t:.2f} ms a frame (profiler on)")
 
-    _, _, kernels = profile_device(lambda: detect_video(det, images, hw), 1,
-                                   "video")
-    k5 = [e for e in kernels if "mega_attention" in e.key]
-    print(f"detect_video: the fused set-attention's kernels "
-          f"{sum(dev_us(e) for e in k5) / 1e3:.3f} ms of device time a "
-          f"video, " + ", ".join(f"{e.count} x {e.key[:60]}" for e in k5))
+    for route in ("detect_video", "detect_video_bf16"):
+        _, _, kernels = profile_device(
+            lambda: detect_video(det, images, hw, **routes[route]), 1,
+            "video")
+        k5 = [e for e in kernels if "mega_attention" in e.key]
+        print(f"{route}: the fused set-attention's kernels "
+              f"{sum(dev_us(e) for e in k5) / 1e3:.3f} ms of device time a "
+              f"video, " + ", ".join(f"{e.count} x {e.key[:70]}" for e in k5))
 
     # the memory property: a change to frame 0 moves frame 3's logits
     images2 = images.copy()
@@ -1828,6 +1970,118 @@ def check_detect_vs_cpu(cuda) -> None:
         raise AssertionError(f"whole detection path off: {whole}")
 
 
+def check_detect_bf16_vs_cpu(cuda, pb, ma) -> None:
+    """The small detector in bf16 on the card against the port's bf16 run on
+    the CPU, stage by stage where no NMS decision is in the loop (as JAX's
+    bf16 tests pin it): C4 and the fc0 of fixed rois, the MEGA stream on
+    fixed fc0 inputs through the fused route (K5's bf16 instance; the plain
+    version on the CPU) and the dense route (K6, fp32), and
+    extract_video_features. Limits BF16_DETECT_MAX and BF16_DETECT_MEAN of
+    max |ref|, but extract_video_features's largest gap is held to the
+    larger of BF16_DETECT_MAX and twice the CPU's own bf16-to-fp32 gap
+    there: the MEGA scan over these random weights turns any rounding into
+    near-ties, and a card whose bf16 is as close to fp32 as the CPU's is
+    lies within twice that of the CPU's bf16. Every gap is printed before
+    any is held."""
+    from vrdone_tpu_torch.models.detector import (MegaDetector,
+                                                  extract_video_features)
+    from vrdone_tpu_torch.models.mega import global_indices, stream_video
+    from vrdone_tpu_torch.utils.precision import cast_floating
+    kw = dict(num_classes=31, resnet_layers=(1, 1, 1), base_num=16,
+              window=5, key_loc=2, global_size=3)
+    cpu32 = MegaDetector(**kw, device=torch.device("cpu"),
+                         generator=torch.Generator().manual_seed(1))
+    gpu32 = MegaDetector(**kw, device=cuda)
+    gpu32.load_state_dict(cpu32.state_dict())
+    devs = {"cpu": (torch.device("cpu"), cast_floating(cpu32)),
+            "cuda": (cuda, cast_floating(gpu32))}
+    rng = np.random.default_rng(13)
+    t, hw, nb = 5, (128, 192), 16
+    bf = torch.bfloat16
+    images = rng.integers(0, 256, (t, *hw, 3), dtype=np.uint8)
+
+    def boxes(*shape):
+        xy = rng.uniform(0, 1, (*shape, 2)) * (hw[1] * 0.7, hw[0] * 0.7)
+        return np.concatenate([xy, xy + rng.uniform(8, 60, (*shape, 2))],
+                              -1).astype(np.float32)
+
+    rois, rvalid = boxes(t, nb), rng.uniform(size=(t, nb)) < 0.8
+    gaps = {}
+
+    def held(name, got, ref, max_tol=BF16_DETECT_MAX):
+        got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+        scale = ref.abs().max().item()
+        gaps[name] = ((got - ref).abs().max().item() / scale,
+                      (got - ref).abs().mean().item() / scale, max_tol)
+
+    with torch.no_grad():
+        c4, fc0 = {}, {}
+        for name, (dev, det) in devs.items():
+            c4[name] = det.features(torch.from_numpy(images).to(dev), bf)
+            fc0[name] = torch.stack([det.frame_fc0(
+                c4[name][f], torch.from_numpy(rois[f]).to(dev),
+                torch.from_numpy(rvalid[f]).to(dev)) for f in range(t)])
+            if not c4[name].dtype == fc0[name].dtype == bf:
+                raise AssertionError(f"{name}: c4 {c4[name].dtype}, fc0 "
+                                     f"{fc0[name].dtype}")
+        held("c4", c4["cuda"], c4["cpu"])
+        held("fc0 of fixed rois", fc0["cuda"], fc0["cpu"])
+        # the stream on fixed fc0 inputs: the fp32 head cast inside
+        nk = 24
+        feats = [rng.standard_normal(sh).astype(np.float32)
+                 for sh in ((t, nk, 1024), (t, nb, 1024))]
+        stream_in = feats + [boxes(t, nk), np.ones((t, nk), bool),
+                             rois, rvalid]
+        sched = dict(mem_size=kw["window"], window=kw["window"],
+                     key_loc=kw["key_loc"],
+                     glob_idx=global_indices(t, kw["global_size"]),
+                     compute_dtype="bfloat16")
+        for route, flags, expect in (
+                ("fused", (False, True), (6 * t, 6 * t, 0)),
+                ("dense with K6", (True, False), (0, 0, 3 * t))):
+            got = {}
+            for name, (dev, _) in devs.items():
+                kf, rf, kb, kv, rb, rv = (torch.from_numpy(a).to(dev)
+                                          for a in stream_in)
+                det = cpu32 if name == "cpu" else gpu32
+                ma.launches = ma.bf16_launches = pb.launches = 0
+                got[name] = stream_video(
+                    det.mega.routed(*flags), key_feat=kf, key_rois=kb,
+                    key_valid=kv, key_is_fc0=True, ref_feat=rf,
+                    ref_rois=rb, ref_valid=rv, **sched)
+                if name == "cuda":
+                    torch.cuda.synchronize()
+                    seen = (ma.launches, ma.bf16_launches, pb.launches)
+                    if seen != expect:
+                        raise AssertionError(f"bf16 stream, {route} route: "
+                                             f"launches (K5, K5 bf16, K6) "
+                                             f"{seen}, expected {expect}")
+            if got["cuda"].dtype != torch.float32:
+                raise AssertionError(f"bf16 stream returns "
+                                     f"{got['cuda'].dtype}")
+            held(f"stream, {route} route", got["cuda"], got["cpu"])
+    ext = {name: extract_video_features(det, images, rois, rvalid,
+                                        compute_dtype="bfloat16")
+           for name, det in (("cpu", cpu32), ("cuda", gpu32))}
+    ext32 = extract_video_features(cpu32, images, rois, rvalid)
+    scale = np.abs(ext32).max()
+    own = float(np.abs(ext["cpu"] - ext32).max() / scale)
+    card = float(np.abs(ext["cuda"] - ext32).max() / scale)
+    held("extract_video_features", torch.from_numpy(ext["cuda"]),
+         torch.from_numpy(ext["cpu"]), max(BF16_DETECT_MAX, 2 * own))
+    print("small detector in bf16, card vs the port's bf16 CPU run, largest "
+          "/ mean gap of max |ref| (limits): "
+          + "; ".join(f"{k} {w:.3e} / {m:.3e} ({lim:.3e} / "
+                      f"{BF16_DETECT_MEAN:.0e})"
+                      for k, (w, m, lim) in gaps.items())
+          + f"; extract_video_features's largest gap to the CPU's fp32 run: "
+          f"the CPU's bf16 {own:.3e}, the card's bf16 {card:.3e}")
+    bad = {k: v for k, v in gaps.items()
+           if not (v[0] <= v[2] and v[1] <= BF16_DETECT_MEAN)}
+    if bad:
+        raise AssertionError(f"bf16 small detector off: {bad}")
+
+
 def check_detect_cli(device: str = "cuda") -> None:
     """detect_torch.py over a tiny synthetic frames directory."""
     from PIL import Image
@@ -1851,7 +2105,8 @@ def check_detect_cli(device: str = "cuda") -> None:
                                  f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
         if not (Path(root) / "out" / "vid0.pkl").exists():
             raise AssertionError("detect_torch.py wrote no pickle")
-        print(f"detect_torch.py on {device} (R-101, 6 frames): exit 0 in "
+        print(f"detect_torch.py on {device} (R-101, 6 frames, its default "
+              f"--compute_dtype bfloat16): exit 0 in "
               f"{time.perf_counter() - t0:.1f} s; {r.stdout.strip()}")
 
 
@@ -2264,6 +2519,7 @@ def main(argv: list[str] | None = None) -> int:
     # CPU, detect_torch.py
     detect_launches = check_detect_video(cuda, pb, ma)
     check_detect_vs_cpu(cuda)
+    check_detect_bf16_vs_cpu(cuda, pb, ma)
     check_detect_cli()
 
     # 8. the streaming runner at VidOR local-attention width
@@ -2286,6 +2542,10 @@ def main(argv: list[str] | None = None) -> int:
                                          "203 (bf16 operands)"),
                "mega_attention": ("vrdone_tpu_torch/csrc/mega_attention.cu",
                                   "vrdone_tpu/ops/pallas/mega_attention.py:56"),
+               "mega_attention_bf16": (
+                   "vrdone_tpu_torch/csrc/mega_attention.cu",
+                   "vrdone_tpu/ops/pallas/mega_attention.py:56 (bf16 "
+                   "operands)"),
                "position_bias": ("vrdone_tpu_torch/csrc/position_bias.cu",
                                  "vrdone_tpu/ops/pallas/position_bias.py:95"),
                "bias_factors": ("vrdone_tpu_torch/csrc/position_bias.cu",
@@ -2293,11 +2553,11 @@ def main(argv: list[str] | None = None) -> int:
                                 "(pe_setup, XLA-side: not a TPU kernel)")}
     # launches: the eval forward's for the forward band and full-attention
     # kernels, the train step's for the backward ones (the bf16 train
-    # step's for their bf16 instances), detect_video's for
-    # the fused set-attention and, with the fused attention off, for the
-    # position bias, the streaming run's for the bias band kernel, the
-    # VidVRD bf16 eval step's for the bf16 instances; every path is in
-    # launches_by_path
+    # step's for their bf16 instances), detect_video's for the fused
+    # set-attention (the bf16 detect_video's for its bf16 instance) and,
+    # with the fused attention off, for the position bias, the streaming
+    # run's for the bias band kernel, the VidVRD bf16 eval step's for the
+    # bf16 instances; every path is in launches_by_path
     by_path = {name: {"eval_forward": launches.get(name, 0),
                       "train_step": train_launches.get(name, 0),
                       "train_step_bf16": train16_launches.get(name, 0),
@@ -2308,6 +2568,7 @@ def main(argv: list[str] | None = None) -> int:
                          for width, c in bf16_launches.items()}}
                for name in sources}
     main_path = {"mega_attention": "detect_video",
+                 "mega_attention_bf16": "detect_video_bf16",
                  "position_bias": "detect_video_pe_bias",
                  "bias_factors": "detect_video",
                  "band_attention_pe": "stream",

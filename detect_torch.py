@@ -14,7 +14,8 @@ written to ``--out_dir``.
 ``--ckpt_path`` takes the ``.npz`` that ``tools/export_params_npz.py``
 writes from a JAX checkpoint; without it the weights are drawn from a
 seeded generator with the JAX initialisers' distributions. The detector
-runs in float32.
+runs in bfloat16 unless ``--compute_dtype float32`` is given, as
+``tools/detect_and_track.py`` does.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import torch
 from vrdone_tpu_torch.convert import load_npz, load_params
 from vrdone_tpu_torch.data.proposals import build_traj_proposal
 from vrdone_tpu_torch.data.tracking import IoUTracker, iou_matrix
-from vrdone_tpu_torch.models.detector import (BF16_NOT_PORTED, MegaDetector,
-                                              detect_video, postprocess_frame)
+from vrdone_tpu_torch.models.detector import (MegaDetector, detect_video,
+                                              postprocess_frame)
 
 
 class FrameLoader:
@@ -79,9 +80,10 @@ def parse_args():
     p.add_argument("--global_size", type=int, default=10)
     p.add_argument("--part", type=int, default=0)
     p.add_argument("--num_parts", type=int, default=1)
-    p.add_argument("--compute_dtype", default="float32",
+    p.add_argument("--compute_dtype", default="bfloat16",
                    choices=("float32", "bfloat16"),
-                   help="float32 only for now: " + BF16_NOT_PORTED)
+                   help="backbone/RoI precompute dtype (bf16 = serving "
+                        "fast path; box decode/NMS stay fp32 either way)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights without --ckpt_path")
     p.add_argument("--device", type=str, default="cuda",
@@ -105,8 +107,6 @@ def build_detector(args) -> MegaDetector:
 
 def main():
     args = parse_args()
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(BF16_NOT_PORTED)
     os.makedirs(args.out_dir, exist_ok=True)
     det = build_detector(args)
     canvas = np.asarray(args.canvas)
@@ -118,7 +118,8 @@ def main():
         frames = sorted(os.listdir(os.path.join(args.frames_dir, video)))
         loader = FrameLoader(args.frames_dir, video, frames, tuple(canvas))
         out = detect_video(det, loader, canvas,
-                           key_post_nms=args.post_nms_top_n)
+                           key_post_nms=args.post_nms_top_n,
+                           compute_dtype=args.compute_dtype)
         tracker = IoUTracker()
         for fid in range(len(frames)):
             res = postprocess_frame(

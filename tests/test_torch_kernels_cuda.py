@@ -901,7 +901,7 @@ def mega_split_case(seed, n, m, cuda, with_bias):
     one split (checked), and the plain version's output."""
     q, k, vp, ub, valid, *bias = mega_case(seed, 16, n, m, 64, 64, 0.9, cuda)
     bias = bias if with_bias else []
-    assert ma.key_splits(q.device.index, n, m, 16, 64, 64) > 1
+    assert ma.launch_plan(q.device.index, n, m, 16, 64, 64)[1] > 1
     return q, k, vp, ub, valid, bias
 
 
@@ -972,7 +972,7 @@ def test_mega_attention_valid_keys_in_one_split_only(cuda, with_bias):
     if bias:
         sel = valid.nonzero()[:, 0]
         qr, kr, w, b = bias
-        assert ma.key_splits(q.device.index, 675, 5, 16, 64, 64) == 1
+        assert ma.launch_plan(q.device.index, 675, 5, 16, 64, 64)[1] == 1
         want = ma.fused_mega_attention(q, k[:, sel], vp[:, sel], ub[:, sel],
                                        valid[sel], qr, kr[sel], w, b)
     else:
@@ -1450,3 +1450,183 @@ def test_model_bf16_forward_on_card_matches_cpu(cuda):
         assert out[key].dtype == torch.float32
         top = ref[key].abs().max().item()
         assert max_err(out[key].cpu(), ref[key]) <= 5e-2 * top, key
+
+
+# ---------------------------------------------------------------------------
+# bf16 instance of the fused set-attention kernel (K5)
+# ---------------------------------------------------------------------------
+
+def mega_bf16_case(seed, g, n, m, dg, dgo, p_valid, cuda):
+    """``mega_case`` with q, k and vproj in bf16 (ub and the bias operands
+    fp32, as the bf16 head hands them over)."""
+    q, k, vp, ub, valid, *bias = mega_case(seed, g, n, m, dg, dgo, p_valid,
+                                           cuda)
+    return (*to_bf16(q, k, vp), ub, valid, *bias)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("g,n,m,dg,dgo,p_valid", [
+    (16, 675, 3750, 64, 64, 0.9),     # local stage 0
+    (16, 675, 750, 64, 64, 0.9),      # local stage 1
+    (16, 300, 750, 64, 64, 0.9),      # local stage 2, global
+    (16, 1875, 750, 64, 64, 0.9),     # global over the window
+    (4, 10, 12, 256, 256, 0.7),       # the small detector's groups
+    (5, 13, 77, 32, 40, 0.5),         # 16-byte key loads, ragged dgo
+    (5, 13, 77, 30, 40, 0.5),         # dg % 8 != 0: 2-byte key loads
+    (16, 37, 101, 16, 24, 0.3),
+    (2, 3, 1, 8, 8, 1.0)])
+def test_mega_attention_bf16_instance_matches_plain(cuda, with_bias, g, n,
+                                                    m, dg, dgo, p_valid):
+    """The bf16 instance against the bf16 plain version (both round P to
+    bf16 before P.V and the output once; the kernel against the running
+    max of 32-key tiles and splits): within BF16_TOL; only the bf16 count
+    moves apart from the total."""
+    q, k, vp, ub, valid, *bias = mega_bf16_case(n * 7 + m, g, n, m, dg, dgo,
+                                                p_valid, cuda)
+    bias = bias if with_bias else []
+    before, before16 = ma.launches, ma.bf16_launches
+    got = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    torch.cuda.synchronize()
+    assert (ma.launches, ma.bf16_launches) == (before + 1, before16 + 1)
+    want = ma.mega_attention_plain(q, k, vp, ub, valid, *bias)
+    assert got.shape == (n, g * dgo) and torch.isfinite(got.float()).all()
+    assert bf16_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_mega_attention_bf16_splits_merge_and_skip_invalid_keys(cuda,
+                                                                with_bias):
+    """At stage 0's shape the bf16 instance splits the keys (its own
+    occupancy), merges them the same way every run, writes exactly 0 for a
+    row without a valid key and never reads an invalid key's k or vproj
+    (NaN there)."""
+    q, k, vp, ub, valid, *bias = mega_bf16_case(5, 16, 675, 3750, 64, 64,
+                                                0.9, cuda)
+    bias = bias if with_bias else []
+    assert ma.launch_plan(q.device.index, 675, 3750, 16, 64, 64,
+                          True)[1] > 1
+    want = ma.mega_attention_plain(q, k, vp, ub, valid, *bias)
+    k[:, ~valid] = float("nan")
+    vp[:, ~valid] = float("nan")
+    first = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    second = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.isfinite(first.float()).all()
+    assert bf16_err(first, want) <= BF16_TOL
+    none = torch.zeros_like(valid)
+    assert (ma.fused_mega_attention(q, k, vp, ub, none, *bias) == 0).all()
+
+
+def test_mega_attention_bf16_refuses_mixed_dtypes(cuda):
+    """q, k and vproj in one dtype; ub fp32 in either instance; no quiet
+    cast before the kernel."""
+    q, k, vp, ub, valid, *bias = mega_bf16_case(1, 4, 8, 16, 16, 16, 1.0,
+                                                cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        ma.fused_mega_attention(q, k.float(), vp, ub, valid, *bias)
+    with pytest.raises(TypeError, match="one dtype"):
+        ma.fused_mega_attention(q.float(), k, vp, ub, valid, *bias)
+    with pytest.raises(TypeError, match="ub"):
+        ma.fused_mega_attention(q, k, vp, ub.to(torch.bfloat16), valid,
+                                *bias)
+    with pytest.raises(TypeError, match="dtype"):
+        ma.fused_mega_attention(q.half(), k.half(), vp.half(), ub, valid)
+    qs, ks, vs = shifted(q), shifted(k), shifted(vp)
+    assert ks.data_ptr() % 16 and ks.is_contiguous()
+    assert bf16_err(ma.fused_mega_attention(qs, ks, vs, ub, valid, *bias),
+                    ma.mega_attention_plain(q, k, vp, ub, valid, *bias)) \
+        <= BF16_TOL
+
+
+def test_mega_attention_bf16_instance_is_what_launches(cuda, tmp_path):
+    """A bf16 call launches the bf16 instance (template argument
+    __nv_bfloat16), with the rows a block and the grid that launch_plan
+    reports, read from a ``torch.profiler`` trace."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    n, m = 675, 3750
+    q, k, vp, ub, valid, *bias = mega_bf16_case(2, 16, n, m, 64, 64, 0.9,
+                                                cuda)
+    rows, splits = ma.launch_plan(cuda.index or 0, n, m, 16, 64, 64, True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+            torch.cuda.synchronize()
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    seen = set()
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        if e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "")
+        if mm := re.search(r"mega_attention_kernel<(\d+), (\d+), (\w+)>",
+                           name):
+            assert (int(mm[1]), mm[3]) == (rows, "__nv_bfloat16")
+            assert e["args"]["grid"] == [-(-n // rows), splits, 1]
+            seen.add("kernel")
+        elif re.search(r"mega_attention_merge<(\w+)>", name):
+            assert "__nv_bfloat16" in name
+            seen.add("merge")
+    assert seen == {"kernel", "merge"}
+
+
+def test_mega_head_bf16_on_card_matches_cpu(cuda):
+    """MEGAHead.enhance of a ``cast_floating`` 16-group head with memory
+    and global sets on bf16 features: the card through K5's bf16 instance
+    (6 launches, none of the fp32 one) against the CPU's bf16 plain
+    version, within JAX's bf16 limits (5e-2 of max |ref| at the largest
+    gap, 5e-3 on average); the dense route's fp32 attention through K6."""
+    from vrdone_tpu_torch.models.mega import BoxSet, MEGAHead
+    gen = torch.Generator().manual_seed(0)
+    cpu = MEGAHead(feat_dim=256, groups=16, stage=3, advanced_num=3,
+                   in_dim=128, device=torch.device("cpu"), generator=gen)
+    gpu = MEGAHead(feat_dim=256, groups=16, stage=3, advanced_num=3,
+                   in_dim=128, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu, gpu = cast_floating(cpu), cast_floating(gpu)
+    rng = np.random.default_rng(3)
+    bf = torch.bfloat16
+
+    def boxes(*shape):
+        xy = rng.uniform(0, 500, (*shape, 2))
+        return np.concatenate([xy, xy + rng.uniform(8, 200, (*shape, 2))],
+                              -1).astype(np.float32)
+
+    arrays = [rng.standard_normal((12, 128)).astype(np.float32), boxes(12),
+              np.arange(12) < 10,
+              rng.standard_normal((5, 6, 256)).astype(np.float32),
+              boxes(5, 6), rng.uniform(size=(5, 6)) < 0.8]
+    mems = [(rng.standard_normal((n, 256)).astype(np.float32), boxes(n),
+             rng.uniform(size=n) < 0.8) for n in (30, 15, 15)]
+    glob = (rng.standard_normal((20, 256)).astype(np.float32), boxes(20),
+            np.ones(20, bool))
+
+    def tensors(xs, dev):
+        out = [torch.from_numpy(np.asarray(a)).to(dev) for a in xs]
+        return [x.to(bf) if x.dtype == torch.float32 and x.shape[-1] != 4
+                else x for x in out]
+
+    def run(head, dev, **flags):
+        tt = tensors(arrays, dev)
+        mem = [BoxSet(*tensors(x, dev)) for x in mems]
+        gl = BoxSet(*tensors(glob, dev))
+        with torch.no_grad():
+            return head.routed(**flags).enhance(
+                tt[0], tt[1], tt[2], BoxSet(*tt[3:]), mem, gl).float().cpu()
+
+    for flags, counts in ((dict(fused_pe_bias=False, fused_attention=True),
+                           (6, 6, 0)),
+                          (dict(fused_pe_bias=True, fused_attention=False),
+                           (0, 0, 3))):
+        want = run(cpu, torch.device("cpu"), **flags)
+        ma.launches = ma.bf16_launches = pb.launches = 0
+        got = run(gpu, cuda, **flags)
+        torch.cuda.synchronize()
+        assert (ma.launches, ma.bf16_launches, pb.launches) == counts
+        scale = want.abs().max().item()
+        assert max_err(got, want) <= 5e-2 * scale, flags
+        assert (got - want).abs().mean().item() <= 5e-3 * scale, flags

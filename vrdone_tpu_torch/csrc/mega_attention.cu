@@ -1,4 +1,5 @@
-// MEGA's fused grouped set-attention forward for Hopper (sm_90a), fp32.
+// MEGA's fused grouped set-attention forward for Hopper (sm_90a), fp32 and
+// bf16.
 //
 // Replaces the TPU kernel vrdone_tpu/ops/pallas/mega_attention.py::
 // fused_mega_attention (pallas_call at 177, body _attn_kernel at 56). Per
@@ -44,7 +45,7 @@
 //   and the weights are staged once per block. A tile without a valid key
 //   is skipped before its bias.
 // - Scores: lane j of warp g takes key j of the tile and the block's rows,
-//   reading its key row from L2 kChunk float4s at a time (one wait a chunk)
+//   reading its key row from L2 16 channels at a time (one wait a chunk)
 //   and the rows' queries from shared memory as broadcasts; ub is loaded
 //   beside them. Online softmax per (g, row), exp as the hardware's ex2.
 //   P goes to the warp's slice of shared memory, key-major, over the
@@ -68,11 +69,26 @@
 // in 8-row blocks, and one block an SM with more loads in flight were
 // tried and were slower.
 //
+// The bf16 instances (mega_attention_forward_bf16, the bf16 detector's
+// path) are the same body with __nv_bfloat16 q, k, vproj and output (E in
+// the templates), as the Pallas kernel runs on bf16 operands: the key rows
+// come as 16-byte loads of 8 bf16 (2 a chunk, the 16 channels of fp32's 4),
+// every stream is widened to fp32 in registers (exact), and the scores, the
+// online softmax, l and the P.V sums stay fp32. ub stays fp32 (JAX divides
+// the bf16 u.k by a numpy float, which promotes), and so does everything
+// of the bias (rois, A, Bt, wt, b: JAX computes it in fp32). As the Pallas
+// kernel does, P = exp(s - m) is rounded to bf16 before P.V while l sums
+// the unrounded values, and the output is rounded to bf16 once: by the
+// merge when the keys are split (the splits' partial states stay fp32),
+// else by the single pass. Against the Pallas kernel's 128-key tiles, P is
+// rounded relative to the running max of 32-key tiles (and of each split),
+// so the two agree within bf16's rounding, not bit for bit.
+//
 // Layout: q (G, N, DG), k (G, M, DG), vproj (G, M, DGO), ub (G, M), valid
 // (M,) bool (one byte each), out (N, G * DGO); with the bias, q_rois (N, 4),
-// k_rois (M, 4), A (G, N, 32), Bt (32, M), wt (G, 32), b (G,). All fp32
-// and contiguous. G <= 16, DG and DGO <= 256; the Python wrapper checks
-// them before the launch.
+// k_rois (M, 4), A (G, N, 32), Bt (32, M), wt (G, 32), b (G,). q, k, vproj
+// and out are all fp32 or all bf16, the rest fp32; all contiguous. G <= 16,
+// DG and DGO <= 256; the Python wrapper checks them before the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,10 +96,12 @@
 
 #include <algorithm>
 
+#include "element.cuh"
 #include "mega_bias.cuh"
 
 namespace {
 
+using element::bf16;
 using mega_bias::Freqs;
 using mega_bias::kPairFeat;
 using mega_bias::kSepDim;
@@ -92,10 +110,11 @@ constexpr int kTile = 32;       // keys per tile, one lane each
 constexpr int kMaxGroups = 16;  // one warp each
 constexpr int kMaxDim = 256;
 
+template <typename E>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* vproj;
+  const E* q;
+  const E* k;
+  const E* vproj;
   const float* ub;
   const unsigned char* valid;
   const float* q_rois;  // null: no bias (the global flavour)
@@ -104,7 +123,7 @@ struct Params {
   const float* Bt;
   const float* wt;
   const float* b;
-  float* out;
+  E* out;
   float* part;  // null: one split, the kernel writes `out` itself
   int N, M, G, DG, DGO;
   int tiles_per_split;
@@ -121,14 +140,34 @@ static_assert(kSepDim == kPairFeat, "the bias loop walks both at once");
 constexpr int kGS = 2;
 constexpr int kQuads = kTile / 4;
 
+// The 16 bytes of u as fp32: 4 floats, or 8 bf16 widened (exact).
+template <typename E>
+__device__ __forceinline__ void widen16(const uint4& u, float* x) {
+  if constexpr (sizeof(E) == 4) {
+    x[0] = __uint_as_float(u.x);
+    x[1] = __uint_as_float(u.y);
+    x[2] = __uint_as_float(u.z);
+    x[3] = __uint_as_float(u.w);
+  } else {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = element::lo_f32(w[i]);
+      x[2 * i + 1] = element::hi_f32(w[i]);
+    }
+  }
+}
+
 // kRows query rows per block and DPL = ceil(DGO / 32) output floats a lane
 // per row: kRows * DPL <= 16 keeps the accumulators at 16 registers, and
 // the launch bounds the rest, for 2 blocks an SM.
-template <int kRows, int DPL>
+template <int kRows, int DPL, typename E>
 __global__ void __launch_bounds__(kMaxGroups * 32, 2)
-mega_attention_kernel(const Params p) {
-  // loads in flight a lane: key-row float4s, and vproj rows of P.V
-  constexpr int kChunk = 4;
+mega_attention_kernel(const Params<E> p) {
+  // loads in flight a lane: 16-byte loads of the key row, 16 channels a
+  // chunk (4 of fp32, 2 of bf16), and vproj rows of P.V
+  constexpr int kVec = 16 / sizeof(E);
+  constexpr int kChunk = 16 / kVec;
   constexpr int kAhead = DPL >= 16 ? 1 : 16 / DPL;
   constexpr int kPairs = kRows * kTile;
   extern __shared__ __align__(16) float smem[];
@@ -159,7 +198,8 @@ mega_attention_kernel(const Params p) {
     const int r = (idx / DG) % kRows;
     const int c = idx % DG;
     const int n = n0 + r;
-    q_s[idx] = n < N ? p.q[((size_t)gg * N + n) * DG + c] : 0.f;
+    q_s[idx] = n < N ? element::to_f32(p.q[((size_t)gg * N + n) * DG + c])
+                     : 0.f;
   }
   if (with_bias) {
     for (int idx = tid; idx < Gp * kRows * kSepDim; idx += nthreads) {
@@ -182,10 +222,11 @@ mega_attention_kernel(const Params p) {
   __syncthreads();
 
   const float* qg = q_s + g * kRows * DG;
-  const float* kg = p.k + (size_t)g * M * DG;
-  const float* vg = p.vproj + (size_t)g * M * DGO;
-  // float4 loads of the key rows where the widths and the base allow them
-  const bool vec4 = (DG & 3) == 0 && (reinterpret_cast<size_t>(p.k) & 15) == 0;
+  const E* kg = p.k + (size_t)g * M * DG;
+  const E* vg = p.vproj + (size_t)g * M * DGO;
+  // 16-byte loads of the key rows where the widths and the base allow them
+  const bool vec =
+      DG % kVec == 0 && (reinterpret_cast<size_t>(p.k) & 15) == 0;
 
   // the softmax state (max, sum) of row r lives in lane r, two registers
   // where a copy in every lane would take 2 kRows
@@ -287,35 +328,39 @@ mega_attention_kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r] = 0.f;
     if (valid) {
-      const float* krow = kg + (size_t)m * DG;
+      const E* krow = kg + (size_t)m * DG;
       const float u = p.ub[(size_t)g * M + m];  // in flight with the key row
-      if (vec4) {
-        // kChunk float4 loads of the key row in flight at once: the loop
+      if (vec) {
+        // kChunk 16-byte loads of the key row in flight at once: the loop
         // waits on L2 once a chunk, not once a load
-        for (int c0 = 0; c0 < DG; c0 += 4 * kChunk) {
-          float4 kv[kChunk];
+        for (int c0 = 0; c0 < DG; c0 += kVec * kChunk) {
+          uint4 kv[kChunk];
 #pragma unroll
           for (int j = 0; j < kChunk; ++j)
-            kv[j] = c0 + 4 * j < DG
-                        ? *reinterpret_cast<const float4*>(krow + c0 + 4 * j)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
+            kv[j] = c0 + kVec * j < DG
+                        ? *reinterpret_cast<const uint4*>(krow + c0 + kVec * j)
+                        : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
           for (int j = 0; j < kChunk; ++j) {
-            if (c0 + 4 * j >= DG) break;
+            if (c0 + kVec * j >= DG) break;
+            float kf[kVec];
+            widen16<E>(kv[j], kf);
 #pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              const float4 qv = *reinterpret_cast<const float4*>(
-                  qg + r * DG + c0 + 4 * j);
-              s[r] = fmaf(qv.x, kv[j].x, s[r]);
-              s[r] = fmaf(qv.y, kv[j].y, s[r]);
-              s[r] = fmaf(qv.z, kv[j].z, s[r]);
-              s[r] = fmaf(qv.w, kv[j].w, s[r]);
-            }
+            for (int r = 0; r < kRows; ++r)
+#pragma unroll
+              for (int h = 0; h < kVec; h += 4) {
+                const float4 qv = *reinterpret_cast<const float4*>(
+                    qg + r * DG + c0 + kVec * j + h);
+                s[r] = fmaf(qv.x, kf[h], s[r]);
+                s[r] = fmaf(qv.y, kf[h + 1], s[r]);
+                s[r] = fmaf(qv.z, kf[h + 2], s[r]);
+                s[r] = fmaf(qv.w, kf[h + 3], s[r]);
+              }
           }
         }
       } else {
         for (int c = 0; c < DG; ++c) {
-          const float kv = krow[c];
+          const float kv = element::to_f32(krow[c]);
 #pragma unroll
           for (int r = 0; r < kRows; ++r) s[r] = fmaf(qg[r * DG + c], kv, s[r]);
         }
@@ -348,7 +393,8 @@ mega_attention_kernel(const Params p) {
         l_mine = l_mine * alpha + psum;
         m_mine = m_new;
       }
-      pw[lane * kPS + r] = pv;
+      // P.V takes P in the streams' precision; l sums the unrounded P
+      pw[lane * kPS + r] = element::round_to<E>(pv);
 #pragma unroll
       for (int d = 0; d < DPL; ++d) acc[r][d] *= alpha;
     }
@@ -363,11 +409,11 @@ mega_attention_kernel(const Params p) {
       for (int j = 0; j < kAhead; ++j) {
         const int kk = k0 + j;
         const bool live = kk < n_keys && ((vmask >> kk) & 1u);
-        const float* vrow = vg + (size_t)(m0 + kk) * DGO;
+        const E* vrow = vg + (size_t)(m0 + kk) * DGO;
 #pragma unroll
         for (int d = 0; d < DPL; ++d) {
           const int c = lane + 32 * d;
-          vv[j][d] = live && c < DGO ? vrow[c] : 0.f;
+          vv[j][d] = live && c < DGO ? element::to_f32(vrow[c]) : 0.f;
         }
       }
 #pragma unroll
@@ -426,11 +472,11 @@ mega_attention_kernel(const Params p) {
     if (n >= N) break;
     const float l = __shfl_sync(0xffffffffu, l_mine, r);
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    float* orow = p.out + (size_t)n * G * DGO + (size_t)g * DGO;
+    E* orow = p.out + (size_t)n * G * DGO + (size_t)g * DGO;
 #pragma unroll
     for (int d = 0; d < DPL; ++d) {
       const int c = lane + 32 * d;
-      if (c < DGO) orow[c] = acc[r][d] * inv;
+      if (c < DGO) orow[c] = element::from_f32<E>(acc[r][d] * inv);
     }
   }
 }
@@ -438,9 +484,10 @@ mega_attention_kernel(const Params p) {
 // Merges the S splits' partial (m, l, acc) of each (row, group) in split
 // order, one thread an output float: deterministic, no atomics. A split
 // with no valid key (l = 0, m = -inf) weighs nothing; a row with none in
-// any split is written as 0.
+// any split is written as 0. The output is rounded to E here, once.
+template <typename E>
 __global__ void __launch_bounds__(256)
-mega_attention_merge(const float* part, float* out, int N, int G, int DGO,
+mega_attention_merge(const float* part, E* out, int N, int G, int DGO,
                      int S) {
   const size_t total = (size_t)N * G * DGO;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -464,19 +511,20 @@ mega_attention_merge(const float* part, float* out, int N, int G, int DGO,
     l = fmaf(ls, w, l);
     acc = fmaf(part[j * DGO + c], w, acc);
   }
-  out[idx] = l > 0.f ? acc / l : 0.f;
+  out[idx] = element::from_f32<E>(l > 0.f ? acc / l : 0.f);
 }
 
-// An instance of the kernel (query rows a block, output floats a lane) and
-// its dynamic shared memory for G groups of width DG.
+// An instance of the kernel (query rows a block, output floats a lane,
+// element type) and its dynamic shared memory for G groups of width DG.
+template <typename E>
 struct Instance {
-  void (*kernel)(Params);
+  void (*kernel)(Params<E>);
   int rows;
   size_t smem;
 };
 
-template <int kRows, int DPL>
-Instance make_instance(int G, int DG) {
+template <int kRows, int DPL, typename E>
+Instance<E> make_instance(int G, int DG) {
   constexpr int kPairs = kRows * kTile;
   const int Gp = (G + kGS - 1) / kGS * kGS;
   constexpr int kPS = kRows + 4;
@@ -485,21 +533,24 @@ Instance make_instance(int G, int DG) {
                         kSepDim * kTile + (size_t)G * kRows * DG +
                         (size_t)Gp * kRows * kAS + (size_t)Gp * kPairFeat +
                         Gp + kRows * 4;
-  return {mega_attention_kernel<kRows, DPL>, kRows, sizeof(float) * floats};
+  return {mega_attention_kernel<kRows, DPL, E>, kRows,
+          sizeof(float) * floats};
 }
 
-Instance pick_instance(int G, int DG, int DGO) {
-  if (DGO <= 32) return make_instance<8, 1>(G, DG);
-  if (DGO <= 64) return make_instance<8, 2>(G, DG);
-  if (DGO <= 128) return make_instance<4, 4>(G, DG);
-  return make_instance<2, 8>(G, DG);
+template <typename E>
+Instance<E> pick_instance(int G, int DG, int DGO) {
+  if (DGO <= 32) return make_instance<8, 1, E>(G, DG);
+  if (DGO <= 64) return make_instance<8, 2, E>(G, DG);
+  if (DGO <= 128) return make_instance<4, 4, E>(G, DG);
+  return make_instance<2, 8, E>(G, DG);
 }
 
 constexpr int kMaxSplits = 16;
 
 // The number of key splits: as many whole waves of blocks as the card holds
 // at once, without more splits than key tiles (or kMaxSplits).
-cudaError_t pick_splits(const Instance& in, int N, int M, int G, int* S) {
+template <typename E>
+cudaError_t pick_splits(const Instance<E>& in, int N, int M, int G, int* S) {
   cudaError_t err = cudaFuncSetAttribute(
       in.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)in.smem);
   if (err != cudaSuccess) return err;
@@ -522,15 +573,61 @@ bool bad_shape(int N, int M, int G, int DG, int DGO) {
          DG > kMaxDim || DGO < 1 || DGO > kMaxDim;
 }
 
+// The rows a block of E's instance for (G, DG, DGO) and its key splits.
+template <typename E>
+int plan(int N, int M, int G, int DG, int DGO, int* splits, int* rows) {
+  if (bad_shape(N, M, G, DG, DGO)) return (int)cudaErrorInvalidValue;
+  const Instance<E> in = pick_instance<E>(G, DG, DGO);
+  *rows = in.rows;
+  return (int)pick_splits(in, N, M, G, splits);
+}
+
+// Launches E's instance on `splits` runs of the keys, then (with more than
+// one) the merge; the arguments are mega_attention_forward's.
+template <typename E>
+int forward(const E* q, const E* k, const E* vproj, const float* ub,
+            const unsigned char* valid, const float* q_rois,
+            const float* k_rois, const float* A, const float* Bt,
+            const float* wt, const float* b, E* out, float* part, int N,
+            int M, int G, int DG, int DGO, int splits, float scale,
+            const float* freqs, void* stream) {
+  if (bad_shape(N, M, G, DG, DGO) || splits < 1 || splits > kMaxSplits ||
+      (splits > 1 && part == nullptr) ||
+      (q_rois != nullptr && freqs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (M + kTile - 1) / kTile;
+  Params<E> p{q, k, vproj, ub, valid, q_rois, k_rois, A, Bt, wt, b, out,
+              splits > 1 ? part : nullptr, N, M, G, DG, DGO,
+              (n_tiles + splits - 1) / splits, scale, {}};
+  if (q_rois != nullptr)
+    for (int i = 0; i < mega_bias::kFreqs; ++i) p.fr.c[i] = freqs[i];
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Instance<E> in = pick_instance<E>(G, DG, DGO);
+  cudaError_t err = cudaFuncSetAttribute(
+      in.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)in.smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + in.rows - 1) / in.rows, splits);
+  in.kernel<<<grid, 32 * G, in.smem, s>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1)
+    return (int)err;
+  const size_t total = (size_t)N * G * DGO;
+  mega_attention_merge<E><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      part, out, N, G, DGO, splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The key splits mega_attention_forward should take for this problem on the
-// current device; the caller sizes the scratch from it. Returns the CUDA
-// error code (0 on success).
+// The instance (query rows a block) and the key splits that
+// mega_attention_forward (is_bf16 = 0) or mega_attention_forward_bf16
+// (is_bf16 = 1) takes for this problem on the current device; the caller
+// sizes the scratch from the splits. Returns the CUDA error code (0 on
+// success).
 extern "C" int mega_attention_splits(int N, int M, int G, int DG, int DGO,
-                                     int* splits) {
-  if (bad_shape(N, M, G, DG, DGO)) return (int)cudaErrorInvalidValue;
-  return (int)pick_splits(pick_instance(G, DG, DGO), N, M, G, splits);
+                                     int is_bf16, int* splits,
+                                     int* rows) {
+  return is_bf16 ? plan<bf16>(N, M, G, DG, DGO, splits, rows)
+                 : plan<float>(N, M, G, DG, DGO, splits, rows);
 }
 
 // With q_rois null the kernel adds no bias and reads none of k_rois, A, Bt,
@@ -546,29 +643,20 @@ extern "C" int mega_attention_forward(
     const float* A, const float* Bt, const float* wt, const float* b,
     float* out, float* part, int N, int M, int G, int DG, int DGO,
     int splits, float scale, const float* freqs, void* stream) {
-  if (bad_shape(N, M, G, DG, DGO) || splits < 1 || splits > kMaxSplits ||
-      (splits > 1 && part == nullptr) ||
-      (q_rois != nullptr && freqs == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int n_tiles = (M + kTile - 1) / kTile;
-  Params p{q, k, vproj, ub, valid, q_rois, k_rois, A, Bt, wt, b, out,
-           splits > 1 ? part : nullptr, N, M, G, DG, DGO,
-           (n_tiles + splits - 1) / splits, scale, {}};
-  if (q_rois != nullptr)
-    for (int i = 0; i < mega_bias::kFreqs; ++i) p.fr.c[i] = freqs[i];
-  const cudaStream_t s = (cudaStream_t)stream;
-  const Instance in = pick_instance(G, DG, DGO);
-  cudaError_t err = cudaFuncSetAttribute(
-      in.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)in.smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + in.rows - 1) / in.rows, splits);
-  in.kernel<<<grid, 32 * G, in.smem, s>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1)
-    return (int)err;
-  const size_t total = (size_t)N * G * DGO;
-  mega_attention_merge<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      part, out, N, G, DGO, splits);
-  return (int)cudaGetLastError();
+  return forward(q, k, vproj, ub, valid, q_rois, k_rois, A, Bt, wt, b, out,
+                 part, N, M, G, DG, DGO, splits, scale, freqs, stream);
+}
+
+// The same with bf16 q, k, vproj and out; ub, the bias operands and the
+// scratch stay fp32.
+extern "C" int mega_attention_forward_bf16(
+    const bf16* q, const bf16* k, const bf16* vproj, const float* ub,
+    const unsigned char* valid, const float* q_rois, const float* k_rois,
+    const float* A, const float* Bt, const float* wt, const float* b,
+    bf16* out, float* part, int N, int M, int G, int DG, int DGO,
+    int splits, float scale, const float* freqs, void* stream) {
+  return forward(q, k, vproj, ub, valid, q_rois, k_rois, A, Bt, wt, b, out,
+                 part, N, M, G, DG, DGO, splits, scale, freqs, stream);
 }
 
 // The message of a code returned above, for the Python wrapper's error.

@@ -8,7 +8,10 @@ proposal tracklets. ``detect_video`` runs a batched per-frame precompute
 over the frames (``models/mega.py::stream_video``) and the box predictor on
 the enhanced features. On a CUDA device every MEGA attention goes through
 the fused set-attention kernel; the host post-processing (per-class decode
-and NMS) runs on the CPU.
+and NMS) runs on the CPU. ``compute_dtype="bfloat16"`` (the serving
+default of ``detect_torch.py``, as of ``tools/detect_and_track.py``) runs
+the backbone, RoI head and MEGA scan on a bf16 copy of the detector, with
+box decode, NMS and the box predictor in fp32.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from torch import nn
 
 from ..ops import boxes as box_ops
 from . import rpn as rpn_lib
+from ..utils.precision import cast_floating, compute_dtype as dtype_of
 from .mega import MEGAHead, global_indices, stream_video
 from .resnet import ResNetC4, ResNetC5Head
 
@@ -29,10 +33,6 @@ Tensor = torch.Tensor
 
 # ImageNet mean in BGR order (Caffe2-lineage preprocessing)
 PIXEL_MEAN = np.array([102.9801, 115.9465, 122.7717], np.float32)
-
-BF16_NOT_PORTED = (
-    "compute_dtype bfloat16 is not ported yet: the detector runs in float32; "
-    "see ROADMAP.md queue 1, the bf16 compute path")
 
 
 # host constants kept on each device: a copy from pageable host memory
@@ -124,11 +124,14 @@ class MegaDetector(nn.Module):
     def device(self) -> torch.device:
         return self.rpn.conv.weight.device
 
-    def features(self, images: Tensor) -> Tensor:
+    def features(self, images: Tensor,
+                 compute_dtype: torch.dtype = torch.float32) -> Tensor:
         """images (N, H, W, 3) raw BGR pixels, uint8 or float -> C4
-        features (N, 1024, H/16, W/16), NCHW. The mean is taken off here."""
-        x = (images.float() - _pixel_mean(images.device)).permute(0, 3, 1, 2)
-        return self.backbone(x.contiguous())
+        features (N, 1024, H/16, W/16), NCHW. The mean is taken off here,
+        in fp32, before the cast to ``compute_dtype`` (bf16 on a
+        ``cast_floating`` copy of the detector)."""
+        x = (images.float() - _pixel_mean(images.device)).to(compute_dtype)
+        return self.backbone(x.permute(0, 3, 1, 2).contiguous())
 
     def propose(self, c4_feat: Tensor, image_hw, *,
                 pre_nms_top_n: int = 6000, post_nms_top_n: int = 300
@@ -177,12 +180,15 @@ def make_mega_head(det: MegaDetector, fused_pe_bias: bool = False,
 # ---------------------------------------------------------------------------
 
 def precompute_chunk(det: MegaDetector, images: Tensor, image_hw, *,
-                     key_post_nms: int):
+                     key_post_nms: int,
+                     compute_dtype: torch.dtype = torch.float32):
     """The per-frame precompute of a chunk of frames (N, H, W, 3): C4, key
     proposals and their fc0 features, and the reference set (the top
-    ``base_num`` proposals) with its fc0 features. Returns the per-frame
-    (kb, kv, ks, key_fc0, rb, rv, ref_fc0), each stacked over the chunk."""
-    c4 = det.features(images)
+    ``base_num`` proposals) with its fc0 features, on ``det`` in
+    ``compute_dtype`` (a bf16 copy for bf16; the fc0 features come back
+    fp32). Returns the per-frame (kb, kv, ks, key_fc0, rb, rv, ref_fc0),
+    each stacked over the chunk."""
+    c4 = det.features(images, compute_dtype)
     outs = []
     for c4f in c4:
         kb, ks, kv = det.propose(c4f, image_hw, post_nms_top_n=key_post_nms)
@@ -218,11 +224,12 @@ class _PhaseClock:
         self.t0 = now
 
 
-def _check_dtype(compute_dtype: str) -> None:
-    if compute_dtype == "bfloat16":
-        raise NotImplementedError(BF16_NOT_PORTED)
-    if compute_dtype != "float32":
-        raise ValueError(f"compute_dtype {compute_dtype!r}")
+def _cast(det: MegaDetector, dtype: torch.dtype) -> MegaDetector:
+    """The detector the precompute and the MEGA scan run on: ``det`` for
+    fp32, else a copy with every floating parameter cast once a call (as
+    JAX casts its parameter tree outside the per-chunk program; FrozenBN's
+    statistics are parameters, cast too)."""
+    return det if dtype == torch.float32 else cast_floating(det, dtype)
 
 
 @torch.no_grad()
@@ -240,14 +247,19 @@ def detect_video(det: MegaDetector, images, image_hw, *,
     time. ``fused_attention=None`` turns the fused set-attention kernel on
     when the detector lies on a CUDA device. A ``timings`` dict receives
     the seconds of the three phases (``precompute``, ``stream``,
-    ``predict``), each ended by a device synchronisation. Returns numpy
-    arrays stacked over frames: proposals (T, Nk, 4), proposal_scores,
-    valid, cls_logits (T, Nk, K+1), bbox_deltas, visual (T, Nk, 1024)."""
-    _check_dtype(compute_dtype)
+    ``predict``), each ended by a device synchronisation.
+    ``compute_dtype="bfloat16"`` runs the precompute (after the bf16 copy
+    of the detector, which the precompute phase counts) and the MEGA scan
+    in bf16; box decode and NMS stay fp32, and the box predictor runs on
+    the fp32 detector. Returns numpy arrays stacked over frames: proposals
+    (T, Nk, 4), proposal_scores, valid, cls_logits (T, Nk, K+1),
+    bbox_deltas, visual (T, Nk, 1024), all fp32."""
+    dt = dtype_of(compute_dtype)
     dev = det.device
     if fused_attention is None:
         fused_attention = dev.type == "cuda"
     clock = _PhaseClock(dev, timings)
+    cdet = _cast(det, dt)
     t_total = len(images)
     chunk = max(1, min(chunk, t_total))
     outs = []
@@ -255,8 +267,9 @@ def detect_video(det: MegaDetector, images, image_hw, *,
         hi = min(lo + chunk, t_total)
         imgs = np.stack([np.ascontiguousarray(images[t])
                          for t in range(lo, hi)])
-        outs.append(precompute_chunk(det, torch.from_numpy(imgs).to(dev),
-                                     image_hw, key_post_nms=key_post_nms))
+        outs.append(precompute_chunk(cdet, torch.from_numpy(imgs).to(dev),
+                                     image_hw, key_post_nms=key_post_nms,
+                                     compute_dtype=dt))
     kb, kv, ks, kf, rb, rv, rf = (torch.cat([o[i] for o in outs])
                                   for i in range(7))
     clock.lap("precompute")
@@ -265,10 +278,11 @@ def detect_video(det: MegaDetector, images, image_hw, *,
         glob_idx = global_indices(t_total, min(det.global_size, t_total),
                                   seed=seed)
     visual = stream_video(
-        det.mega.routed(fused_pe_bias, fused_attention),
+        cdet.mega.routed(fused_pe_bias, fused_attention),
         key_feat=kf, key_rois=kb, key_valid=kv, key_is_fc0=True,
         ref_feat=rf, ref_rois=rb, ref_valid=rv, mem_size=det.window,
-        window=det.window, key_loc=det.key_loc, glob_idx=glob_idx)
+        window=det.window, key_loc=det.key_loc, glob_idx=glob_idx,
+        compute_dtype=compute_dtype)
     clock.lap("stream")
     cls_logits, bbox_deltas = det.predictions(visual.reshape(-1, 1024))
     clock.lap("predict")
@@ -289,9 +303,12 @@ def extract_video_features(det: MegaDetector, images, rois, valid, *,
     as the key, window and global sets, through the dense attention route.
 
     images: (T, H, W, 3) array, or a callable (lo, hi) -> (hi - lo, H, W, 3)
-    that loads frames lazily; rois (T, N, 4); valid (T, N). Returns
-    (T, N, 1024) MEGA-enhanced features."""
-    _check_dtype(compute_dtype)
+    that loads frames lazily; rois (T, N, 4); valid (T, N).
+    ``compute_dtype="bfloat16"`` runs the backbone, the RoI head and the
+    MEGA scan on a bf16 copy of the detector. Returns (T, N, 1024)
+    MEGA-enhanced features, fp32."""
+    dt = dtype_of(compute_dtype)
+    cdet = _cast(det, dt)
     dev = det.device
     t_total = rois.shape[0]
     load = images if callable(images) else (lambda lo, hi: images[lo:hi])
@@ -300,8 +317,9 @@ def extract_video_features(det: MegaDetector, images, rois, valid, *,
     feats = []
     for lo in range(0, t_total, batch):
         hi = min(lo + batch, t_total)
-        c4 = det.features(torch.from_numpy(np.asarray(load(lo, hi))).to(dev))
-        feats.extend(det.frame_fc0(c4[i], rois_t[lo + i], valid_t[lo + i])
+        c4 = cdet.features(torch.from_numpy(np.asarray(load(lo, hi)))
+                           .to(dev), dt)
+        feats.extend(cdet.frame_fc0(c4[i], rois_t[lo + i], valid_t[lo + i])
                      .float() for i in range(hi - lo))
     fc0 = torch.stack(feats)
     glob_idx = None
@@ -309,10 +327,10 @@ def extract_video_features(det: MegaDetector, images, rois, valid, *,
         glob_idx = global_indices(t_total, min(det.global_size, t_total),
                                   seed=seed)
     out = stream_video(
-        det.mega.routed(False, False), key_feat=fc0, key_rois=rois_t,
+        cdet.mega.routed(False, False), key_feat=fc0, key_rois=rois_t,
         key_valid=valid_t, key_is_fc0=True, ref_feat=fc0, ref_rois=rois_t,
         ref_valid=valid_t, mem_size=det.window, window=det.window,
-        key_loc=det.key_loc, glob_idx=glob_idx)
+        key_loc=det.key_loc, glob_idx=glob_idx, compute_dtype=compute_dtype)
     return out.cpu().numpy()
 
 

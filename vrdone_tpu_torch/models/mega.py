@@ -9,11 +9,19 @@ three routes, with the same parameters: dense, dense with the geometric bias
 from the position-bias kernel (``fused_pe_bias``), or the fused set-attention
 kernel (``fused_attention``, which supersedes the other). On CPU tensors both
 kernels take their plain versions.
+
+A bf16 head (a ``cast_floating`` copy) computes with JAX's promotions: a
+layer or product of a bf16 and an fp32 operand runs in fp32 (torch refuses
+mixed operands where flax promotes them), the scores are divided by
+sqrt(dg) in fp32 (JAX divides by a numpy float) and the geometric bias is
+fp32. So the fused route stays bf16 from end to end, while the dense
+route's attention returns fp32 and the rows it updates stay fp32 from there.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import math
 from collections import deque
 from typing import NamedTuple, Sequence
@@ -25,6 +33,7 @@ from torch import nn
 
 from ..ops.mega_attention import fused_mega_attention
 from ..ops.position_bias import fused_position_bias
+from ..utils.precision import cast_floating, compute_dtype as dtype_of
 
 Tensor = torch.Tensor
 
@@ -67,6 +76,17 @@ def cal_position_embedding(rois: Tensor, ref_rois: Tensor,
                            feat_dim: int = 64) -> Tensor:
     """(N, 4) x (M, 4) -> (N, M, feat_dim)."""
     return position_embedding(position_matrix(rois, ref_rois), feat_dim)
+
+
+def promoted(*tensors: Tensor) -> list[Tensor]:
+    """The tensors in their common dtype, as JAX promotes mixed operands."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    return [t.to(dt) for t in tensors]
+
+
+def dense(layer: nn.Linear, x: Tensor) -> Tensor:
+    """A flax Dense: input, kernel and bias in their common dtype."""
+    return F.linear(*promoted(x, layer.weight, layer.bias))
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +152,9 @@ class GroupedLinear(nn.Module):
             self.kernel.normal_(0.0, 0.01, generator=generator)
 
     def project_values(self, values: Tensor) -> Tensor:
-        """(M, D) raw value features -> (groups, M, dg)."""
+        """(M, D) raw value features -> (groups, M, dg), in the values'
+        dtype: the kernel is cast to it, as JAX casts it (an fp32 kernel
+        on bf16 values is rounded; under bf16 both are bf16 anyway)."""
         return torch.einsum("md,gdo->gmo", values,
                             self.kernel.to(values.dtype))
 
@@ -142,10 +164,11 @@ class GroupedLinear(nn.Module):
         """per_group (groups, N, D) -> (N, feat_dim) [legacy order], or
         att (groups, N, M) + values (M, D) [reassociated order]."""
         if per_group is not None:
-            out = torch.einsum("gnd,gdo->ngo", per_group, self.kernel)
+            out = torch.einsum("gnd,gdo->ngo",
+                               *promoted(per_group, self.kernel))
         else:
-            out = torch.einsum("gnm,gmo->ngo", att,
-                               self.project_values(values))
+            out = torch.einsum("gnm,gmo->ngo",
+                               *promoted(att, self.project_values(values)))
         return out.reshape(-1, self.feat_dim) + self.bias
 
 
@@ -212,30 +235,38 @@ class MEGAHead(nn.Module):
         wq, wk = getattr(self, f"{p}_Wq{index}"), getattr(self,
                                                           f"{p}_Wk{index}")
         wv, u = getattr(self, f"{p}_Wv{index}"), getattr(self, f"{p}_u{index}")
-        q = wq(roi_feat).reshape(-1, g, dg).transpose(0, 1)     # (g, N, dg)
-        k = wk(ref.feat).reshape(-1, g, dg).transpose(0, 1)     # (g, M, dg)
+        q = dense(wq, roi_feat).reshape(-1, g, dg).transpose(0, 1)  # g N dg
+        k = dense(wk, ref.feat).reshape(-1, g, dg).transpose(0, 1)  # g M dg
         wg = getattr(self, f"l_Wg{index}") if ver != "global" else None
 
         if self.fused_attention:
             vproj = wv.project_values(ref.feat)
-            ub = torch.einsum("gd,gmd->gm", u, k) / math.sqrt(dg)
-            bias_args = ((rois, ref.rois, wg.weight.T, wg.bias)
-                         if wg is not None else ())
+            # the u-term in fp32 whatever the dtype: JAX divides it by a
+            # numpy float, which promotes a bf16 product
+            ub = torch.einsum("gd,gmd->gm", *promoted(u, k)).float() \
+                / math.sqrt(dg)
+            # Wg in fp32 (bf16-rounded under a bf16 head): the bias is fp32
+            bias_args = ((rois, ref.rois, wg.weight.T.float(),
+                          wg.bias.float()) if wg is not None else ())
             out = fused_mega_attention(q.contiguous(), k.contiguous(), vproj,
                                        ub, ref.valid, *bias_args,
                                        embed_dim=self.embed_dim)
             return out + wv.bias.to(out.dtype)
 
-        aff = torch.einsum("gnd,gmd->gnm", q, k)
-        aff_c = torch.einsum("gd,gmd->gm", u, k)
-        aff = (aff + aff_c[:, None, :]) / math.sqrt(dg)
+        # the content scores in q's and k's dtype (a bf16 product is rounded
+        # before the fp32 scale, as JAX's dense einsum rounds it)
+        aff = torch.einsum("gnd,gmd->gnm", *promoted(q, k))
+        aff_c = torch.einsum("gd,gmd->gm", *promoted(u, k))
+        aff = (aff + aff_c[:, None, :]).float() / math.sqrt(dg)
         if wg is not None:
             if self.fused_pe_bias:
-                bias = fused_position_bias(rois, ref.rois, wg.weight.T,
-                                           wg.bias, embed_dim=self.embed_dim)
+                bias = fused_position_bias(rois, ref.rois, wg.weight.T.float(),
+                                           wg.bias.float(),
+                                           embed_dim=self.embed_dim)
             else:
                 pe = cal_position_embedding(rois, ref.rois, self.embed_dim)
-                bias = torch.log(F.relu(wg(pe)) + 1e-6).permute(2, 0, 1)
+                bias = torch.log(F.relu(dense(wg, pe)) + 1e-6).permute(2, 0,
+                                                                      1)
             aff = aff + bias.to(aff.dtype)
         aff = torch.where(ref.valid[None, None, :], aff, NEG_INF)
         att = torch.softmax(aff, dim=-1)
@@ -246,10 +277,10 @@ class MEGAHead(nn.Module):
         legacy_cost = g * n * m * d + n * d * self.feat_dim
         if reassoc_cost < legacy_cost:
             return wv(att=att, values=ref.feat)
-        return wv(torch.einsum("gnm,md->gnd", att, ref.feat))
+        return wv(torch.einsum("gnm,md->gnd", *promoted(att, ref.feat)))
 
     def fc(self, i: int, x: Tensor) -> Tensor:
-        return F.relu(getattr(self, f"l_fc{i}")(x))
+        return F.relu(dense(getattr(self, f"l_fc{i}"), x))
 
     def pre_calculate(self, pooled: Tensor) -> Tensor:
         """fc0 on pooled RoI features: the cached window/global features."""
@@ -378,14 +409,23 @@ def stream_video(head: MEGAHead, *, key_feat: Tensor, key_rois: Tensor,
                  key_valid: Tensor, key_is_fc0: bool, ref_feat: Tensor,
                  ref_rois: Tensor, ref_valid: Tensor, mem_size: int = 25,
                  window: int = 25, key_loc: int = 12,
-                 glob_idx: np.ndarray | None = None) -> Tensor:
+                 glob_idx: np.ndarray | None = None,
+                 compute_dtype: str = "float32") -> Tensor:
     """Enhance every frame of a video with full MEGA semantics.
 
     key_feat (T, Nk, .) the per-frame key sets, raw pooled
     (key_is_fc0=False) or fc0-level; ref_feat (T, B, D) fc0-level window
     and global sets; glob_idx (T, G) per-step global frames or None.
     Each step reads the memories before it pushes its own entries.
-    Returns (T, Nk, D) fp32."""
+    compute_dtype="bfloat16" runs the scan in bf16: the head (a
+    ``cast_floating`` copy unless it is bf16 already), the features and the
+    memories (the rois and masks keep their types). Returns (T, Nk, D)
+    fp32."""
+    dt = dtype_of(compute_dtype)
+    if dt != torch.float32:
+        if next(head.parameters()).dtype != dt:
+            head = cast_floating(head, dt)
+        key_feat, ref_feat = key_feat.to(dt), ref_feat.to(dt)
     t_total, b, d = ref_feat.shape
     dev = ref_feat.device
     use_glob = glob_idx is not None and head.global_enable
@@ -410,8 +450,10 @@ def stream_video(head: MEGAHead, *, key_feat: Tensor, key_rois: Tensor,
         out, pushes = head.enhance(key_feat[t], key_rois[t], key_valid[t],
                                    win, mem, glob, key_is_fc0=key_is_fc0,
                                    return_pushes=True)
+        # a push takes its memory's dtype (the dense route's fp32 rows are
+        # rounded into a bf16 memory, as JAX's .at[].set() casts them)
         state = MegaStreamState(*(
-            tuple(torch.cat([buf[1:], getattr(p, field)[None]])
+            tuple(torch.cat([buf[1:], getattr(p, field)[None].to(buf.dtype)])
                   for buf, p in zip(bufs, pushes))
             for bufs, field in zip(state, ("feat", "rois", "valid"))))
         outs.append(out)

@@ -18,6 +18,11 @@ bias_operands``) builds its per-box factors first. The kernel cuts the
 keys into splits that fill the card; with more than one, the wrapper
 allocates S * g * N * (dgo + 2) floats of scratch for their partial softmax
 states, which a second kernel merges.
+
+Both versions take q, k and vproj in fp32 or in bf16 (the bf16 detector),
+as the Pallas kernel does; ub, the rois and Wg stay fp32 (JAX computes ub
+and the bias in fp32 under bf16 too). In bf16 every sum is fp32, P is
+rounded to bf16 before P.V and the output is bf16.
 """
 
 from __future__ import annotations
@@ -39,8 +44,10 @@ MAX_GROUPS = 16         # the kernel gives each group one warp of a block
 MAX_GROUP_DIM = 256     # dg and dgo: the kernel gives a lane dgo / 32 floats
 
 # calls that launched the CUDA kernel (and, with more than one key split,
-# its merge) since the count was last set to 0
+# its merge) since the count was last set to 0, of either dtype, and of its
+# bf16 instances alone
 launches = 0
+bf16_launches = 0
 
 
 def mega_attention_plain(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
@@ -52,8 +59,21 @@ def mega_attention_plain(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
                          wave_length: float = 1000.0) -> Tensor:
     """The dense composition in the kernel's operand space: q (g, N, dg),
     k (g, M, dg), vproj (g, M, dgo), ub (g, M), valid (M,) bool; the rois
-    and Wg's kernel (64, g) and bias (g,) add the geometric bias."""
+    and Wg's kernel (64, g) and bias (g,) add the geometric bias.
+
+    On bf16 q, k and vproj it computes what the bf16 kernels do: the fp32
+    score of the widened operands times 1/sqrt(dg), plus the fp32 ub and
+    bias, an fp32 softmax whose P = exp(s - max) is rounded to bf16 and
+    summed against vproj in fp32, divided by the fp32 sum of the unrounded
+    P, and the output rounded to bf16. That is the Pallas kernel's
+    arithmetic when the keys fit its one 128-key tile, up to the order of
+    fp32 sums; over more tiles (or the CUDA kernel's 32-key tiles and
+    splits) each P is rounded relative to a running max and rescaled later,
+    so the two agree within bf16's rounding, not bit for bit."""
     g, n, dg = q.shape
+    if q.dtype == torch.bfloat16:
+        return _plain_bf16(q, k, vproj, ub, valid, q_rois, k_rois,
+                           wg_kernel, wg_bias, embed_dim, wave_length)
     aff = torch.einsum("gnd,gmd->gnm", q, k) / math.sqrt(dg) + ub[:, None, :]
     if q_rois is not None:
         aff = aff + position_bias_plain(q_rois, k_rois, wg_kernel, wg_bias,
@@ -65,33 +85,55 @@ def mega_attention_plain(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
     return out.transpose(0, 1).reshape(n, -1)
 
 
+def _plain_bf16(q, k, vproj, ub, valid, q_rois, k_rois, wg_kernel, wg_bias,
+                embed_dim, wave_length) -> Tensor:
+    g, n, dg = q.shape
+    s = torch.einsum("gnd,gmd->gnm", q.float(), k.float()) * (
+        1.0 / math.sqrt(dg)) + ub.float()[:, None, :]
+    if q_rois is not None:
+        s = s + position_bias_plain(q_rois, k_rois, wg_kernel, wg_bias,
+                                    embed_dim=embed_dim,
+                                    wave_length=wave_length)
+    s = torch.where(valid[None, None, :], s, NEG_INF)
+    p = (s - s.amax(-1, keepdim=True)).exp() * valid[None, None, :]
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("gnm,gmo->gno", p.to(torch.bfloat16).float(),
+                       vproj.float())
+    out = torch.where(l > 0, out / l.clamp_min(1e-30), 0.0)
+    return out.transpose(0, 1).reshape(n, -1).to(torch.bfloat16)
+
+
 @functools.cache
 def _kernel() -> ctypes.CDLL:
     lib = _build.load_library("mega_attention")
-    fn = lib.mega_attention_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_float),
-                      ctypes.c_void_p])
+    for fn in (lib.mega_attention_forward, lib.mega_attention_forward_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.POINTER(ctypes.c_float),
+                          ctypes.c_void_p])
     lib.mega_attention_splits.restype = ctypes.c_int
-    lib.mega_attention_splits.argtypes = ([ctypes.c_int] * 5
-                                          + [ctypes.POINTER(ctypes.c_int)])
+    lib.mega_attention_splits.argtypes = ([ctypes.c_int] * 6
+                                          + [ctypes.POINTER(ctypes.c_int)] * 2)
     lib.mega_attention_error_string.restype = ctypes.c_char_p
     lib.mega_attention_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
 @functools.lru_cache(maxsize=256)
-def key_splits(device: int, n: int, m: int, g: int, dg: int, dgo: int) -> int:
-    """The key splits the kernel takes for this problem on ``device`` (the
-    C side's rule: fill the card's block slots once)."""
+def launch_plan(device: int, n: int, m: int, g: int, dg: int, dgo: int,
+                bf16: bool = False) -> tuple[int, int]:
+    """(query rows a block, key splits) of the instance the kernel takes for
+    this problem on ``device``, fp32 or bf16 (the C side's rule: the
+    instance by dgo, then as many splits as fill the card's block slots
+    once, from that instance's occupancy)."""
     lib = _kernel()
-    splits = ctypes.c_int(1)
+    splits, rows = ctypes.c_int(1), ctypes.c_int(0)
     with torch.cuda.device(device):
-        code = lib.mega_attention_splits(n, m, g, dg, dgo,
-                                         ctypes.byref(splits))
+        code = lib.mega_attention_splits(n, m, g, dg, dgo, int(bf16),
+                                         ctypes.byref(splits),
+                                         ctypes.byref(rows))
     _build.check_launch(lib, "mega_attention", code)
-    return splits.value
+    return rows.value, splits.value
 
 
 def mega_attention_cuda(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
@@ -102,19 +144,25 @@ def mega_attention_cuda(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
                         embed_dim: int = EMBED_DIM,
                         wave_length: float = 1000.0) -> Tensor:
     """The hand-written kernel: same contract as ``mega_attention_plain``
-    for fp32 CUDA tensors. Raises on what the kernel does not take, and
-    when an input needs a gradient (the kernel has no backward)."""
-    global launches
+    for CUDA tensors, q, k and vproj all fp32 (the fp32 instance) or all
+    bf16 (the bf16 instance), ub fp32. Raises on what the kernel does not
+    take, and when an input needs a gradient (the kernel has no
+    backward)."""
+    global launches, bf16_launches
     with_bias = q_rois is not None
     extra = (q_rois, k_rois, wg_kernel, wg_bias) if with_bias else ()
     _build.refuse_grad("mega_attention_cuda", q, k, vproj, ub, *extra)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q has dtype {q.dtype}: float32 or bfloat16")
     for name, t in (("q", q), ("k", k), ("vproj", vproj), ("ub", ub),
                     ("valid", valid)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must lie on q's CUDA device, got "
                              f"{t.device}")
-        if t.dtype != (torch.bool if name == "valid" else torch.float32):
-            raise TypeError(f"{name} has dtype {t.dtype}")
+        want = {"valid": torch.bool, "ub": torch.float32}.get(name, q.dtype)
+        if t.dtype != want:
+            raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes "
+                            f"{want} (q, k and vproj share one dtype)")
     g, n, dg = q.shape
     m, dgo = k.shape[1], vproj.shape[2]
     if (k.shape != (g, m, dg) or vproj.shape[:2] != (g, m)
@@ -131,7 +179,7 @@ def mega_attention_cuda(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
         if q_rois.shape[0] != n or k_rois.shape[0] != m \
                 or wg_bias.shape[0] != g:
             raise ValueError("rois or Wg disagree with q and k")
-    out = torch.empty((n, g * dgo), device=q.device)
+    out = torch.empty((n, g * dgo), device=q.device, dtype=q.dtype)
     if n == 0:
         return out
     q, k, vproj, ub, valid = (t.contiguous() for t in (q, k, vproj, ub,
@@ -143,19 +191,24 @@ def mega_attention_cuda(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
     else:
         ptrs, freqs = [None] * 6, None
     lib = _kernel()
-    splits = key_splits(q.device.index, n, m, g, dg, dgo)
-    # the splits' partial (acc, m, l) of each (row, group), merged into out
+    bf16 = q.dtype == torch.bfloat16
+    _, splits = launch_plan(q.device.index, n, m, g, dg, dgo, bf16)
+    # the splits' partial (acc, m, l) of each (row, group), fp32 in either
+    # dtype, merged into out
     part = (torch.empty(splits * g * n * (dgo + 2), device=q.device)
             if splits > 1 else None)
+    fn = lib.mega_attention_forward_bf16 if bf16 else \
+        lib.mega_attention_forward
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.mega_attention_forward(
+        code = fn(
             q.data_ptr(), k.data_ptr(), vproj.data_ptr(), ub.data_ptr(),
             valid.data_ptr(), *ptrs, out.data_ptr(),
             None if part is None else part.data_ptr(), n, m, g, dg, dgo,
             splits, 1.0 / math.sqrt(dg), freqs, stream)
     _build.check_launch(lib, "mega_attention", code)
     launches += 1
+    bf16_launches += bf16
     return out
 
 

@@ -32,10 +32,9 @@ from torch.utils import checkpoint
 from ..config import ModelConfig
 from ..convert import load_params
 from ..models.maskvrd import MaskVRD, compute_losses
-from ..utils.precision import cast_tensors
+from ..utils.precision import cast_tensors, compute_dtype
 from . import optim
 
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 REMAT_POLICIES = ("full", "dots")
 # what remat policy "dots" keeps, as JAX's dots_with_no_batch_dims_saveable:
 # the outputs of the products without a batch dimension (the Dense
@@ -71,9 +70,7 @@ def create_train_state(cfg: ModelConfig, training_config: dict,
     """Build the model (random init from ``generator``, or the flattened
     flax parameters ``flax_params``), its EMA copy and the optimizer. The
     parameters are fp32 whatever ``cfg.compute_dtype`` is."""
-    if cfg.compute_dtype not in COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}, not one of "
-                         f"{sorted(COMPUTE_DTYPES)}")
+    compute_dtype(cfg.compute_dtype)   # raises for a name it does not take
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r}, not one of "
                          f"{REMAT_POLICIES}")
@@ -116,7 +113,7 @@ def _forward(model: MaskVRD, batch: dict[str, torch.Tensor],
     (``checkpoint`` restores the default generators, not this one);
     ``generator`` itself is not advanced."""
     cfg = model.config
-    dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+    dtype = compute_dtype(cfg.compute_dtype)
     rng = None if generator is None else generator.get_state()
 
     def run():

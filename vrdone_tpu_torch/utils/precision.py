@@ -1,10 +1,11 @@
 """Mixed-precision helpers (counterpart of ``vrdone_tpu/utils/precision.py``).
 
 bf16 serving runs the network body in bfloat16: take a ``cast_floating``
-copy of the model and hand it bf16 features. bf16 training keeps the fp32
-masters and runs the forward on ``cast_tensors`` of them inside autograd
-(``train/loop.py``), as the JAX train step casts its parameters inside
-``jax.grad``. Either way LayerNorm statistics, the attention scores and
+copy of the model and hand it bf16 features (the relation model, and the
+detector's ``detect_video(compute_dtype="bfloat16")``). bf16 training keeps
+the fp32 masters and runs the forward on ``cast_tensors`` of them inside
+autograd (``train/loop.py``), as the JAX train step casts its parameters
+inside ``jax.grad``. Either way LayerNorm statistics, the attention scores and
 softmax, and the heads stay fp32 inside the model (``MaskVRD.forward``).
 """
 
@@ -14,6 +15,18 @@ import copy
 
 import torch
 from torch import nn
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The dtype of a ``compute_dtype`` name; ``ValueError`` for any name
+    but ``float32`` and ``bfloat16``."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r}, not one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
 
 
 def cast_floating(module: nn.Module,
