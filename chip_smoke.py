@@ -19,7 +19,9 @@ one process per source, all started together, into
      bf16 plain versions (``BF16_KERNEL_TOL``) at the shapes of the bf16
      forward at VidVRD B=128 T=96 and VidOR B=16 T=512 (K7 also at the
      eval runner's 384 and 768 buckets), each timed alone beside SDPA in
-     bf16 and its bound at the dense bf16 rate;
+     bf16 and its bound at the dense bf16 rate (K7 bf16, the tensor-core
+     kernel, with its instance's registers and spills where this run built
+     it);
   2. holds the band attention's lse and its dQ and dK/dV backward kernels
      against autograd of the plain version at the train step's shapes
      (B*H = 24*4, d = 128, w = 3), with a nonzero upstream gradient on
@@ -90,7 +92,8 @@ one process per source, all started together, into
      launches of one bf16 eval step (the forward and bench.py's decode-side
      softmax, top-k and mask sigmoid: only bf16 instances of K1 and K7, in
      the counts the config gives), and the pairs a second of fp32 and bf16
-     eval steps, timed in turns.
+     eval steps, timed in turns and profiled (the bf16 step's profile shows
+     K7's tensor-core kernel, never its fp32 FMA kernel).
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
@@ -457,8 +460,12 @@ def check_bf16_kernels(cuda, ba, fa) -> dict:
     ``band_attention_bf16`` and ``masked_attention_bf16`` (all but
     ``launches``) at VidVRD's T=96, each with ``by_shape``."""
     from vrdone_tpu_torch.config import load_yaml_config, model_config_from_yaml
+    from vrdone_tpu_torch.ops import _build
     rng = np.random.default_rng(3)
     bf = torch.bfloat16
+    # K7 bf16's registers and spills by instance, where this run built it
+    usage = dict(ln.split(": ", 1) for ln in ptxas_usage(
+        _build.BUILD_LOG.get("masked_attention", (0.0, ""))[1]))
     band, full = [], []
     for yaml, _, b, _ in BF16_SERVING:
         cfg = model_config_from_yaml(load_yaml_config(
@@ -492,11 +499,14 @@ def check_bf16_kernels(cuda, ba, fa) -> dict:
         q, k, v, mask = (x.to(bf) if x.is_floating_point() else x
                          for x in attention_inputs(rng, b, tq, tk, h * d,
                                                    cuda))
-        r, bucket = fa._variant(tq, d)
+        r, bucket = fa._variant(tq, d, bf)
+        tiles = 2 if r > 64 else 1   # 16-row tiles a warp
+        inst = f"masked_attention_mma_kernel<{bucket}, {r // 16 // tiles}, " \
+               f"{tiles}>"
         rows["masked_attention_bf16"].append(bf16_case(
             "masked_attention_bf16",
-            f"B*H={b}*{h} Tq={tq} Tk={tk} d={d} (instance {r} rows, d "
-            f"bucket {bucket})",
+            f"B*H={b}*{h} Tq={tq} Tk={tk} d={d} (instance {inst}: "
+            f"{usage.get(inst, 'registers not reported, already built')})",
             lambda: fa.full_attention_cuda(q, k, v, mask, n_head=h),
             lambda: fa.full_attention_plain(q, k, v, mask, n_head=h),
             lambda: F.scaled_dot_product_attention(
@@ -875,7 +885,20 @@ def check_bf16_serving(cuda, ba, fa) -> dict:
                       f"{v[0]:.2f} / {v[1]:.2f} ms, "
                       f"{1e3 * b_rate / v[0]:.1f} / "
                       f"{1e3 * b_rate / v[1]:.1f} pairs/s")
-                profile_device(steps[k], 3, "step")
+                _, _, events = profile_device(steps[k], 3, "step")
+                if k != "bf16":
+                    continue
+                # K7 bf16 is the tensor-core kernel; the FMA kernel is
+                # fp32's alone (the profiler may miss some ctypes launches)
+                mma = sum(e.count for e in events
+                          if "masked_attention_mma_kernel" in e.key)
+                fma = [e.key for e in events
+                       if "masked_attention_fwd_kernel" in e.key]
+                print(f"  the profiler saw masked_attention_mma_kernel "
+                      f"{mma} times in 3 bf16 steps, the FMA kernel "
+                      f"{len(fma)} times")
+                if fma:
+                    raise AssertionError(f"bf16 step ran {fma}")
         del gpu16, gpu32
         torch.cuda.empty_cache()
     return counts

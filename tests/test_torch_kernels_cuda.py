@@ -161,14 +161,18 @@ def test_full_kernel_unaligned_streams_take_the_scalar_path(cuda):
 
 
 def test_full_kernel_instance_is_variant(cuda):
-    """The built kernel picks the instance that ``_variant`` names."""
+    """The built kernel picks the instance that ``_variant`` names, for
+    fp32 and for bf16 streams."""
     lib = fa._kernel()
     rows, bucket = ctypes.c_int(), ctypes.c_int()
-    for tq in (1, 9, 16, 17, 48, 96, 97, 192, 512, 768):
-        for d in (1, 8, 30, 32, 33, 64, 100, 128, 129, 256):
-            assert lib.masked_attention_instance(
-                tq, d, ctypes.byref(rows), ctypes.byref(bucket)) == 0
-            assert (rows.value, bucket.value) == fa._variant(tq, d)
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for tq in (1, 9, 16, 17, 48, 64, 65, 96, 97, 192, 384, 512, 768):
+            for d in (1, 8, 30, 32, 33, 64, 100, 128, 129, 256):
+                assert lib.masked_attention_instance(
+                    tq, d, size, ctypes.byref(rows),
+                    ctypes.byref(bucket)) == 0
+                assert (rows.value, bucket.value) == \
+                    fa._variant(tq, d, dtype)
 
 
 @pytest.mark.parametrize("t,w,d", [
@@ -1181,6 +1185,147 @@ def test_bf16_unaligned_streams_take_the_scalar_instance(cuda):
         <= BF16_TOL
 
 
+def full_bf16_case(cuda, seed, tq, tk, d, lens, h=2, shift=False):
+    """K7's bf16 instance on bf16 streams against the bf16 plain version,
+    one launch counted as bf16; ``shift`` moves q, k and v 2 bytes past a
+    16-byte boundary (the scalar copies). Returns (out, plain)."""
+    q, k, v, mask = streams(seed, len(lens), tq, tk, h * d, lens, cuda)
+    q, k, v = to_bf16(q, k, v)
+    move = shifted if shift else torch.clone
+    before, before16 = fa.launches, fa.bf16_launches
+    out = fa.full_attention_cuda(move(q), move(k), move(v), mask, n_head=h)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bf16_launches) == (before + 1, before16 + 1)
+    ref = fa.full_attention_plain(q, k, v, mask, n_head=h)
+    assert torch.isfinite(out.float()).all()
+    assert bf16_err(out, ref) <= BF16_TOL
+    return out, ref
+
+
+@pytest.mark.parametrize("tk", [1, 31, 33, 63, 65])
+@pytest.mark.parametrize("tq", [1, 9, 15, 16, 17, 95, 96, 97])
+def test_full_bf16_tile_edges(cuda, tq, tk):
+    """The tensor-core instance at the edges of its tiles: 16-row tiles,
+    one or two a warp (16, 48, 64, 96 or 128 rows a block), 32 keys a tile
+    and 8 keys an n8 column block, with a batch row of one valid key and
+    one of none."""
+    out, _ = full_bf16_case(cuda, tq * 100 + tk, tq, tk, 64,
+                            [tk, max(1, tk // 2), 1, 0])
+    assert (out[3] == 0).all()
+
+
+@pytest.mark.parametrize("shift", [False, True], ids=["vector", "scalar"])
+@pytest.mark.parametrize("d", [8, 20, 40, 64, 100, 128, 256])
+def test_full_bf16_head_dims(cuda, d, shift):
+    """Each head-dim bucket, d on and off a multiple of 8, through the
+    16-byte copies and the 2-byte ones (d % 8 != 0 or unaligned streams)."""
+    full_bf16_case(cuda, d, 70, 90, d, [90, 41, 1, 0], shift=shift)
+
+
+def poisoned(x, mask, fill):
+    """A contiguous copy of x (B, Tk, C) at the start of a larger buffer,
+    ``fill`` at every invalid key and in the buffer past x's end (what a
+    kernel would read past the last batch row's Tk)."""
+    buf = torch.full((x.numel() + 4 * x.shape[-1],), fill, device=x.device,
+                     dtype=x.dtype)
+    y = buf[:x.numel()].view(x.shape)
+    y.copy_(torch.where(mask[..., None], x, fill))
+    return y
+
+
+@pytest.mark.parametrize("tq,tk,d", [
+    (96, 96, 128), (9, 12, 64), (512, 100, 64), (40, 70, 20), (17, 33, 256)])
+def test_full_bf16_never_reads_invalid_keys(cuda, tq, tk, d):
+    """NaN in K and inf in V (then the other way round) at every invalid
+    key and past Tk: the copies zero-fill those keys, so nothing of them
+    reaches S or P.V, where 0 * NaN would be NaN on the tensor cores too.
+    Held against the plain version on the clean streams (invalid keys 0:
+    the plain version multiplies V by the mask and would carry the NaN)."""
+    h = 2
+    q, k, v, mask = streams(tq + tk + d, 4, tq, tk, h * d,
+                            [tk, tk // 2, 3, 0], cuda)
+    mask[0, tk // 3] = False
+    q, k, v = to_bf16(q, k, v)
+    k, v = (torch.where(mask[..., None], x, 0) for x in (k, v))
+    ref = fa.full_attention_plain(q, k, v, mask, n_head=h)
+    for fk, fv in ((float("nan"), float("inf")),
+                   (float("-inf"), float("nan"))):
+        out = fa.full_attention_cuda(q, poisoned(k, mask, fk),
+                                     poisoned(v, mask, fv), mask, n_head=h)
+        assert torch.isfinite(out.float()).all()
+        assert bf16_err(out, ref) <= BF16_TOL
+        assert (out[3] == 0).all()
+
+
+def test_full_bf16_keeps_fp32_scale_at_large_scores(cuda):
+    """Scores near 30 at d = 128, where 1/sqrt(d) is not a power of two:
+    key j is a one-hot row of 320 at channel j % 128 and every query
+    channel lies in [1, 1.125), so a score is 320 q_c / sqrt(128), 28 to 32,
+    and neighbouring keys differ by a few units. Rounding q * scale to bf16
+    would move each score by up to 2^-9 of its size, independently a key
+    (0.06 here), and the softmax with it; the scores in fp32 agree with the
+    plain version."""
+    b, tq, tk, h, d = 4, 96, 96, 4, 128
+    rng = np.random.default_rng(30)
+    q = 1 + rng.random((b, tq, h * d)) / 8
+    k = np.zeros((b, tk, h, d))
+    k[:, np.arange(tk), :, np.arange(tk) % d] = 320.0
+    v = rng.standard_normal((b, tk, h * d))
+    mask = np.ones((b, tk), bool)
+    mask[1, 50:] = False
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).reshape(b, -1, h * d)
+               .to(cuda, torch.bfloat16) for x in (q, k, v))
+    mask = torch.from_numpy(mask).to(cuda)
+    out = fa.full_attention_cuda(q, k, v, mask, n_head=h)
+    assert bf16_err(out, fa.full_attention_plain(q, k, v, mask, n_head=h)) \
+        <= BF16_TOL
+
+
+def test_full_bf16_skips_key_tiles_without_valid_keys(cuda):
+    """Key tiles with no valid key between valid ones, valid keys only in
+    the last, ragged tile, and a batch row with no valid key at all, which
+    is exactly 0."""
+    b, tq, tk, h, d = 4, 80, 200, 2, 64
+    q, k, v, mask = streams(64, b, tq, tk, h * d, [tk] * 3 + [0], cuda)
+    mask[0, 64:128] = False
+    mask[1, :192] = False
+    mask[2, 5:130] = False
+    q, k, v = to_bf16(q, k, v)
+    out = fa.full_attention_cuda(q, k, v, mask, n_head=h)
+    assert bf16_err(out, fa.full_attention_plain(q, k, v, mask, n_head=h)) \
+        <= BF16_TOL
+    assert (out[3] == 0).all()
+
+
+def test_full_bf16_walks_past_the_mask_window(cuda):
+    """Past 4096 keys the block reads the next window of mask bits: a run of
+    invalid keys across the window's edge, and a batch row whose first
+    window holds no valid key (the walk moves the window on while it looks
+    for a tile). Values of 100 at the invalid keys show any key taken from
+    the wrong window's bits."""
+    b, tq, tk, h, d = 3, 20, 4500, 2, 32
+    q, k, v, mask = streams(4096, b, tq, tk, h * d, [tk] * b, cuda)
+    mask[1, 4000:4200] = False
+    mask[2, :4100] = False
+    v[~mask] = 100.0
+    q, k, v = to_bf16(q, k, v)
+    out = fa.full_attention_cuda(q, k, v, mask, n_head=h)
+    assert bf16_err(out, fa.full_attention_plain(q, k, v, mask, n_head=h)) \
+        <= BF16_TOL
+
+
+@pytest.mark.parametrize("tq,tk,d", [(96, 96, 128), (512, 512, 64)])
+def test_full_bf16_is_deterministic(cuda, tq, tk, d):
+    """Two launches on the same streams are equal bit for bit."""
+    b, h = 8, 4
+    q, k, v, mask = streams(7, b, tq, tk, h * d, [tk, tk // 2] * (b // 2),
+                            cuda)
+    q, k, v = to_bf16(q, k, v)
+    first = fa.full_attention_cuda(q, k, v, mask, n_head=h)
+    second = fa.full_attention_cuda(q, k, v, mask, n_head=h)
+    assert torch.equal(first, second)
+
+
 def band_backward_bf16_case(cuda, seed, b, t, h, d, w, shift=False):
     """K2 (dQ) and K3 (dK, dV) in bf16 against ``band_backward_plain`` on
     the same bf16 streams, fp32 lse (K1's bf16 instance) and Dr, one launch
@@ -1368,9 +1513,12 @@ def test_kernels_refuse_mixed_dtypes_and_bf16_where_fp32_only(cuda):
 
 def test_bf16_instance_is_what_launches(cuda, tmp_path):
     """A bf16 call launches the bf16 instance: the kernels' template
-    arguments (element type, head-dim bucket and vector copies of K1, rows
-    and bucket of K7), grid and block, read from a ``torch.profiler``
-    trace, against ``forward_instance`` and ``_variant``."""
+    arguments (element type, head-dim bucket and vector copies of K1;
+    head-dim bucket, warps and row tiles a warp of K7's tensor-core
+    kernel),
+    grid and block, read from a ``torch.profiler`` trace, against
+    ``forward_instance`` and ``_variant``; K7's FMA kernel, fp32's, never
+    runs on bf16 streams."""
     import json
     import re
 
@@ -1405,13 +1553,15 @@ def test_bf16_instance_is_what_launches(cuda, tmp_path):
                     b * h * -(-inst["tiles"] // inst["per_block"]), 1, 1]
                 assert e["args"]["block"] == [8 * inst["rows"], 1, 1]
                 seen.add("band")
-            elif m := re.search(r"masked_attention_fwd_kernel<(\d+), "
-                                r"(\d+), (\w+)>", name):
-                rows, bucket = fa._variant(tq, d)
-                assert m[3] == "__nv_bfloat16"
-                assert (int(m[1]), 16 * int(m[2])) == (bucket, rows)
+            elif m := re.search(r"masked_attention_mma_kernel<(\d+), "
+                                r"(\d+), (\d+)>", name):
+                rows, bucket = fa._variant(tq, d, torch.bfloat16)
+                warps, tiles = int(m[2]), int(m[3])
+                assert (int(m[1]), 16 * tiles * warps) == (bucket, rows)
                 assert e["args"]["grid"] == [b * h * -(-tq // rows), 1, 1]
+                assert e["args"]["block"] == [32 * warps, 1, 1]
                 seen.add("full")
+            assert "masked_attention_fwd_kernel" not in name
         assert seen == {"band", "full"}, (b, t, h, d)
 
 

@@ -131,16 +131,39 @@ def test_full_attention_row_without_keys_is_zero():
     assert (out[1] == 0).all()
 
 
-@pytest.mark.parametrize("tq,d,rows,bucket", [
+# (Tq, d, rows a block, head-dim bucket) of the K7 instances on the main
+# paths: 48 query rows a block at the eval forward's 96, 64 at the larger
+# buckets and VidOR's 512, 16 for the predictor's 9 queries
+FULL_VARIANTS = [
     (96, 128, 48, 128), (192, 128, 64, 128), (384, 128, 64, 128),
     (768, 128, 64, 128), (96, 64, 48, 64), (512, 64, 64, 64),
     (9, 32, 16, 32), (9, 128, 16, 128), (16, 40, 16, 64), (17, 30, 48, 32),
-    (1, 256, 16, 256), (65, 8, 48, 32), (97, 100, 64, 128)])
-def test_full_kernel_variant(tq, d, rows, bucket):
-    """The K7 instance for the main paths' (Tq, d): 48 query rows a block
-    at the eval forward's 96, 64 at the larger buckets and VidOR's 512, 16
-    for the predictor's 9 queries; the smallest head-dim bucket."""
-    assert tfull._variant(tq, d) == (rows, bucket)
+    (1, 256, 16, 256), (65, 8, 48, 32), (97, 100, 64, 128)]
+# the bf16 forward's shapes (VidVRD's S/O cross-attention, eval buckets and
+# predictor, VidOR's S/O and predictor at d = 32) and each rule's edges:
+# above Tq = 64 two 16-row tiles a warp, 96 or 128 rows a block, whichever
+# pads fewer (128 on a tie); the fp32 rows up to 64 and at the 256 bucket
+FULL_BF16_VARIANTS = [
+    (96, 128, 96, 128), (192, 128, 96, 128), (384, 128, 128, 128),
+    (768, 128, 128, 128), (9, 64, 16, 64), (512, 64, 128, 64),
+    (9, 32, 16, 32), (17, 30, 48, 32), (64, 128, 64, 128),
+    (65, 64, 96, 64), (97, 100, 128, 128), (97, 256, 64, 256),
+    (16, 65, 16, 128), (1, 8, 16, 32)]
+
+
+@pytest.mark.parametrize("tq,d,dtype,want", [
+    pytest.param(tq, d, torch.float32, (rows, bucket),
+                 id=f"{tq}-{d}-{rows}-{bucket}")
+    for tq, d, rows, bucket in FULL_VARIANTS] + [
+    pytest.param(tq, d, torch.bfloat16, (rows, bucket),
+                 id=f"bf16-{tq}-{d}-{rows}-{bucket}")
+    for tq, d, rows, bucket in FULL_BF16_VARIANTS])
+def test_full_kernel_variant(tq, d, dtype, want):
+    """The K7 instance (rows a block, head-dim bucket) for the main paths'
+    (Tq, d) in each dtype; fp32's is the default."""
+    assert tfull._variant(tq, d, dtype) == want
+    if dtype == torch.float32:
+        assert tfull._variant(tq, d) == want
 
 
 @pytest.mark.parametrize("d", [0, 257, 512])

@@ -8,7 +8,8 @@ probability and its value never enters the sum; every query row is computed
 gives 0 in both versions here, where the JAX dense form gives NaN; the eval
 path never makes such a row. The kernel source is ``csrc/masked_attention.cu``.
 
-Both versions take fp32 or bf16 streams (bf16 serving). In bf16 they
+Both versions take fp32 or bf16 streams (bf16 serving; the kernel's bf16
+instances run their products on the tensor cores). In bf16 they
 follow the JAX dense form's promotions: the scores in fp32 from the
 widened operands, q scaled in fp32 (the scale is a numpy float, which JAX
 does not treat as weak, so ``qh * scale`` is fp32), softmax in fp32, P
@@ -59,19 +60,24 @@ def full_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return merge_heads(torch.einsum("bhqk,bhkd->bhqd", att, vh)).to(q.dtype)
 
 
-def _variant(tq: int, d: int) -> tuple[int, int]:
+def _variant(tq: int, d: int, dtype: torch.dtype = torch.float32
+             ) -> tuple[int, int]:
     """(query rows a block, head-dim bucket) of the kernel instance that
-    takes ``tq`` queries of head dim ``d``: 16 rows for the predictor's few
-    queries, else 48 where that pads fewer rows than 64 (Tq = 96), else 64;
+    takes ``tq`` queries of head dim ``d`` in ``dtype`` streams: 16 rows for
+    the predictor's few queries, else 48 where that pads fewer rows than 64
+    (Tq = 96), else 64; in bf16 above Tq = 64 (but at the 256 bucket) 96 or
+    128 rows, two 16-row tiles a warp, whichever pads fewer (128 on a tie);
     the smallest bucket that holds d. The rule of
     ``csrc/masked_attention.cu::pick_instance`` (a ``cuda`` test holds the
-    two together). The same for fp32 and bf16: only the choice of vector
-    or scalar copies, made at the launch, depends on the dtype. Raises for a
-    head dim the kernel does not take."""
+    two together); the choice of vector or scalar copies is made at the
+    launch. Raises for a head dim the kernel does not take."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} is outside 1..{MAX_HEAD_DIM}")
+    bucket = next(b for b in HEAD_DIM_BUCKETS if d <= b)
+    if dtype == torch.bfloat16 and tq > 64 and bucket <= 128:
+        return 96 if -tq % 96 < -tq % 128 else 128, bucket
     rows = 16 if tq <= 16 else 48 if -tq % 48 < -tq % 64 else 64
-    return rows, next(b for b in HEAD_DIM_BUCKETS if d <= b)
+    return rows, bucket
 
 
 @functools.cache
@@ -85,9 +91,8 @@ def _kernel() -> ctypes.CDLL:
     lib.masked_attention_error_string.restype = ctypes.c_char_p
     lib.masked_attention_error_string.argtypes = [ctypes.c_int]
     lib.masked_attention_instance.restype = ctypes.c_int
-    lib.masked_attention_instance.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int)]
+    lib.masked_attention_instance.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
     return lib
 
 
@@ -95,9 +100,9 @@ def full_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_mask: torch.Tensor, *, n_head: int
                         ) -> torch.Tensor:
     """The hand-written kernel: same contract as ``full_attention_plain``,
-    for fp32 or bf16 CUDA tensors (one dtype; the bf16 instances with bf16
-    streams). Raises on anything the kernel does not take, and when an input
-    needs a gradient (the kernel has no backward)."""
+    for fp32 or bf16 CUDA tensors (one dtype; bf16 streams take the
+    tensor-core instances). Raises on anything the kernel does not take,
+    and when an input needs a gradient (the kernel has no backward)."""
     global launches, bf16_launches
     _build.refuse_grad("full_attention_cuda", q, k, v)
     _build.check_attention_inputs(q, k, v, kv_mask)
