@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --only kernels  # the build and the kernel checks
-                                          # of 1, 2, 7 and 8 (with 1's
+                                          # of 1, 2, 7 and 8 (with their
                                           # bf16 ones); no ``ok`` line
 
 Builds the hand-written CUDA kernels from ``vrdone_tpu_torch/csrc`` (nvcc,
@@ -51,7 +51,9 @@ one process per source, all started together, into
      path on), and fp32 and bf16 steps at 24 and 96 pairs timed in turns
      and profiled;
   6. runs ``train_torch.py`` for one epoch on a tiny synthetic corpus on
-     the card, then ``eval_torch.py`` on its checkpoint;
+     the card, then ``eval_torch.py`` on its checkpoint, and
+     ``train_torch.py --compute_dtype bfloat16`` with ``use_rel_pe`` and
+     ``use_local`` on the same corpus;
   7. holds MEGA's position-bias kernel (K6) and the ``bias_factors``
      kernel (the torch ``pe_setup``'s port) against their plain versions
      at a frame's three local-stage shapes and times each alone beside its
@@ -75,7 +77,13 @@ one process per source, all started together, into
      ``detect_torch.py`` on the card (bf16, its default);
   8. holds the band kernel with the relative-position bias (K4) against
      its plain version at the streamed stem's and branches' shapes,
-     ``BandAttentionPE``'s gradients against plain autograd, and the band
+     ``BandAttentionPE``'s gradients against plain autograd, K4's bf16
+     instance against its bf16 plain version (``BF16_KERNEL_TOL``, a bf16
+     table) at VidOR local width's shapes (B*H=16*8, d=64, window 9,
+     T=512, 256, 128, 64) and the stream's, at a T off the row tile and
+     an even window, and with a zero table against K1 bf16 bit for bit,
+     each path shape timed alone beside K4 fp32, the bf16 plain version,
+     SDPA in bf16 with the band and bias mask and the bound, and the band
      (K1) and full-attention (K7) kernels against theirs at the shapes the
      stream gives them and times each kernel alone, K4 and K1 beside SDPA
      and their bounds (these checks too right after 2), then streams
@@ -84,16 +92,26 @@ one process per source, all started together, into
      (``configs/vidor_local.yaml`` with ``use_rel_pe``, random seeded
      weights), counts its launches, holds the first chunk group against the
      CPU and times it;
-  9. (run right after 4) bf16 serving at VidVRD B=128 T=96 and VidOR B=16
-     T=512 (``configs/vidvrd.yaml``, ``configs/vidor.yaml``, random seeded
-     weights): the ``cast_floating`` copy of each fp32 model, its bf16
-     forward held against the port's bf16 CPU run (B=8, B=2) within
+  9. (run right after 4) bf16 serving at VidVRD B=128 T=96, VidOR B=16
+     T=512 and VidOR local-attention width with ``use_rel_pe`` B=16 T=512
+     (``configs/vidvrd.yaml``, ``configs/vidor.yaml``,
+     ``configs/vidor_local.yaml``, random seeded weights): the
+     ``cast_floating`` copy of each fp32 model, its bf16 forward held
+     against the port's bf16 CPU run (B=8, B=2, B=2) within
      ``BF16_MODEL_TOL`` with the gap to the fp32 forward printed, the
      launches of one bf16 eval step (the forward and bench.py's decode-side
-     softmax, top-k and mask sigmoid: only bf16 instances of K1 and K7, in
-     the counts the config gives), and the pairs a second of fp32 and bf16
-     eval steps, timed in turns and profiled (the bf16 step's profile shows
-     K7's tensor-core kernel, never its fp32 FMA kernel).
+     softmax, top-k and mask sigmoid: only bf16 instances of K1, K4 and K7,
+     in the counts the config gives, K4 bf16 7 with ``use_rel_pe``, and no
+     dense band form), and the pairs a second of fp32 and bf16 eval steps,
+     timed in turns and profiled (the bf16 step's profile shows K7's
+     tensor-core kernel, never its fp32 FMA kernel);
+ 10. (run right after 5) bf16 training with ``use_rel_pe`` at VidOR
+     local-attention width: three steps at 2 pairs on the card against
+     the port's bf16 CPU steps (``BF16_LOSS_TOL``, ``MATCH_TIE_TOL``, every
+     ``rel_pe`` moved), the launches of one step at 48 pairs (K4 bf16 7,
+     14 under remat, its backward the dense form 7 times; K1, K2 and K3
+     bf16 8 each, K1 16 under remat) and bf16 steps at 48 pairs timed and
+     profiled.
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
@@ -169,8 +187,13 @@ PEAK_FLOPS = 67e12          # H100 SXM fp32 without tensor cores
 PEAK_FP16_MMA = 989e12      # H100 SXM dense fp16 on the tensor cores
 PEAK_BF16_MMA = 989e12      # H100 SXM dense bf16 on the tensor cores
 # bf16 serving at the two widths the JAX bench serves (bench.py:127-129,
-# 244-265): config, pairs held against the CPU, pairs timed, top-k
-BF16_SERVING = (("vidvrd.yaml", 8, 128, 8), ("vidor.yaml", 2, 16, 6))
+# 244-265), and at VidOR local-attention width with use_rel_pe (the bf16
+# path K4's bf16 instance opens): config, pairs held against the CPU, pairs
+# timed, top-k, use_rel_pe
+BF16_SERVING = (("vidvrd.yaml", 8, 128, 8, False),
+                ("vidor.yaml", 2, 16, 6, False),
+                ("vidor_local.yaml", 2, 16, 6, True))
+RELPE_TRAIN_PAIRS = (2, 48)  # bf16 rel-PE steps: on both devices; timed
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
 
@@ -467,7 +490,9 @@ def check_bf16_kernels(cuda, ba, fa) -> dict:
     usage = dict(ln.split(": ", 1) for ln in ptxas_usage(
         _build.BUILD_LOG.get("masked_attention", (0.0, ""))[1]))
     band, full = [], []
-    for yaml, _, b, _ in BF16_SERVING:
+    for yaml, _, b, _, rel_pe in BF16_SERVING:
+        if rel_pe:   # K4 bf16's shapes: check_band_pe_bf16
+            continue
         cfg = model_config_from_yaml(load_yaml_config(
             str(ROOT / "configs" / yaml)))
         k1, k7 = bf16_shapes(cfg, b)
@@ -804,24 +829,42 @@ def forward_ms(fn, iters: int = 10) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
+@contextlib.contextmanager
+def dense_band_calls(ba):
+    """Counts the calls of the band attention's dense form (its plain
+    version, and ``BandAttentionPE``'s recomputed backward) while open."""
+    calls, plain = [0], ba._band_plain
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return plain(*args, **kw)
+
+    ba._band_plain = counted
+    try:
+        yield calls
+    finally:
+        ba._band_plain = plain
+
+
 def check_bf16_serving(cuda, ba, fa) -> dict:
-    """bf16 serving at VidVRD B=128 T=96 and VidOR B=16 T=512: the fp32
-    model of each config and its ``cast_floating`` copy, the bf16 forward
-    held against the port's bf16 CPU run (B=8, B=2) within BF16_MODEL_TOL,
+    """bf16 serving at VidVRD B=128 T=96, VidOR B=16 T=512 and VidOR
+    local-attention width with use_rel_pe B=16 T=512: the fp32 model of
+    each config and its ``cast_floating`` copy, the bf16 forward held
+    against the port's bf16 CPU run (B=8, B=2, B=2) within BF16_MODEL_TOL,
     its gap to the fp32 forward on the card printed, the launches of one
-    bf16 eval step (only bf16 instances of K1 and K7, in the counts the
-    config gives) and the rates of fp32 and bf16 eval steps, timed in
-    turns. Returns the launches of each width's bf16 step by kernel (the
-    fp32 names count fp32 instances only)."""
+    bf16 eval step (only bf16 instances of K1, K4 and K7, in the counts
+    the config gives, and no dense band form) and the rates of fp32 and
+    bf16 eval steps, timed in turns. Returns the launches of each width's
+    bf16 step by kernel (the fp32 names count fp32 instances only)."""
     from vrdone_tpu_torch.config import load_yaml_config, model_config_from_yaml
     from vrdone_tpu_torch.utils.precision import cast_floating
     bf = torch.bfloat16
     rng = np.random.default_rng(4)
     counts = {}
-    for yaml, b_check, b_rate, topk in BF16_SERVING:
-        width = yaml.split(".")[0]
-        cfg = model_config_from_yaml(load_yaml_config(
-            str(ROOT / "configs" / yaml)))
+    for yaml, b_check, b_rate, topk, rel_pe in BF16_SERVING:
+        width = yaml.split(".")[0] + ("_rel_pe" if rel_pe else "")
+        cfg = dataclasses.replace(model_config_from_yaml(load_yaml_config(
+            str(ROOT / "configs" / yaml))), use_rel_pe=rel_pe)
         t = cfg.max_seq_len
         cpu32, gpu32 = build_models(cfg, cuda)
         cpu16, gpu16 = cast_floating(cpu32), cast_floating(gpu32)
@@ -850,24 +893,35 @@ def check_bf16_serving(cuda, ba, fa) -> dict:
             x, mask = packed_batch(rng, cfg, b_rate, t)
             x, mask = x.to(cuda), mask.to(cuda)
             x16 = x.to(bf)
-            ba.launches = ba.bf16_launches = 0
-            fa.launches = fa.bf16_launches = 0
-            _, scores, catids, masks_bin = serve(gpu16, x16, mask, topk)
-            torch.cuda.synchronize()
+            zero_counts(ba, fa)
+            fa.bf16_launches = 0
+            with dense_band_calls(ba) as dense:
+                _, scores, catids, masks_bin = serve(gpu16, x16, mask, topk)
+                torch.cuda.synchronize()
             got = {"band_attention": ba.launches - ba.bf16_launches,
                    "band_attention_bf16": ba.bf16_launches,
+                   "band_attention_pe": ba.pe_launches - ba.pe_bf16_launches,
+                   "band_attention_pe_bf16": ba.pe_bf16_launches,
                    "masked_attention": fa.launches - fa.bf16_launches,
-                   "masked_attention_bf16": fa.bf16_launches}
+                   "masked_attention_bf16": fa.bf16_launches,
+                   "dense band form": dense[0]}
+            # the stem's and branches' blocks take K4 with use_rel_pe, else
+            # K1; the S/O mutual layers K1 with use_local, else K7; the
+            # predictor K7
             arch, nq = cfg.backbone_arch, cfg.predictor.num_queries
-            expect = {"band_attention": 0,
-                      "band_attention_bf16": arch[1] * 2 + arch[2],
-                      "masked_attention": 0,
-                      "masked_attention_bf16": arch[1] * 4
-                      + cfg.predictor.num_layers * 2}
+            blocks, mutual = 2 * arch[1] + arch[2], 4 * arch[1]
+            expect = {name: 0 for name in got}
+            expect.update(
+                band_attention_bf16=(0 if rel_pe else blocks)
+                + (mutual if cfg.use_local else 0),
+                band_attention_pe_bf16=blocks if rel_pe else 0,
+                masked_attention_bf16=(0 if cfg.use_local else mutual)
+                + 2 * cfg.predictor.num_layers)
             print(f"{width} bf16 eval step B={b_rate} T={t}: kernel "
                   f"launches {got}")
             if got != expect:
                 raise AssertionError(f"launches {got}, expected {expect}")
+            del got["dense band form"]
             if (scores.shape != (b_rate, nq, topk)
                     or masks_bin.shape != (b_rate, nq, t)
                     or not torch.isfinite(scores).all()):
@@ -1106,10 +1160,12 @@ def check_train_step(cfg, raw, cuda, ba, fa):
 
 
 def band_counts(ba, fa) -> dict:
-    """The launches of the band kernels (K1, K2, K3), fp32 and bf16
+    """The launches of the band kernels (K1, K4, K2, K3), fp32 and bf16
     instances apart, and of K7 since the counts were last set to 0."""
     return {"band_attention": ba.launches - ba.bf16_launches,
             "band_attention_bf16": ba.bf16_launches,
+            "band_attention_pe": ba.pe_launches - ba.pe_bf16_launches,
+            "band_attention_pe_bf16": ba.pe_bf16_launches,
             "band_attention_dq": ba.dq_launches - ba.bf16_dq_launches,
             "band_attention_dq_bf16": ba.bf16_dq_launches,
             "band_attention_dkv": ba.dkv_launches - ba.bf16_dkv_launches,
@@ -1119,6 +1175,7 @@ def band_counts(ba, fa) -> dict:
 
 def zero_counts(ba, fa) -> None:
     ba.launches = ba.bf16_launches = 0
+    ba.pe_launches = ba.pe_bf16_launches = 0
     ba.dq_launches = ba.bf16_dq_launches = 0
     ba.dkv_launches = ba.bf16_dkv_launches = 0
     fa.launches = fa.dense_calls = 0
@@ -1141,29 +1198,21 @@ def level_costs(cfg, preds, tb):
     return cost.cpu(), match(cfg, logits, masks, tb)[0].cpu()
 
 
-def check_train_step_bf16(cfg, raw, cuda, ba, fa, state32) -> dict:
-    """The bf16 train step at full width (``compute_dtype: bfloat16``):
-    three steps at 8 pairs on the card against the port's bf16 CPU steps
-    from the same weights, batch and drop-path draws (losses within
-    BF16_LOSS_TOL, matchings equal or near-ties within MATCH_TIE_TOL, step
-    0's CPU run replaying the card's max-pool picks); the launches of one bf16 step at 24 pairs (only
-    bf16 instances of K1, K2 and K3, 7 each, no K7) and of one under remat
-    (K1 14); one remat step under each policy against the plain step from
-    the same fp32 state (losses within LOSS_TOL, drop path on), with peak
-    memory; then fp32 and bf16 steps at 24 and 96 pairs, timed in turns
-    and profiled. Returns the launches of the bf16 step at 24 pairs by
-    kernel."""
-    import copy
-
+def bf16_steps_vs_cpu(cfg16, tc, cuda, batch, label: str,
+                      must_move: str | None = None) -> dict:
+    """Three bf16 train steps of ``cfg16`` on ``batch`` on the card against
+    the port's bf16 CPU steps from the same weights, batch and drop-path
+    draws: losses within BF16_LOSS_TOL, matchings equal or near-ties
+    within MATCH_TIE_TOL, step 0's CPU run replaying the card's max-pool
+    picks; the masters, EMA and moments stay fp32, and on both devices
+    every parameter whose name ends with ``must_move`` has moved. Returns
+    the train states by device."""
     from vrdone_tpu_torch.models.layers import AffineDropPath
     from vrdone_tpu_torch.ops import masked as mops
     from vrdone_tpu_torch.train.loop import (batch_to_device,
                                              create_train_state,
                                              step_generator, train_step)
     from vrdone_tpu_torch.utils.precision import cast_tensors
-    tc = raw["training_config"]
-    num_gt = raw["training_dataset_config"]["proposal_max_preds"]
-    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     states = {}
     for name, dev in (("cpu", torch.device("cpu")), ("cuda", cuda)):
         gen = torch.Generator().manual_seed(0)
@@ -1176,8 +1225,10 @@ def check_train_step_bf16(cfg, raw, cuda, ba, fa, state32) -> dict:
                                   .uniform_(0.5, 1.5, generator=gen))
         state.ema_params = [p.detach().clone() for p in state.params()]
         states[name] = state
-    rng = np.random.default_rng(7)
-    batch = train_batch(rng, cfg, TRAIN_PAIRS[0], num_gt)
+    watched = {n: p.detach().clone()
+               for n, p in states["cpu"].model.named_parameters()
+               if must_move and n.endswith(must_move)}
+    n_pairs = batch["feats"].shape[0]
     valid = batch["gt_valid"]
     max_pool1d, pool = mops.max_pool1d, PoolReplay()
     for step in range(3):
@@ -1227,7 +1278,7 @@ def check_train_step_bf16(cfg, raw, cuda, ba, fa, state32) -> dict:
                                          "above the CPU's")
         replayed = (f"; max-pool picks replayed that differ {pool.flips} of "
                     f"{pool.windows}" if step == 0 else "")
-        print(f"bf16 train step {step} at {TRAIN_PAIRS[0]} pairs (the CPU "
+        print(f"{label} bf16 train step {step} at {n_pairs} pairs (the CPU "
               f"bf16 step {seconds['cpu']:.1f} s): total_loss cpu "
               f"{losses['cpu']['total_loss'].item():.6f} cuda "
               f"{losses['cuda']['total_loss'].item():.6f}; worst loss term "
@@ -1242,10 +1293,42 @@ def check_train_step_bf16(cfg, raw, cuda, ba, fa, state32) -> dict:
                for p in [*s.params(), *s.ema_params,
                          *s.optimizer.moments["mu"]]):
         raise AssertionError("bf16 step: masters, EMA or moments not fp32")
-    del states["cpu"]
+    if must_move:
+        moved = {dev: min((p.detach().cpu() - watched[n]).abs().max().item()
+                          for n, p in s.model.named_parameters()
+                          if n in watched) for dev, s in states.items()}
+        print(f"{label}: the {len(watched)} {must_move} leaves moved in 3 "
+              f"steps by at least {moved} (largest change of each leaf)")
+        if not watched or min(moved.values()) <= 0:
+            raise AssertionError(f"{must_move} did not move: {moved}")
+    return states
+
+
+def check_train_step_bf16(cfg, raw, cuda, ba, fa, state32) -> dict:
+    """The bf16 train step at full width (``compute_dtype: bfloat16``):
+    three steps at 8 pairs on the card against the port's bf16 CPU steps
+    (``bf16_steps_vs_cpu``); the launches of one bf16 step at 24 pairs
+    (only bf16 instances of K1, K2 and K3, 7 each, no K7) and of one under
+    remat (K1 14); one remat step under each policy against the plain step
+    from the same fp32 state (losses within LOSS_TOL, drop path on), with
+    peak memory; then fp32 and bf16 steps at 24 and 96 pairs, timed in
+    turns and profiled. Returns the launches of the bf16 step at 24 pairs
+    by kernel."""
+    import copy
+
+    from vrdone_tpu_torch.train.loop import (batch_to_device, step_generator,
+                                             train_step)
+    tc = raw["training_config"]
+    num_gt = raw["training_dataset_config"]["proposal_max_preds"]
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    rng = np.random.default_rng(7)
+    states = bf16_steps_vs_cpu(cfg16, tc, cuda,
+                               train_batch(rng, cfg, TRAIN_PAIRS[0], num_gt),
+                               "vidvrd")
 
     # the launches of one bf16 step at 24 pairs, and of one under remat
-    state16 = states["cuda"]
+    state16 = states.pop("cuda")
+    del states
     band = 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
     tb = batch_to_device(train_batch(rng, cfg, TRAIN_PAIRS[1], num_gt), cuda)
     counts = {}
@@ -1328,6 +1411,90 @@ def check_train_step_bf16(cfg, raw, cuda, ba, fa, state32) -> dict:
     return counts[False]
 
 
+def check_train_step_relpe_bf16(cuda, ba, fa) -> dict:
+    """bf16 training with ``use_rel_pe`` at VidOR local-attention width
+    (``configs/vidor_local.yaml`` with ``use_rel_pe`` and ``compute_dtype:
+    bfloat16``, random seeded weights): three steps at a few pairs on the
+    card against the port's bf16 CPU steps (``bf16_steps_vs_cpu``), every
+    ``rel_pe`` moved; the launches of one step at 48 pairs (the config's
+    batch_size 3 x num_pairs 16), without and with remat: K4 bf16 once a
+    stem or branch block (twice under remat), whose backward is the dense
+    form once a block, K1 bf16 once a local S/O mutual layer (twice under
+    remat) with K2 and K3 bf16 once, no fp32 instance and no K7 (the
+    predictor trains through the dense form); then bf16 steps at 48 pairs
+    timed and profiled. Returns the launches of the step without remat by
+    kernel."""
+    from vrdone_tpu_torch.config import load_yaml_config, model_config_from_yaml
+    from vrdone_tpu_torch.train.loop import (batch_to_device, step_generator,
+                                             train_step)
+    raw = load_yaml_config(str(ROOT / "configs" / "vidor_local.yaml"))
+    cfg16 = dataclasses.replace(model_config_from_yaml(raw), use_rel_pe=True,
+                                compute_dtype="bfloat16")
+    tc = raw["training_config"]
+    num_gt = raw["training_dataset_config"]["proposal_max_preds"]
+    rng = np.random.default_rng(15)
+    state16 = bf16_steps_vs_cpu(
+        cfg16, tc, cuda, train_batch(rng, cfg16, RELPE_TRAIN_PAIRS[0], num_gt),
+        "vidor_local + use_rel_pe", must_move="rel_pe")["cuda"]
+
+    n_pairs = RELPE_TRAIN_PAIRS[1]
+    tb = batch_to_device(train_batch(rng, cfg16, n_pairs, num_gt), cuda)
+    arch = cfg16.backbone_arch
+    blocks, mutual = 2 * arch[1] + arch[2], 4 * arch[1]
+    counts = {}
+    for remat in (False, True):
+        state16.model.config = dataclasses.replace(cfg16, remat=remat,
+                                                   remat_policy="dots")
+        torch.cuda.synchronize()
+        zero_counts(ba, fa)
+        with dense_band_calls(ba) as dense:
+            train_step(state16, tb, step_generator(0, state16.step))
+            torch.cuda.synchronize()
+        counts[remat] = band_counts(ba, fa)
+        times = 2 if remat else 1
+        got = {**counts[remat], "dense band form": dense[0]}
+        expect = {name: 0 for name in got}
+        expect.update(band_attention_pe_bf16=times * blocks,
+                      band_attention_bf16=times * mutual,
+                      band_attention_dq_bf16=mutual,
+                      band_attention_dkv_bf16=mutual,
+                      **{"dense band form": blocks})
+        # the predictor's dense attention: once a layer's self and cross
+        # attention; the recompute under remat may stop before the last
+        full = 2 * cfg16.predictor.num_layers
+        print(f"vidor_local + use_rel_pe bf16 train step at {n_pairs} pairs"
+              f"{' with remat (dots)' if remat else ''}: kernel launches and "
+              f"dense band calls {got}, dense full-attention calls "
+              f"{fa.dense_calls}")
+        if got != expect or not (remat or fa.dense_calls == full):
+            raise AssertionError(f"launches {got}, expected {expect}")
+    state16.model.config = cfg16
+
+    for _ in range(2):
+        train_step(state16, tb, step_generator(0, state16.step))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            _, losses = train_step(state16, tb,
+                                   step_generator(0, state16.step))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0) / 5)
+    if not all(torch.isfinite(v) for v in losses.values()):
+        raise AssertionError("non-finite bf16 rel-PE losses")
+    print(f"vidor_local + use_rel_pe bf16 train step {n_pairs} pairs "
+          f"T={cfg16.max_seq_len}: {ms[0]:.2f} / {ms[1]:.2f} ms per step, "
+          f"{1e3 * n_pairs / ms[0]:.1f} / {1e3 * n_pairs / ms[1]:.1f} "
+          f"pairs/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_device(lambda: train_step(state16, tb,
+                                      step_generator(0, state16.step)),
+                   2, "step")
+    return counts[False]
+
+
 def profile_device(fn, runs: int, unit: str) -> tuple[float, float, list]:
     """Where the time of ``fn`` goes: ``torch.profiler`` over ``runs``
     calls, device time summed over the kernels against the host clock, and
@@ -1355,9 +1522,12 @@ def profile_device(fn, runs: int, unit: str) -> tuple[float, float, list]:
     return busy, 1e3 * wall, kernels
 
 
-def check_train_cli(raw, device: str = "cuda") -> None:
+def check_train_cli(raw, device: str = "cuda", model_over: dict | None = None,
+                    flags: tuple = (), evaluate: bool = True) -> None:
     """train_torch.py for one epoch of a tiny synthetic corpus on the card,
-    then eval_torch.py on its last checkpoint."""
+    with ``model_over`` set in the config's model_config and ``flags``
+    added, then (with ``evaluate``) eval_torch.py on its last
+    checkpoint."""
     import yaml
     from tests.synth_corpus import make_vidvrd_corpus, make_vidvrd_test_corpus
     vis = raw["model_config"]["visual_dim"]
@@ -1372,6 +1542,7 @@ def check_train_cli(raw, device: str = "cuda") -> None:
             gt_boxfeatures_dir=dirs["gt_boxfeatures_dir"],
             test_boxfeatures_dir=dirs["test_boxfeatures_dir"],
             cache_dir=os.path.join(root, "cache"))
+        cfg["model_config"].update(model_over or {})
         cfg["training_dataset_config"]["num_pairs"] = 2
         cfg["training_config"].update(batch_size=2, training_epoch=1,
                                       total_epoch=2, warmup_epochs=1,
@@ -1384,11 +1555,12 @@ def check_train_cli(raw, device: str = "cuda") -> None:
         exp = os.path.join(root, "exp")
         common = ["--data_name", "vidvrd", "--cfg_path", cfg_path,
                   "--exp_dir", exp, "--device", device]
-        for script, extra in (
-                ("train_torch.py", []),
-                ("eval_torch.py", ["--ckpt_path",
-                                   os.path.join(exp, "model_last.ckpt"),
-                                   "--topk", "3"])):
+        ckpt = os.path.join(exp, "model_last.ckpt")
+        runs = [("train_torch.py", list(flags))]
+        if evaluate:
+            runs.append(("eval_torch.py", ["--ckpt_path", ckpt,
+                                           "--topk", "3"]))
+        for script, extra in runs:
             t0 = time.perf_counter()
             r = subprocess.run([sys.executable, str(ROOT / script), *common,
                                 *extra], cwd=ROOT, capture_output=True,
@@ -1396,8 +1568,13 @@ def check_train_cli(raw, device: str = "cuda") -> None:
             if r.returncode != 0:
                 raise AssertionError(f"{script} failed:\n{r.stdout[-3000:]}"
                                      f"\n{r.stderr[-3000:]}")
-            print(f"{script} on {device}: exit 0 in "
-                  f"{time.perf_counter() - t0:.1f} s")
+            over = f" with {model_over}" if model_over else ""
+            print(f"{' '.join([script, *extra])} on {device}{over}: exit 0 "
+                  f"in {time.perf_counter() - t0:.1f} s")
+        if not os.path.exists(ckpt):
+            raise AssertionError("train_torch.py wrote no checkpoint")
+        if not evaluate:
+            return
         metrics = dict(re_metric(r.stdout))
         keys = {"RelDet_mAP", "RelDet_AR@50", "RelDet_AR@100", "RelTag_AP@1",
                 "RelTag_AP@5", "RelTag_AP@10"}
@@ -2212,6 +2389,78 @@ def check_band_pe(cuda, ba, mops) -> tuple[dict, dict]:
     return entry, alone
 
 
+def check_band_pe_bf16(cuda, ba) -> dict:
+    """K4's bf16 instance against its bf16 plain version (BF16_KERNEL_TOL),
+    the table bf16 as ``cast_floating`` and the bf16 train step leave it,
+    at the bf16 rel-PE paths' shapes (VidOR local width, B*H=16*8, d=64,
+    window 9: the stem at T=512, the branches at 256, 128, 64) and the
+    stream's (B*H=8*8, T=768, 384, 192, 96), at a T off the row tile and
+    an even window, with invalid keys inside and after the valid stretch;
+    with a zero table it gives K1 bf16's output bit for bit. Each path
+    shape timed alone beside K4 fp32 alone on the same values, the bf16
+    plain version, SDPA in bf16 with the band, key mask and bias as one
+    additive mask, and the bound. Returns the JSON entry
+    ``band_attention_pe_bf16`` at the stem's shape, with ``by_shape``."""
+    rng = np.random.default_rng(14)
+    bf, h, d = torch.bfloat16, 8, 64
+    rows, worst = [], 0.0
+    # (B, T, window, timed): the paths' shapes, then checks only
+    for b, t, ws, timed in ((16, 512, 9, True), (16, 256, 9, True),
+                            (16, 128, 9, True), (16, 64, 9, True),
+                            (8, 768, 9, True), (8, 384, 9, True),
+                            (8, 192, 9, True), (8, 96, 9, True),
+                            (16, 500, 9, False), (16, 512, 8, False)):
+        q, k, v, mask = attention_inputs(rng, b, t, t, h * d, cuda)
+        mask[1, t // 3] = False   # an invalid key inside a valid stretch
+        pe = torch.from_numpy(rng.standard_normal((h, ws))
+                              .astype(np.float32)).to(cuda)
+        q16, k16, v16, pe16 = (x.to(bf) for x in (q, k, v, pe))
+        kw = dict(n_head=h, window_size=ws)
+        kernel = lambda: ba.band_attention_pe_cuda(q16, k16, v16, mask, pe16,
+                                                   **kw)
+        plain = lambda: ba.band_attention_pe_plain(q16, k16, v16, mask, pe16,
+                                                   **kw)
+        i = ba.forward_instance(cuda.index or 0, b, t, h, d, ws, pe=True,
+                                dtype=bf)
+        label = (f"B*H={b}*{h} T={t} d={d} window={ws} (instance "
+                 f"{i['rows']} rows a tile, {i['per_block']} of {i['tiles']} "
+                 f"tiles a block, d bucket {i['bucket']}"
+                 f"{'' if i['vec'] else ', scalar'})")
+        zero = torch.zeros_like(pe16)
+        if not torch.equal(
+                ba.band_attention_pe_cuda(q16, k16, v16, mask, zero, **kw),
+                ba.band_attention_cuda(q16, k16, v16, mask, **kw)):
+            raise AssertionError(f"K4 bf16 with a zero table is not K1 bf16 "
+                                 f"at {label}")
+        if not timed:
+            out, ref = kernel().float(), plain().float()
+            err = (out - ref).abs().max().item()
+            limit = BF16_KERNEL_TOL * (1 + ref.abs().max().item())
+            print(f"band_attention_pe_bf16 {label}: max_abs_err {err:.3e} "
+                  f"(limit {limit:.3e}); a zero table gives K1 bf16 bit "
+                  f"for bit")
+            if not err <= limit:
+                raise AssertionError(f"K4 bf16 off by {err} at {label}")
+            worst = max(worst, err)
+            continue
+        lib_mask = band_pe_library_mask(mask, pe16, ws).to(bf)
+        row = bf16_case(
+            "band_attention_pe_bf16", label, kernel, plain,
+            lambda: F.scaled_dot_product_attention(
+                heads(q16, h), heads(k16, h), heads(v16, h),
+                attn_mask=lib_mask),
+            2 * (4 * q.numel() + pe.numel()) + mask.numel(),
+            4 * d * h * band_pairs(mask, ws // 2))
+        del lib_mask
+        row["fp32_device_ms"] = queued_device_ms(
+            lambda: ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw))
+        print(f"  K4 fp32 alone on the same values {row['fp32_device_ms']:.4f}"
+              f" ms; a zero table gives K1 bf16 bit for bit")
+        rows.append(row)
+        worst = max(worst, row["max_abs_err"])
+    return {**rows[0], "max_abs_err": worst, "by_shape": rows}
+
+
 def check_stream_kernels(cuda, ba, fa, band_rows: list
                          ) -> tuple[dict, dict]:
     """K1 and K7 against their plain versions at the shapes the streamed
@@ -2438,6 +2687,7 @@ def main(argv: list[str] | None = None) -> int:
                                 for r in band16["by_shape"])
     kernels.update(check_mega_kernels(cuda, pb, ma))
     kernels["band_attention_pe"], pe_alone = check_band_pe(cuda, ba, mops)
+    kernels["band_attention_pe_bf16"] = check_band_pe_bf16(cuda, ba)
     stream_worst, alone = check_stream_kernels(cuda, ba, fa, band_rows)
     for name, err in stream_worst.items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
@@ -2534,9 +2784,14 @@ def main(argv: list[str] | None = None) -> int:
     train16_launches = check_train_step_bf16(cfg, raw, cuda, ba, fa, state32)
     del state32
     torch.cuda.empty_cache()
+    # 10. bf16 training with use_rel_pe at VidOR local-attention width
+    relpe16_launches = check_train_step_relpe_bf16(cuda, ba, fa)
+    torch.cuda.empty_cache()
 
-    # 6. train_torch.py -> eval_torch.py
+    # 6. train_torch.py -> eval_torch.py, and a bf16 rel-PE train_torch.py
     check_train_cli(raw)
+    check_train_cli(raw, model_over={"use_rel_pe": True, "use_local": True},
+                    flags=("--compute_dtype", "bfloat16"), evaluate=False)
 
     # 7. MEGA: detect_video at full width, the small detector against the
     # CPU, detect_torch.py
@@ -2554,6 +2809,8 @@ def main(argv: list[str] | None = None) -> int:
     sources = {"band_attention": (band, f"{pallas}:42"),
                "band_attention_bf16": (band, f"{pallas}:42 (bf16 operands)"),
                "band_attention_pe": (band, f"{pallas}:42 (with_pe)"),
+               "band_attention_pe_bf16": (band, f"{pallas}:42 (with_pe, "
+                                          "bf16 operands)"),
                "band_attention_dq": (band, f"{pallas}:112"),
                "band_attention_dkv": (band, f"{pallas}:146"),
                "band_attention_dq_bf16": (band, f"{pallas}:112 (bf16 "
@@ -2580,10 +2837,13 @@ def main(argv: list[str] | None = None) -> int:
     # set-attention (the bf16 detect_video's for its bf16 instance) and,
     # with the fused attention off, for the position bias, the streaming
     # run's for the bias band kernel, the VidVRD bf16 eval step's for the
-    # bf16 instances; every path is in launches_by_path
+    # bf16 instances, the bf16 rel-PE eval step's at VidOR local width for
+    # the bias band kernel's bf16 instance; every path is in
+    # launches_by_path
     by_path = {name: {"eval_forward": launches.get(name, 0),
                       "train_step": train_launches.get(name, 0),
                       "train_step_bf16": train16_launches.get(name, 0),
+                      "train_step_bf16_rel_pe": relpe16_launches.get(name, 0),
                       **{route: c.get(name, 0)
                          for route, c in detect_launches.items()},
                       "stream": stream_launches.get(name, 0),
@@ -2595,6 +2855,7 @@ def main(argv: list[str] | None = None) -> int:
                  "position_bias": "detect_video_pe_bias",
                  "bias_factors": "detect_video",
                  "band_attention_pe": "stream",
+                 "band_attention_pe_bf16": "serve_bf16_vidor_local_rel_pe",
                  "band_attention_bf16": "serve_bf16_vidvrd",
                  "band_attention_dq_bf16": "train_step_bf16",
                  "band_attention_dkv_bf16": "train_step_bf16",

@@ -17,7 +17,14 @@ Tolerances, each a share of max |ref| (PERF.md section 2):
   elementwise chains fused in fp32 by XLA). Measured here: pred_logits
   2.0e-2 to 4.2e-2, pred_masks 0.7e-2 to 1.3e-2, about the gap between
   each framework's bf16 and fp32 heads (JAX 2.1e-2 to 2.9e-2 on the
-  logits, the port 3.2e-2 to 3.4e-2).
+  logits, the port 3.2e-2 to 3.4e-2). With ``use_rel_pe`` (the bias drawn
+  N(0, 1), as every other non-kernel leaf here) bf16 moves the heads
+  further in both frameworks: JAX's own bf16 logits lie 3.4e-2 and
+  6.2e-2 from its fp32 ones (``use_local`` off, on), the port's 4.6e-2 and
+  5.8e-2 from JAX's bf16 and 3.3e-2 and 5.1e-2 from fp32, while the band
+  attention with the bias agrees with JAX's bit for bit. So those cases
+  are held to the larger of MODEL_TOL and JAX's own bf16-to-fp32 gap on
+  the same head.
 """
 
 import dataclasses
@@ -158,23 +165,37 @@ def _levels_and_heads(mod, x, m):
     return pyramid, fpn, mod(x, m)
 
 
-@pytest.mark.parametrize("use_local", [False, True])
-def test_maskvrd_bf16_matches_jax(use_local):
+@pytest.mark.parametrize("use_local,use_rel_pe", [
+    pytest.param(False, False, id="False"),
+    pytest.param(True, False, id="True"),
+    pytest.param(False, True, id="False-rel_pe"),
+    pytest.param(True, True, id="True-rel_pe")])
+def test_maskvrd_bf16_matches_jax(use_local, use_rel_pe):
     """A tiny MaskVRD (2 layers a stage, narrow widths) in bf16: cast
     parameters and bf16 features through the port and through JAX. The
-    heads agree within MODEL_TOL x max |ref| and are fp32; every pyramid and
-    FPN level has JAX's dtype."""
-    cfg = small_cfg(use_local=use_local)
+    heads agree within MODEL_TOL x max |ref| (with ``use_rel_pe``, the
+    larger of that and JAX's own bf16-to-fp32 gap) and are fp32; every
+    pyramid and FPN level has JAX's dtype."""
+    cfg = small_cfg(use_local=use_local, use_rel_pe=use_rel_pe)
     jm, params = jax_model_and_params(cfg)
     tm = MaskVRD(port_config(cfg), device=CPU)
     load_params(tm, flatten_params(params))
     tm = cast_floating(tm)
     x, mask = inputs(cfg)
-    jpyr, jfpn, jout = jax.jit(
+    levels_and_heads = jax.jit(
         lambda p, x, m: jm.apply({"params": p}, x, m,
-                                 method=_levels_and_heads))(
+                                 method=_levels_and_heads))
+    jpyr, jfpn, jout = levels_and_heads(
         jax_cast_floating(params), jnp.asarray(x, jnp.bfloat16),
         jnp.asarray(mask))
+    limits = {}
+    if use_rel_pe:
+        j32 = levels_and_heads(params, jnp.asarray(x), jnp.asarray(mask))[2]
+        for i, (j16, j32) in enumerate(zip([jout, *jout["aux_outputs"]],
+                                           [j32, *j32["aux_outputs"]])):
+            for key in ("pred_logits", "pred_masks"):
+                limits[i, key] = max(MODEL_TOL, rel_err(
+                    torch.from_numpy(np.array(j16[key])), j32[key]))
     tx, tmask = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(mask)
     with torch.no_grad():
         tpyr, tmasks = tm.backbone(tx, tmask)
@@ -189,12 +210,12 @@ def test_maskvrd_bf16_matches_jax(use_local):
         (f"aux {i} ", a, b) for i, (a, b) in enumerate(
             zip(tout["aux_outputs"], jout["aux_outputs"]))]
     assert len(levels) == 3
-    for name, t, j in levels:
+    for i, (name, t, j) in enumerate(levels):
         for key in ("pred_logits", "pred_masks"):
             assert t[key].dtype == torch.float32, name + key
             assert j[key].dtype == jnp.float32, name + key
             err = rel_err(t[key], j[key])
-            assert err < MODEL_TOL, (name + key, err)
+            assert err < limits.get((i, key), MODEL_TOL), (name + key, err)
     np.testing.assert_array_equal(tout["output_mask"].numpy(),
                                   np.asarray(jout["output_mask"]))
 

@@ -16,7 +16,8 @@ relu's zero, and the kernel folds dw/dh through angle identities where the
 plain version embeds them), and in log space where it is above -8; the
 fused set-attention to 1e-4 of 1 + max |out| (its bias against the plain
 bias, then a softmax over up to 3750 keys). The bf16 instances of the band
-and full-attention kernels are held to their bf16 plain versions within
+kernels with and without the bias (K4, K1) and of the full-attention kernel
+are held to their bf16 plain versions within
 1e-2 of 1 + max |plain| (``BF16_TOL``, ``chip_smoke.py``'s
 ``BF16_KERNEL_TOL``): both round P and the output to bf16, K7 its
 unnormalised P, the plain version the normalised one. The bf16 instances
@@ -1185,6 +1186,159 @@ def test_bf16_unaligned_streams_take_the_scalar_instance(cuda):
         <= BF16_TOL
 
 
+def band_pe_bf16_case(cuda, seed, b, t, h, d, window_size, table,
+                      shift=False):
+    """K4's bf16 instance on bf16 streams with an N(0, 1) table in
+    ``table``'s dtype against the bf16 plain version, one launch counted
+    as K4 bf16 (and not as K1); a zero table gives K1 bf16's output bit
+    for bit. ``shift`` moves q, k and v 2 bytes past a 16-byte boundary.
+    Returns the kernel's output."""
+    lens = [t, max(1, t // 2), 1, 0] + [t] * (b - 4)
+    q, k, v, mask = streams(seed, b, t, t, h * d, lens, cuda)
+    mask[0, t // 3] = False  # an invalid key inside a valid stretch
+    q, k, v = to_bf16(q, k, v)
+    pe = pe_table(seed, h, window_size, cuda).to(table)
+    kw = dict(n_head=h, window_size=window_size)
+    move = shifted if shift else torch.clone
+    qs, ks, vs = move(q), move(k), move(v)
+    counts = (ba.launches, ba.bf16_launches, ba.pe_launches,
+              ba.pe_bf16_launches)
+    out = ba.band_attention_pe_cuda(qs, ks, vs, mask, pe, **kw)
+    torch.cuda.synchronize()
+    assert (ba.launches, ba.bf16_launches, ba.pe_launches,
+            ba.pe_bf16_launches) == (*counts[:2], counts[2] + 1,
+                                     counts[3] + 1)
+    assert bf16_err(out, ba.band_attention_pe_plain(q, k, v, mask, pe,
+                                                    **kw)) <= BF16_TOL
+    assert (out[3] == 0).all()  # no valid query (and no valid key)
+    zero = torch.zeros_like(pe)
+    assert torch.equal(ba.band_attention_pe_cuda(qs, ks, vs, mask, zero,
+                                                 **kw),
+                       ba.band_attention_cuda(qs, ks, vs, mask, **kw))
+    return out
+
+
+@pytest.mark.parametrize("table", [torch.bfloat16, torch.float32],
+                         ids=["bf16_table", "fp32_table"])
+@pytest.mark.parametrize("t,window_size,d,b,h", [
+    # the bf16 rel-PE paths' shapes: VidOR local width (B*H = 16*8, d = 64,
+    # window 9) at the stem and the coarsest level, the stream's stem
+    (512, 9, 64, 16, 8), (64, 9, 64, 16, 8), (768, 9, 64, 8, 8),
+    # T one off each row tile (16, 48, 64 rows), odd T, even windows (the
+    # bias index clamps), T < 2w + 1, the widest band, w = 0
+    (15, 7, 128, 4, 4), (17, 7, 128, 4, 4), (47, 8, 128, 4, 4),
+    (49, 7, 128, 4, 4), (63, 9, 64, 4, 8), (65, 8, 64, 4, 8),
+    (37, 8, 32, 4, 8), (5, 9, 64, 4, 8), (100, 31, 256, 4, 4),
+    (64, 1, 64, 4, 8),
+    # d % 8 != 0: the scalar instance (d = 20 is a vector one in fp32)
+    (96, 7, 20, 4, 3), (70, 9, 33, 4, 4), (40, 5, 6, 4, 5)])
+def test_band_pe_bf16_instances_match_plain(cuda, t, window_size, d, b, h,
+                                            table):
+    """K4's bf16 instances against the bf16 plain version, the table bf16
+    (as ``cast_floating`` and the bf16 train step leave it) or fp32, and
+    a zero table equal to K1 bf16 bit for bit; the instance the C side
+    reports for it."""
+    inst = ba.forward_instance(cuda.index or 0, b, t, h, d, window_size,
+                               pe=True, dtype=torch.bfloat16)
+    assert inst["rows"] in (16, 32, 48, 64)
+    assert inst["tiles"] == -(-t // inst["rows"])
+    assert inst["vec"] == (d % 8 == 0)
+    band_pe_bf16_case(cuda, t * 3 + d, b, t, h, d, window_size, table)
+
+
+def test_band_pe_bf16_unaligned_streams_take_the_scalar_instance(cuda):
+    """bf16 streams 2 bytes past a 16-byte boundary: K4 bf16 takes its
+    scalar instance, and a zero table still gives K1 bf16's output."""
+    band_pe_bf16_case(cuda, 12, 4, 150, 8, 64, 9, torch.bfloat16,
+                      shift=True)
+
+
+def test_band_pe_bf16_walks_double_buffered_tiles(cuda):
+    """Enough row tiles that a K4 bf16 block walks several,
+    double-buffered, the last one padded."""
+    inst = ba.forward_instance(cuda.index or 0, 8, 1630, 8, 64, 9, pe=True,
+                               dtype=torch.bfloat16)
+    assert inst["rows"] == 64 and inst["per_block"] > 1
+    band_pe_bf16_case(cuda, 13, 8, 1630, 8, 64, 9, torch.bfloat16)
+
+
+@pytest.mark.parametrize("t,window_size,d", [
+    (512, 9, 64), (96, 8, 64), (37, 7, 32), (5, 9, 16)])
+def test_band_pe_bf16_autograd_matches_plain(cuda, t, window_size, d):
+    """``BandAttentionPE`` on bf16 leaves (the bf16 train step's): K4's
+    bf16 instance as the forward and the dense form's autograd as the
+    backward, against autograd of the plain version, dq, dk, dv and
+    d rel_pe bf16, with a nonzero upstream gradient on invalid query
+    rows."""
+    b, h = 4, 8
+    q, k, v, mask = streams(t * 11 + window_size, b, t, t, h * d,
+                            [t, max(1, t // 2), 1, 0], cuda)
+    mask[0, t // 3] = False
+    pe = pe_table(t, h, window_size, cuda)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(t)
+                       ).to(cuda)
+    q, k, v, pe, dout = to_bf16(q, k, v, pe, dout)
+    kw = dict(n_head=h, window_size=window_size)
+    counts = (ba.launches, ba.pe_launches, ba.pe_bf16_launches,
+              ba.dq_launches, ba.dkv_launches)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, pe)]
+    out = mops.band_attention(*leaves[:3], mask, rel_pe=leaves[3], **kw)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (ba.launches, ba.pe_launches, ba.pe_bf16_launches,
+            ba.dq_launches, ba.dkv_launches) == (
+        counts[0], counts[1] + 1, counts[2] + 1, *counts[3:])
+    ref = [x.clone().requires_grad_() for x in (q, k, v, pe)]
+    ref_out = ba.band_attention_pe_plain(*ref[:3], mask, ref[3], **kw)
+    want = torch.autograd.grad(ref_out, ref, dout)
+    assert bf16_err(out, ref_out) <= BF16_TOL
+    for name, g, r in zip(("dq", "dk", "dv", "drel_pe"), got, want):
+        assert g.dtype == torch.bfloat16, name
+        assert bf16_err(g, r) <= BF16_TOL, name
+    assert (got[0][3] == 0).all()  # a batch row with no valid query
+
+
+def test_band_pe_bf16_instance_is_what_launches(cuda, tmp_path):
+    """A bf16 call with the bias launches K4's bf16 instance: element
+    type, head-dim bucket, vector copies, grid and block from a
+    ``torch.profiler`` trace against ``forward_instance(pe=True)``."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    for b, t, h, d, ws in ((16, 512, 8, 64, 9), (8, 768, 8, 64, 9),
+                           (4, 70, 4, 20, 8)):
+        q, k, v, mask = streams(t + d, b, t, t, h * d, [t] * b, cuda)
+        q, k, v = to_bf16(q, k, v)
+        pe = pe_table(t, h, ws, cuda).to(torch.bfloat16)
+        inst = ba.forward_instance(cuda.index or 0, b, t, h, d, ws, pe=True,
+                                   dtype=torch.bfloat16)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ba.band_attention_pe_cuda(q, k, v, mask, pe, n_head=h,
+                                          window_size=ws)
+                torch.cuda.synchronize()
+        trace = tmp_path / f"trace{t}.json"
+        prof.export_chrome_trace(str(trace))
+        seen = 0
+        for e in json.loads(trace.read_text())["traceEvents"]:
+            if e.get("cat") != "kernel":
+                continue
+            m = re.search(r"band_forward_kernel<(\d+), (true|false), "
+                          r"(true|false), (\w+)>", e.get("name", ""))
+            if m is None:
+                continue
+            assert (m[3], m[4]) == ("true", "__nv_bfloat16")
+            assert (int(m[1]), m[2] == "true") == (inst["bucket"],
+                                                  inst["vec"])
+            assert e["args"]["grid"] == [
+                b * h * -(-inst["tiles"] // inst["per_block"]), 1, 1]
+            assert e["args"]["block"] == [8 * inst["rows"], 1, 1]
+            seen += 1
+        assert seen, (b, t, h, d)
+
+
 def full_bf16_case(cuda, seed, tq, tk, d, lens, h=2, shift=False):
     """K7's bf16 instance on bf16 streams against the bf16 plain version,
     one launch counted as bf16; ``shift`` moves q, k and v 2 bytes past a
@@ -1485,20 +1639,27 @@ def test_band_backward_bf16_instance_is_what_launches(cuda, tmp_path):
         assert seen == {False, True}, (b, t, h, d, w)
 
 
-def test_kernels_refuse_mixed_dtypes_and_bf16_where_fp32_only(cuda):
+def test_kernels_take_bf16_and_refuse_mixed_dtypes(cuda):
     """q, k and v in one dtype only, and dout in theirs for the backward
-    kernels; K4 alone takes fp32 only and refuses bf16 naming the ROADMAP
-    item."""
+    kernels; K4 takes bf16 streams with a bf16 or fp32 table, refuses mixed
+    stream dtypes, and a bf16 table beside fp32 streams."""
     q, k, v, mask = streams(2, 2, 16, 16, 64, [16, 8], cuda)
     q16, k16, v16 = to_bf16(q, k, v)
     with pytest.raises(TypeError, match="one dtype"):
         ba.band_attention_cuda(q16, k, v16, mask, n_head=4, window_size=7)
     with pytest.raises(TypeError, match="one dtype"):
         fa.full_attention_cuda(q, k16, v, mask, n_head=4)
-    with pytest.raises(TypeError, match="ROADMAP"):
-        ba.band_attention_pe_cuda(q16, k16, v16, mask,
-                                  torch.zeros(4, 7, device=cuda), n_head=4,
-                                  window_size=7)
+    pe = pe_table(2, 4, 7, cuda)
+    kw = dict(n_head=4, window_size=7)
+    with pytest.raises(TypeError, match="one dtype"):
+        ba.band_attention_pe_cuda(q16, k16, v, mask, pe, **kw)
+    with pytest.raises(ValueError, match="rel_pe"):
+        ba.band_attention_pe_cuda(q, k, v, mask, pe.to(torch.bfloat16), **kw)
+    for table in (pe, pe.to(torch.bfloat16)):
+        out = ba.band_attention_pe_cuda(q16, k16, v16, mask, table, **kw)
+        assert out.dtype == torch.bfloat16
+        assert bf16_err(out, ba.band_attention_pe_plain(
+            q16, k16, v16, mask, table, **kw)) <= BF16_TOL
     out, lse = ba.band_attention_cuda(q16, k16, v16, mask, n_head=4,
                                       window_size=7, with_lse=True)
     dr = ba.band_rowsum(out, out, 4)

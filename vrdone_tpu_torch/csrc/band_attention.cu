@@ -1,6 +1,6 @@
 // Banded (sliding-window) attention for Hopper (sm_90a): the forward with
-// its per-row log-sum-exp and the two backward kernels (fp32 and bf16
-// streams each), and the forward with a relative-position bias (fp32).
+// its per-row log-sum-exp, the two backward kernels and the forward with a
+// relative-position bias, each for fp32 and for bf16 streams.
 //
 // Replaces the TPU kernels of vrdone_tpu/ops/pallas/band_attention.py:
 //   * band_forward_kernel<.., kPE = false> (K1) <- _band_kernel (forward, no
@@ -92,7 +92,17 @@
 // forward's B*H = 128*4, T = 96, d = 128; 0.010 ms at VidOR's 16*8, 512,
 // 64); measured alone on an H100 SXM (700 W) it takes 0.032 and 0.029 ms,
 // the fp32 instance 0.046 ms at the first. It is not a tensor-core design
-// (ROADMAP queue 2). K4 takes fp32 only.
+// (ROADMAP queue 2).
+// K4 on bf16 streams (band_attention_pe_forward_bf16: the bf16 train step
+// and bf16 serving of a use_rel_pe model) is the same bf16 body with the
+// bias: a lane's one table entry is read in the table's own type (bf16 as
+// cast_floating and the train step's cast leave it, or fp32) and widened
+// in that one register load, so no cast of the table runs before a launch.
+// The bias is added to the fp32 scaled score before the key mask, P is
+// rounded to bf16 after the normalisation, as in K1 bf16; a zero table
+// gives K1 bf16's output bit for bit. Its bound is K1 bf16's (0.010 ms at
+// VidOR's 16*8, 512, 64); measured alone on an H100 SXM (700 W) it takes
+// 0.030 ms there, K1 bf16 0.029 and K4 fp32 0.035.
 //
 // The backward, K2 (dQ) and K3 (dK, dV), is one templated body
 // (band_backward_kernel<.., kKV>), built from the forward's pieces. The two
@@ -169,8 +179,9 @@
 // heads split head-major along the channels (channels [h*d, (h+1)*d) are
 // head h), as the JAX package's _split_heads lays them out, so no transpose
 // is needed around the calls; q, k, v, out, dout and the gradients are
-// all fp32 or (all but K4) all bf16. mask is (B, T) bool (one byte each); lse and
-// Dr are (B, H, T) fp32; rel_pe is (H, window_size) fp32. Takes any T (no
+// all fp32 or all bf16. mask is (B, T) bool (one byte each); lse and Dr
+// are (B, H, T) fp32; rel_pe is (H, window_size), fp32 (or bf16 beside bf16
+// streams). Takes any T (no
 // padding), 1 <= d <= 256 and 0 <= w <= 15; the Python wrapper rejects
 // anything else before the launch.
 
@@ -376,7 +387,8 @@ struct BandProblem {
   const E* k;
   const E* v;
   const unsigned char* mask;
-  const float* rel_pe;  // (H, npe), read by K4 only
+  const void* rel_pe;   // (H, npe), read by K4 only: fp32, or bf16 where
+  int pe_elem;          // pe_elem is 2
   E* out;
   float* lse;           // (B, H, T) or null
   int T, H, D, w, npe;
@@ -390,7 +402,8 @@ struct BandProblem {
 // consecutive row tiles of one (batch, head), warp `warp` rows
 // warp * kRT .. + kRT - 1 of each. With kPE, the score of band offset n gets
 // rel_pe[h, min(n, npe - 1)] between the scaled dot product and the key
-// mask, the order of the dense form's additions.
+// mask, the order of the dense form's additions; a bf16 table is widened to
+// fp32 as it is loaded, exactly, as the JAX package's rel_pe.astype(float32).
 template <int DB, bool kVec, bool kPE, typename E>
 __global__ void __launch_bounds__(512)
 band_forward_kernel(const BandProblem<E> p) {
@@ -426,7 +439,13 @@ band_forward_kernel(const BandProblem<E> p) {
   const int n = lane & (kseg - 1);
   const int seg_row = lane / kseg;
   float pe = 0.f;
-  if (kPE && n <= 2 * w) pe = p.rel_pe[h * p.npe + min(n, p.npe - 1)];
+  if (kPE && n <= 2 * w) {
+    // fp32 streams take an fp32 table; bf16 ones a bf16 or an fp32 one
+    const int at = h * p.npe + min(n, p.npe - 1);
+    pe = std::is_same_v<E, bf16> && p.pe_elem == 2
+             ? element::to_f32(static_cast<const bf16*>(p.rel_pe)[at])
+             : static_cast<const float*>(p.rel_pe)[at];
+  }
 
   copy_slab<DB, kVec>(ks, vs, p.k, p.v, hd, t_first * R - w, slab);
   cp_async_commit();
@@ -1040,19 +1059,16 @@ cudaError_t run_bucket(int bucket, BandProblem<E>* p, int B,
   }
 }
 
-// K1, or K4 with `pe` (fp32 streams only).
+// K1, or K4 with `pe`.
 template <typename E>
 cudaError_t forward(BandProblem<E>* p, int B, bool pe, cudaStream_t stream,
                     bool launch) {
   const int bucket = head_bucket(p->D);
   const bool vec =
       vector_streams(p->D, sizeof(E), {p->q, p->k, p->v, p->out});
-  if (pe) {
-    if constexpr (std::is_same_v<E, float>)
-      return vec ? run_bucket<true, true>(bucket, p, B, stream, launch)
-                 : run_bucket<false, true>(bucket, p, B, stream, launch);
-    return cudaErrorInvalidValue;
-  }
+  if (pe)
+    return vec ? run_bucket<true, true>(bucket, p, B, stream, launch)
+               : run_bucket<false, true>(bucket, p, B, stream, launch);
   return vec ? run_bucket<true, false>(bucket, p, B, stream, launch)
              : run_bucket<false, false>(bucket, p, B, stream, launch);
 }
@@ -1082,7 +1098,7 @@ cudaError_t backward(BandBwdProblem<E>* p, int B, cudaStream_t stream,
 template <typename E>
 cudaError_t forward_instance(int B, int T, int H, int D, int w, bool pe,
                              int* rows, int* tiles, int* per_block) {
-  BandProblem<E> p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+  BandProblem<E> p{nullptr, nullptr, nullptr, nullptr, nullptr, 4, nullptr,
                    nullptr, T, H, D, w, 2 * w + 1, 1.f, 0, 0, 0};
   const cudaError_t err = forward(&p, B, pe, nullptr, false);
   *rows = p.rows;
@@ -1105,7 +1121,7 @@ extern "C" int band_attention_forward(const float* q, const float* k,
                                       float* lse, int B, int T, int H, int D,
                                       int w, float scale, void* stream) {
   if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
-  BandProblem<float> p{q, k, v, mask, nullptr, out, lse, T, H, D, w, 1,
+  BandProblem<float> p{q, k, v, mask, nullptr, 4, out, lse, T, H, D, w, 1,
                        scale, 0, 0, 0};
   return (int)forward(&p, B, false, (cudaStream_t)stream, true);
 }
@@ -1118,7 +1134,7 @@ extern "C" int band_attention_forward_bf16(const bf16* q, const bf16* k,
                                            int T, int H, int D, int w,
                                            float scale, void* stream) {
   if (bad_shape(B, T, H, D, w)) return (int)cudaErrorInvalidValue;
-  BandProblem<bf16> p{q, k, v, mask, nullptr, out, lse, T, H, D, w, 1,
+  BandProblem<bf16> p{q, k, v, mask, nullptr, 4, out, lse, T, H, D, w, 1,
                       scale, 0, 0, 0};
   return (int)forward(&p, B, false, (cudaStream_t)stream, true);
 }
@@ -1134,17 +1150,34 @@ extern "C" int band_attention_pe_forward(const float* q, const float* k,
                                          void* stream) {
   if (bad_shape(B, T, H, D, w) || window_size < 1)
     return (int)cudaErrorInvalidValue;
-  BandProblem<float> p{q, k, v, mask, rel_pe, out, nullptr, T, H, D, w,
+  BandProblem<float> p{q, k, v, mask, rel_pe, 4, out, nullptr, T, H, D, w,
                        window_size, scale, 0, 0, 0};
+  return (int)forward(&p, B, true, (cudaStream_t)stream, true);
+}
+
+// The same forward with bf16 streams (q, k, v and out), K4 on the bf16
+// path; `rel_pe` is a bf16 table where `pe_elem` is 2, an fp32 one where it
+// is 4.
+extern "C" int band_attention_pe_forward_bf16(const bf16* q, const bf16* k,
+                                              const bf16* v,
+                                              const unsigned char* mask,
+                                              const void* rel_pe, int pe_elem,
+                                              bf16* out, int B, int T, int H,
+                                              int D, int w, int window_size,
+                                              float scale, void* stream) {
+  if (bad_shape(B, T, H, D, w) || window_size < 1 ||
+      (pe_elem != 2 && pe_elem != 4))
+    return (int)cudaErrorInvalidValue;
+  BandProblem<bf16> p{q, k, v, mask, rel_pe, pe_elem, out, nullptr, T, H, D,
+                      w, window_size, scale, 0, 0, 0};
   return (int)forward(&p, B, true, (cudaStream_t)stream, true);
 }
 
 // The instance the forward (K1, or K4 with `pe`) takes on the current
 // device for 16-byte-aligned streams of this shape and `elem`-byte elements
-// (4 for fp32, 2 for bf16; K4 takes fp32 only): query rows a tile, row
-// tiles a (batch, head), tiles a block walks and the head-dim bucket; `vec`
-// is 1 for the vector instance (d % 4 == 0 in fp32, d % 8 == 0 in bf16), 0
-// for the scalar one.
+// (4 for fp32, 2 for bf16): query rows a tile, row tiles a (batch, head),
+// tiles a block walks and the head-dim bucket; `vec` is 1 for the vector
+// instance (d % 4 == 0 in fp32, d % 8 == 0 in bf16), 0 for the scalar one.
 extern "C" int band_attention_instance(int B, int T, int H, int D, int w,
                                        int pe, int elem, int* rows,
                                        int* tiles, int* per_block,

@@ -22,14 +22,14 @@ instance (rows a tile, tiles a block walks, head-dim bucket, vector or
 scalar copies; for the backward also owner rows a warp) from the shape and
 the card; ``forward_instance`` and ``backward_instance`` report it.
 
-The forward without a bias (K1) also takes bf16 streams (bf16 serving and
-training); its plain version then follows the JAX dense form's promotions:
-the scores in fp32 from the widened operands (q scaled in fp32, as the
-dense form's numpy scale makes it; Pallas scales the fp32 dot instead),
+The forward, with or without a bias (K4, K1), also takes bf16 streams
+(bf16 serving and training); its plain version then follows the JAX dense
+form's promotions: the scores in fp32 from the widened operands (q scaled
+in fp32, as the dense form's numpy scale makes it; Pallas scales the fp32
+dot instead), a bf16 bias table widened to fp32 before it is added,
 softmax in fp32, P rounded to bf16 before P.V, a bf16 output and an fp32
 lse. The backward (K2/K3) takes bf16 streams too (bf16 training), with the
 Pallas backward's promotions: ``band_backward_plain`` is its plain version.
-The bias forward (K4) takes fp32 only and refuses bf16.
 """
 
 from __future__ import annotations
@@ -50,7 +50,8 @@ MAX_HEAD_DIM = 256
 # launches of each CUDA kernel since the counts were last set to 0
 launches = 0           # forward, either dtype
 bf16_launches = 0      # forward, its bf16 instances alone
-pe_launches = 0        # forward with the relative-position bias
+pe_launches = 0        # forward with the relative-position bias, either dtype
+pe_bf16_launches = 0   # forward with the bias, its bf16 instances alone
 dq_launches = 0        # backward, dQ, either dtype
 dkv_launches = 0       # backward, dK and dV, either dtype
 bf16_dq_launches = 0   # backward, dQ, its bf16 instances alone
@@ -159,6 +160,10 @@ def _kernel() -> ctypes.CDLL:
     lib.band_attention_pe_forward.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p])
+    lib.band_attention_pe_forward_bf16.restype = ctypes.c_int
+    lib.band_attention_pe_forward_bf16.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
     lib.band_attention_instance.restype = ctypes.c_int
     lib.band_attention_instance.argtypes = (
         [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 5)
@@ -187,7 +192,7 @@ def forward_instance(device: int, b: int, t: int, n_head: int, d: int,
                      dtype: torch.dtype = torch.float32) -> dict:
     """The instance the forward kernel (K1, or K4 with ``pe``) takes on
     ``device`` for 16-byte-aligned (B, T, n_head * d) streams of ``dtype``
-    (fp32, or bf16 for K1): ``rows`` query rows a tile, ``tiles`` row tiles
+    (fp32 or bf16): ``rows`` query rows a tile, ``tiles`` row tiles
     a (batch, head), ``per_block`` tiles a block walks (double-buffered when
     more than 1), the head-dim ``bucket`` and ``vec`` (16-byte copies; False
     for the scalar instance)."""
@@ -232,13 +237,6 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _refuse_bf16(name: str, x: torch.Tensor, why: str) -> None:
-    """K4 has fp32 instances only."""
-    if x.dtype == torch.bfloat16:
-        raise TypeError(f"{name} takes float32 streams only, got bfloat16: "
-                        f"{why}")
-
-
 def band_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_mask: torch.Tensor, *, n_head: int,
                         window_size: int, with_lse: bool = False):
@@ -273,32 +271,39 @@ def band_attention_pe_cuda(q: torch.Tensor, k: torch.Tensor,
                            rel_pe: torch.Tensor, *, n_head: int,
                            window_size: int) -> torch.Tensor:
     """The bias forward kernel (one launch): same contract as
-    ``band_attention_pe_plain``, for fp32 CUDA tensors, rel_pe a contiguous
-    (n_head, window_size) fp32 table on q's device. Raises on anything the
+    ``band_attention_pe_plain``, for fp32 or bf16 CUDA tensors (one dtype;
+    the bf16 instance with bf16 streams), rel_pe a contiguous (n_head,
+    window_size) table on q's device in q's dtype or fp32. The bf16
+    instance reads a bf16 table as it is, widening each entry in the
+    kernel, so no cast runs before the launch. Raises on anything the
     kernel does not take, and when an input needs a gradient (use
     ``BandAttentionPE`` for that)."""
-    global pe_launches
+    global pe_launches, pe_bf16_launches
     _build.refuse_grad("band_attention_pe_cuda", q, k, v, rel_pe)
-    _refuse_bf16("band_attention_pe_cuda", q,
-                 "the rel-PE stream has no bf16 path in the JAX package "
-                 "(ROADMAP.md queue 1, the bf16 compute path)")
     b, t, d, w, scale = _shape(q, k, v, kv_mask, n_head, window_size)
     if (rel_pe.shape != (n_head, window_size)
-            or rel_pe.dtype != torch.float32 or rel_pe.device != q.device
-            or not rel_pe.is_contiguous()):
-        raise ValueError(f"rel_pe must be a contiguous fp32 "
-                         f"{(n_head, window_size)} table on q's device, got "
-                         f"{tuple(rel_pe.shape)} {rel_pe.dtype} on "
-                         f"{rel_pe.device}")
+            or rel_pe.dtype not in (q.dtype, torch.float32)
+            or rel_pe.device != q.device or not rel_pe.is_contiguous()):
+        raise ValueError(f"rel_pe must be a contiguous "
+                         f"{(n_head, window_size)} table on q's device in "
+                         f"q's dtype or fp32, got {tuple(rel_pe.shape)} "
+                         f"{rel_pe.dtype} on {rel_pe.device}")
     lib = _kernel()
+    bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr())
+    dims = (b, t, n_head, d, w, window_size, scale, _stream(q))
     with torch.cuda.device(q.device):
-        code = lib.band_attention_pe_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-            rel_pe.data_ptr(), out.data_ptr(), b, t, n_head, d, w,
-            window_size, scale, _stream(q))
+        if bf16:
+            code = lib.band_attention_pe_forward_bf16(
+                *ptrs, rel_pe.data_ptr(), rel_pe.dtype.itemsize,
+                out.data_ptr(), *dims)
+        else:
+            code = lib.band_attention_pe_forward(
+                *ptrs, rel_pe.data_ptr(), out.data_ptr(), *dims)
     _build.check_launch(lib, "band_attention", code)
     pe_launches += 1
+    pe_bf16_launches += bf16
     return out
 
 
@@ -404,8 +409,9 @@ class BandAttentionPE(torch.autograd.Function):
     """Differentiable band attention with the relative-position bias on the
     card (the port of the JAX package's ``masked._band_pallas_pe`` custom
     VJP): the bias kernel as the forward, and as the backward autograd of
-    the dense form, recomputed, for dq, dk, dv and d rel_pe. The JAX
-    package has no backward kernel for the bias, so neither has the port."""
+    the dense form, recomputed, for dq, dk, dv and d rel_pe, each in its
+    leaf's dtype (fp32, or bf16 in the bf16 train step). The JAX package
+    has no backward kernel for the bias, so neither has the port."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, rel_pe, n_head, window_size):
