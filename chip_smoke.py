@@ -60,15 +60,17 @@ one process per source, all started together, into
      wrapper, its plain version and its bound; holds the fused
      set-attention kernel (K5) against its plain version at the detector's
      shapes and times it alone at each of a frame's five shapes beside its
-     wrapper, SDPA and its bound, and K5's bf16 instance against its bf16
-     plain version (``BF16_KERNEL_TOL``) at the five shapes with and
-     without the bias, each timed alone beside the fp32 instance, SDPA in
-     bf16 and its bound (right after 2, with every other kernel check);
+     wrapper, SDPA and its bound, and K5's bf16 instance (the tensor-core
+     kernel, its rows, groups a block, bucket and splits printed) against
+     its bf16 plain version (``BF16_KERNEL_TOL``) at the five shapes with
+     and without the bias, each timed alone beside the fp32 instance, SDPA
+     in bf16 and its bound (right after 2, with every other kernel check);
      runs ``detect_video`` at full width (R-101-C4, 608x1088, 300 key / 75
      reference proposals, window 25, global 10, 16 frames, random seeded
      weights) through the fused attention, again through the
      position-bias kernel and in bf16 (``compute_dtype="bfloat16"``: K5's
-     bf16 instance only), with the launches of each (one ``bias_factors``
+     bf16 instance only, and no FMA kernel in its profile), with the
+     launches of each (one ``bias_factors``
      before each biased K5 or K6 call), each route's phase times (fp32 and
      bf16 in turns) and its stream phase's kernels a frame; checks a small
      detector on the card against the CPU, stage by stage and whole, and
@@ -1858,9 +1860,10 @@ def check_mega_bf16(cuda, pb, ma) -> dict:
     additive mask built outside the timing) and the bound: the largest of
     the products at the dense bf16 rate, the bias's fp32 work at the fp32
     rate and the bytes (bf16 q, k, vproj and output; fp32 ub, rois and
-    Wg) at the memory rate. Prints each instance's rows and key splits
-    and nvcc's registers and spills of both element types. Returns the
-    JSON entry
+    Wg) at the memory rate. Prints each instance: the tensor-core kernel's
+    rows, groups a block, channel bucket and key splits, the fp32 FMA
+    kernel's rows and splits, and nvcc's registers and spills of every
+    instance. Returns the JSON entry
     ``mega_attention_bf16`` (stage 0 with the bias; all ten in
     ``by_shape``)."""
     from vrdone_tpu_torch.ops import _build
@@ -1878,6 +1881,7 @@ def check_mega_bf16(cuda, pb, ma) -> dict:
         q16, k16, vp16 = (x.to(bf) for x in (q, k, vp))
         plan16 = ma.launch_plan(cuda.index, n, m, g, dg, dg, True)
         plan32 = ma.launch_plan(cuda.index, n, m, g, dg, dg)
+        bucket, groups = ma.mma_instance(g, dg, dg)
         for bias in (True, False):
             ex = extra if bias else []
 
@@ -1924,14 +1928,25 @@ def check_mega_bf16(cuda, pb, ma) -> dict:
             by = "bytes" if t_bytes >= t_ops else "operations"
             shape = (f"{label} G={g} N={n} M={m} dg=dgo={dg} "
                      f"{'with' if bias else 'no'} bias")
-            print(f"mega_attention_bf16 {shape} (instance {plan16[0]} rows a "
-                  f"block, {plan16[1]} key splits; fp32 {plan32[0]} rows, "
-                  f"{plan32[1]} splits): max_abs_err {err:.3e} (limit "
+            # each block of the tensor-core kernel copies the valid keys'
+            # k and vproj rows of its groups from L2 (its splits together
+            # cover all keys): the traffic it moves again and again
+            kv_l2 = (-(-n // plan16[0]) * g * int(valid.sum()) * 2
+                     * (dg + dg))
+            print(f"mega_attention_bf16 {shape} (instance "
+                  f"mega_attention_mma_kernel<{bucket}, {groups}>: "
+                  f"{plan16[0]} rows a block, {groups} groups a block "
+                  f"({-(-g // groups)} along grid.z), channel bucket "
+                  f"{bucket}, {plan16[1]} key splits; fp32 "
+                  f"{plan32[0]} rows, {plan32[1]} splits): max_abs_err "
+                  f"{err:.3e} (limit "
                   f"{limit:.3e}), the kernel alone {alone:.4f} ms (fp32 "
                   f"instance alone {alone32:.4f} ms), wrapper "
                   f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms, "
                   f"library (SDPA, bf16, mask precomputed) {lib_ms:.4f} ms, "
-                  f"bound {bms:.4f} ms ({by})")
+                  f"bound {bms:.4f} ms ({by}); k and vproj copied from L2 "
+                  f"{kv_l2 / 1e6:.1f} MB, {kv_l2 / alone / 1e9:.2f} TB/s "
+                  f"over the kernel alone")
             rows.append(dict(shape=shape, max_abs_err=err, ms=(k1 + k2) / 2,
                              device_ms=alone, fp32_device_ms=alone32,
                              plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
@@ -2058,6 +2073,13 @@ def check_detect_video(cuda, pb, ma) -> dict:
         print(f"{route}: the fused set-attention's kernels "
               f"{sum(dev_us(e) for e in k5) / 1e3:.3f} ms of device time a "
               f"video, " + ", ".join(f"{e.count} x {e.key[:70]}" for e in k5))
+        # bf16 streams take the tensor-core kernel only: the FMA kernel
+        # (fp32's) in the bf16 video's profile is a fault (the profiler may
+        # miss launches, so the counts above are what show the launches)
+        fma = [e.key for e in k5 if "mega_attention_kernel<" in e.key]
+        if route == "detect_video_bf16" and fma:
+            raise AssertionError(f"bf16 detect_video ran the FMA kernel: "
+                                 f"{fma}")
 
     # the memory property: a change to frame 0 moves frame 3's logits
     images2 = images.copy()

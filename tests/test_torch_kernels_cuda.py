@@ -1850,39 +1850,200 @@ def test_mega_attention_bf16_refuses_mixed_dtypes(cuda):
         <= BF16_TOL
 
 
-def test_mega_attention_bf16_instance_is_what_launches(cuda, tmp_path):
-    """A bf16 call launches the bf16 instance (template argument
-    __nv_bfloat16), with the rows a block and the grid that launch_plan
-    reports, read from a ``torch.profiler`` trace."""
+def mega_kernels_in_trace(prof, path):
+    """(name, grid, block) of each kernel whose name holds
+    ``mega_attention`` in a ``torch.profiler`` run's trace."""
     import json
+    prof.export_chrome_trace(str(path))
+    return [(e["name"], e["args"]["grid"], e["args"]["block"])
+            for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("cat") == "kernel"
+            and "mega_attention" in e.get("name", "")]
+
+
+def test_mega_attention_bf16_instance_is_what_launches(cuda, tmp_path):
+    """A bf16 call launches the tensor-core kernel
+    ``mega_attention_mma_kernel<bucket, groups>`` with the bucket and the
+    groups a block that ``mma_instance`` reports, 16 rows a block, the
+    splits of ``launch_plan`` and ceil(G / groups) blocks along grid.z
+    (4 at dg = dgo = 256, where a block takes 4 groups), then the bf16
+    merge; never the FMA kernel ``mega_attention_kernel`` (fp32's), read
+    from a ``torch.profiler`` trace."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    for g, n, m, dg, dgo in ((16, 675, 3750, 64, 64), (16, 40, 300, 256, 256),
+                             (5, 13, 77, 30, 40)):
+        q, k, vp, ub, valid, *bias = mega_bf16_case(2, g, n, m, dg, dgo, 0.9,
+                                                    cuda)
+        rows, splits = ma.launch_plan(cuda.index or 0, n, m, g, dg, dgo, True)
+        bucket, groups = ma.mma_instance(g, dg, dgo)
+        assert rows == 16 and bucket == max(16, 1 << (max(dg, dgo) - 1)
+                                            .bit_length())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+                torch.cuda.synchronize()
+        seen = set()
+        for name, grid, block in mega_kernels_in_trace(
+                prof, tmp_path / f"trace{dg}.json"):
+            assert not re.search(r"mega_attention_kernel<", name), name
+            if mm := re.search(r"mega_attention_mma_kernel<(\d+), (\d+)>",
+                               name):
+                assert (int(mm[1]), int(mm[2])) == (bucket, groups)
+                assert grid == [-(-n // rows), splits, -(-g // groups)]
+                assert block == [32 * min(g, groups), 1, 1]
+                seen.add("kernel")
+            elif "mega_attention_merge" in name:
+                assert "__nv_bfloat16" in name
+                seen.add("merge")
+        assert seen == ({"kernel", "merge"} if splits > 1 else {"kernel"}), (
+            g, n, m, dg, dgo, splits)
+    assert ma.mma_instance(16, 256, 256) == (256, 4)
+
+
+def test_mega_attention_fp32_launches_the_fma_kernel(cuda, tmp_path):
+    """An fp32 call still launches the FMA kernel
+    ``mega_attention_kernel<rows, floats a lane, float>`` with the rows of
+    ``launch_plan``, and never the bf16 tensor-core kernel."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
     n, m = 675, 3750
-    q, k, vp, ub, valid, *bias = mega_bf16_case(2, 16, n, m, 64, 64, 0.9,
-                                                cuda)
-    rows, splits = ma.launch_plan(cuda.index or 0, n, m, 16, 64, 64, True)
+    q, k, vp, ub, valid, *bias = mega_case(2, 16, n, m, 64, 64, 0.9, cuda)
+    rows, splits = ma.launch_plan(cuda.index or 0, n, m, 16, 64, 64)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
             torch.cuda.synchronize()
-    trace = tmp_path / "trace.json"
-    prof.export_chrome_trace(str(trace))
     seen = set()
-    for e in json.loads(trace.read_text())["traceEvents"]:
-        if e.get("cat") != "kernel":
-            continue
-        name = e.get("name", "")
+    for name, grid, _ in mega_kernels_in_trace(prof, tmp_path / "trace.json"):
+        assert "mega_attention_mma_kernel" not in name, name
         if mm := re.search(r"mega_attention_kernel<(\d+), (\d+), (\w+)>",
                            name):
-            assert (int(mm[1]), mm[3]) == (rows, "__nv_bfloat16")
-            assert e["args"]["grid"] == [-(-n // rows), splits, 1]
+            assert (int(mm[1]), mm[3]) == (rows, "float")
+            assert grid == [-(-n // rows), splits, 1]
             seen.add("kernel")
-        elif re.search(r"mega_attention_merge<(\w+)>", name):
-            assert "__nv_bfloat16" in name
-            seen.add("merge")
-    assert seen == {"kernel", "merge"}
+    assert seen == {"kernel"}
+
+
+def mega_bf16_held(q, k, vp, ub, valid, bias, want=None):
+    """The bf16 kernel's output on these operands, held to the bf16 plain
+    version (``want``, else computed here) within BF16_TOL, finite and of
+    the plain version's shape."""
+    got = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    if want is None:
+        want = ma.mega_attention_plain(q, k, vp, ub, valid, *bias)
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert bf16_err(got, want) <= BF16_TOL
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 33])
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 31, 33])
+def test_mega_bf16_tile_edges(cuda, n, m):
+    """Query rows and keys on either side of the 16-row block and the
+    16-key tile, with and without the bias."""
+    q, k, vp, ub, valid, *bias = mega_bf16_case(100 * n + m, 3, n, m, 64, 64,
+                                                0.8, cuda)
+    for extra in (bias, []):
+        mega_bf16_held(q, k, vp, ub, valid, extra)
+
+
+@pytest.mark.parametrize("dg", [8, 16, 24, 30, 64, 100, 128, 256])
+@pytest.mark.parametrize("dgo", [8, 16, 24, 30, 64, 100, 128, 256])
+def test_mega_bf16_width_buckets(cuda, dg, dgo):
+    """Every channel bucket (16 to 256 of max(dg, dgo)), with 16-byte copies
+    (dg and dgo multiples of 8) and 2-byte ones (30, 100), at 1, 5 and 16
+    groups (16 at 256: four chunks of 4 groups along grid.z)."""
+    for g in (1, 5, 16):
+        q, k, vp, ub, valid, *bias = mega_bf16_case(dg * dgo + g, g, 23, 45,
+                                                    dg, dgo, 0.7, cuda)
+        for extra in (bias, []):
+            mega_bf16_held(q, k, vp, ub, valid, extra)
+
+
+@pytest.mark.parametrize("g,n,m,dg,dgo", [
+    (5, 20, 77, 32, 24),     # the 32 bucket, 16-byte copies
+    (3, 17, 50, 100, 128),   # the 128 bucket, 2-byte copies
+    (2, 9, 40, 30, 40)])     # the 64 bucket, 2-byte copies
+def test_mega_bf16_never_reads_invalid_keys(cuda, g, n, m, dg, dgo):
+    """NaN in k and inf in vproj (then -inf and NaN) at every invalid key
+    and past M: the copies zero-fill those keys, so nothing of them reaches
+    S or P.V, where 0 * NaN would be NaN on the tensor cores too. Held to
+    the plain version on the clean operands."""
+    q, k, vp, ub, valid, *bias = mega_bf16_case(g + m, g, n, m, dg, dgo, 0.5,
+                                                cuda)
+    keys = valid.expand(g, m)  # poisoned's (rows, keys) mask
+    for extra in (bias, []):
+        want = ma.mega_attention_plain(q, k, vp, ub, valid, *extra)
+        for fk, fv in ((float("nan"), float("inf")),
+                       (float("-inf"), float("nan"))):
+            mega_bf16_held(q, poisoned(k, keys, fk), poisoned(vp, keys, fv),
+                           ub, valid, extra, want)
+
+
+def test_mega_bf16_splits_merge_in_natural_log_units(cuda):
+    """Scores near 30 over key splits whose maxima differ by whole units:
+    key j is a one-hot row of 320 at channel j % 128 and every query
+    channel lies in [1, 1.125), so a score is 320 q_c / sqrt(128), 28 to
+    32, and ub lowers each quarter of the keys by one more unit. The merge
+    weighs each split by exp(m_s - m_max), so a split's max stored in
+    log2 units (or any other) moves the output by several times the
+    limit."""
+    g, n, m, d = 2, 16, 160, 128
+    rng = np.random.default_rng(30)
+    q = 1 + rng.random((g, n, d)) / 8
+    k = np.zeros((g, m, d))
+    k[:, np.arange(m), np.arange(m) % d] = 320.0
+    vp = rng.standard_normal((g, m, d))
+    ub = np.repeat(-np.arange(4.0), m // 4)[None].repeat(g, 0)
+    q, k, vp = (torch.from_numpy(x.astype(np.float32)).to(cuda, torch.bfloat16)
+                for x in (q, k, vp))
+    ub = torch.from_numpy(ub.astype(np.float32)).to(cuda)
+    valid = torch.ones(m, dtype=torch.bool, device=cuda)
+    assert ma.launch_plan(cuda.index or 0, n, m, g, d, d, True)[1] > 1
+    mega_bf16_held(q, k, vp, ub, valid, [])
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("g,n,m,dg,dgo", [
+    (16, 675, 3750, 64, 64), (16, 1875, 750, 64, 64), (16, 40, 300, 256, 256),
+    (5, 13, 77, 30, 40)])
+def test_mega_bf16_is_deterministic(cuda, with_bias, g, n, m, dg, dgo):
+    """Two launches on the same operands are equal bit for bit (the merge
+    sums the splits in split order)."""
+    q, k, vp, ub, valid, *bias = mega_bf16_case(n + m, g, n, m, dg, dgo, 0.9,
+                                                cuda)
+    bias = bias if with_bias else []
+    first = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    second = ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
+    assert torch.equal(first, second)
+
+
+def test_mega_bf16_walks_past_the_mask_window(cuda):
+    """Past 4096 keys a block reads the next window of valid-key bits. With
+    70,000 keys and one row block the 16 splits (at most) take over 4,096
+    keys each, so every split moves its window: a run of invalid keys
+    across split 0's window edge (key 4096), no valid key in the first
+    tiles, and 100 in vproj at every invalid key, which any key taken from
+    the wrong window's bits would show; then valid keys only past the last
+    split's window edge."""
+    m = 70_000
+    q, k, vp, ub, valid, *bias = mega_bf16_case(5, 1, 5, m, 16, 16, 0.9,
+                                                cuda)
+    splits = ma.launch_plan(cuda.index or 0, 5, m, 1, 16, 16, True)[1]
+    assert -(-m // 16) // splits * 16 > 4096
+    valid[4000:4300] = False
+    valid[:100] = False
+    vp[:, ~valid] = 100.0
+    for extra in (bias, []):
+        mega_bf16_held(q, k, vp, ub, valid, extra)
+    late = torch.zeros_like(valid)
+    late[m - 60:m - 50] = True
+    mega_bf16_held(q, k, vp, ub, late, [])
 
 
 def test_mega_head_bf16_on_card_matches_cpu(cuda):

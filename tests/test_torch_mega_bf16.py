@@ -91,16 +91,25 @@ def tbf(x):
 # -- the fused set-attention's plain version --------------------------------
 
 @pytest.mark.parametrize("with_bias", [True, False])
-@pytest.mark.parametrize("n,m", [(24, 100),     # one 128-key tile
-                                 (150, 300)])   # 2 query blocks x 3 key tiles
-def test_attention_plain_bf16_matches_pallas(with_bias, n, m):
+@pytest.mark.parametrize("n,m,g,dg,dgo", [
+    pytest.param(24, 100, 4, 32, 32, id="24-100"),    # one 128-key tile
+    pytest.param(150, 300, 4, 32, 32, id="150-300"),  # 2 query blocks x 3 key tiles
+    # the edges of the CUDA kernel's bf16 instance (16-row blocks, 16-key
+    # tiles, channel buckets): a row and a key past a tile at 16 groups;
+    # dg % 8 != 0 with a ragged dgo (2-byte copies, the 64 bucket); the
+    # 256 bucket (4 groups a block)
+    pytest.param(17, 33, 16, 64, 64, id="g16-17-33"),
+    pytest.param(13, 77, 5, 30, 40, id="g5-13-77-dg30-dgo40"),
+    pytest.param(10, 12, 4, 256, 256, id="g4-10-12-d256")])
+def test_attention_plain_bf16_matches_pallas(with_bias, n, m, g, dg, dgo):
     """bf16 q, k and vproj with an fp32 ub (as the head makes it) through
     the plain version and through JAX's kernel in interpret mode at its
-    bf16 blocks (128 x 128)."""
+    bf16 blocks (128 x 128). The plain version is what the CUDA kernel is
+    held to on the card, so these shapes carry that kernel's edges back to
+    the Pallas kernel."""
     rng = np.random.default_rng(n + m)
-    g, dg = 4, 32
     q, k, vp = (rng.standard_normal(s).astype(np.float32)
-                for s in ((g, n, dg), (g, m, dg), (g, m, dg)))
+                for s in ((g, n, dg), (g, m, dg), (g, m, dgo)))
     ub = (0.3 * rng.standard_normal((g, m))).astype(np.float32)
     valid = rng.uniform(size=m) > 0.2
     extra = ()

@@ -136,10 +136,18 @@
 #include <type_traits>
 
 #include "element.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
 using element::bf16;
+using warp_mma::cp_async16;
+using warp_mma::cp_async_commit;
+using warp_mma::cp_async_wait;
+using warp_mma::ex2;
+using warp_mma::ldmatrix_x4;
+using warp_mma::ldmatrix_x4_trans;
+using warp_mma::mma_bf16;
 
 constexpr int kThreads = 128;  // 4 warps, each 4 row groups of 8 lanes
 constexpr int kTile = 32;      // keys a tile: 8 lanes x 4 keys
@@ -162,23 +170,6 @@ struct Tiles {
   static constexpr size_t kBytes =
       sizeof(float) * (kQ + kP) + sizeof(E) * (2 * kK + 2 * kV);
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool fill) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(fill ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // The first tile at or after t that holds a valid key (n_tiles if none).
 // Block-uniform; every test is a barrier, and there is at least one.
@@ -504,45 +495,6 @@ struct MmaTiles {
   static constexpr int kKV = kTile * kS;  // one K or V tile
   static constexpr size_t kBytes = sizeof(bf16) * (kQ + 4 * kKV);
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// The four 8x8 bf16 matrices whose rows lanes 8i .. 8i + 7 point at.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// The same, each matrix transposed.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a . b for one m16n8k16 tile (row-major A, column-major B, bf16
-// operands, fp32 sums)
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x, the hardware's ex2 (ex2(-inf) = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ROWS rows of a tile (DB channels at stride kS) from the stream's rows
 // first .. first + ROWS - 1 (row stride C past base), copied by kT threads;

@@ -22,7 +22,10 @@ states, which a second kernel merges.
 Both versions take q, k and vproj in fp32 or in bf16 (the bf16 detector),
 as the Pallas kernel does; ub, the rois and Wg stay fp32 (JAX computes ub
 and the bias in fp32 under bf16 too). In bf16 every sum is fp32, P is
-rounded to bf16 before P.V and the output is bf16.
+rounded to bf16 before P.V and the output is bf16. The fp32 streams take
+the kernel on the FMA pipes, the bf16 streams a kernel whose products run
+on the tensor cores (``mma.sync``), each with its own rows a block and
+key splits (``launch_plan``).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ Tensor = torch.Tensor
 
 NEG_INF = -1e9          # the dense form's additive mask, as models/mega.py
 MAX_GROUPS = 16         # the kernel gives each group one warp of a block
-MAX_GROUP_DIM = 256     # dg and dgo: the kernel gives a lane dgo / 32 floats
+MAX_GROUP_DIM = 256     # dg and dgo: the largest channel bucket
 
 # calls that launched the CUDA kernel (and, with more than one key split,
 # its merge) since the count was last set to 0, of either dtype, and of its
@@ -67,7 +70,7 @@ def mega_attention_plain(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
     summed against vproj in fp32, divided by the fp32 sum of the unrounded
     P, and the output rounded to bf16. That is the Pallas kernel's
     arithmetic when the keys fit its one 128-key tile, up to the order of
-    fp32 sums; over more tiles (or the CUDA kernel's 32-key tiles and
+    fp32 sums; over more tiles (or the bf16 CUDA kernel's 16-key tiles and
     splits) each P is rounded relative to a running max and rescaled later,
     so the two agree within bf16's rounding, not bit for bit."""
     g, n, dg = q.shape
@@ -114,6 +117,9 @@ def _kernel() -> ctypes.CDLL:
     lib.mega_attention_splits.restype = ctypes.c_int
     lib.mega_attention_splits.argtypes = ([ctypes.c_int] * 6
                                           + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.mega_attention_mma_instance.restype = ctypes.c_int
+    lib.mega_attention_mma_instance.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
     lib.mega_attention_error_string.restype = ctypes.c_char_p
     lib.mega_attention_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -123,9 +129,10 @@ def _kernel() -> ctypes.CDLL:
 def launch_plan(device: int, n: int, m: int, g: int, dg: int, dgo: int,
                 bf16: bool = False) -> tuple[int, int]:
     """(query rows a block, key splits) of the instance the kernel takes for
-    this problem on ``device``, fp32 or bf16 (the C side's rule: the
-    instance by dgo, then as many splits as fill the card's block slots
-    once, from that instance's occupancy)."""
+    this problem on ``device``, fp32 or bf16 (the C side's rule: the fp32
+    instance by dgo, the bf16 one 16 rows by the bucket of max(dg, dgo);
+    then as many splits as fill the card's block slots once, from that
+    instance's occupancy)."""
     lib = _kernel()
     splits, rows = ctypes.c_int(1), ctypes.c_int(0)
     with torch.cuda.device(device):
@@ -134,6 +141,19 @@ def launch_plan(device: int, n: int, m: int, g: int, dg: int, dgo: int,
                                          ctypes.byref(rows))
     _build.check_launch(lib, "mega_attention", code)
     return rows.value, splits.value
+
+
+def mma_instance(g: int, dg: int, dgo: int) -> tuple[int, int]:
+    """(channel bucket, groups a block) of the bf16 kernel,
+    ``mega_attention_mma_kernel<bucket, groups>``, for g groups of widths dg
+    and dgo: a launch takes ceil(g / groups) blocks of min(g, groups) warps
+    along grid.z (the C side's rule)."""
+    lib = _kernel()
+    bucket, groups = ctypes.c_int(0), ctypes.c_int(0)
+    code = lib.mega_attention_mma_instance(g, dg, dgo, ctypes.byref(bucket),
+                                           ctypes.byref(groups))
+    _build.check_launch(lib, "mega_attention", code)
+    return bucket.value, groups.value
 
 
 def mega_attention_cuda(q: Tensor, k: Tensor, vproj: Tensor, ub: Tensor,
