@@ -343,6 +343,46 @@ def band_row(ba, label, kernel, plain_ms, library, q, mask, h, w, *,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
+def instance_usage(lib: str) -> dict:
+    """Registers and spills of each kernel instance of ``csrc/<lib>.cu``,
+    by name, where this run built it."""
+    from vrdone_tpu_torch.ops import _build
+    return dict(ln.split(": ", 1) for ln in ptxas_usage(
+        _build.BUILD_LOG.get(lib, (0.0, ""))[1]))
+
+
+def mma_band_instance(ba, usage, device, b, t, h, d, ws, pe) -> str:
+    """The bf16 band forward's instance for a shape, as text: the
+    tensor-core kernel's name and template arguments (bucket, vector
+    copies, bias, n8 key tiles a warp), rows a tile (a tile a block), the
+    block's warps and those that own 16 rows, and ptxas' registers and
+    spills."""
+    i = ba.forward_instance(device.index or 0, b, t, h, d, ws, pe=pe,
+                            dtype=torch.bfloat16)
+    name = (f"band_forward_mma_kernel<{i['bucket']}, "
+            f"{str(i['vec']).lower()}, {str(pe).lower()}, "
+            f"{i['key_tiles']}>")
+    return (f"instance {name}: {i['rows']} rows a tile, {i['tiles']} "
+            f"tiles a sequence, a tile a block of {i['warps']} warps, "
+            f"{i['rows'] // 16} of them 16 rows each, d bucket "
+            f"{i['bucket']}, {'vector' if i['vec'] else 'scalar'} copies; "
+            f"{usage.get(name, 'registers not reported, already built')}")
+
+
+def refuse_fma_band(events, label: str) -> None:
+    """Fail if a profile's kernels hold the FMA band forward on bf16
+    streams (``band_forward_kernel<..., __nv_bfloat16>``): bf16 runs the
+    tensor-core kernel alone. Prints how often the profiler saw that one
+    (it misses some ctypes launches)."""
+    fma = [e.key for e in events if "band_forward_kernel<" in e.key
+           and "__nv_bfloat16" in e.key]
+    mma = sum(e.count for e in events if "band_forward_mma_kernel" in e.key)
+    print(f"  the profiler saw band_forward_mma_kernel {mma} times in the "
+          f"{label}, the FMA band forward on bf16 streams {len(fma)} times")
+    if fma:
+        raise AssertionError(f"{label} ran {fma}")
+
+
 def attention_inputs(rng, b, tq, tk, c, device):
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, c))
                                 .astype(np.float32)).to(device)
@@ -485,12 +525,9 @@ def check_bf16_kernels(cuda, ba, fa) -> dict:
     ``band_attention_bf16`` and ``masked_attention_bf16`` (all but
     ``launches``) at VidVRD's T=96, each with ``by_shape``."""
     from vrdone_tpu_torch.config import load_yaml_config, model_config_from_yaml
-    from vrdone_tpu_torch.ops import _build
     rng = np.random.default_rng(3)
     bf = torch.bfloat16
-    # K7 bf16's registers and spills by instance, where this run built it
-    usage = dict(ln.split(": ", 1) for ln in ptxas_usage(
-        _build.BUILD_LOG.get("masked_attention", (0.0, ""))[1]))
+    usage = instance_usage("masked_attention")
     band, full = [], []
     for yaml, _, b, _, rel_pe in BF16_SERVING:
         if rel_pe:   # K4 bf16's shapes: check_band_pe_bf16
@@ -504,18 +541,16 @@ def check_bf16_kernels(cuda, ba, fa) -> dict:
             b0, h0, d0 = k7[0][:3]
             full += [(b0, h0, d0, t, t) for t in (384, 768)]
     rows = {"band_attention_bf16": [], "masked_attention_bf16": []}
+    band_regs = instance_usage("band_attention")
     for b, h, d, w, t in band:
         q, k, v, mask = (x.to(bf) if x.is_floating_point() else x
                          for x in attention_inputs(rng, b, t, t, h * d, cuda))
         kw = dict(n_head=h, window_size=2 * w + 1)
-        i = ba.forward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
-                                dtype=bf)
+        inst = mma_band_instance(ba, band_regs, cuda, b, t, h, d, 2 * w + 1,
+                                 False)
         lib_mask = band_library_mask(mask, w).to(bf)
         rows["band_attention_bf16"].append(bf16_case(
-            "band_attention_bf16",
-            f"B*H={b}*{h} T={t} d={d} w={w} (instance {i['rows']} rows a "
-            f"tile, {i['per_block']} of {i['tiles']} tiles a block, d "
-            f"bucket {i['bucket']}{'' if i['vec'] else ', scalar'})",
+            "band_attention_bf16", f"B*H={b}*{h} T={t} d={d} w={w} ({inst})",
             lambda: ba.band_attention_cuda(q, k, v, mask, **kw),
             lambda: ba.band_attention_plain(q, k, v, mask, **kw),
             lambda: F.scaled_dot_product_attention(
@@ -955,6 +990,7 @@ def check_bf16_serving(cuda, ba, fa) -> dict:
                       f"{len(fma)} times")
                 if fma:
                     raise AssertionError(f"bf16 step ran {fma}")
+                refuse_fma_band(events, f"3 {width} bf16 eval steps")
         del gpu16, gpu32
         torch.cuda.empty_cache()
     return counts
@@ -1407,9 +1443,12 @@ def check_train_step_bf16(cfg, raw, cuda, ba, fa, state32) -> dict:
                   f"{1e3 * n_pairs / v[0]:.1f} / {1e3 * n_pairs / v[1]:.1f} "
                   f"pairs/s, peak memory {peak[k]:.2f} GiB")
             st = steps[k]
-            profile_device(lambda: train_step(st, tb,
-                                              step_generator(0, st.step)),
-                           3, "step")
+            _, _, events = profile_device(
+                lambda: train_step(st, tb, step_generator(0, st.step)), 3,
+                "step")
+            if k == "bf16":
+                refuse_fma_band(events, f"3 bf16 train steps at {n_pairs} "
+                                "pairs")
     return counts[False]
 
 
@@ -1491,9 +1530,10 @@ def check_train_step_relpe_bf16(cuda, ba, fa) -> dict:
           f"{1e3 * n_pairs / ms[0]:.1f} / {1e3 * n_pairs / ms[1]:.1f} "
           f"pairs/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_device(lambda: train_step(state16, tb,
-                                      step_generator(0, state16.step)),
-                   2, "step")
+    _, _, events = profile_device(
+        lambda: train_step(state16, tb, step_generator(0, state16.step)), 2,
+        "step")
+    refuse_fma_band(events, "2 bf16 rel-PE train steps")
     return counts[False]
 
 
@@ -2426,6 +2466,7 @@ def check_band_pe_bf16(cuda, ba) -> dict:
     rng = np.random.default_rng(14)
     bf, h, d = torch.bfloat16, 8, 64
     rows, worst = [], 0.0
+    band_regs = instance_usage("band_attention")
     # (B, T, window, timed): the paths' shapes, then checks only
     for b, t, ws, timed in ((16, 512, 9, True), (16, 256, 9, True),
                             (16, 128, 9, True), (16, 64, 9, True),
@@ -2442,12 +2483,8 @@ def check_band_pe_bf16(cuda, ba) -> dict:
                                                    **kw)
         plain = lambda: ba.band_attention_pe_plain(q16, k16, v16, mask, pe16,
                                                    **kw)
-        i = ba.forward_instance(cuda.index or 0, b, t, h, d, ws, pe=True,
-                                dtype=bf)
-        label = (f"B*H={b}*{h} T={t} d={d} window={ws} (instance "
-                 f"{i['rows']} rows a tile, {i['per_block']} of {i['tiles']} "
-                 f"tiles a block, d bucket {i['bucket']}"
-                 f"{'' if i['vec'] else ', scalar'})")
+        inst = mma_band_instance(ba, band_regs, cuda, b, t, h, d, ws, True)
+        label = f"B*H={b}*{h} T={t} d={d} window={ws} ({inst})"
         zero = torch.zeros_like(pe16)
         if not torch.equal(
                 ba.band_attention_pe_cuda(q16, k16, v16, mask, zero, **kw),

@@ -93,6 +93,10 @@ def rel_err(got: torch.Tensor, want) -> float:
     (2, 40, 32, 4, 7, 25),     # T not a multiple of the Pallas block
     (2, 96, 64, 2, 9, 60),     # VidOR's half window, d = 32
     (3, 17, 48, 4, 3, None),   # d = 12, odd T
+    # one past a 16-row tile of the bf16 kernel: its widest band (w = 15,
+    # d = 8), and d = 64 with an invalid stretch
+    (2, 17, 16, 2, 31, 12),
+    (2, 33, 128, 2, 9, 20),
 ])
 def test_band_plain_bf16_matches_jax(b, t, c, n_head, window, invalid_from):
     """The bf16 plain band attention against JAX's dense ``band_attention``

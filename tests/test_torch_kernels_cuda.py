@@ -1254,11 +1254,15 @@ def test_band_pe_bf16_unaligned_streams_take_the_scalar_instance(cuda):
 
 
 def test_band_pe_bf16_walks_double_buffered_tiles(cuda):
-    """Enough row tiles that a K4 bf16 block walks several,
-    double-buffered, the last one padded."""
+    """More row tiles than the card holds blocks at once (8 * 8 sequences
+    of 26 tiles of 64 rows, the last one padded). K4 bf16's tensor-core
+    kernel does not walk tiles: walking double-buffered blocks was slower
+    at every shape measured (PERF.md), so each block takes one tile
+    however many there are."""
     inst = ba.forward_instance(cuda.index or 0, 8, 1630, 8, 64, 9, pe=True,
                                dtype=torch.bfloat16)
-    assert inst["rows"] == 64 and inst["per_block"] > 1
+    assert inst["rows"] == 64 and inst["per_block"] == 1
+    assert inst["tiles"] == 26
     band_pe_bf16_case(cuda, 13, 8, 1630, 8, 64, 9, torch.bfloat16)
 
 
@@ -1298,16 +1302,49 @@ def test_band_pe_bf16_autograd_matches_plain(cuda, t, window_size, d):
     assert (got[0][3] == 0).all()  # a batch row with no valid query
 
 
-def test_band_pe_bf16_instance_is_what_launches(cuda, tmp_path):
-    """A bf16 call with the bias launches K4's bf16 instance: element
-    type, head-dim bucket, vector copies, grid and block from a
-    ``torch.profiler`` trace against ``forward_instance(pe=True)``."""
+def band_forward_kernels_in_trace(prof, path):
+    """(name, grid, block) of each band forward kernel (the FMA body
+    ``band_forward_kernel`` or the tensor-core one
+    ``band_forward_mma_kernel``) in a ``torch.profiler`` run's trace."""
     import json
-    import re
+    prof.export_chrome_trace(str(path))
+    return [(e["name"], e["args"]["grid"], e["args"]["block"])
+            for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("cat") == "kernel"
+            and "band_forward" in e.get("name", "")]
 
+
+def check_mma_launch(name, grid, block, inst, b, h, pe):
+    """One trace entry of a bf16 band forward: the tensor-core kernel with
+    the template arguments, grid and block of ``inst`` (from
+    ``forward_instance``), never the FMA body on bf16 streams. Returns
+    whether ``name`` was the tensor-core kernel."""
+    import re
+    assert not re.search(r"band_forward_kernel<.*__nv_bfloat16", name), name
+    m = re.search(r"band_forward_mma_kernel<(\d+), (true|false), "
+                  r"(true|false), (\d+)>", name)
+    if m is None:
+        return False
+    assert (int(m[1]), m[2] == "true", m[3] == "true", int(m[4])) == (
+        inst["bucket"], inst["vec"], pe, inst["key_tiles"])
+    # one row tile a block, a warp each 16 rows of it, 4 warps a block
+    assert inst["per_block"] == 1 and inst["warps"] == 4
+    assert inst["rows"] in (16, 32, 64)
+    assert grid == [b * h * inst["tiles"], 1, 1]
+    assert block == [32 * inst["warps"], 1, 1]
+    return True
+
+
+def test_band_pe_bf16_instance_is_what_launches(cuda, tmp_path):
+    """A bf16 call with the bias launches K4's bf16 instance, the
+    tensor-core kernel ``band_forward_mma_kernel<bucket, vec, true, key
+    tiles>``: head-dim bucket, vector copies, key tiles, grid and block
+    (32 threads a warp of 16 rows) from a ``torch.profiler`` trace against
+    ``forward_instance(pe=True)``; the FMA body never runs on bf16
+    streams."""
     from torch.profiler import ProfilerActivity, profile
     for b, t, h, d, ws in ((16, 512, 8, 64, 9), (8, 768, 8, 64, 9),
-                           (4, 70, 4, 20, 8)):
+                           (4, 70, 4, 20, 8), (4, 100, 4, 256, 31)):
         q, k, v, mask = streams(t + d, b, t, t, h * d, [t] * b, cuda)
         q, k, v = to_bf16(q, k, v)
         pe = pe_table(t, h, ws, cuda).to(torch.bfloat16)
@@ -1319,24 +1356,142 @@ def test_band_pe_bf16_instance_is_what_launches(cuda, tmp_path):
                 ba.band_attention_pe_cuda(q, k, v, mask, pe, n_head=h,
                                           window_size=ws)
                 torch.cuda.synchronize()
-        trace = tmp_path / f"trace{t}.json"
-        prof.export_chrome_trace(str(trace))
         seen = 0
-        for e in json.loads(trace.read_text())["traceEvents"]:
-            if e.get("cat") != "kernel":
-                continue
-            m = re.search(r"band_forward_kernel<(\d+), (true|false), "
-                          r"(true|false), (\w+)>", e.get("name", ""))
-            if m is None:
-                continue
-            assert (m[3], m[4]) == ("true", "__nv_bfloat16")
-            assert (int(m[1]), m[2] == "true") == (inst["bucket"],
-                                                  inst["vec"])
-            assert e["args"]["grid"] == [
-                b * h * -(-inst["tiles"] // inst["per_block"]), 1, 1]
-            assert e["args"]["block"] == [8 * inst["rows"], 1, 1]
-            seen += 1
+        for name, grid, block in band_forward_kernels_in_trace(
+                prof, tmp_path / f"trace{t}.json"):
+            seen += check_mma_launch(name, grid, block, inst, b, h, True)
         assert seen, (b, t, h, d)
+
+
+def band_bf16_held(q, k, v, mask, kw, pe=None, with_lse=False):
+    """K1 bf16 (K4 bf16 with ``pe``) on bf16 streams, launched twice:
+    equal bit for bit, finite, within BF16_TOL of the bf16 plain version,
+    and 0 on every invalid query row; with ``with_lse`` the lse is fp32 and
+    within 1e-5 of 1 + |lse| of the plain logsumexp. ``q``, ``k`` and ``v``
+    may be shifted copies of the plain version's inputs. Returns the
+    output."""
+    if pe is None:
+        runs = [ba.band_attention_cuda(q, k, v, mask, with_lse=with_lse,
+                                       **kw) for _ in range(2)]
+        plain = ba.band_attention_plain(q, k, v, mask, **kw)
+    else:
+        runs = [ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw)
+                for _ in range(2)]
+        plain = ba.band_attention_pe_plain(q, k, v, mask, pe, **kw)
+    if with_lse:
+        (out, lse), (out2, lse2) = runs
+        assert torch.equal(lse, lse2)
+        assert lse.dtype == torch.float32
+        assert torch.isfinite(lse).all()
+        ref_lse = ba.band_lse_plain(q, k, mask, **kw)
+        assert ((lse - ref_lse).abs() / (1 + ref_lse.abs())).max() <= 1e-5
+    else:
+        out, out2 = runs
+    assert torch.equal(out, out2)
+    assert torch.isfinite(out.float()).all()
+    assert bf16_err(out, plain) <= BF16_TOL
+    assert (out[~mask] == 0).all()
+    return out
+
+
+@pytest.mark.parametrize("w", [1, 3, 4, 15])
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 31, 33, 47, 49])
+def test_band_bf16_tile_edges(cuda, t, w):
+    """The tensor-core forward at T one below, at and one above its 16-row
+    tiles (and at T = 1, a single dead-padded tile) for each key-tile
+    instance (w <= 4: 3 key tiles, w = 15: 6): K1 bf16 with and without
+    its lse (the two outputs equal bit for bit), K4 bf16 with an odd and
+    an even window (the bias index clamps), each deterministic, finite and
+    0 on invalid query rows; invalid keys inside a valid stretch and after
+    it, a batch row with one valid key and one with none."""
+    b, h, d = 4, 2, 64
+    q, k, v, mask = streams(t * 17 + w, b, t, t, h * d,
+                            [t, max(1, t // 2), 1, 0], cuda)
+    mask[0, t // 3] = False
+    q, k, v = to_bf16(q, k, v)
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    out = band_bf16_held(q, k, v, mask, kw, with_lse=True)
+    assert torch.equal(out, band_bf16_held(q, k, v, mask, kw))
+    for ws in (2 * w + 1, 2 * w):
+        pe = pe_table(t + ws, h, ws, cuda).to(torch.bfloat16)
+        band_bf16_held(q, k, v, mask, dict(n_head=h, window_size=ws), pe)
+
+
+@pytest.mark.parametrize("shift", [False, True], ids=["vector", "scalar"])
+@pytest.mark.parametrize("d", [6, 16, 20, 32, 33, 64, 100, 128, 256])
+def test_band_bf16_head_dims(cuda, d, shift):
+    """Every head-dim bucket (32, 64, 128, 256: channels past d are zero
+    in the tensor cores' k16 steps), vector and scalar copies (d % 8 != 0,
+    or streams 2 bytes past a 16-byte boundary), K1 bf16 with its lse and
+    K4 bf16, at a T off the row tile with 2 and 6 key tiles' windows."""
+    b, h, t = 4, 2, 70
+    q, k, v, mask = streams(d * 3 + shift, b, t, t, h * d,
+                            [t, 40, 1, 0], cuda)
+    mask[0, 20] = False
+    q, k, v = to_bf16(q, k, v)
+    move = shifted if shift else torch.clone
+    qs, ks, vs = move(q), move(k), move(v)
+    for w in (4, 11):
+        kw = dict(n_head=h, window_size=2 * w + 1)
+        inst = ba.forward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
+                                   dtype=torch.bfloat16)
+        assert inst["bucket"] == max(32, 1 << (d - 1).bit_length())
+        assert inst["key_tiles"] == (3 if w <= 4 else 6)
+        out = ba.band_attention_cuda(qs, ks, vs, mask, **kw)
+        assert torch.equal(out, band_bf16_held(q, k, v, mask, kw,
+                                               with_lse=True))
+        assert bf16_err(out, ba.band_attention_plain(q, k, v, mask, **kw)) \
+            <= BF16_TOL
+        pe = pe_table(d + w, h, 2 * w + 1, cuda).to(torch.bfloat16)
+        got = ba.band_attention_pe_cuda(qs, ks, vs, mask, pe, **kw)
+        assert torch.equal(got, band_bf16_held(q, k, v, mask, kw, pe))
+
+
+def test_band_bf16_keeps_fp32_scale_at_large_scores(cuda):
+    """Scores near 60 at d = 128, where 1/sqrt(d) is not a power of two:
+    key j is a one-hot row of 680 at channel j % 128 and every query
+    channel lies in [1, 1.125), so a score is 680 q_c / sqrt(128), 60 to
+    68, and the band's keys differ by a few units. Rounding q * scale to
+    bf16 would move each score by up to 2^-9 of its size (0.13 here) and
+    the lse with it, far past its limit of 1e-5 of 1 + |lse|; an lse in
+    log2 units would be 1.44 times too large. With and without the bias,
+    the kernel's scores, lse and output agree with the plain version."""
+    b, t, h, d, w = 4, 96, 4, 128, 4
+    rng = np.random.default_rng(31)
+    q = 1 + rng.random((b, t, h * d)) / 8
+    k = np.zeros((b, t, h, d))
+    k[:, np.arange(t), :, np.arange(t) % d] = 680.0
+    v = rng.standard_normal((b, t, h * d))
+    mask = np.ones((b, t), bool)
+    mask[1, 50:] = False
+    mask[2, 30] = False
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).reshape(b, t, h * d)
+               .to(cuda, torch.bfloat16) for x in (q, k, v))
+    mask = torch.from_numpy(mask).to(cuda)
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    band_bf16_held(q, k, v, mask, kw, with_lse=True)
+    lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)[1]
+    assert lse[0].min() > 55
+    pe = pe_table(31, h, 2 * w + 1, cuda).to(torch.bfloat16)
+    band_bf16_held(q, k, v, mask, kw, pe)
+
+
+@pytest.mark.parametrize("t,w,d,b,h,pe", [
+    (96, 3, 128, 128, 4, False), (512, 4, 64, 16, 8, False),
+    (512, 4, 64, 16, 8, True), (1630, 4, 64, 8, 8, True),
+    (100, 15, 256, 4, 4, True)])
+def test_band_bf16_paths_are_deterministic_and_finite(cuda, t, w, d, b, h,
+                                                      pe):
+    """At the bf16 paths' main shapes (VidVRD's K1, VidOR's K1 and K4), a
+    long sequence and the widest band and head dim: two launches equal bit
+    for bit, finite, held to the plain version."""
+    q, k, v, mask = streams(t + d, b, t, t, h * d,
+                            [t, t // 2, 1, 0] + [t] * (b - 4), cuda)
+    q, k, v = to_bf16(q, k, v)
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    table = (pe_table(t, h, 2 * w + 1, cuda).to(torch.bfloat16) if pe
+             else None)
+    band_bf16_held(q, k, v, mask, kw, table, with_lse=not pe)
 
 
 def full_bf16_case(cuda, seed, tq, tk, d, lens, h=2, shift=False):
@@ -1674,21 +1829,23 @@ def test_kernels_take_bf16_and_refuse_mixed_dtypes(cuda):
 
 def test_bf16_instance_is_what_launches(cuda, tmp_path):
     """A bf16 call launches the bf16 instance: the kernels' template
-    arguments (element type, head-dim bucket and vector copies of K1;
-    head-dim bucket, warps and row tiles a warp of K7's tensor-core
-    kernel),
-    grid and block, read from a ``torch.profiler`` trace, against
-    ``forward_instance`` and ``_variant``; K7's FMA kernel, fp32's, never
-    runs on bf16 streams."""
+    arguments (head-dim bucket, vector copies and key tiles of K1's
+    tensor-core kernel ``band_forward_mma_kernel``; head-dim bucket, warps
+    and row tiles a warp of K7's), grid and block, read from a
+    ``torch.profiler`` trace, against ``forward_instance`` and
+    ``_variant``; the FMA kernels, fp32's (``band_forward_kernel``,
+    ``masked_attention_fwd_kernel``), never run on bf16 streams."""
     import json
     import re
 
     from torch.profiler import ProfilerActivity, profile
     for b, t, h, d, w, tq in ((128, 96, 4, 128, 3, 9), (16, 512, 8, 64, 4, 9),
-                              (4, 70, 4, 20, 4, 70)):
+                              (4, 70, 4, 20, 4, 70), (4, 40, 4, 32, 9, 9)):
         q, k, v, mask = streams(t + d, b, t, t, h * d, [t] * b, cuda)
         q, k, v = to_bf16(q, k, v)
         kw = dict(n_head=h, window_size=2 * w + 1)
+        inst = ba.forward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
+                                   dtype=torch.bfloat16)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
@@ -1703,17 +1860,10 @@ def test_bf16_instance_is_what_launches(cuda, tmp_path):
             if e.get("cat") != "kernel":
                 continue
             name = e.get("name", "")
-            if m := re.search(r"band_forward_kernel<(\d+), (true|false), "
-                              r"false, (\w+)>", name):
-                inst = ba.forward_instance(cuda.index or 0, b, t, h, d,
-                                           2 * w + 1, dtype=torch.bfloat16)
-                assert m[3] == "__nv_bfloat16"
-                assert (int(m[1]), m[2] == "true") == (inst["bucket"],
-                                                      inst["vec"])
-                assert e["args"]["grid"] == [
-                    b * h * -(-inst["tiles"] // inst["per_block"]), 1, 1]
-                assert e["args"]["block"] == [8 * inst["rows"], 1, 1]
-                seen.add("band")
+            if "band_forward" in name:
+                if check_mma_launch(name, e["args"]["grid"],
+                                    e["args"]["block"], inst, b, h, False):
+                    seen.add("band")
             elif m := re.search(r"masked_attention_mma_kernel<(\d+), "
                                 r"(\d+), (\d+)>", name):
                 rows, bucket = fa._variant(tq, d, torch.bfloat16)
@@ -1724,6 +1874,42 @@ def test_bf16_instance_is_what_launches(cuda, tmp_path):
                 seen.add("full")
             assert "masked_attention_fwd_kernel" not in name
         assert seen == {"band", "full"}, (b, t, h, d)
+
+
+def test_fp32_band_forward_launches_the_fma_kernel(cuda, tmp_path):
+    """fp32 calls, with and without the bias, still launch the FMA body
+    ``band_forward_kernel<bucket, vec, pe, float>`` with the grid and block
+    of ``forward_instance`` (8 threads a query row), never the bf16
+    tensor-core kernel."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    b, t, h, d, w = 16, 512, 8, 64, 4
+    q, k, v, mask = streams(5, b, t, t, h * d, [t] * b, cuda)
+    pe = pe_table(5, h, 2 * w + 1, cuda)
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ba.band_attention_cuda(q, k, v, mask, **kw)
+            ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw)
+            torch.cuda.synchronize()
+    seen = set()
+    for name, grid, block in band_forward_kernels_in_trace(
+            prof, tmp_path / "trace.json"):
+        assert "band_forward_mma_kernel" not in name, name
+        m = re.search(r"band_forward_kernel<(\d+), (true|false), "
+                      r"(true|false), (\w+)>", name)
+        assert m is not None and m[4] == "float", name
+        pe_arg = m[3] == "true"
+        inst = ba.forward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
+                                   pe=pe_arg)
+        assert (int(m[1]), m[2] == "true") == (inst["bucket"], inst["vec"])
+        assert grid == [b * h * -(-inst["tiles"] // inst["per_block"]), 1, 1]
+        assert block == [8 * inst["rows"], 1, 1] == [32 * inst["warps"], 1, 1]
+        assert inst["key_tiles"] == 0
+        seen.add(pe_arg)
+    assert seen == {False, True}
 
 
 def test_model_bf16_forward_on_card_matches_cpu(cuda):

@@ -64,14 +64,15 @@ def to_jax_bf16(*arrays):
     return [jnp.asarray(a, jnp.bfloat16) for a in arrays]
 
 
-@pytest.mark.parametrize("t_len", [12, 130])
+@pytest.mark.parametrize("t_len", [12, 17, 130])
 @pytest.mark.parametrize("window_size", [7, 8, 9])
 def test_band_attention_pe_bf16_matches_jax(t_len, window_size):
     """``band_attention_pe_plain`` and the CPU dispatch on bf16 streams and
     a bf16 table against JAX's dense ``band_attention(rel_pe=...)`` and the
     Pallas kernel in interpret mode, at odd and even windows (an even one
-    clamps the bias index) and T below and above the Pallas block; the
-    output is bf16 in all three, and the bias moves it."""
+    clamps the bias index) and T below and above the Pallas block and one
+    past a 16-row tile of the bf16 kernel; the output is bf16 in all
+    three, and the bias moves it."""
     q, k, v, mask, pe = bf16_pe_case(t_len + window_size, t_len, window_size)
     kw = dict(n_head=2, window_size=window_size)
     tq, tk, tv, tpe = to_torch_bf16(q, k, v, pe)

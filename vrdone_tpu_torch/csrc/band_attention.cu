@@ -3,11 +3,12 @@
 // relative-position bias, each for fp32 and for bf16 streams.
 //
 // Replaces the TPU kernels of vrdone_tpu/ops/pallas/band_attention.py:
-//   * band_forward_kernel<.., kPE = false> (K1) <- _band_kernel (forward, no
-//     relative-position bias), reached through _head_forward; with a
-//     non-null `lse` it also writes lse = m + log(l) per query row, as
-//     _head_forward does;
-//   * band_forward_kernel<.., kPE = true> (K4) <- _band_kernel(with_pe=True),
+//   * band_forward_kernel<.., kPE = false, float> (K1 on fp32 streams) and
+//     band_forward_mma_kernel<.., kPE = false, ..> (K1 on bf16 streams) <-
+//     _band_kernel (forward, no relative-position bias), reached through
+//     _head_forward; with a non-null `lse` they also write lse = m +
+//     log(l) per query row, as _head_forward does;
+//   * the same two with kPE = true (K4) <- _band_kernel(with_pe=True),
 //     reached through band_attention_pallas(rel_pe=...) and
 //     masked._band_pallas_pe: the same forward with rel_pe[h, clip(j - i +
 //     w, 0, window_size - 1)] added to each in-band score before the key
@@ -15,8 +16,8 @@
 //     tiles; here the lane that takes band offset n of a row holds the one
 //     table entry rel_pe[h, min(n, window_size - 1)] in a register. The
 //     clamp matters for an even window_size, where 2w + 1 > window_size.
-//     K1 and K4 are one templated body, so a zero table gives K1's output
-//     bit for bit. The JAX package pairs this forward with the dense
+//     In each dtype K1 and K4 are one templated body, so a zero table
+//     gives K1's output bit for bit. The JAX package pairs this forward with the dense
 //     backward, and so does the port (no backward kernel);
 //   * band_backward_kernel<.., kKV = false> (K2) <- _dq_kernel (dQ),
 //     launched by _band_core_bwd;
@@ -77,32 +78,71 @@
 //     off a multiple of 4 or a pointer off 16 bytes takes the scalar
 //     instance: the same design with 4-byte copies and loads.
 //
-// The bf16 forward (band_attention_forward_bf16, K1 on the bf16 serving
-// path) is the same body with __nv_bfloat16 streams (E in the templates):
-// the K/V slabs are staged as bf16 (half the shared memory, so the instance
-// rule sees other slab sizes and occupancies; a 16-byte cp.async carries 8
-// values, so the vector instance needs d % 8 == 0, and the scalar instance
-// copies with plain 2-byte loads, below cp.async's 4-byte least), the query
-// rows are widened to fp32 in registers and scaled there (the dense form's
-// fp32 q * scale; Pallas scales the fp32 dot instead), every dot, the
-// softmax and P.V run in fp32, P (divided by the row sum, as the dense form
-// rounds it) is rounded to bf16 before P.V, as the Pallas kernel rounds its
-// P to v's dtype, the lse stays fp32 and the output is written once in bf16.
-// What bounds it is the bytes again, half of fp32's (0.015 ms at the eval
+// The bf16 forward (band_attention_forward_bf16 and, with the bias,
+// band_attention_pe_forward_bf16: K1 and K4 on the bf16 serving and
+// training paths) is its own kernel on the tensor cores,
+// band_forward_mma_kernel<DB, kVec, kPE, NT>. The numbers follow JAX's
+// dense form in bf16: the scores in fp32 from the bf16 operands, the fp32
+// dot scaled in fp32 (as the Pallas kernel scales it; the dense form scales
+// q in fp32 first, one rounding apart, and q * scale is never rounded to
+// bf16), the bias (a bf16 or fp32 table, widened exactly) and the key mask
+// added in fp32, the softmax exact over the band in fp32 (expf, natural
+// log, no online rescaling: the band fits one key tile), P divided by the
+// row sum and only then rounded to bf16 as the dense form rounds it, P.V
+// summed in fp32 and the output rounded to bf16 once; the lse stays fp32.
+// What bounds it is the bytes, half of fp32's (0.015 ms at the eval
 // forward's B*H = 128*4, T = 96, d = 128; 0.010 ms at VidOR's 16*8, 512,
-// 64); measured alone on an H100 SXM (700 W) it takes 0.032 and 0.029 ms,
-// the fp32 instance 0.046 ms at the first. It is not a tensor-core design
-// (ROADMAP queue 2).
-// K4 on bf16 streams (band_attention_pe_forward_bf16: the bf16 train step
-// and bf16 serving of a use_rel_pe model) is the same bf16 body with the
-// bias: a lane's one table entry is read in the table's own type (bf16 as
-// cast_floating and the train step's cast leave it, or fp32) and widened
-// in that one register load, so no cast of the table runs before a launch.
-// The bias is added to the fp32 scaled score before the key mask, P is
-// rounded to bf16 after the normalisation, as in K1 bf16; a zero table
-// gives K1 bf16's output bit for bit. Its bound is K1 bf16's (0.010 ms at
-// VidOR's 16*8, 512, 64); measured alone on an H100 SXM (700 W) it takes
-// 0.030 ms there, K1 bf16 0.029 and K4 fp32 0.035.
+// 64): its 4 * (2w + 1) * d operations a row are nothing at 989 TFLOP/s.
+// The parent design, the FMA body on widened bf16, was issue-bound in the
+// score pass's butterfly and ran at under half that bound. The design:
+//   * A warp owns one 16-row query tile, the m16 of
+//     mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, and its band's
+//     16 + 2w keys as NT n8 key tiles (3 up to w = 4: 24 keys, 12 score
+//     registers a lane; 6 up to w = 15). S = Q.K^T takes Q's A fragments
+//     and K's B fragments by ldmatrix from the staged tiles (a row address
+//     a lane, so the band's start needs no 8-row alignment); most of each
+//     16 x 8 NT score tile lies outside the band, tensor-core work that
+//     costs nothing in a bytes-bound kernel.
+//   * The scale, the bias (fixed per lane by its row and column, so held
+//     in registers over a block's tiles), the key mask (the band's bits
+//     from one ballot of the stage's mask bytes) and the band's and the
+//     sequence's -inf are applied in registers. A row's columns sit on the
+//     4 lanes of a quad: its max and sum take 2 shuffles each. No score
+//     tile in shared memory and no butterfly remain.
+//   * P, normalised and rounded with cvt.rn.bf16x2, stays in registers:
+//     two adjacent n8 accumulator tiles are one k16 A fragment of P.V (2
+//     k16 steps up to w = 4, 3 beyond; where NT is odd the last step's
+//     second half is zeros, and its V fragments are taken from its first 8
+//     keys only). V's
+//     B fragments come from ldmatrix.x4.trans; O is fp32 in registers,
+//     DB / 2 a lane (two passes of 128 channels at DB = 256). The output is
+//     staged in the warp's own query rows and written in 16-byte stores.
+//   * A block owns one tile of R = 16, 32 or 64 query rows of one (batch,
+//     head), R / 16 of its 4 warps a 16-row tile each, and stages, with
+//     16-byte cp.async from all 4 warps, the query tile and the slab of
+//     R + 2w key rows, K and V, at a row stride of DB + 8 bf16 (an
+//     ldmatrix's 8 rows in distinct banks), and the slab's mask bytes.
+//     Padding is zeros from the copy itself: channels past d, rows outside
+//     [0, T) and the slab rows past R + 2w up to the last warp's reach,
+//     because 0 * NaN is NaN in the tensor cores; keys outside [0, T) are
+//     excluded by position (-inf), never by those zeros. Rows past T are
+//     computed on zeros (m taken as 0 where a row has no key), never
+//     stored, and rows are independent in the mma.
+//   * The instance rule (pick_mma): R the smallest of 16, 32, 64 that
+//     holds T (64 past it), halved while the blocks would give the card's
+//     SMs fewer than two each; no block walks several tiles. A sweep of
+//     every R with 1, 2, 4 and 8 double-buffered tiles a block, at the
+//     bf16 paths' shapes and at up to 8192 tiles, found walking slower
+//     everywhere: it halves the blocks an SM holds, and their copies in
+//     flight hide the load latency better than the double buffer. The
+//     scalar instance (d % 8 != 0, or a stream off 16 bytes) copies with
+//     2-byte loads into the same padded layout.
+// Measured alone on an H100 SXM (700 W), against the FMA body on widened
+// bf16 that it replaces: 0.0218 ms at the eval forward's B*H = 128*4,
+// T = 96, d = 128 (was 0.0321), 0.0117-0.0118 at VidOR's 16*8, 512, 64
+// (was 0.0289), K4 there 0.0121-0.0122 (was 0.0294). 90 registers at
+// <128, true, false, 3>, 56 at <64, true, true, 3>, at most 127 at any
+// instance; none spills.
 //
 // The backward, K2 (dQ) and K3 (dK, dV), is one templated body
 // (band_backward_kernel<.., kKV>), built from the forward's pieces. The two
@@ -195,10 +235,17 @@
 #include <type_traits>
 
 #include "element.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
 using element::bf16;
+using warp_mma::cp_async16;
+using warp_mma::cp_async_commit;
+using warp_mma::cp_async_wait;
+using warp_mma::ldmatrix_x4;
+using warp_mma::ldmatrix_x4_trans;
+using warp_mma::mma_bf16;
 
 constexpr int kMaxD = 256;        // head dim bound
 constexpr int kMaxW = 15;         // 2w + 1 <= 31: at most one warp of keys
@@ -223,28 +270,12 @@ struct Lane {
   static constexpr int kN = kVW * kNC;  // channels a lane holds
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool fill) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(fill ? 16 : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool fill) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(fill ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // One head of a (B, T, H*d) stream: rows of C = H*d floats, the head's
@@ -380,7 +411,7 @@ __device__ __forceinline__ float reduce_rows(float (&v)[N], int lane) {
 // ---------------------------------------------------------------------------
 
 // The problem a forward launch solves, its streams of element type E, with
-// the instance pick_forward chose.
+// the instance pick_forward (fp32) or pick_mma (bf16) chose.
 template <typename E>
 struct BandProblem {
   const E* q;
@@ -393,20 +424,22 @@ struct BandProblem {
   float* lse;           // (B, H, T) or null
   int T, H, D, w, npe;
   float scale;
-  int rows;             // query rows a tile: 8 * rows threads a block
+  int rows;             // query rows a tile: 8 * rows threads a block in
+                        // fp32; in bf16 kMmaThreads, a warp a 16-row tile
   int tiles;            // row tiles a (batch, head)
-  int per_block;        // consecutive row tiles a block walks
+  int per_block;        // consecutive row tiles a block walks (1 in bf16)
 };
 
-// The forward, K1 (kPE false) and K4 (kPE true). A block takes p.per_block
-// consecutive row tiles of one (batch, head), warp `warp` rows
+// The fp32 forward, K1 (kPE false) and K4 (kPE true), on the FMA pipes; E
+// is float (bf16 streams take band_forward_mma_kernel). A block takes
+// p.per_block consecutive row tiles of one (batch, head), warp `warp` rows
 // warp * kRT .. + kRT - 1 of each. With kPE, the score of band offset n gets
 // rel_pe[h, min(n, npe - 1)] between the scaled dot product and the key
-// mask, the order of the dense form's additions; a bf16 table is widened to
-// fp32 as it is loaded, exactly, as the JAX package's rel_pe.astype(float32).
+// mask, the order of the dense form's additions.
 template <int DB, bool kVec, bool kPE, typename E>
 __global__ void __launch_bounds__(512)
 band_forward_kernel(const BandProblem<E> p) {
+  static_assert(std::is_same_v<E, float>, "bf16 runs the tensor-core body");
   using L = Lane<DB>;
   extern __shared__ __align__(16) float fwd_smem[];
   const int w = p.w, R = p.rows, T = p.T;
@@ -439,13 +472,8 @@ band_forward_kernel(const BandProblem<E> p) {
   const int n = lane & (kseg - 1);
   const int seg_row = lane / kseg;
   float pe = 0.f;
-  if (kPE && n <= 2 * w) {
-    // fp32 streams take an fp32 table; bf16 ones a bf16 or an fp32 one
-    const int at = h * p.npe + min(n, p.npe - 1);
-    pe = std::is_same_v<E, bf16> && p.pe_elem == 2
-             ? element::to_f32(static_cast<const bf16*>(p.rel_pe)[at])
-             : static_cast<const float*>(p.rel_pe)[at];
-  }
+  if (kPE && n <= 2 * w)
+    pe = static_cast<const float*>(p.rel_pe)[h * p.npe + min(n, p.npe - 1)];
 
   copy_slab<DB, kVec>(ks, vs, p.k, p.v, hd, t_first * R - w, slab);
   cp_async_commit();
@@ -456,7 +484,7 @@ band_forward_kernel(const BandProblem<E> p) {
   for (int j = lane; j < xs; j += 32) x[j] = 0.f;  // 0 outside the band
   float qr[kRT][L::kN];
   load_rows<DB, kVec, kRT>(qr, p.q, hd, t_first * R + warp * kRT, lane);
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
 
   const int rl = (lane >> 3) & 3;  // the row whose score this lane ends with
@@ -532,8 +560,7 @@ band_forward_kernel(const BandProblem<E> p) {
           l += __shfl_xor_sync(0xffffffffu, l, o);
         if (band) {
           const bool valid_row = i < T && mt[r + w];
-          x[(r + n) * kRT + r] =
-              valid_row ? element::round_to<E>(e / l) : 0.f;
+          x[(r + n) * kRT + r] = valid_row ? e / l : 0.f;
           if (p.lse != nullptr && n == 0 && i < T)
             p.lse[(size_t)bh * T + i] = m + logf(l);
         }
@@ -569,8 +596,315 @@ band_forward_kernel(const BandProblem<E> p) {
       // done with this stage (and its scores) before the next tile starts
       if ((int)threadIdx.x < slab)
         ms[(s ^ 1) * kStage + threadIdx.x] = mnext;
-      cp_async_wait_all();
+      cp_async_wait<0>();
       __syncthreads();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (K1, K4 on bf16 streams)
+// ---------------------------------------------------------------------------
+
+// n8 key tiles of a warp's scores: 3 (24 keys, the band of 16 rows at
+// w <= 4) or 6 (48 keys, up to w = 15). One instance of each, so the main
+// path's windows 7, 8 and 9 pay for no empty tiles.
+int mma_key_tiles(int w) { return w <= 4 ? 3 : 6; }
+
+constexpr int kMmaThreads = 128;  // a block of the tensor-core forward
+
+// K or V rows a block of the tensor-core forward stages for a tile of
+// `rows` query rows and nt key tiles a warp: the last warp's scores and
+// P.V reach slab row rows - 16 + 8 nt - 1.
+__host__ __device__ constexpr int mma_slab_rows(int rows, int nt) {
+  return rows - 16 + 8 * nt;
+}
+
+// Shared memory of a block of the tensor-core forward: the query tile and
+// the K and V slabs (bf16 rows at a stride of DB + 8) and the slab's mask
+// bytes.
+size_t mma_forward_smem(int DB, int rows, int nt) {
+  return sizeof(bf16) * (DB + 8) * (rows + 2 * mma_slab_rows(rows, nt)) +
+         kStage;
+}
+
+// Copy row tile t of a sequence into shared memory at st: its R query rows
+// (zero past T), then the slab rows t R - w + r, K and V, for r below
+// R + 2w (zero outside [0, T)) and zeros from there to the slab's end;
+// channels past D are zero. 16-byte cp.async copies, or plain 2-byte ones
+// in the scalar instance.
+template <int DB, bool kVec>
+__device__ __forceinline__ void stage_forward_tile(bf16* st,
+                                                   const BandProblem<bf16>& p,
+                                                   const Head& hd, int t,
+                                                   int R, int slab) {
+  constexpr int kS = DB + 8;
+  constexpr int kW = kVec ? 8 : 1;    // channels a copy
+  constexpr int kCh = DB / kW;        // copies a row
+  bf16* ks = st + R * kS;
+  bf16* vs = ks + slab * kS;
+  const int q0 = t * R, k0 = t * R - p.w, live = R + 2 * p.w;
+  for (int idx = threadIdx.x; idx < (R + slab) * kCh; idx += blockDim.x) {
+    const int r = idx / kCh;
+    const int c = kW * (idx - r * kCh);
+    // the query row r, or the slab row r - R
+    const bool query = r < R;
+    const int rr = query ? r : r - R;
+    const int j = query ? q0 + r : k0 + rr;
+    const bool ok = (query || rr < live) && j >= 0 && j < hd.T && c < hd.D;
+    const size_t off = ok ? hd.base + (size_t)j * hd.C + c : 0;
+    if constexpr (kVec) {
+      if (query) {
+        cp_async16(st + r * kS + c, p.q + off, ok);
+      } else {
+        cp_async16(ks + rr * kS + c, p.k + off, ok);
+        cp_async16(vs + rr * kS + c, p.v + off, ok);
+      }
+    } else {
+      const bf16 zero = element::from_f32<bf16>(0.f);
+      if (query) {
+        st[r * kS + c] = ok ? p.q[off] : zero;
+      } else {
+        ks[rr * kS + c] = ok ? p.k[off] : zero;
+        vs[rr * kS + c] = ok ? p.v[off] : zero;
+      }
+    }
+  }
+}
+
+// The bf16 forward, K1 (kPE false) and K4 (kPE true), on the tensor cores.
+// A block of kMmaThreads takes one row tile of p.rows = 16, 32 or 64 query
+// rows of one (batch, head); warp `warp` < p.rows / 16 owns the 16 query
+// rows i0 = t R + 16 warp .. i0 + 15, an m16 tile, and their band's keys
+// i0 - w .. i0 - w + 8 NT - 1, NT n8 tiles (3 up to w = 4, 6 up to w =
+// 15), which are the slab rows 16 warp .. 16 warp + 8 NT - 1; the other
+// warps only copy. A lane holds the scores of rows g = lane / 4 and g + 8
+// at columns 8 jn + 2 (lane % 4) + 0 and 1 (mma.sync's accumulator
+// layout): column c is key i0 - w + c, at band offset c - row. The bias a
+// lane adds to each score (rel_pe[h, min(offset, npe - 1)] with kPE, 0
+// without, in the band; -inf outside it) is fixed by its row and column;
+// K1 adding 0.0f where K4 adds the table makes a zero table give K1's
+// output bit for bit.
+template <int DB, bool kVec, bool kPE, int NT>
+__global__ void __launch_bounds__(kMmaThreads)
+band_forward_mma_kernel(const BandProblem<bf16> p) {
+  constexpr int kS = DB + 8;          // row stride of the tiles (bf16)
+  constexpr int KT = (NT + 1) / 2;    // k16 steps of P.V
+  constexpr int kOC = DB > 128 ? 128 : DB;  // channels of O a pass
+  extern __shared__ __align__(16) unsigned char band_mma_smem[];
+  const int w = p.w, R = p.rows, T = p.T;
+  const int slab = mma_slab_rows(R, NT);
+  bf16* qs = reinterpret_cast<bf16*>(band_mma_smem);
+  unsigned char* ms = band_mma_smem + sizeof(bf16) * (R + 2 * slab) * kS;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, qd = lane & 3;
+
+  const int bh = blockIdx.x / p.tiles;
+  const int t = blockIdx.x - bh * p.tiles;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const Head hd{(size_t)b * T * p.H * p.D + (size_t)h * p.D, T, p.H * p.D,
+                p.D};
+  const unsigned char* mrow = p.mask + (size_t)b * T;
+
+  stage_forward_tile<DB, kVec>(qs, p, hd, t, R, slab);
+  cp_async_commit();
+  for (int j = threadIdx.x; j < slab; j += blockDim.x) {
+    const int k = t * R - w + j;
+    ms[j] = j < R + 2 * w && k >= 0 && k < T ? mrow[k] : 0;
+  }
+  const int i0 = t * R + 16 * warp;  // this warp's first query row
+  const bool rows = 16 * warp < R && i0 < T;  // warp-uniform
+
+  // the bias of each of this lane's scores, by its band offset, read while
+  // the copies land
+  float bias[NT][4];
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 8 * jn + 2 * qd + (e & 1) - g - 8 * (e >> 1);
+      float x = -INFINITY;
+      if (n >= 0 && n <= 2 * w) {
+        x = 0.f;
+        if constexpr (kPE) {
+          // a bf16 table is widened exactly, as rel_pe.astype(float32)
+          const int at = h * p.npe + min(n, p.npe - 1);
+          x = p.pe_elem == 2
+                  ? element::to_f32(static_cast<const bf16*>(p.rel_pe)[at])
+                  : static_cast<const float*>(p.rel_pe)[at];
+        }
+      }
+      bias[jn][e] = x;
+    }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!rows) return;
+
+  bf16* qw = qs + 16 * warp * kS;                    // the warp's queries
+  const bf16* kw = qs + (R + 16 * warp) * kS;        // and its band's keys
+  const bf16* vw = kw + slab * kS;
+  const unsigned char* mw = ms + 16 * warp;
+  // the key mask over the warp's band, a bit a column (bits past the
+  // band's 8 NT columns are never read)
+  const uint64_t valid =
+      __ballot_sync(0xffffffffu, mw[lane]) |
+      (uint64_t)__ballot_sync(0xffffffffu, NT > 4 && mw[32 + lane]) << 32;
+
+  // the rows this lane points at in an ldmatrix.x4: Q's A fragment of one
+  // k16 step (row lane % 16, channels from (lane / 16) * 8); K's B
+  // fragments of two k16 steps of one n8 key tile (key lane % 8, channels
+  // from (lane / 8) * 8); V's, transposed, of one k16 key step for two n8
+  // channel tiles (key lane % 16, channels from (lane / 16) * 8), and of
+  // its first 8 keys only where the step's second half has no score tile
+  const int qoff = (lane & 15) * kS + (lane >> 4) * 8;
+  const int koff = (lane & 7) * kS + (lane >> 3) * 8;
+  const int voff = (lane & 15) * kS + (lane >> 4) * 8;
+  const int voff8 = (lane & 7) * kS + (lane >> 4) * 8;
+
+  // S = Q.K^T: each Q fragment serves the warp's NT key tiles; even and
+  // odd k16 steps sum into two accumulators, halving the chain of
+  // dependent products, and meet at the end
+  float sc[NT][4], s2[NT][4];
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[jn][e] = s2[jn][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DB / 16; kk += 2) {
+    uint32_t a0[4], a1[4];
+    ldmatrix_x4(a0, qw + qoff + 16 * kk);
+    ldmatrix_x4(a1, qw + qoff + 16 * (kk + 1));
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, kw + 8 * jn * kS + koff + 16 * kk);
+      mma_bf16(sc[jn], a0, kf[0], kf[1]);
+      mma_bf16(s2[jn], a1, kf[2], kf[3]);
+    }
+  }
+
+  // the scaled scores with the bias and the key mask; keys outside [0, T)
+  // and the band -inf. A row's columns sit on the 4 lanes of a quad: its
+  // max and sum take 2 shuffles each. A row below T has its own key in the
+  // band, so its max is finite; a row past T (never stored) may have
+  // none, and takes m = 0 so that it stays free of NaN
+  const int jb = i0 - w;  // the key of column 0
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * jn + 2 * qd + (e & 1);
+      const bool in = (unsigned)(jb + c) < (unsigned)T;
+      const float x = (sc[jn][e] + s2[jn][e]) * p.scale + bias[jn][e] +
+                      ((valid >> c) & 1u ? 0.f : kNegBig);
+      sc[jn][e] = in ? x : -INFINITY;
+      m[e >> 1] = fmaxf(m[e >> 1], sc[jn][e]);
+    }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+    if (m[r] == -INFINITY) m[r] = 0.f;
+  }
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[jn][e] = __expf(sc[jn][e] - m[e >> 1]);
+      l[e >> 1] += sc[jn][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int i = i0 + g + 8 * r;
+    if (p.lse != nullptr && qd == 0 && i < T)
+      p.lse[(size_t)bh * T + i] = m[r] + logf(l[r]);
+    // P = e / l, 0 on an invalid query row and past T
+    const bool vq = i < T && (valid >> (w + g + 8 * r)) & 1u;
+    const float il = vq ? 1.f / l[r] : 0.f;
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+      sc[jn][2 * r] *= il;
+      sc[jn][2 * r + 1] *= il;
+    }
+  }
+
+  // P rounded to bf16 in registers: the accumulators of n8 key tiles 2 kk
+  // and 2 kk + 1 are the A fragment of k16 step kk (the second half zero
+  // where NT is odd)
+  uint32_t pa[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    pa[kk][0] = element::pack2(sc[2 * kk][0], sc[2 * kk][1]);
+    pa[kk][1] = element::pack2(sc[2 * kk][2], sc[2 * kk][3]);
+    if (2 * kk + 1 < NT) {
+      pa[kk][2] = element::pack2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[kk][3] = element::pack2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+    } else {
+      pa[kk][2] = pa[kk][3] = 0u;
+    }
+  }
+
+  // O = P.V in fp32, kOC channels a pass, each rounded once to bf16 into
+  // the warp's own query rows (read no more)
+  __syncwarp();
+#pragma unroll
+  for (int oc = 0; oc < DB; oc += kOC) {
+    float o[kOC / 8][4];
+#pragma unroll
+    for (int ot = 0; ot < kOC / 8; ++ot)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[ot][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      // keys 16 kk + 8 .. 16 kk + 15 have no score tile where NT is odd:
+      // their B fragments are zeros, and no slab row past the last tile's
+      // reach is read
+      const bool half = 2 * kk + 1 >= NT;
+#pragma unroll
+      for (int ot = 0; ot < kOC / 8; ot += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vw + 16 * kk * kS + (half ? voff8 : voff) +
+                                  oc + 8 * ot);
+        if (half) vf[1] = vf[3] = 0u;
+        mma_bf16(o[ot], pa[kk], vf[0], vf[1]);
+        mma_bf16(o[ot + 1], pa[kk], vf[2], vf[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      uint32_t* orow =
+          reinterpret_cast<uint32_t*>(qw + (g + 8 * r) * kS + oc + 2 * qd);
+#pragma unroll
+      for (int ot = 0; ot < kOC / 8; ++ot)
+        orow[4 * ot] = element::pack2(o[ot][2 * r], o[ot][2 * r + 1]);
+    }
+  }
+  __syncwarp();
+  // the warp's rows below T, written out a row at a time
+  bf16* out = p.out + hd.base;
+  if constexpr (kVec) {
+    constexpr int kChunks = DB / 8;
+#pragma unroll
+    for (int it = 0; it < 16 * kChunks / 32; ++it) {
+      const int idx = lane + 32 * it;
+      const int r = idx / kChunks;
+      const int c = 8 * (idx - r * kChunks);
+      if (i0 + r < T && c < hd.D)
+        *reinterpret_cast<uint4*>(out + (size_t)(i0 + r) * hd.C + c) =
+            *reinterpret_cast<const uint4*>(qw + r * kS + c);
+    }
+  } else {
+    for (int idx = lane; idx < 16 * DB; idx += 32) {
+      const int r = idx / DB;
+      const int c = idx - r * DB;
+      if (i0 + r < T && c < hd.D)
+        out[(size_t)(i0 + r) * hd.C + c] = qw[r * kS + c];
     }
   }
 }
@@ -690,7 +1024,7 @@ band_backward_kernel(const BandBwdProblem<E> p) {
   float oa[RT][L::kN], ob[RT][L::kN];
   load_rows<DB, kVec, RT>(oa, own_a, hd, t_first * R + warp * RT, lane);
   load_rows<DB, kVec, RT>(ob, own_b, hd, t_first * R + warp * RT, lane);
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
 
   // the value this lane ends the butterfly with: the first dot of owner
@@ -838,7 +1172,7 @@ band_backward_kernel(const BandBwdProblem<E> p) {
       // done with this stage (and its tiles) before the next tile starts
       if ((int)threadIdx.x < slab)
         ms[(s ^ 1) * kStage + threadIdx.x] = mnext;
-      cp_async_wait_all();
+      cp_async_wait<0>();
       __syncthreads();
     }
   }
@@ -949,19 +1283,64 @@ cudaError_t pick_forward(Kernel kernel, int DB, int BH, BandProblem<E>* p,
   return cudaSuccess;
 }
 
-// Picks the instance of the forward for *p and, with `launch`, launches it.
+// The tensor-core forward's instance for B*H sequences of T rows: the rows
+// a tile, R = 16, 32 or 64, the smallest that holds T (64 past it),
+// halved while the B*H * ceil(T / R) blocks would give the card's SMs
+// fewer than two each; one tile a block. A block of kMmaThreads always:
+// where R < 64 its warps past R / 16 only help copy. Walking several tiles
+// a block (double-buffered, as the fp32 forward does) lost at every shape
+// measured, the problems up to 8192 blocks included: it halves the blocks
+// an SM holds, and their copies in flight hide the load latency better.
+cudaError_t pick_mma(int BH, BandProblem<bf16>* p) {
+  int sms;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int T = p->T;
+  int r = T <= 16 ? 16 : T <= 32 ? 32 : 64;
+  while (r > 16 && (long long)BH * ((T + r - 1) / r) < 2LL * sms) r /= 2;
+  p->rows = r;
+  p->tiles = (T + r - 1) / r;
+  p->per_block = 1;
+  return cudaSuccess;
+}
+
+// The tensor-core forward's instance for *p (bf16 streams, NT key tiles a
+// warp) and, with `launch`, its launch.
+template <int DB, bool kVec, bool kPE, int NT>
+cudaError_t run_mma(BandProblem<bf16>* p, int B, cudaStream_t stream,
+                    bool launch) {
+  cudaError_t err = pick_mma(B * p->H, p);
+  if (err != cudaSuccess || !launch) return err;
+  auto kernel = band_forward_mma_kernel<DB, kVec, kPE, NT>;
+  const size_t smem = mma_forward_smem(DB, p->rows, NT);
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  const long long blocks = grid_blocks(B, p->H, p->tiles, 1);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kMmaThreads, smem, stream>>>(*p);
+  return cudaGetLastError();
+}
+
+// Picks the instance of the forward for *p and, with `launch`, launches
+// it: fp32 streams take band_forward_kernel, bf16 ones
+// band_forward_mma_kernel with the key tiles their w needs.
 template <int DB, bool kVec, bool kPE, typename E>
 cudaError_t run_forward(BandProblem<E>* p, int B, cudaStream_t stream,
                         bool launch) {
-  auto kernel = band_forward_kernel<DB, kVec, kPE, E>;
-  size_t smem;
-  cudaError_t err = pick_forward(kernel, DB, B * p->H, p, &smem);
-  if (err != cudaSuccess || !launch) return err;
-  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
-  const long long blocks = grid_blocks(B, p->H, p->tiles, p->per_block);
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, 8 * p->rows, smem, stream>>>(*p);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<E, bf16>) {
+    return mma_key_tiles(p->w) == 3
+               ? run_mma<DB, kVec, kPE, 3>(p, B, stream, launch)
+               : run_mma<DB, kVec, kPE, 6>(p, B, stream, launch);
+  } else {
+    auto kernel = band_forward_kernel<DB, kVec, kPE, E>;
+    size_t smem;
+    cudaError_t err = pick_forward(kernel, DB, B * p->H, p, &smem);
+    if (err != cudaSuccess || !launch) return err;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    const long long blocks = grid_blocks(B, p->H, p->tiles, p->per_block);
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, 8 * p->rows, smem, stream>>>(*p);
+    return cudaGetLastError();
+  }
 }
 
 // Sets *p to the backward's instance of RT owner rows a warp and at most
@@ -1094,16 +1473,21 @@ cudaError_t backward(BandBwdProblem<E>* p, int B, cudaStream_t stream,
              : run_backward_bucket<false, kKV>(bucket, p, B, stream, launch);
 }
 
-// The forward's instance for streams of element type E (no launch).
+// The forward's instance for streams of element type E (no launch): warps
+// a block, and for bf16 the n8 key tiles a warp (0 for fp32).
 template <typename E>
 cudaError_t forward_instance(int B, int T, int H, int D, int w, bool pe,
-                             int* rows, int* tiles, int* per_block) {
+                             int* rows, int* tiles, int* per_block,
+                             int* warps, int* key_tiles) {
   BandProblem<E> p{nullptr, nullptr, nullptr, nullptr, nullptr, 4, nullptr,
                    nullptr, T, H, D, w, 2 * w + 1, 1.f, 0, 0, 0};
   const cudaError_t err = forward(&p, B, pe, nullptr, false);
+  constexpr bool kMma = std::is_same_v<E, bf16>;
   *rows = p.rows;
   *tiles = p.tiles;
   *per_block = p.per_block;
+  *warps = kMma ? kMmaThreads / 32 : p.rows / kRT;
+  *key_tiles = kMma ? mma_key_tiles(w) : 0;
   return err;
 }
 
@@ -1176,20 +1560,26 @@ extern "C" int band_attention_pe_forward_bf16(const bf16* q, const bf16* k,
 // The instance the forward (K1, or K4 with `pe`) takes on the current
 // device for 16-byte-aligned streams of this shape and `elem`-byte elements
 // (4 for fp32, 2 for bf16): query rows a tile, row tiles a (batch, head),
-// tiles a block walks and the head-dim bucket; `vec` is 1 for the vector
-// instance (d % 4 == 0 in fp32, d % 8 == 0 in bf16), 0 for the scalar one.
+// tiles a block walks, the head-dim bucket, `vec` (1 for the vector
+// instance: d % 4 == 0 in fp32, d % 8 == 0 in bf16; 0 for the scalar one),
+// warps a block and, for bf16 (band_forward_mma_kernel), the n8 key tiles
+// a warp's scores take (its last template argument; 0 for fp32).
 extern "C" int band_attention_instance(int B, int T, int H, int D, int w,
                                        int pe, int elem, int* rows,
                                        int* tiles, int* per_block,
-                                       int* bucket, int* vec) {
+                                       int* bucket, int* vec, int* warps,
+                                       int* key_tiles) {
   if (bad_shape(B, T, H, D, w) || (elem != 4 && elem != 2))
     return (int)cudaErrorInvalidValue;
   *bucket = head_bucket(D);
   *vec = vector_streams(D, elem, {});
-  return (int)(elem == 4 ? forward_instance<float>(B, T, H, D, w, pe != 0,
-                                                   rows, tiles, per_block)
-                         : forward_instance<bf16>(B, T, H, D, w, pe != 0,
-                                                  rows, tiles, per_block));
+  return (int)(elem == 4
+                   ? forward_instance<float>(B, T, H, D, w, pe != 0, rows,
+                                             tiles, per_block, warps,
+                                             key_tiles)
+                   : forward_instance<bf16>(B, T, H, D, w, pe != 0, rows,
+                                            tiles, per_block, warps,
+                                            key_tiles));
 }
 
 namespace {

@@ -23,12 +23,13 @@ scalar copies; for the backward also owner rows a warp) from the shape and
 the card; ``forward_instance`` and ``backward_instance`` report it.
 
 The forward, with or without a bias (K4, K1), also takes bf16 streams
-(bf16 serving and training); its plain version then follows the JAX dense
-form's promotions: the scores in fp32 from the widened operands (q scaled
-in fp32, as the dense form's numpy scale makes it; Pallas scales the fp32
-dot instead), a bf16 bias table widened to fp32 before it is added,
-softmax in fp32, P rounded to bf16 before P.V, a bf16 output and an fp32
-lse. The backward (K2/K3) takes bf16 streams too (bf16 training), with the
+(bf16 serving and training), through its own kernel on the tensor cores
+(``mma.sync``: the scores and P.V of each 16-row tile over its band). Its
+plain version then follows the JAX dense form's promotions: the scores in
+fp32 from the widened operands (q scaled in fp32, as the dense form's numpy
+scale makes it; the kernel, as Pallas does, scales the fp32 dot instead),
+a bf16 bias table widened to fp32 before it is added, softmax in fp32, P
+rounded to bf16 before P.V, a bf16 output and an fp32 lse. The backward (K2/K3) takes bf16 streams too (bf16 training), with the
 Pallas backward's promotions: ``band_backward_plain`` is its plain version.
 """
 
@@ -166,7 +167,7 @@ def _kernel() -> ctypes.CDLL:
         + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
     lib.band_attention_instance.restype = ctypes.c_int
     lib.band_attention_instance.argtypes = (
-        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 5)
+        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 7)
     lib.band_attention_backward_instance.restype = ctypes.c_int
     lib.band_attention_backward_instance.argtypes = (
         [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 6)
@@ -194,12 +195,19 @@ def forward_instance(device: int, b: int, t: int, n_head: int, d: int,
     ``device`` for 16-byte-aligned (B, T, n_head * d) streams of ``dtype``
     (fp32 or bf16): ``rows`` query rows a tile, ``tiles`` row tiles
     a (batch, head), ``per_block`` tiles a block walks (double-buffered when
-    more than 1), the head-dim ``bucket`` and ``vec`` (16-byte copies; False
-    for the scalar instance)."""
+    more than 1), the head-dim ``bucket``, ``vec`` (16-byte copies; False
+    for the scalar instance) and ``warps`` a block. fp32 runs
+    ``band_forward_kernel<bucket, vec, pe, float>`` (8 * rows threads, 4
+    rows a warp); bf16 the tensor-core kernel
+    ``band_forward_mma_kernel<bucket, vec, pe, key_tiles>`` (one tile of
+    16, 32 or 64 rows a block of 4 warps, rows / 16 of them a 16-row
+    query tile each; ``key_tiles`` n8 tiles of keys a warp: 3 up to w = 4,
+    else 6; 0 for fp32)."""
     return _read_instance(
         device, _kernel().band_attention_instance,
         (b, t, n_head, d, window_size // 2, int(pe), dtype.itemsize),
-        ("rows", "tiles", "per_block", "bucket", "vec"))
+        ("rows", "tiles", "per_block", "bucket", "vec", "warps",
+         "key_tiles"))
 
 
 def backward_instance(device: int, b: int, t: int, n_head: int, d: int,
