@@ -29,10 +29,14 @@ one process per source, all started together, into
      dK/dV (K3) kernels alone at each train shape (T = 96, 48, 24, 12)
      beside plain autograd, SDPA's backward and their bounds, with the
      instance the C side picked; then the bf16 instances of K2 and K3
-     against ``band_backward_plain`` on the same bf16 streams
-     (``BF16_KERNEL_TOL``) and K1 bf16's lse at the same shapes, each
-     timed alone beside its fp32 instance, the plain version, SDPA's bf16
-     backward and the bound at the dense bf16 rate;
+     (the tensor-core kernel ``band_backward_mma_kernel``) against
+     ``band_backward_plain`` on the same bf16 streams
+     (``BF16_KERNEL_TOL``) and K1 bf16's lse at the same shapes, at the
+     96-pair step's T=96 and at the bf16 rel-PE train step's local S/O
+     mutual layers (B*H=48*8, T=512, d=64, w=4), each timed alone beside
+     its fp32 instance, the plain version, SDPA's bf16 backward and the
+     bound at the dense bf16 rate, with both instances' registers and
+     spills where this run built them;
   3. runs the full-width VidVRD ``MaskVRD`` eval forward
      (``configs/vidvrd.yaml``, random seeded weights) on the card against
      the same weights on the CPU, counts the kernel launches of one forward
@@ -46,7 +50,8 @@ one process per source, all started together, into
      8 pairs on the card against the port's bf16 CPU steps (losses within
      ``BF16_LOSS_TOL``, matchings equal or near-ties within
      ``MATCH_TIE_TOL``), the launches of one bf16 step at 24 pairs (K1, K2
-     and K3 bf16, 7 each; K1 14 under remat), one fp32 remat step under
+     and K3 bf16, 7 each; K1 14 under remat; the profiles show no FMA band
+     kernel on bf16 streams), one fp32 remat step under
      each policy against the plain step (losses within ``LOSS_TOL``, drop
      path on), and fp32 and bf16 steps at 24 and 96 pairs timed in turns
      and profiled;
@@ -112,8 +117,8 @@ one process per source, all started together, into
      the port's bf16 CPU steps (``BF16_LOSS_TOL``, ``MATCH_TIE_TOL``, every
      ``rel_pe`` moved), the launches of one step at 48 pairs (K4 bf16 7,
      14 under remat, its backward the dense form 7 times; K1, K2 and K3
-     bf16 8 each, K1 16 under remat) and bf16 steps at 48 pairs timed and
-     profiled.
+     bf16 8 each, K1 16 under remat; K2/K3 at the shape phase 2 times)
+     and bf16 steps at 48 pairs timed and profiled.
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
@@ -196,6 +201,13 @@ BF16_SERVING = (("vidvrd.yaml", 8, 128, 8, False),
                 ("vidor.yaml", 2, 16, 6, False),
                 ("vidor_local.yaml", 2, 16, 6, True))
 RELPE_TRAIN_PAIRS = (2, 48)  # bf16 rel-PE steps: on both devices; timed
+# K2/K3 bf16 held and timed alone, (B, H, d, w, T): the bf16 train step's
+# band shapes (24 pairs, T = 96, 48, 24, 12) and its 96-pair T = 96, and
+# the bf16 rel-PE train step's local S/O mutual layers at VidOR local width
+# (48 pairs at max_seq_len 512, 8 heads of 64, window 9)
+BWD_BF16_SHAPES = tuple((TRAIN_PAIRS[1], 4, 128, 3, t) for t in (96, 48, 24,
+                                                                 12)) + (
+    (TRAIN_PAIRS[2], 4, 128, 3, 96), (RELPE_TRAIN_PAIRS[1], 8, 64, 4, 512))
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
 
@@ -370,15 +382,19 @@ def mma_band_instance(ba, usage, device, b, t, h, d, ws, pe) -> str:
 
 
 def refuse_fma_band(events, label: str) -> None:
-    """Fail if a profile's kernels hold the FMA band forward on bf16
-    streams (``band_forward_kernel<..., __nv_bfloat16>``): bf16 runs the
-    tensor-core kernel alone. Prints how often the profiler saw that one
+    """Fail if a profile's kernels hold an FMA band kernel on bf16 streams
+    (``band_forward_kernel<..., __nv_bfloat16>`` or
+    ``band_backward_kernel<..., __nv_bfloat16>``): bf16 runs the
+    tensor-core kernels alone. Prints how often the profiler saw those
     (it misses some ctypes launches)."""
-    fma = [e.key for e in events if "band_forward_kernel<" in e.key
+    fma = [e.key for e in events
+           if re.search(r"band_(forward|backward)_kernel<", e.key)
            and "__nv_bfloat16" in e.key]
-    mma = sum(e.count for e in events if "band_forward_mma_kernel" in e.key)
-    print(f"  the profiler saw band_forward_mma_kernel {mma} times in the "
-          f"{label}, the FMA band forward on bf16 streams {len(fma)} times")
+    seen = {k: sum(e.count for e in events if f"band_{k}_mma_kernel" in e.key)
+            for k in ("forward", "backward")}
+    print(f"  the profiler saw band_forward_mma_kernel {seen['forward']} and "
+          f"band_backward_mma_kernel {seen['backward']} times in the "
+          f"{label}, an FMA band kernel on bf16 streams {len(fma)} times")
     if fma:
         raise AssertionError(f"{label} ran {fma}")
 
@@ -584,14 +600,29 @@ def check_bf16_kernels(cuda, ba, fa) -> dict:
     return entries
 
 
-def band_backward_instance(ba, q, h, w, dkv, dtype=torch.float32) -> str:
-    """The backward instance the C side picks for q's shape, as text."""
+def band_backward_instance(ba, q, h, w, dkv, dtype=torch.float32,
+                           usage: dict | None = None) -> str:
+    """The backward instance the C side picks for q's shape, as text: the
+    kernel's name and template arguments (the tensor-core kernel
+    ``band_backward_mma_kernel`` where a warp owns 16 rows, else the FMA
+    body ``band_backward_kernel``), its tiling and, from ``usage``
+    (``instance_usage``), ptxas' registers and spills."""
     b, t, c = q.shape
     i = ba.backward_instance(q.device.index or 0, b, t, h, c // h, 2 * w + 1,
                              dkv, dtype)
-    return (f" (instance {i['rows_warp']} rows a warp, {i['rows']} rows a "
-            f"tile, {i['per_block']} of {i['tiles']} tiles a block, d bucket "
-            f"{i['bucket']}{'' if i['vec'] else ', scalar'})")
+    vec, kv = str(i["vec"]).lower(), str(dkv).lower()
+    if i["rows_warp"] == 16:
+        name = (f"band_backward_mma_kernel<{i['bucket']}, {vec}, {kv}, "
+                f"{i['key_tiles']}>")
+    else:
+        elem = "float" if dtype == torch.float32 else "bf16"
+        name = (f"band_backward_kernel<{i['bucket']}, {vec}, {kv}, "
+                f"{i['rows_warp']}, {elem}>")
+    regs = ("" if usage is None else "; " + usage.get(
+        name, "registers not reported, already built"))
+    return (f" (instance {name}: {i['rows_warp']} rows a warp, {i['rows']} "
+            f"rows a tile, {i['per_block']} of {i['tiles']} tiles a block, d "
+            f"bucket {i['bucket']}{'' if i['vec'] else ', scalar'}{regs})")
 
 
 def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
@@ -703,23 +734,28 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
 
 
 def check_band_backward_bf16(cuda, ba, band_rows: list) -> dict:
-    """The bf16 instances of K2 (dQ) and K3 (dK, dV) against
-    ``band_backward_plain`` on the same bf16 streams, fp32 lse and Dr, and
-    K1 bf16's lse against the plain logsumexp, at the train step's band
-    shapes (B*H = 24*4, d = 128, w = 3, T = 96, 48, 24, 12), with a nonzero
-    upstream gradient everywhere (invalid query rows included). Each kernel
+    """The bf16 instances of K2 (dQ) and K3 (dK, dV), the tensor-core
+    kernel ``band_backward_mma_kernel``, against ``band_backward_plain`` on
+    the same bf16 streams, fp32 lse and Dr, and K1 bf16's lse against the
+    plain logsumexp, at every ``BWD_BF16_SHAPES`` shape, with a nonzero
+    upstream gradient everywhere (invalid query rows included); beside
+    each error, that of the FMA body (the fp32 instance on the same values,
+    lse and Dr, its gradients rounded to bf16) and the share of elements
+    each leaves off the plain version's bf16 gradients. Each kernel
     is timed alone beside its fp32 instance on the same values, the plain
-    version, SDPA's bf16 backward and the bound at the dense bf16 rate.
-    Returns the JSON entries ``band_attention_dq_bf16`` and
-    ``band_attention_dkv_bf16`` (all but ``launches``), timed at T=96, and
-    appends K1 bf16 with its lse, alone at T=96, to ``band_rows``."""
+    version, SDPA's bf16 backward and the bound at the dense bf16 rate, and
+    its instance printed beside the fp32 one, with registers and spills
+    where this run built them. Returns the JSON entries
+    ``band_attention_dq_bf16`` and ``band_attention_dkv_bf16`` (all but
+    ``launches``), timed at B*H=24*4 T=96, and appends K1 bf16 with its
+    lse, alone there, to ``band_rows``."""
     rng = np.random.default_rng(6)
     bf = torch.bfloat16
-    b, h, d, w = 24, 4, 128, 3
-    kw = dict(n_head=h, window_size=2 * w + 1)
+    usage = instance_usage("band_attention")
     names = ("band_attention_dq_bf16", "band_attention_dkv_bf16")
     entries = {name: {"by_shape": [], "max_abs_err": 0.0} for name in names}
-    for t in (96, 48, 24, 12):
+    for b, h, d, w, t in BWD_BF16_SHAPES:
+        kw = dict(n_head=h, window_size=2 * w + 1)
         q32, k32, v32, mask = attention_inputs(rng, b, t, t, h * d, cuda)
         mask[1, t // 3] = False   # an invalid key inside a valid stretch
         dout32 = torch.from_numpy(rng.standard_normal(q32.shape)
@@ -740,23 +776,40 @@ def check_band_backward_bf16(cuda, ba, band_rows: list) -> dict:
         args32 = (q32, k32, v32, mask, lse32, dr32, dout32)
         got = (ba.band_attention_dq_cuda(*args, **kw),
                *ba.band_attention_dkv_cuda(*args, **kw))
+        # the FMA body on the same values, lse and Dr (the fp32 instance,
+        # its gradients rounded to bf16 once): the error the bf16 kernel's
+        # arithmetic is compared with
+        fma = [g.to(bf) for g in (
+            ba.band_attention_dq_cuda(q32, k32, v32, mask, lse, dr, dout32,
+                                      **kw),
+            *ba.band_attention_dkv_cuda(q32, k32, v32, mask, lse, dr,
+                                        dout32, **kw))]
         want = ba.band_backward_plain(*args, **kw)
-        errs, limits = [], []
-        for g, r in zip(got, want):
+        errs, limits, fma_errs, off, fma_off = [], [], [], [], []
+        for g, f, r in zip(got, fma, want):
             if not g.dtype == r.dtype == bf:
                 raise AssertionError(f"bf16 backward: {g.dtype} gradient, "
                                      f"plain {r.dtype}")
             errs.append((g.float() - r.float()).abs().max().item())
+            fma_errs.append((f.float() - r.float()).abs().max().item())
+            off.append((g != r).float().mean().item())
+            fma_off.append((f != r).float().mean().item())
             limits.append(BF16_KERNEL_TOL * (1 + r.float().abs().max()
                                              .item()))
-        shape = f"B*H=24*4 T={t} d=128 w=3"
+        del want, fma
+        shape = f"B*H={b}*{h} T={t} d={d} w={w}"
         print(f"band backward bf16 {shape}: lse rel err {lse_err:.3e}; "
               f"dQ, dK, dV max_abs_err {errs[0]:.3e}, {errs[1]:.3e}, "
               f"{errs[2]:.3e} (limits {limits[0]:.3e}, {limits[1]:.3e}, "
-              f"{limits[2]:.3e})")
+              f"{limits[2]:.3e}); the FMA body on the same values, rounded "
+              f"to bf16: {fma_errs[0]:.3e}, {fma_errs[1]:.3e}, "
+              f"{fma_errs[2]:.3e}; share of elements off the plain "
+              f"version's bf16 {off[0]:.2e}, {off[1]:.2e}, {off[2]:.2e} "
+              f"(FMA body {fma_off[0]:.2e}, {fma_off[1]:.2e}, "
+              f"{fma_off[2]:.2e})")
         if not (lse_err <= LSE_TOL
                 and all(e <= lim for e, lim in zip(errs, limits))):
-            raise AssertionError(f"bf16 band backward off at T={t}: lse "
+            raise AssertionError(f"bf16 band backward off at {shape}: lse "
                                  f"{lse_err}, grads {errs}")
         if not (got[0][~mask] == 0).all():
             raise AssertionError("bf16 dQ of an invalid query row is not 0")
@@ -765,9 +818,10 @@ def check_band_backward_bf16(cuda, ba, band_rows: list) -> dict:
         entries[names[1]]["max_abs_err"] = max(
             entries[names[1]]["max_abs_err"], *errs[1:])
         lib_mask = band_library_mask(mask, w).to(bf)
-        if t == T:
+        main = (b, h, t) == (24, 4, T)
+        if main:
             band_rows.append(bf16_case(
-                "band_attention_bf16", "B*H=24*4 T=96 d=128 w=3 with lse",
+                "band_attention_bf16", f"{shape} with lse",
                 lambda: ba.band_attention_cuda(q, k, v, mask, with_lse=True,
                                                **kw)[0],
                 lambda: ba.band_attention_plain(q, k, v, mask, **kw),
@@ -804,16 +858,20 @@ def check_band_backward_bf16(cuda, ba, band_rows: list) -> dict:
                        fp32_device_ms=(alone[0] + alone[3]) / 2,
                        plain_ms=(p1 + p2) / 2, library_ms=time_ms(library),
                        bound_ms=bms, bound_by=by)
-            inst = band_backward_instance(ba, q, h, w, name == names[1], bf)
+            dkv = name == names[1]
+            inst = band_backward_instance(ba, q, h, w, dkv, bf, usage)
+            inst32 = band_backward_instance(ba, q, h, w, dkv,
+                                            torch.float32, usage)
             print(f"{name} {shape}{inst}: kernel {(k1 + k2) / 2:.4f} ms, "
                   f"the kernel alone {alone[1]:.4f} / {alone[2]:.4f} ms "
-                  f"(fp32 instance alone {alone[0]:.4f} / {alone[3]:.4f}), "
-                  f"plain {row['plain_ms']:.4f} ms, library (SDPA, bf16) "
-                  f"backward {row['library_ms']:.4f} ms, bound {bms:.4f} ms "
-                  f"({by})")
+                  f"(fp32 instance alone {alone[0]:.4f} / {alone[3]:.4f}"
+                  f"{inst32}), plain {row['plain_ms']:.4f} ms, library "
+                  f"(SDPA, bf16) backward {row['library_ms']:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by})")
             entries[name]["by_shape"].append(row)
-            if t == T:
+            if main:
                 entries[name].update(row, ms=(k1 + k2) / 2)
+        del lib_in, lib_out
     return entries
 
 
@@ -881,6 +939,25 @@ def dense_band_calls(ba):
         yield calls
     finally:
         ba._band_plain = plain
+
+
+@contextlib.contextmanager
+def backward_shapes(ba):
+    """Records, while open, the (B, H, d, w, T) of each dQ kernel launch
+    (``band_attention_dq_cuda``, which ``BandAttention`` calls beside its
+    dK/dV launch on the same streams)."""
+    shapes, dq = set(), ba.band_attention_dq_cuda
+
+    def recorded(q, *args, n_head, window_size):
+        b, t, c = q.shape
+        shapes.add((b, n_head, c // n_head, window_size // 2, t))
+        return dq(q, *args, n_head=n_head, window_size=window_size)
+
+    ba.band_attention_dq_cuda = recorded
+    try:
+        yield shapes
+    finally:
+        ba.band_attention_dq_cuda = dq
 
 
 def check_bf16_serving(cuda, ba, fa) -> dict:
@@ -1461,10 +1538,11 @@ def check_train_step_relpe_bf16(cuda, ba, fa) -> dict:
     batch_size 3 x num_pairs 16), without and with remat: K4 bf16 once a
     stem or branch block (twice under remat), whose backward is the dense
     form once a block, K1 bf16 once a local S/O mutual layer (twice under
-    remat) with K2 and K3 bf16 once, no fp32 instance and no K7 (the
-    predictor trains through the dense form); then bf16 steps at 48 pairs
-    timed and profiled. Returns the launches of the step without remat by
-    kernel."""
+    remat) with K2 and K3 bf16 once, at the shape
+    ``check_band_backward_bf16`` times last, no fp32 instance and no K7
+    (the predictor trains through the dense form); then bf16 steps at 48
+    pairs timed and profiled (no FMA band kernel on bf16 streams). Returns
+    the launches of the step without remat by kernel."""
     from vrdone_tpu_torch.config import load_yaml_config, model_config_from_yaml
     from vrdone_tpu_torch.train.loop import (batch_to_device, step_generator,
                                              train_step)
@@ -1488,10 +1566,14 @@ def check_train_step_relpe_bf16(cuda, ba, fa) -> dict:
                                                    remat_policy="dots")
         torch.cuda.synchronize()
         zero_counts(ba, fa)
-        with dense_band_calls(ba) as dense:
+        with dense_band_calls(ba) as dense, backward_shapes(ba) as shapes:
             train_step(state16, tb, step_generator(0, state16.step))
             torch.cuda.synchronize()
         counts[remat] = band_counts(ba, fa)
+        # the K2/K3 bf16 shape this step launches is the one timed alone
+        if shapes != {BWD_BF16_SHAPES[-1]}:
+            raise AssertionError(f"K2/K3 bf16 launched at (B, H, d, w, T) "
+                                 f"{shapes}, timed at {BWD_BF16_SHAPES[-1]}")
         times = 2 if remat else 1
         got = {**counts[remat], "dense band form": dense[0]}
         expect = {name: 0 for name in got}

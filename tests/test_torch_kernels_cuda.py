@@ -21,9 +21,12 @@ are held to their bf16 plain versions within
 1e-2 of 1 + max |plain| (``BF16_TOL``, ``chip_smoke.py``'s
 ``BF16_KERNEL_TOL``): both round P and the output to bf16, K7 its
 unnormalised P, the plain version the normalised one. The bf16 instances
-of the backward kernels (K2, K3) are held to ``band_backward_plain`` on the
-same bf16 streams, lse and Dr within the same limit: the same promotions,
-each gradient rounded to bf16 once, sums taken in another order.
+of the backward kernels (K2, K3: the tensor-core kernel
+``band_backward_mma_kernel``) are held to ``band_backward_plain`` on the
+same bf16 streams, lse and Dr within the same limit: the same promotions
+(P and dS in fp32, which the kernel feeds to the tensor cores as bf16
+hi/lo pairs), each gradient rounded to bf16 once, sums taken in another
+order.
 """
 
 import ctypes
@@ -1683,30 +1686,36 @@ def band_backward_bf16_case(cuda, seed, b, t, h, d, w, shift=False):
     (96, 3, 20, 4, 3), (70, 15, 36, 4, 2), (50, 1, 33, 4, 4),
     (40, 3, 6, 4, 5)])
 def test_band_backward_bf16_instances_match_plain(cuda, t, w, d, b, h):
-    """K2's and K3's bf16 instances at each instance's edges against the
+    """K2's and K3's bf16 instances, the tensor-core kernel
+    ``band_backward_mma_kernel``, at each instance's edges against the
     plain version; the instance the C side reports for bf16 is a tiling of
-    T, with vector copies exactly when d % 8 == 0."""
+    T into one tile of 16, 32 or 64 owner rows a block of 4 warps, 16 rows
+    a warp, 3 partner tiles a warp up to w = 4 and 6 beyond, with vector
+    copies exactly when d % 8 == 0."""
     for dkv in (False, True):
         inst = ba.backward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
                                     dkv, dtype=torch.bfloat16)
-        assert inst["rows_warp"] in (2, 4)
-        assert inst["rows"] in (16, 32, 48, 64)
+        assert inst["rows_warp"] == 16
+        assert inst["rows"] in (16, 32, 64)
         assert inst["tiles"] == -(-t // inst["rows"])
-        assert 1 <= inst["per_block"] <= inst["tiles"]
+        assert inst["per_block"] == 1 and inst["warps"] == 4
+        assert inst["key_tiles"] == (3 if w <= 4 else 6)
         assert inst["vec"] == (d % 8 == 0)
     band_backward_bf16_case(cuda, t * 5 + d, b, t, h, d, w)
 
 
 @pytest.mark.parametrize("dkv", [False, True])
 def test_band_backward_bf16_walks_double_buffered_tiles(cuda, dkv):
-    """A bf16 block walks two row tiles, double-buffered: the first batch
-    of 4-head sequences (T = 96, d 128, w 3) at which the bf16 instance
-    walks."""
-    b = next((b for b in range(4, 129, 4) if ba.backward_instance(
-        cuda.index or 0, b, 96, 4, 128, 7, dkv,
-        dtype=torch.bfloat16)["per_block"] > 1), None)
-    assert b is not None
-    band_backward_bf16_case(cuda, b, b, 96, 4, 128, 3)
+    """More row tiles than the card holds blocks at once (8 * 8 sequences
+    of 26 tiles of 64 rows, the last one padded). The bf16 backward's
+    tensor-core kernel does not walk tiles, as the bf16 forward's does not
+    (walking double-buffered blocks was slower at every shape measured,
+    PERF.md): each block takes one tile however many there are."""
+    inst = ba.backward_instance(cuda.index or 0, 8, 1630, 8, 64, 9, dkv,
+                                dtype=torch.bfloat16)
+    assert inst["rows"] == 64 and inst["per_block"] == 1
+    assert inst["tiles"] == 26
+    band_backward_bf16_case(cuda, 13 + dkv, 8, 1630, 8, 64, 4)
 
 
 def test_band_backward_bf16_unaligned_streams_take_the_scalar_instance(
@@ -1747,49 +1756,294 @@ def test_band_backward_bf16_through_autograd(cuda):
         assert bf16_err(g, r) <= BF16_TOL, name
 
 
-def test_band_backward_bf16_instance_is_what_launches(cuda, tmp_path):
-    """The bf16 instance ``backward_instance`` reports is the one the C
-    side launches: element type, head-dim bucket, vector copies, K2 or K3
-    and owner rows a warp, grid and block, from a ``torch.profiler``
-    trace."""
+def band_backward_bf16_held(q, k, v, mask, lse, dr, dout, kw, plain=None):
+    """K2 and K3 bf16 on these streams (``q``, ``k``, ``v`` and ``dout``
+    may be shifted or poisoned copies), each launched twice: equal bit for
+    bit, finite, bf16, within BF16_TOL of ``band_backward_plain`` (on
+    ``plain``'s streams where given: the clean ones) and dQ exactly 0 on
+    every invalid query row. Returns (dQ, dK, dV)."""
+    runs = [(ba.band_attention_dq_cuda(q, k, v, mask, lse, dr, dout, **kw),
+             *ba.band_attention_dkv_cuda(q, k, v, mask, lse, dr, dout, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    want = ba.band_backward_plain(*(plain or (q, k, v, mask, lse, dr,
+                                              dout)), **kw)
+    for name, g, g2, r in zip("qkv", *runs, want):
+        assert torch.equal(g, g2), name
+        assert g.dtype == torch.bfloat16, name
+        assert torch.isfinite(g.float()).all(), name
+        assert bf16_err(g, r) <= BF16_TOL, name
+    assert (runs[0][0][~mask] == 0).all()
+    return runs[0]
+
+
+def band_backward_bf16_inputs(seed, b, t, h, d, w, cuda):
+    """bf16 streams and upstream gradient with an invalid key inside a
+    valid stretch, a batch row of half its queries, one of one and one of
+    none, K1 bf16's fp32 lse and Dr: (q, k, v, mask, lse, dr, dout)."""
+    lens = [t, max(1, t // 2), 1, 0] + [t] * (b - 4)
+    q, k, v, mask = streams(seed, b, t, t, h * d, lens, cuda)
+    mask[0, t // 3] = False
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        q.shape).astype(np.float32)).to(cuda)
+    q, k, v, dout = to_bf16(q, k, v, dout)
+    out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True,
+                                      n_head=h, window_size=2 * w + 1)
+    return q, k, v, mask, lse, ba.band_rowsum(dout, out, h), dout
+
+
+@pytest.mark.parametrize("w", [0, 1, 3, 4, 15])
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 31, 33, 47, 49, 65])
+def test_band_backward_bf16_tile_edges(cuda, t, w):
+    """The tensor-core backward at T one below, at and one above its
+    16-row owner tiles (and T = 1, a single dead-padded tile; 65, a tile
+    of 64 rows and one of 1) for both partner-tile instances (w <= 4: 3
+    n8 tiles, w = 15: 6) and w = 0: K2 and K3 deterministic, finite, held
+    to the plain version, dQ 0 on invalid query rows."""
+    b, h, d = 4, 2, 64
+    args = band_backward_bf16_inputs(t * 17 + w, b, t, h, d, w, cuda)
+    for dkv in (False, True):
+        inst = ba.backward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
+                                    dkv, dtype=torch.bfloat16)
+        assert inst["key_tiles"] == (3 if w <= 4 else 6)
+    band_backward_bf16_held(*args, dict(n_head=h, window_size=2 * w + 1))
+
+
+@pytest.mark.parametrize("shift", [False, True], ids=["vector", "scalar"])
+@pytest.mark.parametrize("d", [6, 16, 20, 32, 33, 64, 100, 128, 256])
+def test_band_backward_bf16_head_dims(cuda, d, shift):
+    """Every head-dim bucket (32, 64, 128, 256: channels past d are zero
+    in the tensor cores' k16 steps and never stored), vector and scalar
+    copies (d % 8 != 0, or streams 2 bytes past a 16-byte boundary), at a
+    T off the row tile with 3 and 6 partner tiles' windows: the shifted
+    streams give the aligned ones' gradients bit for bit."""
+    b, h, t = 4, 2, 70
+    for w in (4, 11):
+        kw = dict(n_head=h, window_size=2 * w + 1)
+        q, k, v, mask, lse, dr, dout = band_backward_bf16_inputs(
+            d * 3 + shift + w, b, t, h, d, w, cuda)
+        for dkv in (False, True):
+            inst = ba.backward_instance(cuda.index or 0, b, t, h, d,
+                                        2 * w + 1, dkv, dtype=torch.bfloat16)
+            assert inst["bucket"] == max(32, 1 << (d - 1).bit_length())
+            assert inst["key_tiles"] == (3 if w <= 4 else 6)
+            assert inst["vec"] == (d % 8 == 0)
+        clean = band_backward_bf16_held(q, k, v, mask, lse, dr, dout, kw)
+        move = shifted if shift else torch.clone
+        got = band_backward_bf16_held(move(q), move(k), move(v), mask, lse,
+                                      dr, move(dout), kw,
+                                      (q, k, v, mask, lse, dr, dout))
+        for g, c in zip(got, clean):
+            assert torch.equal(g, c)
+
+
+@pytest.mark.parametrize("t,w,d,h", [
+    (96, 3, 128, 4), (70, 4, 20, 1), (49, 15, 100, 2), (33, 4, 64, 8)])
+def test_band_backward_bf16_never_reads_what_it_must_not(cuda, t, w, d, h):
+    """NaN and inf in q and dO at every invalid query row (hence in its Dr)
+    and past the last batch row's T in all four streams, which a copy past
+    T, or past d (d = 20 and 100 are off their buckets; with one head the
+    channels past d are the next row's), would read: the gradients equal
+    those of the clean streams bit for bit. An invalid query meets P = dS =
+    0, selected, and K3 masks its q and dO rows out of the tensor cores'
+    B fragments (0 * NaN is NaN there). k and v of an in-band invalid key
+    are read, as the -1e4 the key gets is added to its score, so they are
+    not poisoned."""
+    b = 4
+    q, k, v, mask, lse, dr, dout = band_backward_bf16_inputs(
+        t + d, b, t, h, d, w, cuda)
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    clean = band_backward_bf16_held(q, k, v, mask, lse, dr, dout, kw)
+    every = torch.ones_like(mask)
+    for fa_, fb in ((float("nan"), float("inf")),
+                    (float("-inf"), float("nan"))):
+        qp, dp = poisoned(q, mask, fa_), poisoned(dout, mask, fb)
+        kp, vp = poisoned(k, every, fb), poisoned(v, every, fa_)
+        # Dr as band_rowsum makes it from the poisoned dO: NaN on the
+        # invalid query rows, the clean Dr elsewhere
+        drp = ba.band_rowsum(dp, torch.zeros_like(dp), h) + dr
+        assert not torch.isfinite(drp.transpose(1, 2)[~mask]).any()
+        got = band_backward_bf16_held(qp, kp, vp, mask, lse, drp, dp, kw,
+                                      (q, k, v, mask, lse, dr, dout))
+        for g, c in zip(got, clean):
+            assert torch.equal(g, c)
+
+
+def test_band_backward_bf16_keeps_fp32_scale_at_large_scores(cuda):
+    """Scores near 60 at d = 128, where 1/sqrt(d) is not a power of two
+    (the forward's test_band_bf16_keeps_fp32_scale_at_large_scores): key
+    j a one-hot row of 680 at channel j % 128, query channels in [1,
+    1.125). Rounding q * scale to bf16 would move each score by up to 0.13
+    and P = exp(s - lse) by up to 13%; the scores kept in fp32 against K1
+    bf16's lse give the plain version's gradients."""
+    b, t, h, d, w = 4, 96, 4, 128, 4
+    rng = np.random.default_rng(32)
+    q = 1 + rng.random((b, t, h * d)) / 8
+    k = np.zeros((b, t, h, d))
+    k[:, np.arange(t), :, np.arange(t) % d] = 680.0
+    v, dout = (rng.standard_normal((b, t, h * d)) for _ in range(2))
+    mask = np.ones((b, t), bool)
+    mask[1, 50:] = False
+    mask[2, 30] = False
+    q, k, v, dout = (torch.from_numpy(x.astype(np.float32))
+                     .reshape(b, t, h * d).to(cuda, torch.bfloat16)
+                     for x in (q, k, v, dout))
+    mask = torch.from_numpy(mask).to(cuda)
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
+    assert lse[0].min() > 55
+    band_backward_bf16_held(q, k, v, mask, lse, ba.band_rowsum(dout, out, h),
+                            dout, kw)
+
+
+@pytest.mark.parametrize("t,w,d,b,h", [
+    (96, 3, 128, 24, 4), (96, 3, 128, 96, 4), (512, 4, 64, 48, 8),
+    (100, 15, 256, 4, 4)])
+def test_band_backward_bf16_is_deterministic(cuda, t, w, d, b, h):
+    """At the bf16 train steps' shapes (24 and 96 pairs at VidVRD width,
+    the rel-PE step's 48 pairs at VidOR local width) and the widest band
+    and head dim: two launches of each kernel equal bit for bit, finite,
+    held to the plain version."""
+    band_backward_bf16_held(*band_backward_bf16_inputs(t + b, b, t, h, d, w,
+                                                       cuda),
+                            dict(n_head=h, window_size=2 * w + 1))
+
+
+@pytest.mark.parametrize("t,w", [(96, 3), (70, 4), (49, 15)])
+def test_band_backward_bf16_p_sums_to_one_against_the_forward_lse(cuda, t,
+                                                                  w):
+    """K2 rebuilds the bf16 forward's scores bit for bit, so its P =
+    exp(s - lse) sums to 1 over each valid row against K1 bf16's lse. With
+    v = 0 (dP = 0) and Dr = -1, dS = P; with every key's channel 0 of each
+    head 1 (d = 64, scale 1/8 exactly), dQ's channel 0 is the row sum of P
+    over 8, which rounds to bf16 1/8 exactly unless the sum is off by more
+    than 2^-9 (an lse in log2 units, q * scale rounded to bf16 or a key
+    mask missing from s would move it far more); invalid query rows 0."""
+    b, h, d = 4, 2, 64
+    q, k, _, mask, lse, _, dout = band_backward_bf16_inputs(
+        t * 7 + w, b, t, h, d, w, cuda)
+    k = k.view(b, t, h, d).clone()
+    k[..., 0] = 1.0
+    k = k.view(b, t, h * d)
+    kw = dict(n_head=h, window_size=2 * w + 1)
+    out, lse = ba.band_attention_cuda(q, k, torch.zeros_like(k), mask,
+                                      with_lse=True, **kw)
+    dq = ba.band_attention_dq_cuda(q, k, torch.zeros_like(k), mask, lse,
+                                   torch.full_like(lse, -1.0), dout, **kw)
+    torch.cuda.synchronize()
+    sums = dq.view(b, t, h, d)[..., 0].float()
+    assert (sums[mask] == 0.125).all(), sums[mask].unique()
+    assert (dq[~mask] == 0).all()
+
+
+def band_backward_kernels_in_trace(prof, path):
+    """(name, grid, block) of each band backward kernel (the FMA body
+    ``band_backward_kernel`` or the tensor-core one
+    ``band_backward_mma_kernel``) in a ``torch.profiler`` run's trace."""
     import json
+    prof.export_chrome_trace(str(path))
+    return [(e["name"], e["args"]["grid"], e["args"]["block"])
+            for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("cat") == "kernel"
+            and "band_backward" in e.get("name", "")]
+
+
+def traced_backward_kernels(args, kw, path):
+    """(name, grid, block) of the band backward kernels in
+    ``torch.profiler`` runs of three dQ and dK/dV launches each, profiled
+    again (up to three runs) until a dQ and a dK/dV kernel are both in the
+    trace: the profiler misses some launches made through ``ctypes``."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
-    bf = torch.bfloat16
-    for b, t, h, d, w in ((24, 96, 4, 128, 3), (24, 12, 4, 128, 3),
-                          (8, 1500, 8, 64, 4), (4, 70, 4, 20, 4)):
-        q, k, v, mask = streams(t + d, b, t, t, h * d, [t] * b, cuda)
-        dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(
-            t)).to(cuda)
-        q, k, v, dout = to_bf16(q, k, v, dout)
-        kw = dict(n_head=h, window_size=2 * w + 1)
-        out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
-        args = (q, k, v, mask, lse, ba.band_rowsum(dout, out, h), dout)
+    found = []
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 ba.band_attention_dq_cuda(*args, **kw)
                 ba.band_attention_dkv_cuda(*args, **kw)
                 torch.cuda.synchronize()
-        trace = tmp_path / f"trace{t}.json"
-        prof.export_chrome_trace(str(trace))
+        found += band_backward_kernels_in_trace(prof, path)
+        kinds = {m[1] for name, _, _ in found
+                 if (m := re.search(r"kernel<\d+, \w+, (\w+)", name))}
+        if kinds == {"true", "false"}:
+            break
+    return found
+
+
+def test_band_backward_bf16_instance_is_what_launches(cuda, tmp_path):
+    """The bf16 instance ``backward_instance`` reports is the one the C
+    side launches: the tensor-core kernel ``band_backward_mma_kernel<
+    bucket, vec, dkv, key tiles>`` (head-dim bucket, vector copies, K2 or
+    K3, n8 partner tiles a warp), one tile a block (grid) of 4 warps
+    (block), from a ``torch.profiler`` trace; the FMA body
+    ``band_backward_kernel<..., __nv_bfloat16>`` never runs."""
+    import re
+    bf = torch.bfloat16
+    for b, t, h, d, w in ((24, 96, 4, 128, 3), (24, 12, 4, 128, 3),
+                          (96, 96, 4, 128, 3), (48, 512, 8, 64, 4),
+                          (8, 1500, 8, 64, 4), (4, 70, 4, 20, 4),
+                          (4, 100, 4, 256, 15)):
+        q, k, v, mask = streams(t + d, b, t, t, h * d, [t] * b, cuda)
+        dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+            t)).to(cuda)
+        q, k, v, dout = to_bf16(q, k, v, dout)
+        kw = dict(n_head=h, window_size=2 * w + 1)
+        out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
         seen = set()
-        for e in json.loads(trace.read_text())["traceEvents"]:
-            m = re.search(r"band_backward_kernel<(\d+), (true|false), "
-                          r"(true|false), (\d+), (\w+)>", e.get("name", ""))
-            if e.get("cat") != "kernel" or m is None:
+        for name, grid, block in traced_backward_kernels(
+                (q, k, v, mask, lse, ba.band_rowsum(dout, out, h), dout), kw,
+                tmp_path / f"trace{t}.json"):
+            assert not re.search(r"band_backward_kernel<.*__nv_bfloat16",
+                                 name), name
+            m = re.search(r"band_backward_mma_kernel<(\d+), (true|false), "
+                          r"(true|false), (\d+)>", name)
+            if m is None:
                 continue
-            assert m[5] == "__nv_bfloat16"
             dkv = m[3] == "true"
             inst = ba.backward_instance(cuda.index or 0, b, t, h, d,
                                         2 * w + 1, dkv, dtype=bf)
             assert (int(m[1]), m[2] == "true", int(m[4])) == (
+                inst["bucket"], inst["vec"], inst["key_tiles"])
+            assert inst["per_block"] == 1 and inst["warps"] == 4
+            assert inst["rows_warp"] == 16
+            assert grid == [b * h * inst["tiles"], 1, 1]
+            assert block == [32 * inst["warps"], 1, 1]
+            seen.add(dkv)
+        assert seen == {False, True}, (b, t, h, d, w)
+
+
+def test_fp32_band_backward_launches_the_fma_kernel(cuda, tmp_path):
+    """fp32 calls still launch the FMA body ``band_backward_kernel<bucket,
+    vec, dkv, rows a warp, float>`` with the grid and block of
+    ``backward_instance`` (32 threads a warp of 2 or 4 owner rows, no
+    partner tiles), never the bf16 tensor-core kernel."""
+    import re
+    for b, t, h, d, w in ((24, 96, 4, 128, 3), (16, 512, 8, 64, 4)):
+        q, k, v, mask = streams(5 + t, b, t, t, h * d, [t] * b, cuda)
+        dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+            t)).to(cuda)
+        kw = dict(n_head=h, window_size=2 * w + 1)
+        out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
+        seen = set()
+        for name, grid, block in traced_backward_kernels(
+                (q, k, v, mask, lse, ba.band_rowsum(dout, out, h), dout), kw,
+                tmp_path / f"trace{t}.json"):
+            assert "band_backward_mma_kernel" not in name, name
+            m = re.search(r"band_backward_kernel<(\d+), (true|false), "
+                          r"(true|false), (\d+), (\w+)>", name)
+            assert m is not None and m[5] == "float", name
+            dkv = m[3] == "true"
+            inst = ba.backward_instance(cuda.index or 0, b, t, h, d,
+                                        2 * w + 1, dkv)
+            assert (int(m[1]), m[2] == "true", int(m[4])) == (
                 inst["bucket"], inst["vec"], inst["rows_warp"])
-            blocks = b * h * -(-inst["tiles"] // inst["per_block"])
-            assert e["args"]["grid"] == [blocks, 1, 1]
-            assert e["args"]["block"] == [
-                32 * inst["rows"] // inst["rows_warp"], 1, 1]
+            assert inst["rows_warp"] in (2, 4) and inst["key_tiles"] == 0
+            assert grid == [b * h * -(-inst["tiles"] // inst["per_block"]),
+                            1, 1]
+            assert block == [32 * inst["rows"] // inst["rows_warp"], 1, 1]
+            assert block == [32 * inst["warps"], 1, 1]
             seen.add(dkv)
         assert seen == {False, True}, (b, t, h, d, w)
 

@@ -19,10 +19,11 @@
 //     In each dtype K1 and K4 are one templated body, so a zero table
 //     gives K1's output bit for bit. The JAX package pairs this forward with the dense
 //     backward, and so does the port (no backward kernel);
-//   * band_backward_kernel<.., kKV = false> (K2) <- _dq_kernel (dQ),
-//     launched by _band_core_bwd;
-//   * band_backward_kernel<.., kKV = true> (K3) <- _dkv_kernel (dK, dV),
-//     launched by _band_core_bwd.
+//   * band_backward_kernel<.., kKV = false, .., float> (K2 on fp32 streams)
+//     and band_backward_mma_kernel<.., kKV = false, ..> (K2 on bf16
+//     streams) <- _dq_kernel (dQ), launched by _band_core_bwd;
+//   * the same two with kKV = true (K3) <- _dkv_kernel (dK, dV), launched
+//     by _band_core_bwd.
 // Semantics are those of the dense oracle vrdone_tpu/ops/masked.py::
 // band_attention: query i attends keys j with |i - j| <= w, scores scaled by
 // 1/sqrt(d), an in-band key that is masked invalid gets an additive -1e4
@@ -144,8 +145,9 @@
 // <128, true, false, 3>, 56 at <64, true, true, 3>, at most 127 at any
 // instance; none spills.
 //
-// The backward, K2 (dQ) and K3 (dK, dV), is one templated body
-// (band_backward_kernel<.., kKV>), built from the forward's pieces. The two
+// The fp32 backward, K2 (dQ) and K3 (dK, dV), is one templated body
+// (band_backward_kernel<.., kKV, .., float>), built from the fp32
+// forward's pieces. The two
 // kernels are mirrors: a block owns R consecutive owner rows of one (batch,
 // head) and stages the slab of R + 2w partner rows that their bands reach.
 //   * K2: owners are queries, held in registers as q (pre-scaled) and dO;
@@ -198,23 +200,77 @@
 // warp a row, a lane a key: 0.0299-0.0300), 0.0072, 0.0059, 0.0050 at
 // T = 48, 24, 12; K3 0.0129-0.0130 (0.0348-0.0353), 0.0078, 0.0064,
 // 0.0052. No instance spills.
+//
 // The bf16 backward (band_attention_backward_{dq,dkv}_bf16, K2 and K3 of
-// the bf16 train step) is the same body with __nv_bfloat16 streams, as
-// the Pallas kernels take bf16 q, k, v and dO (_dq_kernel, _dkv_kernel):
-// the partner slabs are staged as bf16 (half the shared memory, so the
-// instance rule sees other slab sizes and occupancies; vector copies need
-// d % 8 == 0, the scalar instance copies with plain 2-byte loads), the
-// owner rows and every slab row are widened to fp32 as they are read, the
-// score is rebuilt in fp32 as the bf16 forward builds it (so P sums to 1
-// against its lse), P stays fp32 (the forward rounded it to bf16 before
-// P.V; the Pallas backward does not), dP, dS and the accumulators are
-// fp32, lse and Dr stay fp32, and dQ, dK and dV are rounded to bf16 once,
-// at the store. K2's 4-row instance runs its partner loops a row at a time
-// (kUnroll), so that it holds the fp32 instance's 94 registers and the
-// train step's T = 96 keeps it; its scalar 2-row instance at d bucket 128
-// spills 4 bytes, no other instance spills. What bounds it is the bytes, half of fp32's streams
-// (0.0035 ms for K2, 0.0042 for K3 at the train step's B*H = 24*4, T = 96,
-// d = 128).
+// the bf16 train steps) is its own kernel on the tensor cores,
+// band_backward_mma_kernel<DB, kVec, kKV, NT>, built from the bf16
+// forward's pieces. It takes bf16 q, k, v and dO, as the Pallas kernels do
+// (_dq_kernel, _dkv_kernel), and keeps their promotions: S and dP in fp32
+// from the bf16 operands (a bf16 x bf16 product is exact in fp32), P =
+// exp(s - lse) and dS = P * (dP - Dr) in fp32 (never rounded to bf16, where
+// the forward rounds P before P.V), lse and Dr fp32, and each gradient
+// rounded to bf16 once, at the store. What bounds it is the bytes, half of
+// fp32's streams (0.0035 ms for K2, 0.0042 for K3 at the train step's
+// B*H = 24*4, T = 96, d = 128; 0.0380 and 0.0455 at the bf16 rel-PE train
+// step's 48*8, 512, 64): its tensor-core work, split products included,
+// is 8 (2w + 1) d operations a row in K2 and 12 (2w + 1) d in K3, nothing
+// at 989 TFLOP/s. The
+// parent design, the FMA body above on widened bf16, summed every product
+// on the fp32 pipes through its butterflies and ran at 2.7 to 3 times that
+// bound. The design:
+//   * The mirror of the forward's tiles. A warp owns one m16 tile of 16
+//     owner rows (K2: queries; K3: keys) and their band's 16 + 2w partners
+//     as NT n8 tiles (3 up to w = 4, 6 up to w = 15), and computes both
+//     products of every pair with the owners as the m16 operand: K2 S =
+//     Q.K^T and dP = dO.V^T, K3 S^T = K.Q^T and dP^T = V.dO^T, the A
+//     fragments from the owner tiles and the B fragments from the partner
+//     slabs by ldmatrix, so nothing is transposed through shared memory.
+//     K2's S is built in the forward's fragment and k-step order (two
+//     accumulator chains, even and odd k16 steps) and its fp32 dot is
+//     scaled in fp32 (never q * scale in bf16), so its s is the bf16
+//     forward's bit for bit and P sums to 1 against that forward's lse.
+//   * P and dS are formed in registers. The band test, the key mask (-1e4
+//     for an in-band invalid key, from one ballot of the slab's mask
+//     bytes), the exclusion of partners outside [0, T) by position (never
+//     by the copy's zeros or a zero-filled lse) and of invalid queries
+//     (P = dS = 0 by selection, so a NaN there goes nowhere) live there
+//     only. K2 reads its rows' lse and Dr, K3 its columns', from the
+//     staged slab stats.
+//   * The accumulations take the [owner x partner] tiles as A fragments,
+//     two adjacent n8 accumulator tiles a k16 step, as the forward feeds P
+//     to P.V: K2 dQ = dS.K, K3 dV = P^T.dO and dK = dS^T.Q, with the
+//     partner rows' B fragments from ldmatrix.trans. P and dS are not
+//     rounded to bf16 for the tensor cores: each is split into hi =
+//     bf16(x) and lo = bf16(x - hi), and every product takes two mma, hi
+//     and lo (the fp16 recipe of the position-bias kernel, in bf16), which
+//     holds P and dS to about 2^-16 of their size where hi alone holds
+//     2^-8. The sums are fp32, kOC = 128 channels a pass (two at DB =
+//     256); dQ and dK are scaled once, at the store. K3 runs dV, then dK,
+//     so only one accumulator tile of 64 registers a lane is live. In K3 a
+//     partner row whose query is invalid is masked out of the B fragments
+//     (P = dS = 0 meet it, and 0 * NaN is NaN in the tensor cores), so an
+//     invalid query gives nothing to dK or dV whatever its q and dO hold.
+//   * Staging as in the bf16 forward: one 4-warp block a tile of R = 16,
+//     32 or 64 owner rows of one (batch, head), the owner tiles of both
+//     owner streams and the slab of R + 2w partner rows of both partner
+//     streams by 16-byte cp.async at a row stride of DB + 8, zero-filled
+//     outside [0, T), past d and past R + 2w, the slab rows' lse and Dr by
+//     4-byte cp.async and their mask bytes. Each warp stages its gradients
+//     in its own owner rows and writes them in 16-byte stores.
+//   * The instance rule is the bf16 forward's (pick_mma; exposed by
+//     band_attention_backward_instance): R the smallest of 16, 32, 64 that
+//     holds T (64 past it), halved while the blocks would give the card's
+//     SMs fewer than two each, one tile a block, R / 16 of the 4 warps
+//     owning rows. The scalar instance (d % 8 != 0, or a stream off 16
+//     bytes) copies with 2-byte loads into the same padded layout.
+// Measured alone on an H100 SXM (700 W), against the FMA body on widened
+// bf16 that it replaces: K2 0.0071 ms and K3 0.0082-0.0084 at the train
+// step's B*H = 24*4, T = 96, d = 128 (were 0.0093 and 0.0129), 0.0218 and
+// 0.0278-0.0281 at 96*4 (0.0339-0.0342, 0.0392-0.0394), 0.0468-0.0470 and
+// 0.0559-0.0561 at the rel-PE step's 48*8, 512, 64 (0.1090-0.1092,
+// 0.1221-0.1223). 108 registers at <128, true, false, 3>, 136 at
+// <128, true, true, 3>, at most 182 (<128, true, true, 6>); none spills.
+//
 // Layout: q, k, v, out, dout, dq, dk, dv are (B, T, H*d) contiguous with
 // heads split head-major along the channels (channels [h*d, (h+1)*d) are
 // head h), as the JAX package's _split_heads lays them out, so no transpose
@@ -672,6 +728,35 @@ __device__ __forceinline__ void stage_forward_tile(bf16* st,
   }
 }
 
+// Write the 16 rows a warp staged at st (row stride DB + 8) to rows i0 ..
+// i0 + 15 of one head of stream x, the rows below T and the channels below
+// D only: 16-byte stores, or 2-byte ones in the scalar instance.
+template <int DB, bool kVec>
+__device__ __forceinline__ void write_tile(bf16* x, const bf16* st,
+                                           const Head& hd, int i0, int lane) {
+  constexpr int kS = DB + 8;
+  bf16* out = x + hd.base;
+  if constexpr (kVec) {
+    constexpr int kChunks = DB / 8;
+#pragma unroll
+    for (int it = 0; it < 16 * kChunks / 32; ++it) {
+      const int idx = lane + 32 * it;
+      const int r = idx / kChunks;
+      const int c = 8 * (idx - r * kChunks);
+      if (i0 + r < hd.T && c < hd.D)
+        *reinterpret_cast<uint4*>(out + (size_t)(i0 + r) * hd.C + c) =
+            *reinterpret_cast<const uint4*>(st + r * kS + c);
+    }
+  } else {
+    for (int idx = lane; idx < 16 * DB; idx += 32) {
+      const int r = idx / DB;
+      const int c = idx - r * DB;
+      if (i0 + r < hd.T && c < hd.D)
+        out[(size_t)(i0 + r) * hd.C + c] = st[r * kS + c];
+    }
+  }
+}
+
 // The bf16 forward, K1 (kPE false) and K4 (kPE true), on the tensor cores.
 // A block of kMmaThreads takes one row tile of p.rows = 16, 32 or 64 query
 // rows of one (batch, head); warp `warp` < p.rows / 16 owns the 16 query
@@ -886,27 +971,7 @@ band_forward_mma_kernel(const BandProblem<bf16> p) {
     }
   }
   __syncwarp();
-  // the warp's rows below T, written out a row at a time
-  bf16* out = p.out + hd.base;
-  if constexpr (kVec) {
-    constexpr int kChunks = DB / 8;
-#pragma unroll
-    for (int it = 0; it < 16 * kChunks / 32; ++it) {
-      const int idx = lane + 32 * it;
-      const int r = idx / kChunks;
-      const int c = 8 * (idx - r * kChunks);
-      if (i0 + r < T && c < hd.D)
-        *reinterpret_cast<uint4*>(out + (size_t)(i0 + r) * hd.C + c) =
-            *reinterpret_cast<const uint4*>(qw + r * kS + c);
-    }
-  } else {
-    for (int idx = lane; idx < 16 * DB; idx += 32) {
-      const int r = idx / DB;
-      const int c = idx - r * DB;
-      if (i0 + r < T && c < hd.D)
-        out[(size_t)(i0 + r) * hd.C + c] = qw[r * kS + c];
-    }
-  }
+  write_tile<DB, kVec>(p.out, qw, hd, i0, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -929,9 +994,10 @@ struct BandBwdProblem {
   int T, H, D, w;
   float scale;
   int rows_warp;        // owner rows a warp: 32 * rows / rows_warp threads
+                        // in fp32; in bf16 16, kMmaThreads a block
   int rows;             // owner rows a tile
   int tiles;            // row tiles a (batch, head)
-  int per_block;        // consecutive row tiles a block walks
+  int per_block;        // consecutive row tiles a block walks (1 in bf16)
 };
 
 // Copy the lse and Dr of rows [r0, r0 + n) of sequence bh into ls and ds,
@@ -949,29 +1015,22 @@ __device__ __forceinline__ void copy_row_stats(float* ls, float* ds,
   }
 }
 
-// The backward, K2 (kKV false: owners are queries, partners keys) and K3
-// (kKV true: owners are keys, partners queries). A block takes p.per_block
-// consecutive row tiles of one (batch, head), warp `warp` owner rows
-// warp * RT .. + RT - 1 of each; the warp's partners are the slab rows
+// The fp32 backward, K2 (kKV false: owners are queries, partners keys) and
+// K3 (kKV true: owners are keys, partners queries), on the FMA pipes; E is
+// float (bf16 streams take band_backward_mma_kernel). A block takes
+// p.per_block consecutive row tiles of one (batch, head), warp `warp` owner
+// rows warp * RT .. + RT - 1 of each; the warp's partners are the slab rows
 // warp * RT .. warp * RT + RT - 1 + 2w, so owner r and partner slab row jj
 // (both from the warp's first) are a band pair when 0 <= jj - r <= 2w.
-// K2's score is the forward's bit for bit: the query's channels times the
-// scale, each product with the key's channel, summed in the forward's
-// order. So is bf16 K3's, which scales each partner (query) row as it
-// loads it; fp32 K3 scales its owner (key) rows, one rounding apart.
+// K2's score is the fp32 forward's bit for bit: the query's channels times
+// the scale, each product with the key's channel, summed in the forward's
+// order. K3 scales its owner (key) rows, one rounding apart.
 template <int DB, bool kVec, bool kKV, int RT, typename E>
 __global__ void __launch_bounds__(kBwdThreads<DB>)
 band_backward_kernel(const BandBwdProblem<E> p) {
+  static_assert(std::is_same_v<E, float>, "bf16 runs the tensor-core body");
   using L = Lane<DB>;
   constexpr int kSh = RT == 4 ? 2 : 3;  // 5 - log2(2 * RT)
-  // the partner loops run two rows at once, but K2's 4-row bf16 instance
-  // runs one: unrolled, its bf16 unpacking holds 105 registers (fp32 94),
-  // which leaves an H100 4 blocks an SM and the train step's T = 96 then
-  // takes the slower 2-row instance
-  constexpr int kUnroll = std::is_same_v<E, bf16> && !kKV && RT == 4 ? 1 : 2;
-  // which side of s carries the scale: the query's (K2, bf16 K3) or the
-  // key's (fp32 K3)
-  constexpr bool kScalePartner = kKV && std::is_same_v<E, bf16>;
   extern __shared__ __align__(16) float bwd_smem[];
   const int w = p.w, R = p.rows, T = p.T;
   const int slab = R + 2 * w;                   // partner rows a tile reaches
@@ -1058,13 +1117,11 @@ band_backward_kernel(const BandBwdProblem<E> p) {
 
       // 1. both dots of every band pair: each partner row once, dotted
       // with all RT owner rows, s = a_own . a_part and dO . v
-      if constexpr (!kScalePartner) {
 #pragma unroll
-        for (int r = 0; r < RT; ++r)
+      for (int r = 0; r < RT; ++r)
 #pragma unroll
-          for (int e = 0; e < L::kN; ++e) oa[r][e] *= p.scale;
-      }
-#pragma unroll (kUnroll)
+        for (int e = 0; e < L::kN; ++e) oa[r][e] *= p.scale;
+#pragma unroll 2
       for (int jj = 0; jj < RT + 2 * w; ++jj) {
         float ax[L::kN], bx[L::kN];
 #pragma unroll
@@ -1072,10 +1129,6 @@ band_backward_kernel(const BandBwdProblem<E> p) {
           const int ch = jj * DB + c * 32 * L::kVW + lane * L::kVW;
           element::load<L::kVW>(at + ch, ax + c * L::kVW);
           element::load<L::kVW>(bt + ch, bx + c * L::kVW);
-        }
-        if constexpr (kScalePartner) {
-#pragma unroll
-          for (int e = 0; e < L::kN; ++e) ax[e] *= p.scale;
         }
         float part[2 * RT];
 #pragma unroll
@@ -1133,7 +1186,7 @@ band_backward_kernel(const BandBwdProblem<E> p) {
 #pragma unroll
           for (int e = 0; e < L::kN; ++e) acc_b[r][e] = 0.f;
       }
-#pragma unroll (kUnroll)
+#pragma unroll 2
       for (int jj = 0; jj < RT + 2 * w; ++jj) {
         float ax[L::kN], cd[RT];
 #pragma unroll
@@ -1176,6 +1229,316 @@ band_backward_kernel(const BandBwdProblem<E> p) {
       __syncthreads();
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 backward on the tensor cores (K2, K3 on bf16 streams)
+// ---------------------------------------------------------------------------
+
+// Shared memory of a block of the tensor-core backward: the tiles of both
+// owner streams and the slabs of both partner streams (bf16 rows at a
+// stride of DB + 8), the slab rows' fp32 lse and Dr and their mask bytes.
+size_t mma_backward_smem(int DB, int rows, int nt) {
+  return sizeof(bf16) * (DB + 8) * 2 * (rows + mma_slab_rows(rows, nt)) +
+         (2 * sizeof(float) + 1) * kStage;
+}
+
+// Copy rows j0 .. j0 + n - 1 of one head of the streams a and b into as and
+// bs at a row stride of DB + 8, zero where a row lies outside [0, T) or
+// `live` or more rows from j0, and past D: 16-byte cp.async copies, or
+// plain 2-byte ones in the scalar instance.
+template <int DB, bool kVec>
+__device__ __forceinline__ void stage_rows(bf16* as, bf16* bs, const bf16* a,
+                                           const bf16* b, const Head& hd,
+                                           int j0, int n, int live) {
+  constexpr int kS = DB + 8;
+  constexpr int kW = kVec ? 8 : 1;    // channels a copy
+  constexpr int kCh = DB / kW;        // copies a row
+  for (int idx = threadIdx.x; idx < n * kCh; idx += blockDim.x) {
+    const int r = idx / kCh;
+    const int c = kW * (idx - r * kCh);
+    const int j = j0 + r;
+    const bool ok = r < live && j >= 0 && j < hd.T && c < hd.D;
+    const size_t off = ok ? hd.base + (size_t)j * hd.C + c : 0;
+    if constexpr (kVec) {
+      cp_async16(as + r * kS + c, a + off, ok);
+      cp_async16(bs + r * kS + c, b + off, ok);
+    } else {
+      const bf16 zero = element::from_f32<bf16>(0.f);
+      as[r * kS + c] = ok ? a[off] : zero;
+      bs[r * kS + c] = ok ? b[off] : zero;
+    }
+  }
+}
+
+// x0 and x1 as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), element 0 in
+// the low halves: hi + lo holds each to about 2^-16 of its size, where hi
+// alone holds it to 2^-8 (x - hi is exact in fp32).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = element::pack2(x0, x1);
+  lo = element::pack2(x0 - element::lo_f32(hi), x1 - element::hi_f32(hi));
+}
+
+// The A fragments of a warp's [owner x partner] tile x (NT n8 accumulator
+// tiles; those of tiles 2 kk and 2 kk + 1 are k16 step kk, the second half
+// zero where NT is odd), split into hi and lo.
+template <int NT>
+__device__ __forceinline__ void split_tiles(const float (&x)[NT][4],
+                                            uint32_t (&hi)[(NT + 1) / 2][4],
+                                            uint32_t (&lo)[(NT + 1) / 2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < (NT + 1) / 2; ++kk) {
+    split_bf16(x[2 * kk][0], x[2 * kk][1], hi[kk][0], lo[kk][0]);
+    split_bf16(x[2 * kk][2], x[2 * kk][3], hi[kk][1], lo[kk][1]);
+    if (2 * kk + 1 < NT) {
+      split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[kk][2], lo[kk][2]);
+      split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[kk][3], lo[kk][3]);
+    } else {
+      hi[kk][2] = hi[kk][3] = lo[kk][2] = lo[kk][3] = 0u;
+    }
+  }
+}
+
+// Y = X . Z for a warp's 16 owner rows: X the [owner x partner] tile as hi
+// and lo A fragments (two mma a product), Z the band's partner rows of one
+// stream from zw (slab rows, stride DB + 8), each k16 step's B fragments
+// ANDed with keep[kk] (a mask word for its first and its second 8 partner
+// rows); Y summed in fp32, kOC channels a pass, each times `mul` and
+// rounded once to bf16 into the warp's rows at yw.
+template <int DB, int NT>
+__device__ __forceinline__ void band_product(
+    bf16* yw, const uint32_t (&xh)[(NT + 1) / 2][4],
+    const uint32_t (&xl)[(NT + 1) / 2][4],
+    const uint32_t (&keep)[(NT + 1) / 2][2], const bf16* zw, float mul,
+    int lane) {
+  constexpr int kS = DB + 8;
+  constexpr int kOC = DB > 128 ? 128 : DB;
+  const int g = lane >> 2, qd = lane & 3;
+  // the rows this lane points at in an ldmatrix.x4.trans: Z's B fragments
+  // of one k16 partner step for two n8 channel tiles (partner lane % 16,
+  // channels from (lane / 16) * 8), or of its first 8 partners only where
+  // the step's second half has no tile (no slab row past the last tile's
+  // reach is read)
+  const int zoff = (lane & 15) * kS + (lane >> 4) * 8;
+  const int zoff8 = (lane & 7) * kS + (lane >> 4) * 8;
+#pragma unroll
+  for (int oc = 0; oc < DB; oc += kOC) {
+    float o[kOC / 8][4];
+#pragma unroll
+    for (int ot = 0; ot < kOC / 8; ++ot)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[ot][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < (NT + 1) / 2; ++kk) {
+      const bool half = 2 * kk + 1 >= NT;
+#pragma unroll
+      for (int ot = 0; ot < kOC / 8; ot += 2) {
+        uint32_t f[4];
+        ldmatrix_x4_trans(f, zw + 16 * kk * kS + (half ? zoff8 : zoff) + oc +
+                                 8 * ot);
+        f[0] &= keep[kk][0];
+        f[1] &= keep[kk][1];
+        f[2] &= keep[kk][0];
+        f[3] &= keep[kk][1];
+        mma_bf16(o[ot], xh[kk], f[0], f[1]);
+        mma_bf16(o[ot + 1], xh[kk], f[2], f[3]);
+        mma_bf16(o[ot], xl[kk], f[0], f[1]);
+        mma_bf16(o[ot + 1], xl[kk], f[2], f[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      uint32_t* orow =
+          reinterpret_cast<uint32_t*>(yw + (g + 8 * r) * kS + oc + 2 * qd);
+#pragma unroll
+      for (int ot = 0; ot < kOC / 8; ++ot)
+        orow[4 * ot] =
+            element::pack2(o[ot][2 * r] * mul, o[ot][2 * r + 1] * mul);
+    }
+  }
+}
+
+// The bf16 backward on the tensor cores, K2 (kKV false: owners are queries,
+// partners keys) and K3 (kKV true: owners are keys, partners queries). A
+// block of kMmaThreads takes one tile of p.rows = 16, 32 or 64 owner rows
+// of one (batch, head); warp `warp` < p.rows / 16 owns the 16 rows i0 =
+// t R + 16 warp .. i0 + 15, an m16 tile, and their band's partners i0 - w
+// .. i0 - w + 8 NT - 1, NT n8 tiles (3 up to w = 4, 6 up to w = 15), which
+// are the slab rows 16 warp .. 16 warp + 8 NT - 1; the other warps only
+// copy. A lane holds the pairs of owner rows g = lane / 4 and g + 8 with
+// partner columns 8 jn + 2 (lane % 4) + 0 and 1 (mma.sync's accumulator
+// layout): column c is partner i0 - w + c, at band offset c - row, and
+// owner row r is column r + w of the same band.
+template <int DB, bool kVec, bool kKV, int NT>
+__global__ void __launch_bounds__(kMmaThreads)
+band_backward_mma_kernel(const BandBwdProblem<bf16> p) {
+  constexpr int kS = DB + 8;          // row stride of the tiles (bf16)
+  constexpr int KT = (NT + 1) / 2;    // k16 partner steps of the products
+  extern __shared__ __align__(16) unsigned char band_bwd_smem[];
+  const int w = p.w, R = p.rows, T = p.T;
+  const int slab = mma_slab_rows(R, NT);
+  bf16* oas = reinterpret_cast<bf16*>(band_bwd_smem);  // owner tiles
+  bf16* obs = oas + R * kS;
+  bf16* pas = obs + R * kS;                            // partner slabs
+  bf16* pbs = pas + slab * kS;
+  float* ls = reinterpret_cast<float*>(pbs + slab * kS);  // slab rows' lse
+  float* ds = ls + kStage;                                // and Dr
+  unsigned char* ms = reinterpret_cast<unsigned char*>(ds + kStage);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, qd = lane & 3;
+
+  const int bh = blockIdx.x / p.tiles;
+  const int t = blockIdx.x - bh * p.tiles;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const Head hd{(size_t)b * T * p.H * p.D + (size_t)h * p.D, T, p.H * p.D,
+                p.D};
+  const unsigned char* mrow = p.mask + (size_t)b * T;
+  // the A operands of S and dP (owners) and their B operands (partners)
+  const bf16* own_a = kKV ? p.k : p.q;
+  const bf16* own_b = kKV ? p.v : p.dout;
+  const bf16* part_a = kKV ? p.q : p.k;
+  const bf16* part_b = kKV ? p.dout : p.v;
+
+  stage_rows<DB, kVec>(oas, obs, own_a, own_b, hd, t * R, R, R);
+  stage_rows<DB, kVec>(pas, pbs, part_a, part_b, hd, t * R - w, slab,
+                       R + 2 * w);
+  copy_row_stats(ls, ds, p, (size_t)bh * T, t * R - w, slab);
+  cp_async_commit();
+  for (int j = threadIdx.x; j < slab; j += blockDim.x) {
+    const int k = t * R - w + j;
+    ms[j] = j < R + 2 * w && k >= 0 && k < T ? mrow[k] : 0;
+  }
+  const int i0 = t * R + 16 * warp;  // this warp's first owner row
+  const bool rows = 16 * warp < R && i0 < T;  // warp-uniform
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!rows) return;
+
+  bf16* aw = oas + 16 * warp * kS;         // the warp's owner rows
+  bf16* bw = obs + 16 * warp * kS;
+  const bf16* paw = pas + 16 * warp * kS;  // and its band's partners
+  const bf16* pbw = pbs + 16 * warp * kS;
+  const unsigned char* mw = ms + 16 * warp;
+  const float* lw = ls + 16 * warp;
+  const float* dw = ds + 16 * warp;
+  // the mask over the warp's band, a bit a column (bits past the band's
+  // 8 NT columns are never read)
+  const uint64_t valid =
+      __ballot_sync(0xffffffffu, mw[lane]) |
+      (uint64_t)__ballot_sync(0xffffffffu, NT > 4 && mw[32 + lane]) << 32;
+
+  // the rows this lane points at in an ldmatrix.x4: an owner tile's A
+  // fragment of one k16 step (row lane % 16, channels from (lane / 16) *
+  // 8), a partner slab's B fragments of two k16 steps of one n8 tile
+  // (partner lane % 8, channels from (lane / 8) * 8)
+  const int aoff = (lane & 15) * kS + (lane >> 4) * 8;
+  const int boff = (lane & 7) * kS + (lane >> 3) * 8;
+
+  // S = a_own . a_part^T and dP = b_own . b_part^T, each partner fragment
+  // serving its n8 tile; even and odd k16 steps sum into two accumulators
+  // that meet at the end, as the forward sums S
+  float sc[NT][4], s2[NT][4], dp[NT][4], d2[NT][4];
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[jn][e] = s2[jn][e] = dp[jn][e] =
+        d2[jn][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DB / 16; kk += 2) {
+    uint32_t a0[4], a1[4], b0[4], b1[4];
+    ldmatrix_x4(a0, aw + aoff + 16 * kk);
+    ldmatrix_x4(a1, aw + aoff + 16 * (kk + 1));
+    ldmatrix_x4(b0, bw + aoff + 16 * kk);
+    ldmatrix_x4(b1, bw + aoff + 16 * (kk + 1));
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+      uint32_t f[4];
+      ldmatrix_x4(f, paw + 8 * jn * kS + boff + 16 * kk);
+      mma_bf16(sc[jn], a0, f[0], f[1]);
+      mma_bf16(s2[jn], a1, f[2], f[3]);
+      ldmatrix_x4(f, pbw + 8 * jn * kS + boff + 16 * kk);
+      mma_bf16(dp[jn], b0, f[0], f[1]);
+      mma_bf16(d2[jn], b1, f[2], f[3]);
+    }
+  }
+
+  // P = exp(s - lse) and dS = P (dP - Dr) of every band pair in place of S
+  // and dP, s the scaled fp32 dot with -1e4 for an invalid key (the
+  // forward's expression; __fmul_rn keeps the product from fusing with the
+  // mask). A pair outside the band, whose partner lies outside [0, T) or
+  // whose query is invalid has P = dS = 0, selected (never multiplied) so
+  // that nothing of such a row or column reaches the sums.
+  const int jb = i0 - w;  // the partner of column 0
+  float lr[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f};  // K2: the rows' lse, Dr
+  if constexpr (!kKV) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lr[r] = lw[w + g + 8 * r];
+      dr[r] = dw[w + g + 8 * r];
+    }
+  }
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn) {
+    float2 lc = make_float2(0.f, 0.f), dc = lc;  // K3: the columns' lse, Dr
+    if constexpr (kKV) {
+      lc = *reinterpret_cast<const float2*>(lw + 8 * jn + 2 * qd);
+      dc = *reinterpret_cast<const float2*>(dw + 8 * jn + 2 * qd);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * jn + 2 * qd + (e & 1);
+      const int r = g + 8 * (e >> 1);
+      const int qc = kKV ? c : w + r;  // the pair's query and key, as
+      const int kc = kKV ? w + r : c;  // columns of the band
+      const bool live = c - r >= 0 && c - r <= 2 * w &&
+                        (unsigned)(jb + c) < (unsigned)T &&
+                        ((valid >> qc) & 1u);
+      const float s = __fmul_rn(sc[jn][e] + s2[jn][e], p.scale) +
+                      ((valid >> kc) & 1u ? 0.f : kNegBig);
+      const float lse = kKV ? (e & 1 ? lc.y : lc.x) : lr[e >> 1];
+      const float drv = kKV ? (e & 1 ? dc.y : dc.x) : dr[e >> 1];
+      const float pv = live ? expf(s - lse) : 0.f;
+      sc[jn][e] = pv;
+      dp[jn][e] = live ? pv * (dp[jn][e] + d2[jn][e] - drv) : 0.f;
+    }
+  }
+
+  // which partner rows of each k16 step the sums read: none of the second
+  // 8 where NT is odd and, in K3, the valid queries only (an invalid
+  // query's q and dO meet P = dS = 0 there, and 0 * NaN is NaN in the
+  // tensor cores); in K2 the partners are keys, and an in-band invalid key
+  // counts, with its -1e4
+  uint32_t keep[KT][2];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int c = 16 * kk + 8 * hf + 2 * qd;
+      uint32_t m = 2 * kk + hf < NT ? 0xffffffffu : 0u;
+      if constexpr (kKV)
+        m &= ((valid >> c) & 1u ? 0x0000ffffu : 0u) |
+             ((valid >> (c + 1)) & 1u ? 0xffff0000u : 0u);
+      keep[kk][hf] = m;
+    }
+
+  // the sums into the warp's own owner rows (read no more): K2 dQ = dS.K,
+  // K3 dV = P^T.dO, then dK = dS^T.Q; dQ and dK take the scale here
+  __syncwarp();
+  {
+    uint32_t xh[KT][4], xl[KT][4];
+    if constexpr (kKV) {
+      split_tiles<NT>(sc, xh, xl);
+      band_product<DB, NT>(bw, xh, xl, keep, pbw, 1.f, lane);
+    }
+    split_tiles<NT>(dp, xh, xl);
+    band_product<DB, NT>(aw, xh, xl, keep, paw, p.scale, lane);
+  }
+  __syncwarp();
+  write_tile<DB, kVec>(p.da, aw, hd, i0, lane);
+  if constexpr (kKV) write_tile<DB, kVec>(p.db, bw, hd, i0, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -1283,15 +1646,18 @@ cudaError_t pick_forward(Kernel kernel, int DB, int BH, BandProblem<E>* p,
   return cudaSuccess;
 }
 
-// The tensor-core forward's instance for B*H sequences of T rows: the rows
-// a tile, R = 16, 32 or 64, the smallest that holds T (64 past it),
-// halved while the B*H * ceil(T / R) blocks would give the card's SMs
-// fewer than two each; one tile a block. A block of kMmaThreads always:
-// where R < 64 its warps past R / 16 only help copy. Walking several tiles
-// a block (double-buffered, as the fp32 forward does) lost at every shape
-// measured, the problems up to 8192 blocks included: it halves the blocks
-// an SM holds, and their copies in flight hide the load latency better.
-cudaError_t pick_mma(int BH, BandProblem<bf16>* p) {
+// The tensor-core kernels' instance (forward and backward) for B*H
+// sequences of T rows: the rows a tile, R = 16, 32 or 64, the smallest
+// that holds T (64 past it), halved while the B*H * ceil(T / R) blocks
+// would give the card's SMs fewer than two each; one tile a block. A block
+// of kMmaThreads always: where R < 64 its warps past R / 16 only help
+// copy. Walking several tiles a block (double-buffered, as the fp32
+// forward does) lost at every shape measured for the forward, the problems
+// up to 8192 blocks included: it halves the blocks an SM holds, and their
+// copies in flight hide the load latency better. Sets *p's rows, tiles and
+// per_block (1).
+template <typename Problem>
+cudaError_t pick_mma(int BH, Problem* p) {
   int sms;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
@@ -1378,38 +1744,63 @@ cudaError_t launch_backward(const BandBwdProblem<E>& p, int B, size_t smem,
   return cudaGetLastError();
 }
 
+// The tensor-core backward's instance for *p (bf16 streams, NT partner
+// tiles a warp; 16 owner rows a warp) and, with `launch`, its launch.
+template <int DB, bool kVec, bool kKV, int NT>
+cudaError_t run_backward_mma(BandBwdProblem<bf16>* p, int B,
+                             cudaStream_t stream, bool launch) {
+  cudaError_t err = pick_mma(B * p->H, p);
+  p->rows_warp = 16;
+  if (err != cudaSuccess || !launch) return err;
+  auto kernel = band_backward_mma_kernel<DB, kVec, kKV, NT>;
+  const size_t smem = mma_backward_smem(DB, p->rows, NT);
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  const long long blocks = grid_blocks(B, p->H, p->tiles, 1);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kMmaThreads, smem, stream>>>(*p);
+  return cudaGetLastError();
+}
+
 // Picks the instance of the backward (K2, or K3 with kKV) for *p and, with
-// `launch`, launches it. The rule: the first of (2 owner rows a warp, one
-// tile a block), (4, 1), (2, 2), (4, 2) whose blocks all fit the card's
-// block slots at once, at that instance's occupancy; (4, 1) where none
-// does. Fewer rows a warp make more and shorter warps, which a problem of
-// a few thousand rows needs to fill the card; more rows a warp and tiles a
-// block reread less once it is full.
+// `launch`, launches it: bf16 streams take band_backward_mma_kernel with
+// the partner tiles their w needs, fp32 ones band_backward_kernel. The
+// fp32 rule: the first of (2 owner rows a warp, one tile a block), (4, 1),
+// (2, 2), (4, 2) whose blocks all fit the card's block slots at once, at
+// that instance's occupancy; (4, 1) where none does. Fewer rows a warp
+// make more and shorter warps, which a problem of a few thousand rows
+// needs to fill the card; more rows a warp and tiles a block reread less
+// once it is full.
 template <int DB, bool kVec, bool kKV, typename E>
 cudaError_t run_backward(BandBwdProblem<E>* p, int B, cudaStream_t stream,
                          bool launch) {
-  constexpr int kChoices[][2] = {{2, 1}, {4, 1}, {2, 2}, {4, 2}};
-  size_t smem = 0;
-  bool fits = false;
-  for (const auto& c : kChoices) {
-    long long slots;
-    const cudaError_t err =
-        c[0] == 2 ? set_backward<DB, kVec, kKV, 2>(p, c[1], &slots, &smem)
-                  : set_backward<DB, kVec, kKV, 4>(p, c[1], &slots, &smem);
-    if (err != cudaSuccess) return err;
-    if ((fits = grid_blocks(B, p->H, p->tiles, p->per_block) <= slots))
-      break;
+  if constexpr (std::is_same_v<E, bf16>) {
+    return mma_key_tiles(p->w) == 3
+               ? run_backward_mma<DB, kVec, kKV, 3>(p, B, stream, launch)
+               : run_backward_mma<DB, kVec, kKV, 6>(p, B, stream, launch);
+  } else {
+    constexpr int kChoices[][2] = {{2, 1}, {4, 1}, {2, 2}, {4, 2}};
+    size_t smem = 0;
+    bool fits = false;
+    for (const auto& c : kChoices) {
+      long long slots;
+      const cudaError_t err =
+          c[0] == 2 ? set_backward<DB, kVec, kKV, 2>(p, c[1], &slots, &smem)
+                    : set_backward<DB, kVec, kKV, 4>(p, c[1], &slots, &smem);
+      if (err != cudaSuccess) return err;
+      if ((fits = grid_blocks(B, p->H, p->tiles, p->per_block) <= slots))
+        break;
+    }
+    if (!fits) {
+      long long slots;
+      const cudaError_t err =
+          set_backward<DB, kVec, kKV, 4>(p, 1, &slots, &smem);
+      if (err != cudaSuccess) return err;
+    }
+    if (!launch) return cudaSuccess;
+    return p->rows_warp == 2
+               ? launch_backward<DB, kVec, kKV, 2>(*p, B, smem, stream)
+               : launch_backward<DB, kVec, kKV, 4>(*p, B, smem, stream);
   }
-  if (!fits) {
-    long long slots;
-    const cudaError_t err =
-        set_backward<DB, kVec, kKV, 4>(p, 1, &slots, &smem);
-    if (err != cudaSuccess) return err;
-  }
-  if (!launch) return cudaSuccess;
-  return p->rows_warp == 2
-             ? launch_backward<DB, kVec, kKV, 2>(*p, B, smem, stream)
-             : launch_backward<DB, kVec, kKV, 4>(*p, B, smem, stream);
 }
 
 // The smallest head-dim bucket that holds D.
@@ -1596,20 +1987,24 @@ int backward_launch(const E* q, const E* k, const E* v,
   return (int)backward<kKV>(&p, B, (cudaStream_t)stream, true);
 }
 
-// The backward's instance for streams of element type E (no launch).
+// The backward's instance for streams of element type E (no launch): as
+// forward_instance, and the owner rows a warp.
 template <typename E>
 cudaError_t backward_instance(int B, int T, int H, int D, int w, bool dkv,
                               int* rows_warp, int* rows, int* tiles,
-                              int* per_block) {
+                              int* per_block, int* warps, int* key_tiles) {
   BandBwdProblem<E> p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                       nullptr, nullptr, nullptr, T, H, D, w, 1.f, 0, 0, 0,
                       0};
   const cudaError_t err = dkv ? backward<true>(&p, B, nullptr, false)
                               : backward<false>(&p, B, nullptr, false);
+  constexpr bool kMma = std::is_same_v<E, bf16>;
   *rows_warp = p.rows_warp;
   *rows = p.rows;
   *tiles = p.tiles;
   *per_block = p.per_block;
+  *warps = kMma ? kMmaThreads / 32 : p.rows / max(p.rows_warp, 1);
+  *key_tiles = kMma ? mma_key_tiles(w) : 0;
   return err;
 }
 
@@ -1657,12 +2052,15 @@ extern "C" int band_attention_backward_dkv_bf16(
 
 // The instance the dQ kernel (K2), or with `dkv` the dK/dV kernel (K3),
 // takes on the current device for 16-byte-aligned streams of this shape
-// and `elem`-byte elements (4 for fp32, 2 for bf16): owner rows a warp,
-// owner rows a tile, row tiles a (batch, head), tiles a block walks and the
-// head-dim bucket; `vec` as for the forward.
+// and `elem`-byte elements (4 for fp32, 2 for bf16): owner rows a warp (2
+// or 4 in fp32, 16 in bf16), owner rows a tile, row tiles a (batch, head),
+// tiles a block walks and the head-dim bucket; `vec`, warps a block and
+// key tiles (for bf16, band_backward_mma_kernel's n8 partner tiles a warp,
+// its last template argument; 0 for fp32) as for the forward.
 extern "C" int band_attention_backward_instance(
     int B, int T, int H, int D, int w, int dkv, int elem, int* rows_warp,
-    int* rows, int* tiles, int* per_block, int* bucket, int* vec) {
+    int* rows, int* tiles, int* per_block, int* bucket, int* vec, int* warps,
+    int* key_tiles) {
   if (bad_shape(B, T, H, D, w) || (elem != 4 && elem != 2))
     return (int)cudaErrorInvalidValue;
   *bucket = head_bucket(D);
@@ -1670,10 +2068,10 @@ extern "C" int band_attention_backward_instance(
   return (int)(elem == 4
                    ? backward_instance<float>(B, T, H, D, w, dkv != 0,
                                               rows_warp, rows, tiles,
-                                              per_block)
+                                              per_block, warps, key_tiles)
                    : backward_instance<bf16>(B, T, H, D, w, dkv != 0,
                                              rows_warp, rows, tiles,
-                                             per_block));
+                                             per_block, warps, key_tiles));
 }
 
 // The message of a code returned above, for the Python wrapper's error.

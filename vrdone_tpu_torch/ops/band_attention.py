@@ -29,8 +29,12 @@ plain version then follows the JAX dense form's promotions: the scores in
 fp32 from the widened operands (q scaled in fp32, as the dense form's numpy
 scale makes it; the kernel, as Pallas does, scales the fp32 dot instead),
 a bf16 bias table widened to fp32 before it is added, softmax in fp32, P
-rounded to bf16 before P.V, a bf16 output and an fp32 lse. The backward (K2/K3) takes bf16 streams too (bf16 training), with the
-Pallas backward's promotions: ``band_backward_plain`` is its plain version.
+rounded to bf16 before P.V, a bf16 output and an fp32 lse. The backward
+(K2/K3) takes bf16 streams too (bf16 training), through a kernel of its own
+on the tensor cores (``mma.sync`` over each 16-row owner tile's band: S
+and dP, then dQ, or dV and dK, with P and dS kept in fp32 by a bf16 hi/lo
+split), with the Pallas backward's promotions: ``band_backward_plain`` is
+its plain version.
 """
 
 from __future__ import annotations
@@ -170,7 +174,7 @@ def _kernel() -> ctypes.CDLL:
         [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 7)
     lib.band_attention_backward_instance.restype = ctypes.c_int
     lib.band_attention_backward_instance.argtypes = (
-        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 6)
+        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 8)
     lib.band_attention_error_string.restype = ctypes.c_char_p
     lib.band_attention_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -216,12 +220,20 @@ def backward_instance(device: int, b: int, t: int, n_head: int, d: int,
     """The instance the dQ kernel (K2), or with ``dkv`` the dK/dV kernel
     (K3), takes on ``device`` for 16-byte-aligned (B, T, n_head * d)
     streams of ``dtype`` (fp32 or bf16): ``rows_warp`` owner rows a warp,
-    and ``rows``, ``tiles``, ``per_block``, ``bucket`` and ``vec`` as
-    ``forward_instance`` has them."""
+    and ``rows``, ``tiles``, ``per_block``, ``bucket``, ``vec``, ``warps``
+    and ``key_tiles`` as ``forward_instance`` has them. fp32 runs
+    ``band_backward_kernel<bucket, vec, dkv, rows_warp, float>`` (2 or 4
+    owner rows a warp, 32 * rows / rows_warp threads, walking up to 2 tiles
+    a block); bf16 the tensor-core kernel
+    ``band_backward_mma_kernel<bucket, vec, dkv, key_tiles>`` (one tile of
+    16, 32 or 64 owner rows a block of 4 warps, rows / 16 of them a 16-row
+    tile each, so ``rows_warp`` is 16; ``key_tiles`` n8 tiles of partners
+    a warp: 3 up to w = 4, else 6; 0 for fp32)."""
     return _read_instance(
         device, _kernel().band_attention_backward_instance,
         (b, t, n_head, d, window_size // 2, int(dkv), dtype.itemsize),
-        ("rows_warp", "rows", "tiles", "per_block", "bucket", "vec"))
+        ("rows_warp", "rows", "tiles", "per_block", "bucket", "vec",
+         "warps", "key_tiles"))
 
 
 def _shape(q, k, v, kv_mask, n_head, window_size):
