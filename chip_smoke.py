@@ -21,7 +21,11 @@ one process per source, all started together, into
      eval runner's 384 and 768 buckets), each timed alone beside SDPA in
      bf16 and its bound at the dense bf16 rate (K7 bf16, the tensor-core
      kernel, with its instance's registers and spills where this run built
-     it);
+     it); and K1 and K7 at VrdONE-X's eval shapes (``configs/vidor_x.yaml``
+     at B=16: K1 B*H=16*8, d=64, w=4, T=512, 256, 128, 64; K7 512x512 at
+     d=64 and the predictor's 10 queries at d=32 against 10 and 64 keys),
+     each against its plain version and timed alone beside SDPA and its
+     bound;
   2. holds the band attention's lse and its dQ and dK/dV backward kernels
      against autograd of the plain version at the train step's shapes
      (B*H = 24*4, d = 128, w = 3), with a nonzero upstream gradient on
@@ -100,11 +104,12 @@ one process per source, all started together, into
      weights), counts its launches, holds the first chunk group against the
      CPU and times it;
   9. (run right after 4) bf16 serving at VidVRD B=128 T=96, VidOR B=16
-     T=512 and VidOR local-attention width with ``use_rel_pe`` B=16 T=512
-     (``configs/vidvrd.yaml``, ``configs/vidor.yaml``,
-     ``configs/vidor_local.yaml``, random seeded weights): the
-     ``cast_floating`` copy of each fp32 model, its bf16 forward held
-     against the port's bf16 CPU run (B=8, B=2, B=2) within
+     T=512, VidOR local-attention width with ``use_rel_pe`` B=16 T=512 and
+     VrdONE-X B=16 T=512 (``configs/vidvrd.yaml``, ``configs/vidor.yaml``,
+     ``configs/vidor_local.yaml``, ``configs/vidor_x.yaml``, random seeded
+     weights): the ``cast_floating`` copy of each fp32 model, its bf16
+     forward held against the port's bf16 CPU run (B=8, B=2, B=2, B=2)
+     within
      ``BF16_MODEL_TOL`` with the gap to the fp32 forward printed, the
      launches of one bf16 eval step (the forward and bench.py's decode-side
      softmax, top-k and mask sigmoid: only bf16 instances of K1, K4 and K7,
@@ -118,7 +123,20 @@ one process per source, all started together, into
      ``rel_pe`` moved), the launches of one step at 48 pairs (K4 bf16 7,
      14 under remat, its backward the dense form 7 times; K1, K2 and K3
      bf16 8 each, K1 16 under remat; K2/K3 at the shape phase 2 times)
-     and bf16 steps at 48 pairs timed and profiled.
+     and bf16 steps at 48 pairs timed and profiled;
+ 11. (run right after 10) VrdONE-X, the CLIP-fused backbone, at full width
+     (``configs/vidor_x.yaml``, 3,093 packed channels, random seeded
+     weights): the fp32 forward against the CPU at B=2, the launches of
+     one fp32 eval step at B=16 (K1 fp32 7 and K7 fp32 16, nothing else,
+     no dense band or full-attention form; phase 9 holds its bf16 forward
+     and times both dtypes' steps in turns), the reference checkpoint
+     converter on the card (the model's parameters in the torch
+     reference's layout, saved as a ``.pth``, through
+     ``convert_reference_checkpoint_torch.py`` and ``eval_torch.py``'s
+     loader into a fresh model whose forward is the first's bit for bit),
+     and one fp32 train step at the config's 20 pairs against the CPU
+     (losses within ``LOSS_TOL``), its launches (K1 with lse, K2, K3 7
+     each, full attention dense) and its time and profile.
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
@@ -199,7 +217,11 @@ PEAK_BF16_MMA = 989e12      # H100 SXM dense bf16 on the tensor cores
 # timed, top-k, use_rel_pe
 BF16_SERVING = (("vidvrd.yaml", 8, 128, 8, False),
                 ("vidor.yaml", 2, 16, 6, False),
-                ("vidor_local.yaml", 2, 16, 6, True))
+                ("vidor_local.yaml", 2, 16, 6, True),
+                ("vidor_x.yaml", 2, 16, 4, False))
+# VrdONE-X (configs/vidor_x.yaml, the CLIP-fused backbone): pairs held
+# against the CPU, pairs served (VidOR's eval width, bench.py:239-265)
+VRDONE_X_CHECK, VRDONE_X_RATE = 2, 16
 RELPE_TRAIN_PAIRS = (2, 48)  # bf16 rel-PE steps: on both devices; timed
 # K2/K3 bf16 held and timed alone, (B, H, d, w, T): the bf16 train step's
 # band shapes (24 pairs, T = 96, 48, 24, 12) and its 96-pair T = 96, and
@@ -410,49 +432,55 @@ def attention_inputs(rng, b, tq, tk, c, device):
 
 
 def check_kernels(cuda, ba, fa) -> dict:
-    """The forward kernels at the eval forward's shapes. Returns, per
-    kernel, its entry of the JSON line (all but ``launches``), with the
-    times at B=128, T=96, d=128; K1's ``by_shape`` holds its time alone at
-    each eval shape (the train step's and the stream's are added by
+    """The forward kernels at the eval forward's shapes, VidVRD's and
+    VrdONE-X's (``configs/vidor_x.yaml`` at B=16). Returns, per kernel, its
+    entry of the JSON line (all but ``launches``), with the times at B=128,
+    T=96, d=128; each ``by_shape`` holds the kernel's time alone at each
+    timed shape (K1's train and stream shapes are added by
     ``check_band_backward`` and ``check_stream_kernels``)."""
     rng = np.random.default_rng(0)
     h, w, d = 4, 3, 128
+    x_band, x_full = bf16_shapes(vrdone_x_config()[0], VRDONE_X_RATE)
     worst = {"band_attention": 0.0, "masked_attention": 0.0}
-    entries, band_rows = {}, []
-    for t in (96, 48, 24, 12, 768):
-        q, k, v, mask = attention_inputs(rng, 128, t, t, h * d, cuda)
-        kw = dict(n_head=h, window_size=2 * w + 1)
+    entries, band_rows, full_rows = {}, [], []
+    for b, hh, dd, ww, t in [(128, h, d, w, t) for t in (96, 48, 24, 12,
+                                                         768)] + x_band:
+        q, k, v, mask = attention_inputs(rng, b, t, t, hh * dd, cuda)
+        kw = dict(n_head=hh, window_size=2 * ww + 1)
+        shape = f"B*H={b}*{hh} T={t} d={dd} w={ww}"
         err, ms, plain_ms = compare(
             lambda: ba.band_attention_cuda(q, k, v, mask, **kw),
             lambda: ba.band_attention_plain(q, k, v, mask, **kw))
-        print(f"band_attention B*H=128*4 d=128 w=3 T={t}: max_abs_err "
-              f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        print(f"band_attention {shape}: max_abs_err {err:.3e}, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
         if not err <= KERNEL_TOL:
-            raise AssertionError(f"band kernel off by {err} at T={t}")
+            raise AssertionError(f"band kernel off by {err} at {shape}")
         worst["band_attention"] = max(worst["band_attention"], err)
         if t == 768:   # a check only: the timed forward is at T=96
             continue
-        lib_mask = band_library_mask(mask, w)
+        lib_mask = band_library_mask(mask, ww)
         row = band_row(
-            ba, f"B*H=128*4 T={t} d=128 w=3",
-            lambda: ba.band_attention_cuda(q, k, v, mask, **kw), plain_ms,
-            lambda: F.scaled_dot_product_attention(
-                heads(q, h), heads(k, h), heads(v, h), attn_mask=lib_mask),
-            q, mask, h, w)
+            ba, shape, lambda: ba.band_attention_cuda(q, k, v, mask, **kw),
+            plain_ms, lambda: F.scaled_dot_product_attention(
+                heads(q, hh), heads(k, hh), heads(v, hh),
+                attn_mask=lib_mask),
+            q, mask, hh, ww)
         band_rows.append(row)
-        if t == T:
+        if (b, t) == (128, T):
             entries["band_attention"] = {**row, "ms": ms,
                                          "by_shape": band_rows}
     # K7 at the eval forward's shapes (the cross-attention at 96 up to the
-    # largest bucket, 768; the predictor's 9 queries), and at VidOR's S/O
-    # cross-attention (B=8, H=8, T=512, d=64); the ones marked are also
-    # timed alone and against the library
+    # largest bucket, 768; the predictor's 9 queries), at VidOR's S/O
+    # cross-attention (B=8, H=8, T=512, d=64) and at VrdONE-X's (its S/O
+    # cross-attention at B=16 and the predictor's 10 queries); the ones
+    # marked are also timed alone and against the library
     for b, hh, dd, tq, tk, alone in (
             (128, h, 128, 96, 96, True), (128, h, 128, 9, 9, False),
             (128, h, 128, 9, 12, False), (128, h, 128, 384, 384, True),
             (128, h, 128, 768, 768, True), (128, h, 64, 96, 96, False),
             (128, h, 64, 9, 9, False), (128, h, 64, 9, 12, False),
-            (128, h, 64, 384, 384, False), (8, 8, 64, 512, 512, True)):
+            (128, h, 64, 384, 384, False), (8, 8, 64, 512, 512, True),
+            *(x + (True,) for x in x_full)):
         q, k, v, mask = attention_inputs(rng, b, tq, tk, hh * dd, cuda)
         err, ms, plain_ms = compare(
             lambda: fa.full_attention_cuda(q, k, v, mask, n_head=hh),
@@ -477,11 +505,14 @@ def check_kernels(cuda, ba, fa) -> dict:
         print(f"masked_attention {shape}: the kernel alone {dev_ms:.4f} ms "
               f"(queued behind a sleep), library (SDPA) {lib_ms:.4f} ms, "
               f"bound {bms:.4f} ms ({by})")
+        full_rows.append(dict(shape=shape, max_abs_err=err, ms=ms,
+                              device_ms=dev_ms, plain_ms=plain_ms,
+                              library_ms=lib_ms, bound_ms=bms, bound_by=by))
         if (b, tq, dd) == (128, T, 128):
             entries["masked_attention"] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                 bound_by=by, device_ms=dev_ms,
-                shape="B*H=128*4 Tq=Tk=96 d=128")
+                shape="B*H=128*4 Tq=Tk=96 d=128", by_shape=full_rows)
         del q, k, v, mask
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
@@ -492,11 +523,12 @@ def check_kernels(cuda, ba, fa) -> dict:
 
 
 def bf16_shapes(cfg, b: int) -> tuple[list, list]:
-    """The shapes the bf16 forward of ``cfg`` at ``b`` pairs gives its band
-    (K1) and full-attention (K7) kernels, read from the config as the
-    forward derives them: K1 (b, h, d, w, T) at each stem and branch level,
-    K7 (b, h, d, Tq, Tk) for the S/O cross-attention at T and the
-    predictor's queries against themselves and the coarsest level."""
+    """The shapes the forward of ``cfg`` at ``b`` pairs gives its band (K1)
+    and full-attention (K7) kernels, in either dtype, read from the config
+    as the forward derives them: K1 (b, h, d, w, T) at each stem and
+    branch level, K7 (b, h, d, Tq, Tk) for the S/O cross-attention at T
+    and the predictor's queries against themselves and the coarsest
+    level."""
     t, arch, sf = cfg.max_seq_len, cfg.backbone_arch, cfg.scale_factor
     w = cfg.mha_win_size[0] // 2
     band = [(b, cfg.n_head, cfg.embd_dim // cfg.n_head, w, t // sf ** i)
@@ -556,6 +588,8 @@ def check_bf16_kernels(cuda, ba, fa) -> dict:
         if yaml == "vidvrd.yaml":   # the eval runner's larger buckets
             b0, h0, d0 = k7[0][:3]
             full += [(b0, h0, d0, t, t) for t in (384, 768)]
+    # VrdONE-X repeats VidOR's shapes but for its predictor's 10 queries
+    band, full = list(dict.fromkeys(band)), list(dict.fromkeys(full))
     rows = {"band_attention_bf16": [], "masked_attention_bf16": []}
     band_regs = instance_usage("band_attention")
     for b, h, d, w, t in band:
@@ -625,21 +659,29 @@ def band_backward_instance(ba, q, h, w, dkv, dtype=torch.float32,
             f"bucket {i['bucket']}{'' if i['vec'] else ', scalar'}{regs})")
 
 
+# (B, H, d, w) and the T of each level of the fp32 train steps' band
+# layers: VidVRD's at 24 pairs (T=768 a check only, no step runs it) and
+# VrdONE-X's at its 20 pairs
+BWD_SHAPES = (((TRAIN_PAIRS[1], 4, 128, 3), (96, 48, 24, 12, 768)),
+              ((20, 8, 64, 4), (512, 256, 128, 64)))
+
+
 def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
     """K1's lse and the K2 (dQ) and K3 (dK, dV) kernels through
-    ``BandAttention`` against autograd of the plain version, at the train
-    step's band shapes, with a nonzero upstream gradient everywhere
-    (invalid query rows included). Returns the JSON entries of
-    ``band_attention_dq`` and ``band_attention_dkv``, timed at T=96, with
-    each kernel alone at every train shape (T=96, 48, 24, 12) beside plain
+    ``BandAttention`` against autograd of the plain version, at the fp32
+    train steps' band shapes (``BWD_SHAPES``), with a nonzero upstream
+    gradient everywhere (invalid query rows included). Returns the JSON
+    entries of ``band_attention_dq`` and ``band_attention_dkv``, timed at
+    VidVRD's T=96, with each kernel alone at every train shape beside plain
     autograd, SDPA's backward and the bound in ``by_shape``, and appends K1
-    with its lse, timed alone at T=96, to ``band_rows``."""
+    with its lse, timed alone at VidVRD's T=96, to ``band_rows``."""
     rng = np.random.default_rng(3)
-    b, h, d, w = 24, 4, 128, 3
-    kw = dict(n_head=h, window_size=2 * w + 1)
     worst = {"band_attention_dq": 0.0, "band_attention_dkv": 0.0}
     entries = {name: {"by_shape": []} for name in worst}
-    for t in (96, 48, 24, 12, 768):
+    for (b, h, d, w), t in ((s, t) for s, ts in BWD_SHAPES for t in ts):
+        kw = dict(n_head=h, window_size=2 * w + 1)
+        shape = f"B*H={b}*{h} T={t} d={d} w={w}"
+        headline = (b, t) == (TRAIN_PAIRS[1], T)
         q, k, v, mask = attention_inputs(rng, b, t, t, h * d, cuda)
         mask[1, t // 3] = False   # an invalid key inside a valid stretch
         dout = torch.from_numpy(rng.standard_normal(q.shape)
@@ -659,11 +701,11 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
         abs_errs = [(g - r).abs().max().item() for g, r in zip(got, want)]
         errs = [e / max(1.0, r.abs().max().item())
                 for e, r in zip(abs_errs, want)]
-        print(f"band backward B*H=24*4 d=128 w=3 T={t}: lse rel err "
+        print(f"band backward {shape}: lse rel err "
               f"{lse_err:.3e}; dQ, dK, dV err / max|grad| "
               f"{errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}")
         if not (lse_err <= LSE_TOL and max(errs) <= GRAD_TOL):
-            raise AssertionError(f"band backward off at T={t}: lse "
+            raise AssertionError(f"band backward off at {shape}: lse "
                                  f"{lse_err}, grads {errs}")
         invalid = ~mask
         if not all((g[invalid] == 0).all() for g in got[:1]):
@@ -672,14 +714,14 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
                                          abs_errs[0])
         worst["band_attention_dkv"] = max(worst["band_attention_dkv"],
                                           *abs_errs[1:])
-        if t == 768:   # a check only: the train step runs T <= 96
+        if t == 768:   # a check only: VidVRD's train step runs T <= 96
             continue
         lib_mask = band_library_mask(mask, w)
         with torch.no_grad():
             dr = ba.band_rowsum(dout, out, h)
-            if t == T:
+            if headline:
                 band_rows.append(band_row(
-                    ba, "B*H=24*4 T=96 d=128 w=3 with lse",
+                    ba, f"{shape} with lse",
                     lambda: ba.band_attention_cuda(q, k, v, mask,
                                                    with_lse=True, **kw),
                     time_ms(lambda: (ba.band_attention_plain(q, k, v, mask,
@@ -696,7 +738,6 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
         lib_dout = heads(dout, h)
         n, bht = q.numel(), b * h * t
         pairs = h * band_pairs(mask, w)
-        shape = f"B*H=24*4 T={t} d=128 w=3"
         for name, kernel, plain_wrt, lib_wrt, out_elems, ops in (
                 ("band_attention_dq",
                  lambda: ba.band_attention_dq_cuda(*args, **kw),
@@ -726,7 +767,7 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
                   f"backward {row['library_ms']:.4f} ms, bound {bms:.4f} ms "
                   f"({by})")
             entries[name]["by_shape"].append(row)
-            if t == T:
+            if headline:
                 entries[name].update(row, ms=(k1 + k2) / 2)
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
@@ -1073,6 +1114,137 @@ def check_bf16_serving(cuda, ba, fa) -> dict:
     return counts
 
 
+def vrdone_x_config():
+    """VrdONE-X's model config and the raw YAML (``configs/vidor_x.yaml``:
+    VidOR's widths with 2 x 512 CLIP channels a pair and 10 queries)."""
+    from vrdone_tpu_torch.config import (load_yaml_config,
+                                         model_config_from_yaml)
+    raw = load_yaml_config(str(ROOT / "configs" / "vidor_x.yaml"))
+    cfg = model_config_from_yaml(raw)
+    if packed_channels(cfg) != 2 * 1024 + 2 * 512 + 5 + 2 * 8:
+        raise AssertionError(f"VrdONE-X packs {packed_channels(cfg)} "
+                             "channels, not 3093")
+    return cfg, raw
+
+
+def check_vrdone_x(cuda, ba, fa) -> dict:
+    """VrdONE-X at full width (``configs/vidor_x.yaml``, random seeded
+    weights): the fp32 forward on the card against the CPU at B=2 within
+    MODEL_TOL; the launches of one fp32 eval step at B=16 (K1 fp32 and K7
+    fp32 only, no dense band or full-attention form); the reference
+    converter's round trip on the card (the model's parameters in the
+    reference's layout, saved as a ``.pth``, through
+    ``convert_reference_checkpoint_torch.py`` and ``eval_torch.py``'s
+    loader into a fresh model, whose forward is the first's bit for bit);
+    ``check_train_step`` at the config's 20 pairs (three steps on the card
+    and the CPU: losses, step-0 gradients, parameter and EMA drift; the
+    launches of a fourth), and the step timed and profiled. Returns the
+    launches of the eval step and of the train step by kernel."""
+    from convert_reference_checkpoint_torch import convert
+    from eval_torch import load_weights
+    from tests.reference_state_dicts import relation_state_dict
+    from vrdone_tpu_torch.convert import params_to_jax
+    from vrdone_tpu_torch.models.maskvrd import MaskVRD
+    from vrdone_tpu_torch.train.loop import (batch_to_device,
+                                             step_generator, train_step)
+    cfg, raw = vrdone_x_config()
+    t = cfg.max_seq_len
+    arch, layers = cfg.backbone_arch, cfg.predictor.num_layers
+    rng = np.random.default_rng(8)
+    cpu_model, gpu_model = build_models(cfg, cuda)
+    x, mask = packed_batch(rng, cfg, VRDONE_X_CHECK, t)
+    with torch.inference_mode():
+        ref = cpu_model(x, mask)
+        out = gpu_model(x.to(cuda), mask.to(cuda))
+        for key in ("pred_logits", "pred_masks"):
+            err = (out[key].cpu() - ref[key]).abs().max().item()
+            print(f"vidor_x forward B={VRDONE_X_CHECK} T={t} {key} "
+                  f"{tuple(out[key].shape)}: CUDA vs CPU max_abs_err "
+                  f"{err:.3e}")
+            if not err <= MODEL_TOL:
+                raise AssertionError(f"vidor_x {key} off by {err}")
+        del cpu_model, ref
+
+        x, mask = packed_batch(rng, cfg, VRDONE_X_RATE, t)
+        x, mask = x.to(cuda), mask.to(cuda)
+        zero_counts(ba, fa)
+        with dense_band_calls(ba) as dense:
+            out, scores, _, masks_bin = serve(gpu_model, x, mask, 4)
+            torch.cuda.synchronize()
+        serve_launches = band_counts(ba, fa)
+        got = {**serve_launches, "dense band form": dense[0],
+               "dense full attention": fa.dense_calls}
+        expect = {name: 0 for name in got}
+        expect.update(band_attention=2 * arch[1] + arch[2],
+                      masked_attention=4 * arch[1] + 2 * layers)
+        print(f"vidor_x fp32 eval step B={VRDONE_X_RATE} T={t}: kernel "
+              f"launches {got}")
+        if got != expect:
+            raise AssertionError(f"vidor_x launches {got}, expected {expect}")
+        nq = cfg.predictor.num_queries
+        if (scores.shape != (VRDONE_X_RATE, nq, 4)
+                or masks_bin.shape != (VRDONE_X_RATE, nq, t)
+                or not all(torch.isfinite(out[k]).all()
+                           for k in ("pred_logits", "pred_masks"))):
+            raise AssertionError(f"vidor_x step: scores "
+                                 f"{tuple(scores.shape)}, masks "
+                                 f"{tuple(masks_bin.shape)}")
+
+    # the reference converter on the card's own parameters, the fresh
+    # model built and loaded as eval_torch.py does, outside inference mode
+    # (parameters made inside it are inference tensors, and with them some
+    # Dense products round otherwise: the first branch block's query
+    # projection first differed by 3e-6); the EMA entry is the one taken,
+    # so the other holds other values
+    sd = {k: torch.from_numpy(v) for k, v in relation_state_dict(
+        params_to_jax(gpu_model.state_dict())).items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        pth, npz = os.path.join(tmp, "x.pth"), os.path.join(tmp, "x.npz")
+        torch.save({"epoch": 15, "model_state_dict_ema": sd,
+                    "model_state_dict": {k: v + 1 for k, v in sd.items()}},
+                   pth)
+        t0 = time.perf_counter()
+        flat = convert(pth, npz)
+        fresh = MaskVRD(cfg, device=cuda)
+        load_weights(fresh, npz)
+        seconds = time.perf_counter() - t0
+    del sd
+    with torch.inference_mode():
+        again = fresh(x, mask)
+    same = all(torch.equal(again[k], out[k])
+               for k in ("pred_logits", "pred_masks"))
+    print(f"vidor_x reference checkpoint round trip: {len(flat)} arrays "
+          f"converted and loaded strictly in {seconds:.1f} s; forward at "
+          f"B={VRDONE_X_RATE} bit for bit the same: {same}")
+    if not same:
+        raise AssertionError("the converted VrdONE-X forward differs")
+    del fresh, again, gpu_model, out
+    torch.cuda.empty_cache()
+
+    # three train steps at the config's pairs on both devices, checked as
+    # VidVRD's are, then the card's step timed at those pairs
+    n_pairs = raw["training_dataset_config"]["num_pairs"]
+    num_gt = raw["training_dataset_config"]["proposal_max_preds"]
+    state, train_launches = check_train_step(
+        cfg, raw, cuda, ba, fa, pairs=(n_pairs, n_pairs), label="vidor_x ")
+    tb = batch_to_device(train_batch(rng, cfg, n_pairs, num_gt), cuda)
+
+    def step():
+        return train_step(state, tb, step_generator(0, state.step))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = forward_ms(step, iters=5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"vidor_x fp32 train step at {n_pairs} pairs: {ms:.2f} ms, "
+          f"{1e3 * n_pairs / ms:.1f} pairs/s, peak {peak:.2f} GiB")
+    profile_device(step, 2, "step")
+    del state, tb
+    torch.cuda.empty_cache()
+    return {"serve_vidor_x": serve_launches,
+            "train_step_vidor_x": train_launches}
+
+
 def train_pairs(rng, cfg, n, num_gt):
     """n synthetic SO pairs with ground truth, as datasets.get_train_item
     yields them."""
@@ -1127,11 +1299,15 @@ class PoolReplay:
         return out.transpose(1, 2)
 
 
-def check_train_step(cfg, raw, cuda, ba, fa):
-    """Three full-width train steps at 8 pairs on the card and on the CPU
-    from the same weights, batch and drop-path draws; the launches of one
-    step at 24 pairs. Returns the card's train state and the launches of
-    that one step per kernel."""
+def check_train_step(cfg, raw, cuda, ba, fa, pairs=TRAIN_PAIRS[:2],
+                     label: str = ""):
+    """Three full-width fp32 train steps at ``pairs[0]`` pairs on the card
+    and on the CPU from the same weights, batch and drop-path draws: losses
+    within LOSS_TOL, step-0 gradients within STEP_GRAD_TOL, parameters and
+    EMA within DRIFT_TOL; then the launches of one step at ``pairs[1]``
+    pairs (K1, K2 and K3 fp32 once a band layer, the dense full attention,
+    no K7 and no dense band form). Returns the card's train state and the
+    launches of that one step per kernel."""
     from vrdone_tpu_torch.models.layers import AffineDropPath
     from vrdone_tpu_torch.models.maskvrd import match
     from vrdone_tpu_torch.ops import masked as mops
@@ -1155,7 +1331,7 @@ def check_train_step(cfg, raw, cuda, ba, fa):
         state.ema_params = [p.detach().clone() for p in state.params()]
         states[name] = state
     rng = np.random.default_rng(5)
-    batch = train_batch(rng, cfg, TRAIN_PAIRS[0], num_gt)
+    batch = train_batch(rng, cfg, pairs[0], num_gt)
     first_grads = {}
     max_pool1d, pool = mops.max_pool1d, PoolReplay()
     for step in range(3):
@@ -1186,14 +1362,15 @@ def check_train_step(cfg, raw, cuda, ba, fa):
                 first_grads[name] = [m.detach().cpu().clone() for m in
                                      state.optimizer.moments["mu"]]
         if step == 0:
-            print(f"step 0: max-pool windows whose pick differs between the "
-                  f"devices (a near-tie; the CPU replays the card's): "
+            print(f"{label}step 0: max-pool windows whose pick differs "
+                  f"between the devices (a near-tie; the CPU replays the "
+                  f"card's): "
                   f"{pool.flips} of {pool.windows}")
         flips = int((rows["cuda"] != rows["cpu"]).any(-1).sum())
         errs = {k: abs(losses["cuda"][k].item() - v.item())
                 / (1 + abs(v.item())) for k, v in losses["cpu"].items()}
         worst = max(errs, key=errs.get)
-        print(f"train step {step} at {TRAIN_PAIRS[0]} pairs: total_loss "
+        print(f"{label}train step {step} at {pairs[0]} pairs: total_loss "
               f"cpu {losses['cpu']['total_loss'].item():.6f} cuda "
               f"{losses['cuda']['total_loss'].item():.6f}; worst loss term "
               f"{worst} rel err {errs[worst]:.3e}; matchings that differ: "
@@ -1202,7 +1379,7 @@ def check_train_step(cfg, raw, cuda, ba, fa):
             print(f"  NOTE: {flips} matchings differ between CPU and CUDA "
                   "(a near-tie in the cost flips the assignment)")
         if errs[worst] > LOSS_TOL:
-            raise AssertionError(f"train step {step}: {worst} off by "
+            raise AssertionError(f"{label}train step {step}: {worst} off by "
                                  f"{errs[worst]}")
     names = [n for n, _ in states["cpu"].model.named_parameters()]
 
@@ -1220,19 +1397,19 @@ def check_train_step(cfg, raw, cuda, ba, fa):
                      b.abs().max().item() / top)
                     for n, a, b in zip(names, first_grads["cuda"],
                                        first_grads["cpu"]))[-3:]
-    print(f"step 0 gradients CUDA vs CPU: |dg| / |g| over the model "
+    print(f"{label}step 0 gradients CUDA vs CPU: |dg| / |g| over the model "
           f"{rel:.3e}; worst leaves (max err / leaf max, leaf max / model "
           f"max): " + "; ".join(f"{n} {e:.2e}, {m:.2e}"
                                 for e, n, m in reversed(leaves)))
     if rel > STEP_GRAD_TOL:
-        raise AssertionError(f"step-0 gradients off by {rel}")
+        raise AssertionError(f"{label}step-0 gradients off by {rel}")
     # parameters and EMA, against each leaf's largest value plus the total
     # learning rate, the most Adam moves a coordinate: a zero-initialised
     # leaf holds only its steps, and Adam's (0.09 g0 + 0.1 g1) can cancel
     # and magnify last-bit gradient differences into a share of a step
     lr_sum = sum(states["cpu"].optimizer.schedule(t) for t in range(3))
-    for label, get in (("params", lambda s: s.params()),
-                       ("ema", lambda s: s.ema_params)):
+    for kind, get in (("params", lambda s: s.params()),
+                      ("ema", lambda s: s.ema_params)):
         drift, where = 0.0, ""
         for n, a, b, g in zip(names, get(states["cuda"]),
                               get(states["cpu"]), first_grads["cpu"]):
@@ -1242,35 +1419,32 @@ def check_train_step(cfg, raw, cuda, ba, fa):
                    / (b.detach().abs().max() + lr_sum)).item()
             if rel > drift:
                 drift, where = rel, n
-        print(f"after 3 steps, {label}: worst drift CUDA vs CPU / (leaf max "
-              f"+ sum of lr {lr_sum:.3e}) {drift:.3e} ({where})")
+        print(f"{label}after 3 steps, {kind}: worst drift CUDA vs CPU / (leaf "
+              f"max + sum of lr {lr_sum:.3e}) {drift:.3e} ({where})")
         if drift > DRIFT_TOL:
-            raise AssertionError(f"{label} drift {drift} at {where}")
+            raise AssertionError(f"{label}{kind} drift {drift} at {where}")
     del states["cpu"]
 
     state = states["cuda"]
-    expect = {"band_attention": 2 * cfg.backbone_arch[1]
-              + cfg.backbone_arch[2]}
-    expect.update(band_attention_dq=expect["band_attention"],
-                  band_attention_dkv=expect["band_attention"],
-                  masked_attention=0)
-    dense_expect = 4 * cfg.backbone_arch[1] + 2 * cfg.predictor.num_layers
-    tb = batch_to_device(train_batch(rng, cfg, TRAIN_PAIRS[1], num_gt), cuda)
+    tb = batch_to_device(train_batch(rng, cfg, pairs[1], num_gt), cuda)
     torch.cuda.synchronize()
-    ba.launches = ba.dq_launches = ba.dkv_launches = 0
-    fa.launches = fa.dense_calls = 0
-    train_step(state, tb, step_generator(0, state.step))
-    torch.cuda.synchronize()
-    launches = {"band_attention": ba.launches,
-                "band_attention_dq": ba.dq_launches,
-                "band_attention_dkv": ba.dkv_launches,
-                "masked_attention": fa.launches}
-    print(f"train step at {TRAIN_PAIRS[1]} pairs: kernel launches "
-          f"{launches}, dense full-attention calls {fa.dense_calls}")
-    if launches != expect or fa.dense_calls != dense_expect:
-        raise AssertionError(f"launches {launches} / dense "
-                             f"{fa.dense_calls}, expected {expect} "
-                             f"/ {dense_expect}")
+    zero_counts(ba, fa)
+    with dense_band_calls(ba) as dense:
+        train_step(state, tb, step_generator(0, state.step))
+        torch.cuda.synchronize()
+    launches = band_counts(ba, fa)
+    got = {**launches, "dense band form": dense[0],
+           "dense full attention": fa.dense_calls}
+    blocks = 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
+    expect = {name: 0 for name in got}
+    expect.update(band_attention=blocks, band_attention_dq=blocks,
+                  band_attention_dkv=blocks,
+                  **{"dense full attention": 4 * cfg.backbone_arch[1]
+                     + 2 * cfg.predictor.num_layers})
+    print(f"{label}train step at {pairs[1]} pairs: kernel launches {got}")
+    if got != expect:
+        raise AssertionError(f"{label}train launches {got}, expected "
+                             f"{expect}")
     return state, launches
 
 
@@ -2928,6 +3102,8 @@ def main(argv: list[str] | None = None) -> int:
     # 10. bf16 training with use_rel_pe at VidOR local-attention width
     relpe16_launches = check_train_step_relpe_bf16(cuda, ba, fa)
     torch.cuda.empty_cache()
+    # 11. VrdONE-X: serving, the reference converter and a train step
+    vrdone_x_launches = check_vrdone_x(cuda, ba, fa)
 
     # 6. train_torch.py -> eval_torch.py, and a bf16 rel-PE train_torch.py
     check_train_cli(raw)
@@ -2979,8 +3155,8 @@ def main(argv: list[str] | None = None) -> int:
     # with the fused attention off, for the position bias, the streaming
     # run's for the bias band kernel, the VidVRD bf16 eval step's for the
     # bf16 instances, the bf16 rel-PE eval step's at VidOR local width for
-    # the bias band kernel's bf16 instance; every path is in
-    # launches_by_path
+    # the bias band kernel's bf16 instance; every path, VrdONE-X's eval
+    # and train steps among them, is in launches_by_path
     by_path = {name: {"eval_forward": launches.get(name, 0),
                       "train_step": train_launches.get(name, 0),
                       "train_step_bf16": train16_launches.get(name, 0),
@@ -2989,7 +3165,9 @@ def main(argv: list[str] | None = None) -> int:
                          for route, c in detect_launches.items()},
                       "stream": stream_launches.get(name, 0),
                       **{f"serve_bf16_{width}": c.get(name, 0)
-                         for width, c in bf16_launches.items()}}
+                         for width, c in bf16_launches.items()},
+                      **{path: c.get(name, 0)
+                         for path, c in vrdone_x_launches.items()}}
                for name in sources}
     main_path = {"mega_attention": "detect_video",
                  "mega_attention_bf16": "detect_video_bf16",

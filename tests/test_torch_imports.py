@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of ``vrdone_tpu_torch``,
-``eval_torch``, ``train_torch``, ``detect_torch`` and ``chip_smoke`` in a
-fresh interpreter
-brings no JAX, flax, optax or orbax module and nothing of the JAX package
-into ``sys.modules``."""
+``eval_torch``, ``train_torch``, ``detect_torch``, the two reference
+checkpoint converters and ``chip_smoke`` in a fresh interpreter brings no
+JAX, flax, optax or orbax module and nothing of the JAX package into
+``sys.modules``."""
 
 import os
 import subprocess
@@ -16,13 +16,16 @@ import vrdone_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vrdone_tpu_torch.__path__,
                                                "vrdone_tpu_torch.")]
 for name in names + ["eval_torch", "train_torch", "detect_torch",
-                     "chip_smoke"]:
+                     "convert_reference_checkpoint_torch",
+                     "convert_mega_checkpoint_torch", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "vrdone_tpu"))
 print(len(names), "modules")
-assert "vrdone_tpu_torch.utils.precision" in names, names
+assert {"vrdone_tpu_torch.utils.precision",
+        "vrdone_tpu_torch.convert_reference",
+        "vrdone_tpu_torch.convert_mega"} <= set(names), names
 assert not bad, bad
 """
 
@@ -34,7 +37,8 @@ def test_port_imports_nothing_of_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     n = int(r.stdout.split()[0])
-    # the package's modules: config, convert, data (9), eval (4, streaming
-    # among them), models (10), ops (9), train (3), utils (2, precision
-    # among them), and the subpackages themselves
-    assert n >= 45, r.stdout
+    # the package's modules: config, convert, convert_reference,
+    # convert_mega, data (9), eval (4, streaming among them), models (10),
+    # ops (9), train (3), utils (2, precision among them), and the
+    # subpackages themselves
+    assert n >= 47, r.stdout

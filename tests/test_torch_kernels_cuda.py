@@ -406,13 +406,16 @@ def band_backward_case(cuda, seed, b, t, h, d, w, shift=False):
     # the train step's shapes
     (96, 3, 128, 24, 4), (48, 3, 128, 24, 4), (24, 3, 128, 24, 4),
     (12, 3, 128, 24, 4),
+    # VrdONE-X's (configs/vidor_x.yaml) at its 20 pairs
+    (512, 4, 64, 20, 8), (256, 4, 64, 20, 8), (128, 4, 64, 20, 8),
+    (64, 4, 64, 20, 8),
     # the widest band and w = 0 at head dims 32 and 256; T < 2w + 1
     (100, 15, 256, 4, 4), (64, 0, 256, 4, 4), (70, 15, 32, 4, 4),
     (40, 0, 32, 4, 4), (5, 3, 128, 4, 4), (1, 3, 8, 4, 4),
     # head dims off a multiple of 4: the scalar instance
     (70, 4, 33, 4, 4), (50, 3, 18, 4, 3), (40, 2, 6, 4, 5)])
 def test_band_backward_instances_match_plain_autograd(cuda, t, w, d, b, h):
-    """K2 and K3 at each instance's edges, at the train step's shapes and
+    """K2 and K3 at each instance's edges, at the train steps' shapes and
     at head dims off a multiple of 4; the instance the C side reports is a
     tiling of T."""
     for dkv in (False, True):
@@ -698,6 +701,63 @@ def test_model_forward_on_card_matches_cpu(cuda):
         assert ba.launches == 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
         assert fa.launches == (4 * cfg.backbone_arch[1]
                                + 2 * cfg.predictor.num_layers)
+        ref = cpu(x, mask)
+    for key in ("pred_logits", "pred_masks"):
+        assert max_err(out[key].cpu(), ref[key]) <= 5e-4, key
+
+
+# VrdONE-X (configs/vidor_x.yaml) at its eval width: K1 fp32 in the stem
+# and the three branch levels (8 heads of 64, window 9, T = 512 down to
+# 64), K7 fp32 in the S/O mutual attention (512 x 512, d = 64) and the
+# predictor (10 queries against themselves and the coarsest level, d = 32)
+@pytest.mark.parametrize("kind,tq,tk,d", [
+    ("band", 512, 512, 64), ("band", 256, 256, 64), ("band", 128, 128, 64),
+    ("band", 64, 64, 64), ("full", 512, 512, 64), ("full", 10, 10, 32),
+    ("full", 10, 64, 32)])
+def test_vrdone_x_shapes_match_plain(cuda, kind, tq, tk, d):
+    b, h = 16, 8
+    lens = np.random.default_rng(tq + tk).integers(2, tk + 1, b)
+    lens[0] = tk
+    q, k, v, mask = streams(tq * 7 + tk + d, b, tq, tk, h * d, lens, cuda)
+    if kind == "band":
+        kw = dict(n_head=h, window_size=9)
+        out = ba.band_attention_cuda(q, k, v, mask, **kw)
+        ref = ba.band_attention_plain(q, k, v, mask, **kw)
+    else:
+        out = fa.full_attention_cuda(q, k, v, mask, n_head=h)
+        ref = fa.full_attention_plain(q, k, v, mask, n_head=h)
+    assert max_err(out, ref) <= TOL
+
+
+def test_clip_model_forward_on_card_matches_cpu(cuda):
+    """A small VrdONE-X (CLIP-fused backbone, 12 CLIP channels a stream):
+    the CUDA forward against the CPU forward on the same weights, through
+    K1 and K7 only, as many times as without CLIP."""
+    cfg = ModelConfig(visual_dim=24, embd_dim=32, fpn_dim=16,
+                      max_seq_len=48, with_clip_feature=True, clip_dim=12,
+                      predictor=PredictorConfig(
+                          n_input=32, n_embd=16, n_hidden=64, num_layers=3))
+    gen = torch.Generator().manual_seed(2)
+    cpu = MaskVRD(cfg, device=torch.device("cpu"), generator=gen)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, AffineDropPath):
+                m.scale.uniform_(0.5, 1.5, generator=gen)
+    gpu = MaskVRD(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(
+        (3, 48, 2 * 24 + 2 * 12 + 5 + 16)).astype(np.float32))
+    mask = torch.from_numpy(np.arange(48)[None]
+                            < np.array([48, 24, 11])[:, None])
+    ba.launches = fa.launches = ba.pe_launches = 0
+    with torch.no_grad():
+        out = gpu(x.to(cuda), mask.to(cuda))
+        torch.cuda.synchronize()
+        assert ba.launches == 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
+        assert fa.launches == (4 * cfg.backbone_arch[1]
+                               + 2 * cfg.predictor.num_layers)
+        assert ba.pe_launches == 0
         ref = cpu(x, mask)
     for key in ("pred_logits", "pred_masks"):
         assert max_err(out[key].cpu(), ref[key]) <= 5e-4, key

@@ -4,7 +4,10 @@
 Embeds the subject/object visual streams and bbox geometry streams of each
 SO-pair sequence, runs subject<->object mutual cross-attention in the stem,
 fuses, and produces a temporal feature pyramid. The packed input's channels
-are ``[s_visual | o_visual | so_bbox | s_bbox | o_bbox]``.
+are ``[s_visual | o_visual | so_bbox | s_bbox | o_bbox]``; with ``n_clip``
+(VrdONE-X, the CLIP-fused variant) each entity's CLIP features follow the
+visual ones: ``[s_visual | o_visual | s_clip | o_clip | so_bbox | s_bbox |
+o_bbox]``.
 """
 
 from __future__ import annotations
@@ -39,11 +42,8 @@ class SOSBackbone(nn.Module):
         super().__init__()
         if len(arch) != 3 or len(mha_win_size) != 1 + arch[-1]:
             raise ValueError(f"bad arch {arch} / windows {mha_win_size}")
-        if n_clip is not None:
-            raise NotImplementedError(
-                "the CLIP-fused backbone is not ported yet; see ROADMAP.md "
-                "queue 1")
         self.n_visual = n_visual
+        self.n_clip = n_clip
         self.n_bbox_so = n_bbox_so
         self.n_bbox_entity = n_bbox_entity
         self.arch = tuple(arch)
@@ -58,6 +58,17 @@ class SOSBackbone(nn.Module):
             if with_ln:
                 self.add_module(f"visual_embd_norm_{i}",
                                 ChannelLayerNorm(n_embd, device=device))
+        if n_clip is not None:
+            for i in range(arch[0]):
+                self.add_module(f"clip_embd_{i}", MaskedConv1D(
+                    n_clip if i == 0 else n_embd, n_embd, n_embd_ks,
+                    use_bias=not with_ln, device=device))
+                if with_ln:
+                    self.add_module(f"clip_embd_norm_{i}",
+                                    ChannelLayerNorm(n_embd, device=device))
+            self.visual_clip_fuse = ConvMLP(2 * n_embd, n_embd, n_embd,
+                                            num_layers=2, kernel_size=fuse_ks,
+                                            device=device)
         self.bbox_entity_embd = MaskedConv1D(n_bbox_entity, n_embd, n_embd_ks,
                                              device=device)
         self.bbox_entity_norm = (ChannelLayerNorm(n_embd, device=device)
@@ -103,14 +114,21 @@ class SOSBackbone(nn.Module):
                                  persistent=False)
 
     def _split_channels(self, x: Tensor):
+        """The seven streams ``(s_feat, o_feat, s_clip, o_clip, so_bbox,
+        s_bbox, o_bbox)``; the CLIP ones are ``None`` without ``n_clip``."""
         nv, nso, ne = self.n_visual, self.n_bbox_so, self.n_bbox_entity
-        expect = 2 * nv + nso + 2 * ne
+        nc = self.n_clip or 0
+        expect = 2 * nv + 2 * nc + nso + 2 * ne
         if x.shape[-1] != expect:
             raise ValueError(f"packed input has {x.shape[-1]} channels, "
                              f"expected {expect}")
-        return (x[..., :nv], x[..., nv:2 * nv], x[..., 2 * nv:2 * nv + nso],
-                x[..., 2 * nv + nso:2 * nv + nso + ne],
-                x[..., 2 * nv + nso + ne:])
+        base = 2 * nv + 2 * nc
+        s_clip = o_clip = None
+        if self.n_clip is not None:
+            s_clip, o_clip = x[..., 2 * nv:2 * nv + nc], x[..., 2 * nv + nc:base]
+        return (x[..., :nv], x[..., nv:2 * nv], s_clip, o_clip,
+                x[..., base:base + nso], x[..., base + nso:base + nso + ne],
+                x[..., base + nso + ne:])
 
     def _pe(self, t: int) -> Tensor:
         """The table cut to t frames; at eval, stretched linearly past
@@ -134,7 +152,8 @@ class SOSBackbone(nn.Module):
         pyramid tuples, level 0 at full resolution. ``generator`` feeds
         stochastic depth and dropout in training."""
         g = generator
-        s_feat, o_feat, so_bbox, s_bbox, o_bbox = self._split_channels(x)
+        (s_feat, o_feat, s_clip, o_clip,
+         so_bbox, s_bbox, o_bbox) = self._split_channels(x)
         mask_f = mask[..., None].to(s_feat.dtype)
 
         # shared-weight conv embedding of both visual streams
@@ -143,6 +162,19 @@ class SOSBackbone(nn.Module):
             norm = getattr(self, f"visual_embd_norm_{i}", None)
             s_feat = self._norm_relu(norm, conv(s_feat, mask)[0])
             o_feat = self._norm_relu(norm, conv(o_feat, mask)[0])
+
+        # the CLIP streams' own embedding under the same mask, fused into
+        # the visual streams
+        if self.n_clip is not None:
+            for i in range(self.arch[0]):
+                conv = getattr(self, f"clip_embd_{i}")
+                norm = getattr(self, f"clip_embd_norm_{i}", None)
+                s_clip = self._norm_relu(norm, conv(s_clip, mask)[0])
+                o_clip = self._norm_relu(norm, conv(o_clip, mask)[0])
+            s_feat = self.visual_clip_fuse(torch.cat([s_feat, s_clip], -1),
+                                           g) * mask_f
+            o_feat = self.visual_clip_fuse(torch.cat([o_feat, o_clip], -1),
+                                           g) * mask_f
 
         if self.use_abs_pe:
             if s_feat.dtype != torch.float32:
