@@ -137,6 +137,22 @@ one process per source, all started together, into
      and one fp32 train step at the config's 20 pairs against the CPU
      (losses within ``LOSS_TOL``), its launches (K1 with lse, K2, K3 7
      each, full attention dense) and its time and profile.
+ 12. (run right after 7) ``detect_video_tta`` at full width (MEGA's
+     defaults, 8 frames of 608x1088, ``scales=(0.75,)`` with flips: four
+     views) in fp32 and bf16: its K5 (K5 bf16) and ``bias_factors``
+     launches equal to the sum of the four views' single ``detect_video``
+     launches, every merged box on the canvas, both dtypes timed in turns;
+     the small detector's TTA on the card against the CPU on the frames
+     where no view's proposals flipped (``DETECT_TOL``); then raw frames to
+     triplets with the port alone on a synthetic VidVRD-layout corpus (two
+     train videos and one test video of 40 frames of 576x1024, a drifting
+     still image each): ``extract_gt_features_torch.py`` (its R-101
+     defaults), ``train_torch.py`` for one epoch of ``configs/vidvrd.yaml``,
+     ``detect_torch.py``, ``extract_proposal_features_torch.py`` and
+     ``eval_torch.py`` (six finite metrics), each a subprocess on the card;
+     the extraction's frames a second at full width in fp32 and bf16, and
+     ``extract_gt_features_torch.py`` on the card against the CPU at a
+     small configuration (``DETECT_TOL``).
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
@@ -1874,18 +1890,19 @@ def check_train_cli(raw, device: str = "cuda", model_over: dict | None = None,
         if not evaluate:
             return
         metrics = dict(re_metric(r.stdout))
-        keys = {"RelDet_mAP", "RelDet_AR@50", "RelDet_AR@100", "RelTag_AP@1",
-                "RelTag_AP@5", "RelTag_AP@10"}
-        if set(metrics) != keys or not all(map(math.isfinite,
-                                               metrics.values())):
+        if set(metrics) != set(METRIC_NAMES) or not all(
+                map(math.isfinite, metrics.values())):
             raise AssertionError(f"eval_torch.py metrics {metrics}")
         print(f"train_torch.py -> eval_torch.py: {metrics}")
 
 
+METRIC_NAMES = ("RelDet_mAP", "RelDet_AR@50", "RelDet_AR@100",
+                "RelTag_AP@1", "RelTag_AP@5", "RelTag_AP@10")
+
+
 def re_metric(text: str):
     for name, value in re.findall(
-            r"(RelDet_mAP|RelDet_AR@50|RelDet_AR@100|RelTag_AP@1|"
-            r"RelTag_AP@5|RelTag_AP@10): ([0-9.eE+-]+|nan)", text):
+            rf"({'|'.join(METRIC_NAMES)}): ([0-9.eE+-]+|nan)", text):
         yield name, float(value)
 
 
@@ -2251,17 +2268,38 @@ def check_mega_bf16(cuda, pb, ma) -> dict:
             "by_shape": rows}
 
 
-def check_detect_video(cuda, pb, ma) -> dict:
-    """detect_video at full width on the card: the launches of one video
+def zero_mega_counts(ma, pb) -> None:
+    ma.launches = ma.bf16_launches = 0
+    pb.launches = pb.factor_launches = 0
+
+
+def mega_counts(ma, pb) -> dict:
+    """The MEGA kernels' launches since the counts were last set to 0 (the
+    fp32 name counts fp32 instances only)."""
+    return {"mega_attention": ma.launches - ma.bf16_launches,
+            "mega_attention_bf16": ma.bf16_launches,
+            "position_bias": pb.launches, "bias_factors": pb.factor_launches}
+
+
+def full_width_detector(cuda):
+    """MEGA's defaults (R-101-C4, 300 key / 75 reference proposals, window
+    25, global 10) with random weights drawn on the CPU from a seed, on the
+    card."""
+    from vrdone_tpu_torch.models.detector import MegaDetector
+    return MegaDetector(num_classes=31, device=torch.device("cpu"),
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+
+
+def check_detect_video(cuda, pb, ma, det) -> dict:
+    """detect_video at full width on the card (``det``, from
+    ``full_width_detector``): the launches of one video
     through each attention route and in bf16 (the fused route, K5's bf16
     instance only), phase times (fp32 and bf16 in turns), memory, the
     stream phase's kernels a frame, the busy share of a whole video, and
     the memory property. Returns the launches by route (the fp32 names
     count fp32 instances only)."""
     from vrdone_tpu_torch.models import detector
-    from vrdone_tpu_torch.models.detector import MegaDetector, detect_video
-    det = MegaDetector(num_classes=31, device=torch.device("cpu"),
-                       generator=torch.Generator().manual_seed(0)).to(cuda)
+    from vrdone_tpu_torch.models.detector import detect_video
     rng = np.random.default_rng(8)
     t = DETECT_FRAMES
     images = rng.integers(0, 256, (t, *CANVAS, 3), dtype=np.uint8)
@@ -2277,18 +2315,14 @@ def check_detect_video(cuda, pb, ma) -> dict:
             return real_stream(*args, **kwargs)
 
         torch.cuda.synchronize()
-        ma.launches = ma.bf16_launches = 0
-        pb.launches = pb.factor_launches = 0
+        zero_mega_counts(ma, pb)
         detector.stream_video = capture
         try:
             outs[route] = detect_video(det, images, hw, **kw)
         finally:
             detector.stream_video = real_stream
         torch.cuda.synchronize()
-        launches[route] = {"mega_attention": ma.launches - ma.bf16_launches,
-                           "mega_attention_bf16": ma.bf16_launches,
-                           "position_bias": pb.launches,
-                           "bias_factors": pb.factor_launches}
+        launches[route] = mega_counts(ma, pb)
         print(f"{route}: {t} frames, kernel launches {launches[route]}")
         for key, v in outs[route].items():
             if not np.isfinite(v).all():
@@ -2385,22 +2419,16 @@ def check_detect_video(cuda, pb, ma) -> dict:
     print(f"frame 0 changed: frame 3's logits move by {moved:.3e}")
     if not moved > 1e-6:
         raise AssertionError("later frames ignore earlier ones")
-    del det
     torch.cuda.empty_cache()
     return launches
 
 
-def check_detect_vs_cpu(cuda) -> None:
-    """A small detector (R (1, 1, 1), the full MEGA head) on the card
-    against the same weights on the CPU: the RPN outputs, proposal
-    selection on identical inputs, RoIAlign -> C5 -> fc0 and the MEGA
-    stream on identical rois and fc0 inputs, then the whole path with its
-    proposal flips counted."""
-    from vrdone_tpu_torch.models import rpn as rpn_lib
-    from vrdone_tpu_torch.models.detector import (MegaDetector,
-                                                  detect_video,
-                                                  precompute_chunk)
-    from vrdone_tpu_torch.models.mega import global_indices, stream_video
+def small_detector_case(cuda):
+    """The small detector (R (1, 1, 1), the full MEGA head) of phases 7 and
+    12, from one seed on the CPU and copied to the card, and its 5 frames
+    of 128 x 192: (knobs, CPU detector, card detector, frames, hw, key
+    proposals a frame)."""
+    from vrdone_tpu_torch.models.detector import MegaDetector
     kw = dict(num_classes=31, resnet_layers=(1, 1, 1), base_num=16,
               window=5, key_loc=2, global_size=3)
     cpu_det = MegaDetector(**kw, device=torch.device("cpu"),
@@ -2410,6 +2438,20 @@ def check_detect_vs_cpu(cuda) -> None:
     rng = np.random.default_rng(9)
     t, hw, nk = 5, (128, 192), 24
     images = rng.integers(0, 256, (t, *hw, 3), dtype=np.uint8)
+    return kw, cpu_det, gpu_det, images, hw, nk
+
+
+def check_detect_vs_cpu(cuda) -> None:
+    """A small detector (R (1, 1, 1), the full MEGA head) on the card
+    against the same weights on the CPU: the RPN outputs, proposal
+    selection on identical inputs, RoIAlign -> C5 -> fc0 and the MEGA
+    stream on identical rois and fc0 inputs, then the whole path with its
+    proposal flips counted."""
+    from vrdone_tpu_torch.models import rpn as rpn_lib
+    from vrdone_tpu_torch.models.detector import detect_video, precompute_chunk
+    from vrdone_tpu_torch.models.mega import global_indices, stream_video
+    kw, cpu_det, gpu_det, images, hw, nk = small_detector_case(cuda)
+    t = len(images)
 
     def worst(a, b):
         a, b = a.detach().cpu(), b.detach().cpu()
@@ -2501,16 +2543,10 @@ def check_detect_bf16_vs_cpu(cuda, pb, ma) -> None:
     near-ties, and a card whose bf16 is as close to fp32 as the CPU's is
     lies within twice that of the CPU's bf16. Every gap is printed before
     any is held."""
-    from vrdone_tpu_torch.models.detector import (MegaDetector,
-                                                  extract_video_features)
+    from vrdone_tpu_torch.models.detector import extract_video_features
     from vrdone_tpu_torch.models.mega import global_indices, stream_video
     from vrdone_tpu_torch.utils.precision import cast_floating
-    kw = dict(num_classes=31, resnet_layers=(1, 1, 1), base_num=16,
-              window=5, key_loc=2, global_size=3)
-    cpu32 = MegaDetector(**kw, device=torch.device("cpu"),
-                         generator=torch.Generator().manual_seed(1))
-    gpu32 = MegaDetector(**kw, device=cuda)
-    gpu32.load_state_dict(cpu32.state_dict())
+    kw, cpu32, gpu32, *_ = small_detector_case(cuda)
     devs = {"cpu": (torch.device("cpu"), cast_floating(cpu32)),
             "cuda": (cuda, cast_floating(gpu32))}
     rng = np.random.default_rng(13)
@@ -2626,6 +2662,418 @@ def check_detect_cli(device: str = "cuda") -> None:
         print(f"detect_torch.py on {device} (R-101, 6 frames, its default "
               f"--compute_dtype bfloat16): exit 0 in "
               f"{time.perf_counter() - t0:.1f} s; {r.stdout.strip()}")
+
+
+# -- phase 12: detect_video_tta, and frames to triplets with the port alone --
+
+# 8 frames, not phase 7's 16: at 16 the phase added 126 s to the script on
+# an H100, over its two-minute budget
+TTA_FRAMES, TTA_SCALES = 8, (0.75,)
+# the frames of phase 12's corpus: 576 x 1024 fits detect_torch.py's canvas
+CORPUS_FRAMES, CORPUS_HW = 40, (576, 1024)
+CORPUS_DRIFT = (2, 1)       # pixels a frame the still image moves, x and y
+# the corpus's entities (category, box as shares of the frame) and
+# relations (subject, object, predicate, begin, end) by split
+CORPUS_OBJECTS = (("dog", (0.10, 0.20, 0.35, 0.60)),
+                  ("person", (0.45, 0.15, 0.60, 0.80)),
+                  ("car", (0.65, 0.50, 0.95, 0.90)))
+CORPUS_RELATIONS = {"train": ((0, 1, "chase", 5, 30), (1, 2, "watch", 10, 35)),
+                    "test": ((0, 1, "chase", 3, 33),)}
+CORPUS_VIDEOS = {"train": ("synth_0000", "synth_0001"),
+                 "test": ("synthtest_0000",)}
+CORPUS_TRACKLETS = 20       # detect_torch.py --max_proposal: 380 SO pairs
+
+
+def tta_views(hw, scales) -> list:
+    """detect_video_tta's views in its order: (scale, hflip, view hw)."""
+    h, w = hw
+    out = [(1.0, False, (h, w)), (1.0, True, (h, w))]
+    for s in scales:
+        out += [(s, flip, (int(round(h * s)), int(round(w * s))))
+                for flip in (False, True)]
+    return out
+
+
+def check_detect_tta(cuda, pb, ma, det) -> dict:
+    """detect_video_tta at full width on the card (phase 12a; ``det`` from
+    ``full_width_detector``): TTA_FRAMES frames of 608x1088 with
+    TTA_SCALES and flips, four views, in fp32 and bf16. Its K5 (or K5 bf16)
+    and bias_factors launches must equal the sum of the four views' single
+    detect_video launches, measured here, which are 6 and 3 a frame a view
+    (no K6 and no other-dtype K5: no dense attention form); every merged
+    box lies on the canvas; both dtypes timed in turns. Returns the
+    launches by route."""
+    from vrdone_tpu_torch.models.detector import (_ViewFrames, detect_video,
+                                                  detect_video_tta)
+    rng = np.random.default_rng(14)
+    t = TTA_FRAMES
+    images = rng.integers(0, 256, (t, *CANVAS, 3), dtype=np.uint8)
+    hw = np.asarray(CANVAS, np.float32)
+    views = tta_views(CANVAS, TTA_SCALES)
+    launches = {}
+    for dtype, route in (("float32", "detect_video_tta"),
+                         ("bfloat16", "detect_video_tta_bf16")):
+        single = []
+        for s, flip, vhw in views:
+            torch.cuda.synchronize()
+            zero_mega_counts(ma, pb)
+            detect_video(det, _ViewFrames(images, scale=s, hflip=flip),
+                         np.asarray(vhw, np.float32), compute_dtype=dtype)
+            torch.cuda.synchronize()
+            single.append(mega_counts(ma, pb))
+        want = {k: sum(c[k] for c in single) for k in single[0]}
+        zero_mega_counts(ma, pb)
+        res = detect_video_tta(det, images, hw, scales=TTA_SCALES,
+                               hflip=True, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        launches[route] = mega_counts(ma, pb)
+        n = len(views)
+        k5 = "mega_attention_bf16" if dtype == "bfloat16" else "mega_attention"
+        formula = {"mega_attention": 0, "mega_attention_bf16": 0,
+                   "position_bias": 0, "bias_factors": 3 * t * n, k5: 6 * t * n}
+        print(f"{route}: {t} frames, {n} views "
+              f"({', '.join(f'{h}x{w}' + (' flipped' if f else '') for _, f, (h, w) in views)}): "
+              f"kernel launches {launches[route]}; the views' single "
+              f"detect_video calls {single}")
+        if not launches[route] == want == formula:
+            raise AssertionError(f"{route}: launches {launches[route]}, the "
+                                 f"views' sum {want}, expected {formula}")
+        counts = [len(r["boxes"]) for r in res]
+        for f, r in enumerate(res):
+            b = r["boxes"]
+            if not (np.isfinite(b).all() and np.isfinite(r["scores"]).all()
+                    and (b >= 0).all() and (b[:, 0::2] <= CANVAS[1] - 1).all()
+                    and (b[:, 1::2] <= CANVAS[0] - 1).all()):
+                raise AssertionError(f"{route}: frame {f} has a box off the "
+                                     f"canvas or a non-finite value")
+        if not sum(counts):
+            raise AssertionError(f"{route}: no detection in {t} frames")
+        print(f"  merged detections a frame {min(counts)}-{max(counts)}, "
+              f"{sum(counts)} in all, every box on the "
+              f"{CANVAS[0]}x{CANVAS[1]} canvas")
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        detect_video_tta(det, images, hw, scales=TTA_SCALES, hflip=True,
+                         compute_dtype=dtype)
+        wall = time.perf_counter() - t0
+        print(f"detect_video_tta {t} frames {CANVAS[0]}x{CANVAS[1]} {dtype}, "
+              f"{len(views)} views: {wall:.3f} s, {t / wall:.2f} frames/s")
+    return launches
+
+
+def check_detect_tta_vs_cpu(cuda) -> None:
+    """Phase 7's small detector (``small_detector_case``) through
+    detect_video_tta on the card and on the CPU, with TTA_SCALES and flips:
+    on every frame where no view's proposals flipped (RPN near-ties, counted
+    and printed), labels and box counts equal, boxes and scores within
+    DETECT_TOL of their largest magnitude."""
+    from vrdone_tpu_torch.models import detector
+    _, cpu_det, gpu_det, images, hw, nk = small_detector_case(cuda)
+    t = len(images)
+    real = detector.detect_video
+    views, res = {}, {}
+    for name, det in (("cpu", cpu_det), ("cuda", gpu_det)):
+        views[name] = []
+
+        def capture(*args, name=name, **kwargs):
+            views[name].append(real(*args, **kwargs))
+            return views[name][-1]
+
+        detector.detect_video = capture
+        try:
+            res[name] = detector.detect_video_tta(
+                det, images, np.asarray(hw, np.float32), scales=TTA_SCALES,
+                hflip=True, key_post_nms=nk, score_thresh=0.02)
+        finally:
+            detector.detect_video = real
+    flipped = [f for f in range(t)
+               if not all(np.array_equal(c["valid"][f], g["valid"][f])
+                          and np.allclose(c["proposals"][f],
+                                          g["proposals"][f], atol=1e-3,
+                                          rtol=0)
+                          for c, g in zip(views["cpu"], views["cuda"]))]
+    clean = [f for f in range(t) if f not in flipped]
+    print(f"small detector, detect_video_tta CUDA vs CPU "
+          f"({len(views['cuda'])} views): frames whose proposals differ in "
+          f"some view (RPN near-ties): {len(flipped)} of {t} {flipped}")
+    for f in clean:
+        c, g = res["cpu"][f], res["cuda"][f]
+        if not np.array_equal(c["labels"], g["labels"]):
+            raise AssertionError(f"small detector TTA: frame {f} labels "
+                                 f"{g['labels']} on the card, {c['labels']} "
+                                 f"on the CPU")
+    errs = {}
+    for key in ("boxes", "scores"):
+        if not clean:
+            break
+        ref = np.concatenate([res["cpu"][f][key] for f in clean])
+        got = np.concatenate([res["cuda"][f][key] for f in clean])
+        errs[key] = float(np.abs(got - ref).max()
+                          / max(np.abs(ref).max(), 1e-30))
+    n = sum(len(res["cpu"][f]["labels"]) for f in clean)
+    print(f"  {len(clean)} frames compared, {n} detections, labels equal; "
+          f"max |err| / max |x|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if not n or not all(v <= DETECT_TOL for v in errs.values()):
+        raise AssertionError(f"small detector TTA off: {errs}, {n} "
+                             f"detections compared")
+
+
+def write_frames_corpus(root: Path) -> None:
+    """The VidVRD-layout corpus of raw frames for phase 12b under ``root``:
+    CORPUS_VIDEOS' annotation JSONs (the format of tests/synth_corpus.py)
+    under annotations/<split>/ and their frames as 000001.jpg onward under
+    frames/<split>/<video>/, CORPUS_HW and CORPUS_FRAMES each. A video is
+    one still image of blocky noise with CORPUS_OBJECTS painted on it,
+    moving CORPUS_DRIFT pixels a frame, so that the detector's boxes link
+    into tracklets; every entity is annotated on every frame."""
+    from PIL import Image
+    rng = np.random.default_rng(15)
+    h, w = CORPUS_HW
+    dx, dy = CORPUS_DRIFT
+    ph, pw = h + dy * CORPUS_FRAMES, w + dx * CORPUS_FRAMES
+    for split, names in CORPUS_VIDEOS.items():
+        (root / "annotations" / split).mkdir(parents=True)
+        for name in names:
+            base = rng.integers(0, 256, (ph // 16 + 1, pw // 16 + 1, 3),
+                                dtype=np.uint8)
+            base = base.repeat(16, 0).repeat(16, 1)[:ph, :pw]
+            boxes = []
+            for _, (x0, y0, x1, y1) in CORPUS_OBJECTS:
+                b = [int(x0 * w), int(y0 * h), int(x1 * w), int(y1 * h)]
+                base[b[1]:b[3], b[0]:b[2]] = rng.integers(0, 256, 3)
+                boxes.append(b)
+            frames = root / "frames" / split / name
+            frames.mkdir(parents=True)
+            trajectories = []
+            for f in range(CORPUS_FRAMES):
+                Image.fromarray(base[dy * f:dy * f + h, dx * f:dx * f + w]
+                                ).save(frames / f"{f + 1:06d}.jpg")
+                trajectories.append([
+                    {"tid": tid, "bbox": {"xmin": float(x0 - dx * f),
+                                          "ymin": float(y0 - dy * f),
+                                          "xmax": float(x1 - dx * f),
+                                          "ymax": float(y1 - dy * f)}}
+                    for tid, (x0, y0, x1, y1) in enumerate(boxes)])
+            anno = {"video_id": name, "height": h, "width": w,
+                    "frame_count": CORPUS_FRAMES,
+                    "subject/objects": [{"tid": tid, "category": c}
+                                        for tid, (c, _) in
+                                        enumerate(CORPUS_OBJECTS)],
+                    "trajectories": trajectories,
+                    "relation_instances": [
+                        {"subject_tid": s, "object_tid": o, "predicate": p,
+                         "begin_fid": b, "end_fid": e}
+                        for s, o, p, b, e in CORPUS_RELATIONS[split]]}
+            with open(root / "annotations" / split / f"{name}.json",
+                      "w") as fh:
+                json.dump(anno, fh)
+
+
+def write_corpus_checkpoint(path: Path) -> None:
+    """The detector checkpoint of phase 12b, a whole detector's ``.npz`` at
+    the CLIs' defaults (R-101-C4, 35 classes): random weights from a seed
+    with the RPN's and the box head's regressors zeroed, so that every box
+    is an anchor. Random weights saturate the features (max |visual| about
+    8e7 at full width), and random regressors then move each box onto the
+    frame's edge, with no area: no two boxes overlap, and the tracker links
+    none."""
+    from vrdone_tpu_torch.convert import params_to_jax
+    from vrdone_tpu_torch.models.detector import MegaDetector
+    det = MegaDetector(num_classes=35, device=torch.device("cpu"),
+                       generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in (det.rpn.bbox_pred, det.box_head.bbox_pred):
+            layer.weight.zero_()
+            layer.bias.zero_()
+    np.savez(path, **params_to_jax(det.state_dict()))
+
+
+def check_frames_to_triplets(raw, cuda, ma, pb) -> None:
+    """Phase 12b, the port alone from raw frames to triplets on the card,
+    each step a subprocess: extract_gt_features_torch.py over
+    the train annotations (its defaults: R-101, 16 box slots, window 25,
+    global 10), train_torch.py for one epoch of configs/vidvrd.yaml on
+    those features, detect_torch.py on the test frames (``--score_thresh
+    0.02``, at most CORPUS_TRACKLETS tracklets and at least one),
+    extract_proposal_features_torch.py on its proposal pickles, and
+    eval_torch.py on the checkpoint (every proposal's features read, six
+    finite metrics); the detector and the extractors read one whole
+    detector's ``.npz`` (``write_corpus_checkpoint``). Then the extraction's
+    frames a second at full width in fp32 and bf16 (in turns, no MEGA
+    kernel launched: the dense route), and extract_gt_features_torch.py on
+    the card against the CPU at a small configuration (frame ids and tids
+    equal, features within DETECT_TOL of max |ref|)."""
+    import pickle
+
+    import yaml
+
+    import extract_gt_features_torch as egt
+    from vrdone_tpu_torch.data.datasets import VidVRDDataset
+    device = str(cuda)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_frames_corpus(root)
+        ckpt = ["--ckpt_path", str(root / "detector.npz")]
+        write_corpus_checkpoint(root / "detector.npz")
+        feats = root / "features"
+        cfg = json.loads(json.dumps(raw))
+        cfg["dataset_config"].update(
+            ann_dir=str(root / "annotations"),
+            info_dir=str(feats / "per_video_val"),
+            gt_boxfeatures_dir=str(feats / "GT_boxfeatures_training"),
+            test_boxfeatures_dir=str(feats / "Proposal_boxfeatures_test"),
+            cache_dir=str(root / "cache"))
+        cfg["training_dataset_config"]["num_pairs"] = 2
+        cfg["training_config"].update(batch_size=2, training_epoch=1,
+                                      total_epoch=2, warmup_epochs=1,
+                                      log_interval=1, eval_start_epoch=1)
+        cfg["prepare_gt_config"]["gt_relations_path"] = str(root / "gts.json")
+        cfg_path = root / "cfg.yaml"
+        cfg_path.write_text(yaml.safe_dump(cfg))
+        exp = root / "exp"
+        common = ["--data_name", "vidvrd", "--cfg_path", str(cfg_path),
+                  "--exp_dir", str(exp), "--device", device]
+        steps = [
+            ("extract_gt_features_torch.py",
+             ["--anno_dir", str(root / "annotations" / "train"),
+              "--frames_dir", str(root / "frames" / "train"), "--out_dir",
+              str(feats / "GT_boxfeatures_training"), *ckpt,
+              "--device", device]),
+            ("train_torch.py", common),
+            ("detect_torch.py",
+             ["--frames_dir", str(root / "frames" / "test"), "--out_dir",
+              str(feats / "per_video_val"), "--score_thresh", "0.02",
+              "--max_proposal", str(CORPUS_TRACKLETS), *ckpt,
+              "--device", device]),
+            ("extract_proposal_features_torch.py",
+             ["--proposal_dir", str(feats / "per_video_val"), "--frames_dir",
+              str(root / "frames" / "test"), "--out_dir",
+              str(feats / "Proposal_boxfeatures_test"), *ckpt,
+              "--device", device]),
+            ("eval_torch.py",
+             [*common, "--ckpt_path", str(exp / "model_last.ckpt"),
+              "--topk", "3"])]
+        n_props = {}
+        for script, args in steps:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, str(ROOT / script), *args],
+                               cwd=ROOT, capture_output=True, text=True,
+                               timeout=600)
+            print(f"frames to triplets: {script} on {device}: exit "
+                  f"{r.returncode} in {time.perf_counter() - t0:.1f} s"
+                  + (f"; {r.stdout.strip()}" if script.startswith(
+                      ("extract", "detect")) else ""))
+            if r.returncode != 0:
+                raise AssertionError(f"{script} failed:\n{r.stdout[-3000:]}"
+                                     f"\n{r.stderr[-3000:]}")
+            if script == "detect_torch.py":
+                for name in CORPUS_VIDEOS["test"]:
+                    with open(feats / "per_video_val" / f"{name}.pkl",
+                              "rb") as fh:
+                        n_props[name] = pickle.load(fh)["traj_proposal"][
+                            "num_proposals"]
+                    if n_props[name] < 1:
+                        raise AssertionError(f"detect_torch.py wrote no "
+                                             f"tracklet for {name}")
+        metrics = dict(re_metric(r.stdout))
+        if set(metrics) != set(METRIC_NAMES) or not all(
+                map(math.isfinite, metrics.values())):
+            raise AssertionError(f"eval_torch.py metrics {metrics}")
+        # the eval loader reads every proposal's features (it asserts each
+        # trajectory's frame count)
+        test_cfg = dict(cfg["dataset_config"], **cfg["test_dataset_config"],
+                        cache_dir=str(root / "cache_check"))
+        dataset = VidVRDDataset(test_cfg)
+        for name, n in n_props.items():
+            item = dataset._prepare_test(name)
+            if n >= 2 and len(item["visual_features_list"]) != n:
+                raise AssertionError(f"{name}: features of "
+                                     f"{len(item['visual_features_list'])} "
+                                     f"of {n} proposals")
+        print(f"frames to triplets: proposal tracklets {n_props}, each with "
+              f"its features; eval_torch.py {metrics}")
+
+        # the extraction's rate at full width, fp32 and bf16 in turns
+        name = CORPUS_VIDEOS["train"][0]
+        with open(root / "annotations" / "train" / f"{name}.json") as fh:
+            anno = json.load(fh)
+        args = egt.parse_args(["--anno_dir", "-", "--frames_dir", "-",
+                               "--out_dir", "-", "--device", str(cuda)])
+        det = egt.build_extractor(args, args.box_slots,
+                                  min(15, args.box_slots))
+        for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+            torch.cuda.synchronize()
+            zero_mega_counts(ma, pb)
+            t0 = time.perf_counter()
+            egt.extract_video(det, anno, str(root / "frames" / "train"), name,
+                              box_slots=args.box_slots, compute_dtype=dtype)
+            wall = time.perf_counter() - t0
+            seen = mega_counts(ma, pb)
+            print(f"extract_gt_features_torch.extract_video {CORPUS_FRAMES} "
+                  f"frames {CORPUS_HW[0]}x{CORPUS_HW[1]} {dtype}: "
+                  f"{CORPUS_FRAMES / wall:.2f} frames/s (JPEG reads "
+                  f"included); MEGA kernel launches {seen}")
+            if any(seen.values()):
+                raise AssertionError("extraction left the dense route")
+        del det
+        torch.cuda.empty_cache()
+
+    check_gt_extractor_vs_cpu(cuda)
+
+
+def check_gt_extractor_vs_cpu(cuda) -> None:
+    """extract_gt_features_torch.py (its ``main``) on the card against
+    ``--device cpu`` at a small configuration (R (1, 1, 1), 4 box slots,
+    window 3, global 2) over 6 frames of 64 x 96: keys, frame ids and tids
+    equal, features within DETECT_TOL of max |ref|."""
+    import pickle
+
+    from PIL import Image
+
+    import extract_gt_features_torch as egt
+    rng = np.random.default_rng(16)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "anno").mkdir()
+        (root / "frames" / "vid").mkdir(parents=True)
+        traj = []
+        for f in range(6):
+            Image.fromarray(rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)
+                            ).save(root / "frames" / "vid" / f"{f + 1:06d}.jpg")
+            traj.append([{"tid": k, "bbox": {
+                "xmin": 4.0 + 2 * f + 30 * k, "ymin": 6.0,
+                "xmax": 30.0 + 2 * f + 30 * k, "ymax": 50.0}}
+                for k in range(f % 3 + 1)])
+        (root / "anno" / "vid.json").write_text(json.dumps(
+            {"video_id": "vid", "height": 64, "width": 96, "frame_count": 6,
+             "trajectories": traj, "relation_instances": [],
+             "subject/objects": [{"tid": k, "category": "dog"}
+                                 for k in range(3)]}))
+        out = {}
+        for dev in (str(cuda), "cpu"):
+            egt.main(["--anno_dir", str(root / "anno"), "--frames_dir",
+                      str(root / "frames"), "--out_dir", str(root / dev),
+                      "--resnet_layers", "1,1,1", "--box_slots", "4",
+                      "--window", "3", "--global_size", "2",
+                      "--device", dev])
+            with open(root / dev / "vid.pkl", "rb") as fh:
+                out[dev] = pickle.load(fh)
+    got, ref = out[str(cuda)], out["cpu"]
+    if list(got) != list(ref) or not all(
+            got[f]["frame_id"] == ref[f]["frame_id"]
+            and np.array_equal(got[f]["tids"], ref[f]["tids"]) for f in ref):
+        raise AssertionError("extract_gt_features_torch.py: frame ids or "
+                             "tids differ between the card and the CPU")
+    a, b = (np.concatenate([d[f]["visual_features"] for f in d])
+            for d in (got, ref))
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    print(f"extract_gt_features_torch.py, small configuration, card vs CPU: "
+          f"{len(ref)} frames, ids and tids equal, features max |err| / "
+          f"max |x| {err:.3e}")
+    if not err <= DETECT_TOL:
+        raise AssertionError(f"extract_gt_features_torch.py off by {err}")
 
 
 def band_pe_library_mask(mask: torch.Tensor, rel_pe: torch.Tensor,
@@ -3112,10 +3560,18 @@ def main(argv: list[str] | None = None) -> int:
 
     # 7. MEGA: detect_video at full width, the small detector against the
     # CPU, detect_torch.py
-    detect_launches = check_detect_video(cuda, pb, ma)
+    det = full_width_detector(cuda)
+    detect_launches = check_detect_video(cuda, pb, ma, det)
     check_detect_vs_cpu(cuda)
     check_detect_bf16_vs_cpu(cuda, pb, ma)
     check_detect_cli()
+    # 12. detect_video_tta at full width and against the CPU, then frames
+    # to triplets with the port alone
+    detect_launches.update(check_detect_tta(cuda, pb, ma, det))
+    del det
+    torch.cuda.empty_cache()
+    check_detect_tta_vs_cpu(cuda)
+    check_frames_to_triplets(raw, cuda, ma, pb)
 
     # 8. the streaming runner at VidOR local-attention width
     stream_launches = check_streaming(cuda, ba, fa, pe_alone, alone)

@@ -7,6 +7,7 @@ synthetic corpora."""
 import importlib
 import inspect
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -20,8 +21,8 @@ from vrdone_tpu_torch.eval import convert as tconvert
 from vrdone_tpu_torch.eval.metrics import relation_metrics as tmetrics
 
 COPIES = ["data.datasets", "data.features", "data.category",
-          "data.memmap_cache", "data.native", "eval.metrics", "eval.convert",
-          "utils.logging"]
+          "data.memmap_cache", "data.native", "data.graph", "eval.metrics",
+          "eval.convert", "utils.logging"]
 
 
 @pytest.mark.parametrize("name", COPIES)
@@ -122,8 +123,11 @@ def test_groundtruth_records_and_metrics_match(corpus):
 
 # -- the detection path's host-side copies ------------------------------------
 
-@pytest.mark.parametrize("name", ["linear_interpolate_boxes",
-                                  "merge_durations", "build_traj_proposal"])
+@pytest.mark.parametrize("name", [
+    "linear_interpolate_boxes", "merge_durations", "build_traj_proposal",
+    "linear_interpolate_columns", "parse_raw_track_file",
+    "rebuild_raw_proposal", "rebuild_vidvrd_proposals",
+    "repackage_monolithic_pickle"])
 def test_proposal_functions_are_the_originals(name):
     from vrdone_tpu.data import proposals as jprop
     from vrdone_tpu_torch.data import proposals as tprop
@@ -181,3 +185,61 @@ def test_tracker_and_proposals_match_the_originals():
     equal(got, want, "tracks")
     equal(tbuild("v", got, (320, 240), len(dets)),
           jbuild("v", want, (320, 240), len(dets)))
+
+
+def test_rebuilt_and_repackaged_proposals_match(tmp_path):
+    """Both packages' rebuild_vidvrd_proposals on the raw tracker rows of
+    tests/test_proposals.py (long and short rows, a gap, a category vote,
+    dropped and clipped tracklets) and an annotation with a relation, then
+    repackage_monolithic_pickle on a pickle of the rebuilt proposals: the
+    files are equal, dtypes included."""
+    import json
+
+    from tests.test_proposals import DIM, _raw_rows
+    from vrdone_tpu.data import proposals as jprop
+    from vrdone_tpu_torch.data import proposals as tprop
+    raw = tmp_path / "raw"
+    ann = tmp_path / "annotations" / "test"
+    raw.mkdir()
+    ann.mkdir(parents=True)
+    for v, seed in (("v1", 5), ("v2", 6)):
+        rows = _raw_rows(np.random.default_rng(seed))
+        arr = np.empty(len(rows), dtype=object)
+        arr[:] = [list(r) for r in rows]
+        np.save(raw / f"{v}.npy", arr, allow_pickle=True)
+        traj = [[{"tid": t, "bbox": {"xmin": 1.0 + f, "ymin": 2.0,
+                                     "xmax": 30.0 + f, "ymax": 40.0 + t}}
+                 for t in (0, 1)] for f in range(10)]
+        anno = {"video_id": v, "width": 320, "height": 240,
+                "frame_count": 10,
+                "subject/objects": [{"tid": 0, "category": "dog"},
+                                    {"tid": 1, "category": "person"}],
+                "trajectories": traj,
+                "relation_instances": [{"subject_tid": 0, "object_tid": 1,
+                                        "predicate": "chase",
+                                        "begin_fid": 2, "end_fid": 7}]}
+        (ann / f"{v}.json").write_text(json.dumps(anno))
+    blobs = {}
+    for name, mod in (("jax", jprop), ("port", tprop)):
+        out = tmp_path / name
+        assert mod.rebuild_vidvrd_proposals(
+            str(raw), str(tmp_path / "annotations"), str(out / "rebuilt"),
+            split="test", dim_boxfeature=DIM, min_frames_th=3,
+            max_proposal=2) == 2
+        rebuilt = {}
+        for v in ("v1", "v2"):
+            with open(out / "rebuilt" / f"{v}.pkl", "rb") as f:
+                rebuilt[v] = pickle.load(f)
+        with open(out / "mono.pkl", "wb") as f:
+            pickle.dump({v: b["traj_proposal"] for v, b in rebuilt.items()},
+                        f)
+        assert mod.repackage_monolithic_pickle(str(out / "mono.pkl"),
+                                               str(out / "split")) == 2
+        split = {}
+        for v in ("v1", "v2"):
+            with open(out / "split" / f"{v}.pkl", "rb") as f:
+                split[v] = pickle.load(f)
+        blobs[name] = (rebuilt, split)
+    assert blobs["jax"][0]["v1"]["traj_proposal"]["num_proposals"] == 2
+    assert len(blobs["jax"][0]["v1"]["gt_graph"]["pred_cat_ids"]) == 1
+    equal(blobs["port"], blobs["jax"], "blobs")

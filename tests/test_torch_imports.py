@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``vrdone_tpu_torch``,
-``eval_torch``, ``train_torch``, ``detect_torch``, the two reference
-checkpoint converters and ``chip_smoke`` in a fresh interpreter brings no
+``eval_torch``, ``train_torch``, ``detect_torch``, the two feature
+extractors, the two reference checkpoint converters and ``chip_smoke`` in a fresh interpreter brings no
 JAX, flax, optax or orbax module and nothing of the JAX package into
 ``sys.modules``."""
 
@@ -16,6 +16,8 @@ import vrdone_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vrdone_tpu_torch.__path__,
                                                "vrdone_tpu_torch.")]
 for name in names + ["eval_torch", "train_torch", "detect_torch",
+                     "extract_gt_features_torch",
+                     "extract_proposal_features_torch",
                      "convert_reference_checkpoint_torch",
                      "convert_mega_checkpoint_torch", "chip_smoke"]:
     importlib.import_module(name)
@@ -25,7 +27,8 @@ bad = sorted(n for n in sys.modules
 print(len(names), "modules")
 assert {"vrdone_tpu_torch.utils.precision",
         "vrdone_tpu_torch.convert_reference",
-        "vrdone_tpu_torch.convert_mega"} <= set(names), names
+        "vrdone_tpu_torch.convert_mega",
+        "vrdone_tpu_torch.data.graph"} <= set(names), names
 assert not bad, bad
 """
 
@@ -38,7 +41,7 @@ def test_port_imports_nothing_of_jax():
     assert r.returncode == 0, r.stderr[-3000:]
     n = int(r.stdout.split()[0])
     # the package's modules: config, convert, convert_reference,
-    # convert_mega, data (9), eval (4, streaming among them), models (10),
+    # convert_mega, data (10, graph among them), eval (4, streaming among them), models (10),
     # ops (9), train (3), utils (2, precision among them), and the
     # subpackages themselves
-    assert n >= 47, r.stdout
+    assert n >= 48, r.stdout

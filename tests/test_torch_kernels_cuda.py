@@ -1154,6 +1154,58 @@ def test_mega_head_on_card_matches_cpu(cuda):
     assert max_err(biased, want) <= 2e-4 * scale
 
 
+def test_detect_video_tta_on_card_matches_cpu(cuda):
+    """detect_video_tta (identity, hflip, 0.75x and its flip) of a small
+    detector on the card against the same weights on the CPU: each view
+    launches K5 6 times a frame and bias_factors 3 times, and on the
+    frames where no view's proposals flipped (RPN near-ties) the labels are
+    equal and boxes and scores within 1e-3 of their largest magnitude
+    (chip_smoke.py's DETECT_TOL)."""
+    from vrdone_tpu_torch.models import detector
+    kw = dict(num_classes=31, resnet_layers=(1, 1, 1), base_num=16,
+              window=5, key_loc=2, global_size=3)
+    cpu_det = detector.MegaDetector(**kw, device=torch.device("cpu"),
+                                    generator=torch.Generator().manual_seed(1))
+    gpu_det = detector.MegaDetector(**kw, device=cuda)
+    gpu_det.load_state_dict(cpu_det.state_dict())
+    t, hw = 4, (96, 128)
+    images = np.random.default_rng(9).integers(0, 256, (t, *hw, 3),
+                                               dtype=np.uint8)
+    real = detector.detect_video
+    views, res = {}, {}
+    for name, det in (("cpu", cpu_det), ("cuda", gpu_det)):
+        views[name] = []
+
+        def capture(*args, name=name, **kwargs):
+            views[name].append(real(*args, **kwargs))
+            return views[name][-1]
+
+        detector.detect_video = capture
+        ma.launches = pb.factor_launches = 0
+        try:
+            res[name] = detector.detect_video_tta(
+                det, images, np.asarray(hw, np.float32), scales=(0.75,),
+                hflip=True, key_post_nms=24, score_thresh=0.02)
+        finally:
+            detector.detect_video = real
+    torch.cuda.synchronize()
+    assert (ma.launches, pb.factor_launches) == (6 * t * 4, 3 * t * 4)
+    clean = [f for f in range(t)
+             if all(np.array_equal(c["valid"][f], g["valid"][f])
+                    and np.allclose(c["proposals"][f], g["proposals"][f],
+                                    atol=1e-3, rtol=0)
+                    for c, g in zip(views["cpu"], views["cuda"]))]
+    assert clean
+    for key in ("boxes", "scores"):
+        for f in clean:
+            np.testing.assert_array_equal(res["cuda"][f]["labels"],
+                                          res["cpu"][f]["labels"])
+        want = np.concatenate([res["cpu"][f][key] for f in clean])
+        got = np.concatenate([res["cuda"][f][key] for f in clean])
+        assert len(want) and np.abs(got - want).max() <= 1e-3 * np.abs(
+            want).max()
+
+
 # ---------------------------------------------------------------------------
 # bf16 instances of the band (K1) and full-attention (K7) kernels
 # ---------------------------------------------------------------------------

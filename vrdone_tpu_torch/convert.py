@@ -97,3 +97,43 @@ def load_params(model: nn.Module, flat: dict[str, np.ndarray]) -> None:
     """Convert ``flat`` and copy it into ``model``. Strict: raises
     ``RuntimeError`` if a key is missing or extra, or a shape differs."""
     model.load_state_dict(params_from_jax(flat), strict=True)
+
+
+# the parts of a MegaDetector that feature extraction does not run: an
+# extractor checkpoint (tools/extract_gt_features.py::init_extractor_params
+# draws backbone, box_head/c5 and mega only) lacks them, a converted MEGA
+# checkpoint carries them
+_DETECTION_ONLY = ("rpn.", "box_head.cls_score.", "box_head.bbox_pred.")
+
+
+def load_extractor_params(model: nn.Module, flat: dict[str, np.ndarray]
+                          ) -> None:
+    """Convert ``flat`` and copy it into a ``MegaDetector`` that extracts
+    features. Every key of the extraction path (``backbone``,
+    ``box_head/c5``, ``mega``) must be present with its shape; the RPN and
+    the box predictor are all present (shapes checked) or all absent, and
+    keep their values when absent. Raises ``RuntimeError`` if any other key
+    is missing or extra, or a shape differs, as ``load_params`` does."""
+    state = params_from_jax(flat)
+    own = model.state_dict()
+    optional = {k for k in own if k.startswith(_DETECTION_ONLY)}
+    errors = []
+    missing = sorted(set(own) - optional - set(state))
+    if missing:
+        errors.append(f"missing key(s) {missing}")
+    extra = sorted(set(state) - set(own))
+    if extra:
+        errors.append(f"unexpected key(s) {extra}")
+    given = optional & set(state)
+    if given and given != optional:
+        errors.append(f"the RPN and box predictor come all or none: "
+                      f"missing {sorted(optional - given)}")
+    shapes = sorted(f"{k}: {tuple(state[k].shape)} for {tuple(own[k].shape)}"
+                    for k in set(state) & set(own)
+                    if state[k].shape != own[k].shape)
+    if shapes:
+        errors.append(f"shape mismatch {shapes}")
+    if errors:
+        raise RuntimeError(f"Error(s) in loading extractor params into "
+                           f"{type(model).__name__}: " + "; ".join(errors))
+    model.load_state_dict(state, strict=False)

@@ -11,7 +11,9 @@ the fused set-attention kernel; the host post-processing (per-class decode
 and NMS) runs on the CPU. ``compute_dtype="bfloat16"`` (the serving
 default of ``detect_torch.py``, as of ``tools/detect_and_track.py``) runs
 the backbone, RoI head and MEGA scan on a bf16 copy of the detector, with
-box decode, NMS and the box predictor in fp32.
+box decode, NMS and the box predictor in fp32. ``detect_video_tta`` runs
+``detect_video`` on each augmented view (identity, hflip, rescaled copies
+and their flips) and merges the views' candidates in one per-class NMS.
 """
 
 from __future__ import annotations
@@ -332,6 +334,82 @@ def extract_video_features(det: MegaDetector, images, rois, valid, *,
         ref_valid=valid_t, mem_size=det.window, window=det.window,
         key_loc=det.key_loc, glob_idx=glob_idx, compute_dtype=compute_dtype)
     return out.cpu().numpy()
+
+
+class _ViewFrames:
+    """Lazy augmented view over a frame sequence (host-side resize/flip)."""
+
+    def __init__(self, base, scale: float = 1.0, hflip: bool = False):
+        self.base = base
+        self.scale = scale
+        self.hflip = hflip
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        img = np.asarray(self.base[i])
+        if self.scale != 1.0:
+            from PIL import Image
+            h, w = img.shape[:2]
+            # frames are float BGR; PIL resize in uint8 RGB
+            im = Image.fromarray(img.astype(np.uint8)[..., ::-1])
+            im = im.resize((int(round(w * self.scale)),
+                            int(round(h * self.scale))))
+            img = np.asarray(im, np.float32)[..., ::-1]
+        if self.hflip:
+            img = np.ascontiguousarray(img[:, ::-1])
+        return img
+
+
+@torch.no_grad()
+def detect_video_tta(det: MegaDetector, images, image_hw, *,
+                     scales=(), hflip: bool = True,
+                     key_post_nms: int = 300, seed: int = 0,
+                     score_thresh: float = 0.05, nms_thresh: float = 0.5,
+                     dets_per_img: int = 100,
+                     compute_dtype: str = "float32") -> list[dict]:
+    """Test-time-augmented video detection (reference
+    mega_core/engine/bbox_aug.py:16-112: the model runs on each augmented
+    view -- identity, hflip, and resized copies +- their flips -- and all
+    candidate pools share one per-class NMS). Each view is one
+    ``detect_video`` call, so on a CUDA device each runs the fused
+    set-attention kernel.
+
+    Returns one post-processed detection dict per frame.
+    """
+    h, w = int(image_hw[0]), int(image_hw[1])
+    view_specs = [(None, _ViewFrames(images), (h, w))]
+    if hflip:
+        view_specs.append(("hflip", _ViewFrames(images, hflip=True),
+                           (h, w)))
+    for s in scales:
+        sh, sw = int(round(h * s)), int(round(w * s))
+        fx, fy = sw / w, sh / h
+        view_specs.append((("scale", fx, fy),
+                           _ViewFrames(images, scale=s), (sh, sw)))
+        if hflip:
+            view_specs.append((("scale_hflip", fx, fy),
+                               _ViewFrames(images, scale=s, hflip=True),
+                               (sh, sw)))
+
+    outs = []
+    for tfm, frames, vhw in view_specs:
+        out = detect_video(det, frames, np.asarray(vhw, np.float32),
+                           key_post_nms=key_post_nms, seed=seed,
+                           compute_dtype=compute_dtype)
+        outs.append((tfm, out))
+
+    t_total = len(images)
+    results = []
+    for t in range(t_total):
+        views = [(out["proposals"][t], out["cls_logits"][t],
+                  out["bbox_deltas"][t], out["valid"][t], tfm)
+                 for tfm, out in outs]
+        results.append(postprocess_frame_tta(
+            views, (h, w), score_thresh=score_thresh,
+            nms_thresh=nms_thresh, dets_per_img=dets_per_img))
+    return results
 
 
 # ---------------------------------------------------------------------------
