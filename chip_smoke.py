@@ -154,6 +154,20 @@ one process per source, all started together, into
      ``extract_gt_features_torch.py`` on the card against the CPU at a
      small configuration (``DETECT_TOL``).
 
+ 13. (run right after 6) data parallelism on the card: two ranks sharing it
+     over a gloo group on CUDA tensors (NCCL refuses two ranks on one
+     card), each three full-width ``configs/vidvrd.yaml`` train steps on its
+     12 of the global batch's 24 pairs (TF32 off, drop path as configured),
+     against one process's three steps on the whole batches: losses within
+     ``LOSS_TOL``, the ranks' parameters equal bit for bit, the largest
+     parameter gap to one process and both step times printed, a rank's
+     launches (K1 with lse, K2, K3 once a band layer: one process's step at
+     half the batch); then ``train_torch.py`` under ``torchrun --standalone
+     --nproc_per_node 1`` (NCCL at world size 1, its all-reduces included)
+     for one epoch of phase 6's corpus, and ``eval_torch.py --multihost`` on
+     its checkpoint with two ranks sharing the card beside one process's
+     ``eval_torch.py``: the merged predictions and metrics equal.
+
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
 ``--only kernels`` the last line is the per-kernel JSON object, without
@@ -1836,36 +1850,45 @@ def profile_device(fn, runs: int, unit: str) -> tuple[float, float, list]:
     return busy, 1e3 * wall, kernels
 
 
+def write_cli_corpus(root: str, raw, model_over: dict | None = None) -> str:
+    """A tiny synthetic VidVRD corpus (four train videos, two test videos)
+    under ``root`` and the config of ``raw`` pointed at it, with
+    ``model_over`` set in its model_config, batches of 2 items of 2 pairs
+    and one epoch. Returns the config's path."""
+    import yaml
+    from tests.synth_corpus import make_vidvrd_corpus, make_vidvrd_test_corpus
+    vis = raw["model_config"]["visual_dim"]
+    dirs = make_vidvrd_corpus(root, n_videos=4, n_frames=40, seed=0,
+                              vis_dim=vis)
+    dirs.update(make_vidvrd_test_corpus(root, n_videos=2, seed=1,
+                                        vis_dim=vis))
+    cfg = json.loads(json.dumps(raw))
+    cfg["dataset_config"].update(
+        ann_dir=dirs["ann_dir"], info_dir=dirs["info_dir"],
+        gt_boxfeatures_dir=dirs["gt_boxfeatures_dir"],
+        test_boxfeatures_dir=dirs["test_boxfeatures_dir"],
+        cache_dir=os.path.join(root, "cache"))
+    cfg["model_config"].update(model_over or {})
+    cfg["training_dataset_config"]["num_pairs"] = 2
+    cfg["training_config"].update(batch_size=2, training_epoch=1,
+                                  total_epoch=2, warmup_epochs=1,
+                                  log_interval=1, eval_start_epoch=1)
+    cfg["prepare_gt_config"]["gt_relations_path"] = os.path.join(
+        root, "gts.json")
+    cfg_path = os.path.join(root, "cfg.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return cfg_path
+
+
 def check_train_cli(raw, device: str = "cuda", model_over: dict | None = None,
                     flags: tuple = (), evaluate: bool = True) -> None:
     """train_torch.py for one epoch of a tiny synthetic corpus on the card,
     with ``model_over`` set in the config's model_config and ``flags``
     added, then (with ``evaluate``) eval_torch.py on its last
     checkpoint."""
-    import yaml
-    from tests.synth_corpus import make_vidvrd_corpus, make_vidvrd_test_corpus
-    vis = raw["model_config"]["visual_dim"]
     with tempfile.TemporaryDirectory() as root:
-        dirs = make_vidvrd_corpus(root, n_videos=4, n_frames=40, seed=0,
-                                  vis_dim=vis)
-        dirs.update(make_vidvrd_test_corpus(root, n_videos=2, seed=1,
-                                            vis_dim=vis))
-        cfg = json.loads(json.dumps(raw))
-        cfg["dataset_config"].update(
-            ann_dir=dirs["ann_dir"], info_dir=dirs["info_dir"],
-            gt_boxfeatures_dir=dirs["gt_boxfeatures_dir"],
-            test_boxfeatures_dir=dirs["test_boxfeatures_dir"],
-            cache_dir=os.path.join(root, "cache"))
-        cfg["model_config"].update(model_over or {})
-        cfg["training_dataset_config"]["num_pairs"] = 2
-        cfg["training_config"].update(batch_size=2, training_epoch=1,
-                                      total_epoch=2, warmup_epochs=1,
-                                      log_interval=1, eval_start_epoch=1)
-        cfg["prepare_gt_config"]["gt_relations_path"] = os.path.join(
-            root, "gts.json")
-        cfg_path = os.path.join(root, "cfg.yaml")
-        with open(cfg_path, "w") as f:
-            yaml.safe_dump(cfg, f)
+        cfg_path = write_cli_corpus(root, raw, model_over)
         exp = os.path.join(root, "exp")
         common = ["--data_name", "vidvrd", "--cfg_path", cfg_path,
                   "--exp_dir", exp, "--device", device]
@@ -1904,6 +1927,229 @@ def re_metric(text: str):
     for name, value in re.findall(
             rf"({'|'.join(METRIC_NAMES)}): ([0-9.eE+-]+|nan)", text):
         yield name, float(value)
+
+
+# -- phase 13: data parallelism on the card -------------------------------
+DP_PAIRS = 24   # configs/vidvrd.yaml's global batch: 6 items of 4 pairs
+DP_RANKS = 2    # ranks sharing the one card (12 pairs a rank)
+DP_STEPS = 3
+
+
+def dp_setup(cfg, raw, device):
+    """Phase 13a's train state and global batches, alike in every process:
+    weights from seed 0 with drop-path scales near 1 (as
+    ``check_train_step`` sets them, so that every branch moves the loss),
+    and DP_STEPS batches of DP_PAIRS pairs from seed 13."""
+    from vrdone_tpu_torch.models.layers import AffineDropPath
+    from vrdone_tpu_torch.train.loop import create_train_state
+    gen = torch.Generator().manual_seed(0)
+    state, _ = create_train_state(cfg, raw["training_config"], 100,
+                                  device=device, generator=gen)
+    with torch.no_grad():
+        for m in state.model.modules():
+            if isinstance(m, AffineDropPath):
+                m.scale.copy_(torch.empty_like(m.scale, device="cpu")
+                              .uniform_(0.5, 1.5, generator=gen))
+    state.ema_params = [p.detach().clone() for p in state.params()]
+    num_gt = raw["training_dataset_config"]["proposal_max_preds"]
+    rng = np.random.default_rng(13)
+    return state, [train_batch(rng, cfg, DP_PAIRS, num_gt)
+                   for _ in range(DP_STEPS)]
+
+
+def dp_train_steps(state, batches, rows: slice, device, ba, fa) -> dict:
+    """DP_STEPS train steps on ``rows`` of each global batch (drop path as
+    configured, the draws of ``step_generator(0, step)``): the losses, each
+    step's time and the launches of the last step."""
+    from vrdone_tpu_torch.train.loop import (batch_to_device, step_generator,
+                                             train_step)
+    out = {"losses": [], "ms": []}
+    with dense_band_calls(ba) as dense:
+        for step, batch in enumerate(batches):
+            tb = batch_to_device({k: v[rows] for k, v in batch.items()},
+                                 device)
+            torch.cuda.synchronize()
+            zero_counts(ba, fa)
+            dense[0] = 0
+            t0 = time.perf_counter()
+            _, losses = train_step(state, tb, step_generator(0, step))
+            torch.cuda.synchronize()
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            out["launches"] = {**band_counts(ba, fa),
+                               "dense band form": dense[0],
+                               "dense full attention": fa.dense_calls}
+            out["losses"].append({k: v.item() for k, v in losses.items()})
+    return out
+
+
+def dp_rank_main(out_dir: str) -> None:
+    """One rank of phase 13a, started by ``check_data_parallel`` with
+    torchrun's environment: a gloo group over CUDA tensors on card 0
+    (NCCL refuses two ranks on one card), DP_STEPS full-width steps on
+    this rank's rows; writes its losses, times, launches and parameters
+    to ``out_dir/rank<r>.pt``."""
+    from vrdone_tpu_torch.config import (load_yaml_config,
+                                         model_config_from_yaml)
+    from vrdone_tpu_torch.ops import band_attention as ba
+    from vrdone_tpu_torch.ops import full_attention as fa
+    from vrdone_tpu_torch.parallel import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, device = mesh.init_distributed("cuda:0", backend="gloo")
+    try:
+        raw = load_yaml_config(str(ROOT / "configs" / "vidvrd.yaml"))
+        cfg = model_config_from_yaml(raw)
+        state, batches = dp_setup(cfg, raw, device)
+        out = dp_train_steps(state, batches, mesh.local_batch_slice(DP_PAIRS),
+                             device, ba, fa)
+        out.update(rank=rank, world=world, params=[
+            p.detach().cpu() for p in state.params()])
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        mesh.barrier()
+    finally:
+        mesh.shutdown()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_dp_train_step(cfg, raw, cuda, ba, fa) -> dict:
+    """Phase 13a: DP_RANKS ranks on the one card over gloo, each
+    DP_STEPS full-width steps on its rows of DP_PAIRS pairs, against one
+    process's steps on the whole batches: losses within LOSS_TOL, the ranks'
+    parameters equal, the largest parameter gap to one process printed, the
+    launches of a rank's step (K1 with its lse, K2 and K3 once a band
+    layer, as one process's step at half the batch) and both step times.
+    Returns the launches of rank 0's last step."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        env = dict(os.environ, WORLD_SIZE=str(DP_RANKS),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.dp_rank_main({out_dir!r})"],
+            cwd=ROOT, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_RANKS)]
+        try:
+            state, batches = dp_setup(cfg, raw, cuda)
+            one = dp_train_steps(state, batches, slice(None), cuda, ba, fa)
+            one_params = [p.detach().cpu() for p in state.params()]
+            del state
+        finally:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"data-parallel rank {r} failed:\n"
+                                     f"{log[-3000:]}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=True) for r in range(DP_RANKS)]
+    for step in range(DP_STEPS):
+        ref = one["losses"][step]
+        errs = {k: abs(ranks[0]["losses"][step][k] - v) / (1 + abs(v))
+                for k, v in ref.items()}
+        worst = max(errs, key=errs.get)
+        print(f"data-parallel step {step}, {DP_RANKS} ranks x "
+              f"{DP_PAIRS // DP_RANKS} pairs vs one process x {DP_PAIRS}: "
+              f"total_loss {ranks[0]['losses'][step]['total_loss']:.6f} vs "
+              f"{ref['total_loss']:.6f}; worst loss term {worst} rel err "
+              f"{errs[worst]:.3e}")
+        if errs[worst] > LOSS_TOL:
+            raise AssertionError(f"data-parallel step {step}: {worst} off "
+                                 f"by {errs[worst]}")
+    for r in range(1, DP_RANKS):
+        if ranks[r]["losses"] != ranks[0]["losses"] or not all(
+                torch.equal(a, b) for a, b in zip(ranks[r]["params"],
+                                                  ranks[0]["params"])):
+            raise AssertionError(f"rank {r}'s step differs from rank 0's")
+    gap = max((a - b).abs().max().item()
+              for a, b in zip(ranks[0]["params"], one_params))
+    print(f"data-parallel parameters after {DP_STEPS} steps: ranks equal bit "
+          f"for bit; largest gap to one process {gap:.3e}")
+    ms = {"one process": one["ms"], **{f"rank {r}": ranks[r]["ms"]
+                                       for r in range(DP_RANKS)}}
+    print("data-parallel step times (ms, gloo on one card, TF32 off): "
+          + "; ".join(f"{k} " + ", ".join(f"{t:.2f}" for t in v)
+                      for k, v in ms.items()))
+    blocks = 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
+    expect = {name: 0 for name in one["launches"]}
+    expect.update(band_attention=blocks, band_attention_dq=blocks,
+                  band_attention_dkv=blocks,
+                  **{"dense full attention": 4 * cfg.backbone_arch[1]
+                     + 2 * cfg.predictor.num_layers})
+    for r, got in enumerate(rank["launches"] for rank in ranks):
+        print(f"data-parallel step, rank {r} at {DP_PAIRS // DP_RANKS} pairs: "
+              f"kernel launches {got}")
+        if got != expect:
+            raise AssertionError(f"rank {r} launches {got}, expected "
+                                 f"{expect}")
+    return {k: v for k, v in ranks[0]["launches"].items()
+            if not k.startswith("dense")}
+
+
+def check_dp_cli(raw) -> None:
+    """Phases 13b and 13c: train_torch.py under ``torchrun --standalone
+    --nproc_per_node 1`` (NCCL, world size 1) for one epoch of a tiny
+    synthetic corpus, then eval_torch.py --multihost on its checkpoint
+    with two ranks sharing the card (``--device cuda:0``; the merge runs on
+    the gloo group) beside one process's eval_torch.py: exit codes 0, a
+    checkpoint written, the merged predictions equal one process's."""
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
+    with tempfile.TemporaryDirectory() as root:
+        cfg_path = write_cli_corpus(root, raw)
+        exp = os.path.join(root, "exp")
+        common = ["--data_name", "vidvrd", "--cfg_path", cfg_path]
+        ckpt = os.path.join(exp, "model_last.ckpt")
+
+        def launch(args):
+            return subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+
+        def finish(name, proc, t0):
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"{name} failed:\n{out[-3000:]}\n"
+                                     f"{err[-3000:]}")
+            print(f"{name}: exit 0 in {time.perf_counter() - t0:.1f} s")
+            return out
+
+        t0 = time.perf_counter()
+        out = finish("torchrun --nproc_per_node 1 train_torch.py (NCCL)",
+                     launch([*torchrun, "--nproc_per_node", "1",
+                             str(ROOT / "train_torch.py"), *common,
+                             "--exp_dir", exp, "--device", "cuda",
+                             "--multihost", "--n_dp", "1"]), t0)
+        if "data-parallel ranks: 1" not in out or not os.path.exists(ckpt):
+            raise AssertionError("train_torch.py under torchrun wrote no "
+                                 "checkpoint")
+        evals = {"dp": [*torchrun, "--nproc_per_node", "2",
+                        str(ROOT / "eval_torch.py"), "--multihost",
+                        "--device", "cuda:0"],
+                 "one": [sys.executable, str(ROOT / "eval_torch.py"),
+                         "--device", "cuda"]}
+        t0 = time.perf_counter()
+        procs = {k: launch([*v, *common, "--exp_dir",
+                            os.path.join(root, f"eval_{k}"), "--ckpt_path",
+                            ckpt, "--topk", "3", "--save_result"])
+                 for k, v in evals.items()}
+        outs = {k: finish(f"eval_torch.py ({k})", p, t0)
+                for k, p in procs.items()}
+        preds = {}
+        for k in evals:
+            with open(os.path.join(root, f"eval_{k}", "predicted_relations"
+                                   "_topk3_epoch3.json")) as f:
+                preds[k] = json.load(f)
+        metrics = {k: dict(re_metric(v)) for k, v in outs.items()}
+    if preds["dp"] != preds["one"] or metrics["dp"] != metrics["one"]:
+        raise AssertionError("two ranks' merged predictions differ from one "
+                             "process's")
+    n = sum(len(v) for v in preds["one"].values())
+    print(f"eval_torch.py --multihost, 2 ranks on one card: merged "
+          f"predictions of {len(preds['one'])} videos ({n} relations) and "
+          f"metrics equal one process's: {metrics['one']}")
 
 
 def synthetic_video(rng, lengths, feat_dim):
@@ -3557,6 +3803,10 @@ def main(argv: list[str] | None = None) -> int:
     check_train_cli(raw)
     check_train_cli(raw, model_over={"use_rel_pe": True, "use_local": True},
                     flags=("--compute_dtype", "bfloat16"), evaluate=False)
+    # 13. data parallelism: two ranks' steps on the card against one
+    # process's, train_torch.py under torchrun (NCCL), multihost eval
+    dp_launches = check_dp_train_step(cfg, raw, cuda, ba, fa)
+    check_dp_cli(raw)
 
     # 7. MEGA: detect_video at full width, the small detector against the
     # CPU, detect_torch.py
@@ -3605,7 +3855,8 @@ def main(argv: list[str] | None = None) -> int:
                                 "vrdone_tpu/ops/pallas/position_bias.py:108 "
                                 "(pe_setup, XLA-side: not a TPU kernel)")}
     # launches: the eval forward's for the forward band and full-attention
-    # kernels, the train step's for the backward ones (the bf16 train
+    # kernels, the train step's for the backward ones (the data-parallel
+    # step's, a rank's at half the batch, in launches_by_path; the bf16 train
     # step's for their bf16 instances), detect_video's for the fused
     # set-attention (the bf16 detect_video's for its bf16 instance) and,
     # with the fused attention off, for the position bias, the streaming
@@ -3617,6 +3868,7 @@ def main(argv: list[str] | None = None) -> int:
                       "train_step": train_launches.get(name, 0),
                       "train_step_bf16": train16_launches.get(name, 0),
                       "train_step_bf16_rel_pe": relpe16_launches.get(name, 0),
+                      "train_step_dp": dp_launches.get(name, 0),
                       **{route: c.get(name, 0)
                          for route, c in detect_launches.items()},
                       "stream": stream_launches.get(name, 0),

@@ -12,8 +12,20 @@ written by ``tools/export_params_npz.py`` from a ``train.py`` checkpoint.
 With ``--eval_exp_dir`` the sweep reads ``model_epoch_<n>_<data>.ckpt``,
 or the ``.npz`` of that name where no ``.ckpt`` exists.
 
+Under ``torchrun`` (``--multihost``, one process a card: ``--device cuda``
+becomes ``cuda:LOCAL_RANK``, and ``cuda:0`` keeps every rank on card 0)
+the test videos are strided over the ranks, their predictions merged
+(``parallel/comm.py::accumulate_predictions``, on a gloo group), and rank
+0 alone scores, writes the GT cache and ``--save_result``; the other
+ranks log zeros, as ``eval.py`` does. ``--eval_dp N`` splits each
+bucketed pair batch over N cards of this process, one model replica a
+card (under torchrun, rank r's block of N cards from card r·N).
+
     python eval_torch.py --data_name vidvrd --cfg_path configs/vidvrd.yaml \
         --exp_dir exp --ckpt_path exp/model_last.ckpt --device cuda
+    torchrun --standalone --nproc_per_node 8 eval_torch.py --multihost \
+        --data_name vidvrd --cfg_path configs/vidvrd.yaml --exp_dir exp \
+        --ckpt_path exp/model_last.ckpt --device cuda
 """
 
 from __future__ import annotations
@@ -34,6 +46,8 @@ from vrdone_tpu_torch.eval.convert import build_groundtruth, to_eval_format
 from vrdone_tpu_torch.eval.decode import InferenceRunner, infer_video
 from vrdone_tpu_torch.eval.metrics import relation_metrics
 from vrdone_tpu_torch.models.maskvrd import MaskVRD
+from vrdone_tpu_torch.parallel import mesh
+from vrdone_tpu_torch.parallel.comm import accumulate_predictions
 from vrdone_tpu_torch.train.checkpoint import restore_params_for_eval
 from vrdone_tpu_torch.utils.logging import setup_logger
 
@@ -58,11 +72,13 @@ def parse_args():
     p.add_argument("--topk", type=int, default=10)
     p.add_argument("--save_result", default=False, action="store_true")
     p.add_argument("--multihost", action="store_true", default=False,
-                   help="not ported yet (ROADMAP.md queue 1, data "
-                        "parallelism)")
+                   help="one process a card under torchrun: test videos "
+                        "are strided over the ranks and predictions merged "
+                        "before scoring on rank 0")
     p.add_argument("--eval_dp", type=int, default=1,
-                   help="not ported yet beyond 1 (ROADMAP.md queue 1, "
-                        "data parallelism)")
+                   help="split each bucketed pair batch over this many "
+                        "cards of this process (data-parallel eval "
+                        "forward)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the forward, e.g. cuda or cpu")
     return p.parse_args()
@@ -77,13 +93,35 @@ def load_weights(model: MaskVRD, path: str) -> None:
         model.load_state_dict(restore_params_for_eval(path), strict=True)
 
 
+def eval_devices(device: torch.device, eval_dp: int,
+                 world: int) -> list[torch.device]:
+    """The devices of the eval forward: ``device`` alone, or ``eval_dp``
+    cards; under torchrun rank r (on ``cuda:r``) takes cards r·eval_dp on.
+    Refuses more than the host has (one CPU)."""
+    count = torch.cuda.device_count() if device.type == "cuda" else 1
+    if not 1 <= eval_dp <= count:
+        raise SystemExit(f"--eval_dp {eval_dp}: this host has {count} "
+                         f"{device.type} device(s)")
+    if eval_dp == 1:
+        return [device]
+    first = (device.index or 0) * eval_dp if world > 1 else 0
+    if first + eval_dp > count:
+        raise SystemExit(f"--eval_dp {eval_dp} from card {first}: this host "
+                         f"has {count} cards")
+    return [torch.device(device.type, first + i) for i in range(eval_dp)]
+
+
 def main():
     args = parse_args()
-    if args.multihost or args.eval_dp != 1:
-        raise NotImplementedError(
-            "--multihost and --eval_dp > 1 are not ported yet; see "
-            "ROADMAP.md queue 1, data parallelism")
-    device = torch.device(args.device)
+    rank, world, device = mesh.join_world(args.device, args.multihost)
+    try:
+        evaluate(args, rank, world, device)
+    finally:
+        mesh.shutdown()
+
+
+def evaluate(args, rank: int, world: int, device: torch.device) -> None:
+    devices = eval_devices(device, args.eval_dp, world)
     config = load_yaml_config(args.cfg_path)
     if args.epochs is not None:
         config["training_config"]["training_epoch"] = args.epochs
@@ -99,13 +137,18 @@ def main():
 
     os.makedirs(args.exp_dir, exist_ok=True)
     logger = setup_logger("Test", os.path.join(args.exp_dir, "logfile"),
+                          distributed_rank=rank,
                           filename=args.eval_file_name + "_log.json")
-    logger.info(f"PyTorch {torch.__version__}, device: {device}")
+    logger.info(f"PyTorch {torch.__version__}, devices: {devices}, "
+                f"ranks: {world}")
 
+    # rank 0 builds the dataset's caches; the other ranks then read them
     if args.data_name == "vidor":
-        dataset = VidORDataset(config["dataset_config"], args.scale)
+        dataset = mesh.rank0_first(lambda: VidORDataset(
+            config["dataset_config"], args.scale))
     else:
-        dataset = VidVRDDataset(config["dataset_config"])
+        dataset = mesh.rank0_first(lambda: VidVRDDataset(
+            config["dataset_config"]))
 
     gt_path = config["prepare_gt_config"]["gt_relations_path"]
     if gt_path and os.path.exists(gt_path):
@@ -117,7 +160,9 @@ def main():
         gt_relations = build_groundtruth(
             config["dataset_config"]["ann_dir"], dataset.split,
             args.data_name)
-        if gt_path:
+        # rank 0 alone writes the cache, through a temporary file and a
+        # rename: ranks writing one file at once would corrupt it
+        if gt_path and rank == 0:
             os.makedirs(os.path.dirname(gt_path) or ".", exist_ok=True)
             tmp_path = gt_path + f".tmp.{os.getpid()}"
             with open(tmp_path, "w") as f:
@@ -146,10 +191,12 @@ def main():
         model = MaskVRD(model_cfg, device=device)
         load_weights(model, ckpt_path)
         runner = InferenceRunner(model_cfg, model, infer_cfg, c,
-                                 device=device)
+                                 devices=devices)
 
         predict_relations = {}
         for idx in range(dataset.num_test_items()):
+            if idx % world != rank:
+                continue
             item = dataset.get_test_item(idx)
             if item is None:
                 continue
@@ -158,9 +205,14 @@ def main():
                 continue
             predict_relations.update(
                 to_eval_format(args.data_name, item["video_name"], triplets))
+        if world > 1:
+            predict_relations = accumulate_predictions(predict_relations)
 
         if len(predict_relations) < 1:
             logger.info("None of valid prediction.")
+            results = {k: 0.0 for k in METRIC_KEYS}
+        elif rank != 0:
+            # rank 0 alone scores; the others log zeros (silently)
             results = {k: 0.0 for k in METRIC_KEYS}
         else:
             results = relation_metrics(gt_relations, predict_relations,
@@ -169,7 +221,7 @@ def main():
             all_results[k].append(v)
             logger.info(f"{k}: {v:.6f}")
 
-        if args.save_result:
+        if args.save_result and rank == 0:
             save_path = os.path.join(
                 args.exp_dir,
                 f"predicted_relations_topk{args.topk}_"

@@ -28,7 +28,10 @@ print(len(names), "modules")
 assert {"vrdone_tpu_torch.utils.precision",
         "vrdone_tpu_torch.convert_reference",
         "vrdone_tpu_torch.convert_mega",
-        "vrdone_tpu_torch.data.graph"} <= set(names), names
+        "vrdone_tpu_torch.data.graph",
+        "vrdone_tpu_torch.parallel",
+        "vrdone_tpu_torch.parallel.mesh",
+        "vrdone_tpu_torch.parallel.comm"} <= set(names), names
 assert not bad, bad
 """
 
@@ -42,6 +45,6 @@ def test_port_imports_nothing_of_jax():
     n = int(r.stdout.split()[0])
     # the package's modules: config, convert, convert_reference,
     # convert_mega, data (10, graph among them), eval (4, streaming among them), models (10),
-    # ops (9), train (3), utils (2, precision among them), and the
-    # subpackages themselves
-    assert n >= 48, r.stdout
+    # ops (9), parallel (2), train (3), utils (2, precision among them),
+    # and the subpackages themselves
+    assert n >= 51, r.stdout

@@ -1,7 +1,7 @@
 """Train a VrdONE relation detector with the PyTorch port.
 
 The counterpart of ``train.py`` on ``vrdone_tpu_torch``: the same flags
-and YAML configs, plus ``--device`` (default ``cuda``). One process on one
+and YAML configs, plus ``--device`` (default ``cuda``). One process a
 device: forward, Hungarian matching and losses, backward, clip, AdamW and
 EMA per step (``vrdone_tpu_torch/train/loop.py``), with band attention on
 its CUDA kernels forward and backward. ``--compute_dtype bfloat16`` runs
@@ -12,12 +12,23 @@ backward (``--remat_policy full`` or ``dots``). Checkpoints are
 ``model_last.ckpt`` in ``--exp_dir``) holding the fp32 masters, which
 ``eval_torch.py --ckpt_path`` reads whatever the compute dtype was.
 
-Not ported (each raises): ``--multihost``, ``--n_dp`` or ``--n_sp`` above
-1; see ROADMAP.md queue 1.
+Data parallelism takes the place of JAX's dp mesh: launched by
+``torchrun``, one process a card (``--device cuda`` becomes
+``cuda:LOCAL_RANK``; NCCL on cards, gloo with ``--device cpu``), each
+rank packs its rows of every global batch and the train step sums the
+ranks' gradients (``vrdone_tpu_torch/parallel``), so N ranks take the
+step one process takes on the global batch. ``--n_dp``, when given, must
+equal the world size; ``--multihost`` is the same path on a multi-node
+``torchrun``. Rank 0 writes the logs, ``config.yaml`` and checkpoints.
+Not ported (it raises): ``--n_sp`` above 1; see ROADMAP.md queue 1,
+sequence and tensor parallelism.
 
     python train_torch.py --data_name vidvrd --cfg_path configs/vidvrd.yaml \
         --exp_dir experiments/vidvrd_torch --device cuda \
         [--compute_dtype bfloat16] [--remat --remat_policy dots]
+    torchrun --standalone --nproc_per_node 8 train_torch.py \
+        --data_name vidvrd --cfg_path configs/vidvrd.yaml \
+        --exp_dir experiments/vidvrd_torch --device cuda
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from vrdone_tpu_torch.config import load_yaml_config, model_config_from_yaml
 from vrdone_tpu_torch.data.batching import packed_channels
 from vrdone_tpu_torch.data.datasets import VidORDataset, VidVRDDataset
 from vrdone_tpu_torch.data.loader import TrainLoader
+from vrdone_tpu_torch.parallel import mesh
 from vrdone_tpu_torch.train import checkpoint as ckpt
 from vrdone_tpu_torch.train.loop import (batch_to_device, create_train_state,
                                          step_generator, train_step)
@@ -58,15 +70,17 @@ def parse_args():
                    help="remat policy (dots = save the Dense layers' "
                         "matrix products, full = recompute everything)")
     p.add_argument("--n_dp", type=int, default=None,
-                   help="not ported beyond 1 (ROADMAP.md queue 1, data "
-                        "parallelism)")
+                   help="data-parallel size: must equal the world size "
+                        "(torchrun --nproc_per_node x nodes; 1 without "
+                        "torchrun)")
     p.add_argument("--n_sp", type=int, default=1,
-                   help="not ported beyond 1 (ROADMAP.md queue 1, data "
-                        "parallelism)")
+                   help="not ported beyond 1 (ROADMAP.md queue 1, sequence "
+                        "and tensor parallelism)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 10-20")
     p.add_argument("--multihost", action="store_true", default=False,
-                   help="not ported (ROADMAP.md queue 1, data parallelism)")
+                   help="data parallelism over a multi-node torchrun (the "
+                        "same path as one node)")
     p.add_argument("--auto_resume", action="store_true", default=False,
                    help="resume from <exp_dir>/model_last.ckpt if present")
     p.add_argument("--device", type=str, default="cuda",
@@ -76,11 +90,22 @@ def parse_args():
 
 def main():
     args = parse_args()
-    if args.multihost or (args.n_dp or 1) > 1 or args.n_sp > 1:
+    if args.n_sp > 1:
         raise NotImplementedError(
-            "--multihost, --n_dp > 1 and --n_sp > 1 are not ported yet; see "
-            "ROADMAP.md queue 1, data parallelism")
-    device = torch.device(args.device)
+            "--n_sp > 1 is not ported; see ROADMAP.md queue 1, sequence and "
+            "tensor parallelism")
+    rank, world, device = mesh.join_world(args.device, args.multihost)
+    try:
+        if args.n_dp is not None and args.n_dp != world:
+            raise SystemExit(f"--n_dp {args.n_dp} is not the world size "
+                             f"{world}; launch with torchrun "
+                             f"--nproc_per_node {args.n_dp}")
+        train(args, rank, world, device)
+    finally:
+        mesh.shutdown()
+
+
+def train(args, rank: int, world: int, device: torch.device) -> None:
     config = load_yaml_config(args.cfg_path)
     config["training_config"]["seed"] = args.seed
     config["dataset_config"].update(config["training_dataset_config"])
@@ -94,17 +119,22 @@ def main():
 
     os.makedirs(args.exp_dir, exist_ok=True)
     logger = setup_logger("Train", os.path.join(args.exp_dir, "logfile"),
-                          filename="train_log.json")
-    logger.info(f"PyTorch {torch.__version__}, device: {device}")
+                          distributed_rank=rank, filename="train_log.json")
+    logger.info(f"PyTorch {torch.__version__}, device: {device}, "
+                f"data-parallel ranks: {world}")
     logger.info(f"Config:\n{json.dumps(config, indent=4)}")
-    with open(os.path.join(args.exp_dir, "config.yaml"), "w") as f:
-        f.write(yaml.dump(config, indent=2, allow_unicode=True))
+    if rank == 0:
+        with open(os.path.join(args.exp_dir, "config.yaml"), "w") as f:
+            f.write(yaml.dump(config, indent=2, allow_unicode=True))
 
     tc = config["training_config"]
+    # rank 0 builds the dataset's caches; the other ranks then read them
     if args.data_name == "vidor":
-        dataset = VidORDataset(config["dataset_config"], args.scale)
+        dataset = mesh.rank0_first(lambda: VidORDataset(
+            config["dataset_config"], args.scale))
     else:
-        dataset = VidVRDDataset(config["dataset_config"])
+        dataset = mesh.rank0_first(lambda: VidVRDDataset(
+            config["dataset_config"]))
 
     batch_size = tc["batch_size"]
     num_pairs = config["training_dataset_config"]["num_pairs"]
@@ -112,9 +142,11 @@ def main():
     num_gt = config["training_dataset_config"]["proposal_max_preds"]
     loader = TrainLoader(dataset, batch_size, pack_size,
                          model_cfg.max_seq_len, num_gt,
-                         packed_channels(model_cfg), seed=args.seed)
+                         packed_channels(model_cfg), seed=args.seed,
+                         process_index=rank, process_count=world)
     steps_per_epoch = loader.steps_per_epoch()
-    logger.info(f"Pairs per step: {pack_size}; steps/epoch: {steps_per_epoch}")
+    logger.info(f"Pairs per step: {pack_size} ({pack_size // world} a rank); "
+                f"steps/epoch: {steps_per_epoch}")
 
     state, schedule = create_train_state(
         model_cfg, tc, steps_per_epoch, device=device,
@@ -150,7 +182,7 @@ def main():
         data_t0 = time.time()
         for step, batch in enumerate(loader.epoch(epoch)):
             data_time = time.time() - data_t0
-            if args.profile_dir and total_steps == 10:
+            if args.profile_dir and total_steps == 10 and rank == 0:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     *([torch.profiler.ProfilerActivity.CUDA]

@@ -79,11 +79,11 @@ class ModelConfig:
     loss_dice: float = 5.0
     # compute dtype for the network body ("float32" | "bfloat16")
     compute_dtype: str = "float32"
-    # the fields below select JAX-side training and batching strategies;
-    # they are parsed so that every shipped YAML loads, and the port's eval
-    # forward does not read them
+    # recompute the forward in the backward (train/loop.py reads both)
     remat: bool = False
     remat_policy: str = "full"
+    # a JAX-side batching strategy, exact in deterministic mode: parsed so
+    # that every shipped YAML loads, and not read by the port
     stem_stream_batch: bool = False
 
     @property

@@ -11,6 +11,9 @@ pinned to it output for output by ``tests/test_torch_eval.py``.
 
 from __future__ import annotations
 
+import copy
+from typing import Optional, Sequence
+
 import numpy as np
 import torch
 
@@ -28,28 +31,56 @@ def _pack_size(n: int, max_so_pair: int) -> int:
     return PACK_LADDER[-1]
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with its index: "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class InferenceRunner:
     """Runs the eval forward of ``model`` (a MaskVRD already on ``device``)
-    over the SO pairs of one video at a time."""
+    over the SO pairs of one video at a time.
+
+    With ``devices`` (data-parallel eval, ``eval_torch.py --eval_dp``) each
+    device holds a replica of ``model``, each bucketed pack is rounded up
+    to a multiple of their number, and each replica runs its contiguous
+    rows, as the JAX runner shards the pack axis over its dp mesh; the
+    outputs are joined in row order."""
 
     def __init__(self, cfg: ModelConfig, model: MaskVRD,
                  infer: InferenceConfig, feat_dim: int, *,
-                 device: torch.device):
+                 device: Optional[torch.device] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
+        if (device is None) == (devices is None):
+            raise ValueError("give exactly one of device and devices")
         self.cfg = cfg
         self.model = model
         self.infer = infer
         self.feat_dim = feat_dim
-        self.device = torch.device(device)
+        self.devices = [_indexed(d) for d in (devices or [device])]
+        self.device = self.devices[0]
+        home = next(model.parameters()).device
+        self.replicas = [model if d == home else copy.deepcopy(model).to(d)
+                         for d in self.devices]
 
     @torch.inference_mode()
     def _forward(self, feats: np.ndarray, mask: np.ndarray):
-        preds = self.model(torch.from_numpy(feats).to(self.device),
-                           torch.from_numpy(mask).to(self.device))
-        probs = torch.softmax(preds["pred_logits"], dim=-1)
-        scores, catids = probs[..., 1:].topk(self.infer.topk, dim=-1)
-        masks_bin = torch.sigmoid(preds["pred_masks"]) > 0.5
-        return (scores.cpu().numpy(), (catids + 1).cpu().numpy(),
-                masks_bin.cpu().numpy())
+        n = len(self.replicas)
+        rows = feats.shape[0] // n
+        outs = []
+        for i, (model, dev) in enumerate(zip(self.replicas, self.devices)):
+            # every replica's work is queued before any result is read
+            sl = slice(i * rows, (i + 1) * rows)
+            preds = model(torch.from_numpy(feats[sl]).to(dev),
+                          torch.from_numpy(mask[sl]).to(dev))
+            probs = torch.softmax(preds["pred_logits"], dim=-1)
+            scores, catids = probs[..., 1:].topk(self.infer.topk, dim=-1)
+            outs.append((scores, catids + 1,
+                         torch.sigmoid(preds["pred_masks"]) > 0.5))
+        return tuple(np.concatenate([o[j].cpu().numpy() for o in outs])
+                     for j in range(3))
 
     def run_pairs(self, so_features: list[np.ndarray]):
         """Forward all SO-pair sequences of one video.
@@ -71,6 +102,8 @@ class InferenceRunner:
             for chunk_start in range(0, len(idxs), max_pack):
                 chunk = idxs[chunk_start:chunk_start + max_pack]
                 pack = _pack_size(len(chunk), self.infer.max_so_pair)
+                # the pack splits evenly over the replicas
+                pack = -(-pack // len(self.devices)) * len(self.devices)
                 batch, _ = batching.pack_eval_bucket(
                     [so_features[i] for i in chunk], int(pad_len), pack,
                     self.feat_dim)

@@ -10,7 +10,7 @@ weighted CE, with deep supervision (``compute_losses``).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -144,7 +144,8 @@ def match(cfg: ModelConfig, pred_logits: Tensor, pred_masks: Tensor,
 
 def _single_level_losses(cfg: ModelConfig, pred_logits: Tensor,
                          pred_masks: Tensor, gt: dict, num_masks: Tensor,
-                         row_for_col: Tensor, matched: Tensor) -> dict:
+                         row_for_col: Tensor, matched: Tensor,
+                         reduce: Callable[[Tensor], Tensor]) -> dict:
     b, q, _ = pred_logits.shape
     item_valid = gt["item_valid"]
     out = {}
@@ -160,7 +161,7 @@ def _single_level_losses(cfg: ModelConfig, pred_logits: Tensor,
         # ragged and never hold them)
         w = torch.where(target == 0, cfg.eos_coef, 1.0).to(ce.dtype)
         w = w * item_valid[:, None].to(w.dtype)
-        loss_ce = (w * ce).sum() / w.sum().clamp(min=1e-6)
+        loss_ce = (w * ce).sum() / reduce(w.sum()).clamp(min=1e-6)
         out["loss_class"] = cfg.loss_class * loss_ce
 
     if "masks" in cfg.loss_types:
@@ -190,14 +191,22 @@ def _single_level_losses(cfg: ModelConfig, pred_logits: Tensor,
     return out
 
 
-def compute_losses(cfg: ModelConfig, predictions: dict, gt: dict) -> dict:
+def compute_losses(cfg: ModelConfig, predictions: dict, gt: dict,
+                   reduce: Optional[Callable[[Tensor], Tensor]] = None
+                   ) -> dict:
     """The training objective with deep supervision (reference
     maskvrd.py:569-588): the final level's terms as ``loss_*``, auxiliary
     level i's as ``loss_*_{i}``, and their sum as ``total_loss``.
-    ``num_masks`` is the global count of valid ground truth in valid
-    items."""
-    num_masks = (gt["gt_valid"] & gt["item_valid"][:, None]).sum().clamp(
-        min=1).float()
+
+    The normalisers are the global batch's, as in the JAX package: the
+    count of valid ground truth in valid items (``num_masks``) and each
+    level's class-weight sum. Under data parallelism ``reduce`` sums a
+    count over the ranks (``parallel.mesh.all_reduce_sum``) before the
+    division, so each rank's losses are its partial sums of the global
+    ones and their sum over the ranks is the global loss."""
+    reduce = reduce or (lambda x: x)
+    num_masks = reduce((gt["gt_valid"] & gt["item_valid"][:, None]).sum()
+                       .float()).clamp(min=1)
     aux = predictions.get("aux_outputs") or []
     logits = torch.stack([predictions["pred_logits"],
                           *[a["pred_logits"] for a in aux]])
@@ -208,7 +217,7 @@ def compute_losses(cfg: ModelConfig, predictions: dict, gt: dict) -> dict:
     # them (the order of the sum that makes total_loss)
     per = [dict(sorted(_single_level_losses(
         cfg, logits[i], masks[i], gt, num_masks, row_for_col[i],
-        matched).items())) for i in range(logits.shape[0])]
+        matched, reduce).items())) for i in range(logits.shape[0])]
     loss_dict = dict(per[0])
     for i, level in enumerate(per[1:]):
         loss_dict.update({f"{k}_{i}": v for k, v in level.items()})

@@ -22,6 +22,8 @@ as the JAX package trains through it.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -37,7 +39,7 @@ __all__ = [
     "conv1d", "downsample_mask", "masked_conv1d", "max_pool1d",
     "channel_layernorm", "split_heads", "merge_heads", "full_attention",
     "band_attention", "sinusoid_encoding", "resize_pe_linear", "drop_path",
-    "dropout",
+    "dropout", "StepDraws",
 ]
 
 
@@ -179,16 +181,55 @@ def resize_pe_linear(pe: torch.Tensor, new_len: int) -> torch.Tensor:
 # stochastic depth and dropout
 # ---------------------------------------------------------------------------
 
-def _uniform(shape, generator: torch.Generator, like: torch.Tensor,
+@dataclasses.dataclass(frozen=True)
+class StepDraws:
+    """Where a train step's drop-path and dropout uniforms come from, under
+    data parallelism. Every tensor drawn for has the batch as its leading
+    dimension; each draw is taken at the global batch's shape
+    (``global_batch`` rows) from ``generator``, the same seed on every rank,
+    and this rank keeps its own rows from ``row_offset``. So N ranks draw
+    what one process draws for the whole batch, as JAX draws once for the
+    global batch and shards the draw. One process is ``row_offset`` 0 with
+    ``global_batch`` its batch: the draws of ``generator`` alone."""
+    generator: torch.Generator
+    global_batch: int
+    row_offset: int = 0
+
+    def draw(self, shape: tuple[int, ...]) -> torch.Tensor:
+        """fp32 U[0, 1) of the global ``shape``, on the generator's
+        device."""
+        return torch.rand(shape, generator=self.generator,
+                          device=self.generator.device)
+
+    def restarted(self, state: torch.Tensor) -> "StepDraws":
+        """These draws from a fresh generator at ``state`` (a recompute
+        draws what the forward drew)."""
+        gen = torch.Generator(self.generator.device)
+        gen.set_state(state)
+        return dataclasses.replace(self, generator=gen)
+
+
+def _uniform(shape, generator: torch.Generator | StepDraws,
+             like: torch.Tensor,
              dtype: torch.dtype | None = None) -> torch.Tensor:
     """U[0, 1) draws of ``dtype`` (``like``'s by default) from
-    ``generator`` on its own device, moved to ``like``'s. With a CPU
-    generator a CPU run and a card run from one seed draw the same numbers.
-    Below fp32's precision the fp32 draws are cut down to the dtype's
-    mantissa, multiples of its eps in [0, 1 - eps], as ``jax.random.
-    uniform`` draws them (rounding to nearest would give 1.0)."""
+    ``generator`` on its own device, moved to ``like``'s: this rank's rows
+    of a draw at the global batch's shape when ``generator`` is a
+    ``StepDraws``. With a CPU generator a CPU run and a card run from one
+    seed draw the same numbers. Below fp32's precision the fp32 draws are
+    cut down to the dtype's mantissa, multiples of its eps in [0, 1 - eps],
+    as ``jax.random.uniform`` draws them (rounding to nearest would give
+    1.0)."""
     dtype = like.dtype if dtype is None else dtype
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    if isinstance(generator, StepDraws):
+        lo = generator.row_offset
+        u = generator.draw((generator.global_batch, *shape[1:]))
+        if lo + shape[0] > u.shape[0]:
+            raise ValueError(f"rows {lo}..{lo + shape[0]} of a draw for "
+                             f"{u.shape[0]}")
+        u = u[lo:lo + shape[0]]
+    else:
+        u = torch.rand(shape, generator=generator, device=generator.device)
     eps = torch.finfo(dtype).eps
     if eps > torch.finfo(u.dtype).eps:
         u = torch.floor(u / eps) * eps
@@ -206,10 +247,11 @@ def drop_path_with(x: torch.Tensor, u: torch.Tensor,
 
 
 def drop_path(x: torch.Tensor, drop_prob: float, training: bool,
-              generator: torch.Generator | None) -> torch.Tensor:
+              generator: torch.Generator | StepDraws | None) -> torch.Tensor:
     """Per-sample stochastic depth (reference models/blocks.py:1107-1120);
     identity at eval or when drop_prob is 0. The (B,) uniforms come from
-    ``generator``."""
+    ``generator`` (a ``StepDraws``: this rank's rows of the global
+    batch's)."""
     if not training or drop_prob == 0.0:
         return x
     if generator is None:
@@ -219,7 +261,7 @@ def drop_path(x: torch.Tensor, drop_prob: float, training: bool,
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | StepDraws | None) -> torch.Tensor:
     """Elementwise dropout as flax ``nn.Dropout``: keep with probability
     1 - p (fp32 uniforms whatever x's dtype, as ``random.bernoulli`` draws
     them), kept values scale by 1/(1 - p); identity at eval or p == 0."""

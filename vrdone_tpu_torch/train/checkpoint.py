@@ -7,6 +7,10 @@ and ``meta`` with ``crt_epoch`` and ``batch_size``. Parameters are keyed by
 the model's ``state_dict`` names and stored on the CPU. A save writes
 ``torch.save`` output to a temporary file beside the target and renames it
 into place, so a reader never sees a half-written checkpoint.
+
+Under data parallelism every rank holds the same state: rank 0 writes, and
+then all ranks meet at a barrier, so none reads or overwrites a checkpoint
+before it is whole. Every rank restores.
 """
 
 from __future__ import annotations
@@ -16,11 +20,19 @@ import tempfile
 
 import torch
 
+from ..parallel import mesh
 from .loop import TrainState
 
 
 def save_checkpoint(path: str, state: TrainState, *, epoch: int,
                     batch_size: int) -> None:
+    if mesh.process_index() == 0:
+        _write(path, state, epoch=epoch, batch_size=batch_size)
+    mesh.barrier()
+
+
+def _write(path: str, state: TrainState, *, epoch: int,
+           batch_size: int) -> None:
     model = state.model
     payload = {
         "params": {k: v.detach().cpu() for k, v in model.state_dict().items()},

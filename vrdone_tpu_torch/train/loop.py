@@ -15,8 +15,17 @@ back in fp32 and matching and the losses run in fp32. ``remat`` recomputes
 the forward, the cast included, in the backward (``remat_policy`` "full",
 or "dots": the outputs of the plain matrix products are kept).
 
-Not ported (it raises in ``train_torch.py``): a device mesh; see
-ROADMAP.md queue 1, data parallelism.
+Data parallelism (one process per card under ``torchrun``,
+``parallel/mesh.py``): the step equals one process's step on the global
+batch, as JAX's dp step is one program on it. Each rank draws drop path and
+dropout at the global batch's shape and keeps its rows (``StepDraws``),
+divides its losses by the global normalisers (``compute_losses``'
+``reduce``), and sums the ranks' partial gradients with one all-reduce of
+a flat buffer; the clip, AdamW and EMA then run alike on every rank. The
+step takes its gradients with ``torch.autograd.grad``, so DDP's hooks would
+never fire: the all-reduce is the step's own. Sequence and tensor
+parallelism are not ported (ROADMAP.md queue 1, sequence and tensor
+parallelism).
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ from torch.utils import checkpoint
 from ..config import ModelConfig
 from ..convert import load_params
 from ..models.maskvrd import MaskVRD, compute_losses
+from ..ops.masked import StepDraws
+from ..parallel import mesh
 from ..utils.precision import cast_tensors, compute_dtype
 from . import optim
 
@@ -104,23 +115,20 @@ def batch_to_device(batch: dict[str, np.ndarray],
 
 
 def _forward(model: MaskVRD, batch: dict[str, torch.Tensor],
-             generator: Optional[torch.Generator]) -> dict:
+             draws: Optional[StepDraws]) -> dict:
     """The step's forward in training mode, as the JAX train step's
     ``forward``: in bf16 on ``cast_tensors`` of the fp32 parameters with
     bf16 features, and with ``remat`` under ``checkpoint``. The drop-path
-    and dropout masks come from a generator rebuilt from ``generator``'s
-    state at each run, so the recompute draws the masks the forward drew
-    (``checkpoint`` restores the default generators, not this one);
-    ``generator`` itself is not advanced."""
+    and dropout masks come from a generator rebuilt from ``draws``'
+    generator state at each run, so the recompute draws the masks the
+    forward drew (``checkpoint`` restores the default generators, not this
+    one); ``draws`` itself is not advanced."""
     cfg = model.config
     dtype = compute_dtype(cfg.compute_dtype)
-    rng = None if generator is None else generator.get_state()
+    rng = None if draws is None else draws.generator.get_state()
 
     def run():
-        gen = None
-        if rng is not None:
-            gen = torch.Generator(generator.device)
-            gen.set_state(rng)
+        gen = None if rng is None else draws.restarted(rng)
         feats = batch["feats"].to(dtype)
         if dtype == torch.float32:
             return model(feats, batch["seq_mask"], gen)
@@ -136,26 +144,53 @@ def _forward(model: MaskVRD, batch: dict[str, torch.Tensor],
     return checkpoint.checkpoint(run, use_reentrant=False, **kw)
 
 
+def step_draws(generator: Optional[torch.Generator | StepDraws],
+               local_batch: int) -> Optional[StepDraws]:
+    """The step's draws for this rank: at the global batch's shape
+    (``local_batch`` rows a rank) from ``generator``, keeping the rows from
+    this rank's offset. A ``StepDraws`` keeps its own source of draws."""
+    if generator is None:
+        return None
+    n, r = mesh.process_count(), mesh.process_index()
+    if isinstance(generator, StepDraws):
+        return dataclasses.replace(generator, global_batch=n * local_batch,
+                                   row_offset=r * local_batch)
+    return StepDraws(generator, n * local_batch, r * local_batch)
+
+
 def train_step(state: TrainState, batch: dict[str, torch.Tensor],
-               generator: Optional[torch.Generator]
+               generator: Optional[torch.Generator | StepDraws]
                ) -> tuple[TrainState, dict[str, torch.Tensor]]:
-    """One optimisation step on ``batch`` (tensors on the model's device).
-    Updates ``state`` in place and returns it with the detached losses."""
+    """One optimisation step on ``batch`` (tensors on the model's device;
+    under data parallelism this rank's rows of the global batch, the same
+    number on every rank). Updates ``state`` in place and returns it with
+    the detached losses of the global batch."""
     model = state.model
     model.train()
-    preds = _forward(model, batch, generator)
-    losses = compute_losses(model.config, preds, batch)
+    preds = _forward(model, batch,
+                     step_draws(generator, batch["feats"].shape[0]))
+    losses = compute_losses(model.config, preds, batch, mesh.all_reduce_sum)
     params = state.params()
     grads = torch.autograd.grad(losses["total_loss"], params,
                                 allow_unused=True)
     # a parameter the loss does not reach gets a zero gradient, as in JAX
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
+    losses = {k: v.detach() for k, v in losses.items()}
+    if mesh.is_distributed():
+        # in a process group, even of one (the sums are then collectives),
+        # each rank's loss is its partial sum over the global normalisers:
+        # the SUM of the ranks' gradients (and losses) is the global one
+        flat = mesh.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
+        grads = [g.view_as(p) for g, p in
+                 zip(flat.split([p.numel() for p in params]), params)]
+        total = mesh.all_reduce_sum(torch.stack(list(losses.values())))
+        losses = dict(zip(losses, total.unbind()))
     state.optimizer.update([p.data for p in params], grads)
     optim.ema_update(state.ema_params, [p.data for p in params],
                      state.ema_decay)
     state.step += 1
-    return state, {k: v.detach() for k, v in losses.items()}
+    return state, losses
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
