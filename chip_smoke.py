@@ -167,6 +167,18 @@ one process per source, all started together, into
      for one epoch of phase 6's corpus, and ``eval_torch.py --multihost`` on
      its checkpoint with two ranks sharing the card beside one process's
      ``eval_torch.py``: the merged predictions and metrics equal.
+ 14. (run right after 13) MEGA detector training: three steps of
+     ``configs/detector/mega_vidvrd.yaml`` at full width (R-101-C4,
+     608x1088, 2 local, 3 memory and 2 global frames, 128 key and 75
+     reference proposals, 16 GT slots; random seeded weights with the
+     frozen norms' statistics calibrated on a frame) at a batch of 1:
+     finite losses, every parameter group moved, the step time, peak
+     memory, busy share and launches (no K5, K6 or ``bias_factors``: the
+     dense route); the small detector's losses and gradients on the card
+     against the CPU (``LOSS_TOL``, ``DET_GRAD_TOL``); two ranks sharing
+     the card over gloo, a sample each, against one process's step; then
+     ``train_detector_torch.py`` for 4 iterations on phase 12's corpus and
+     ``detect_torch.py --ckpt_path`` on the ``.npz`` it wrote.
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
@@ -179,6 +191,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -704,7 +717,8 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
     entries of ``band_attention_dq`` and ``band_attention_dkv``, timed at
     VidVRD's T=96, with each kernel alone at every train shape beside plain
     autograd, SDPA's backward and the bound in ``by_shape``, and appends K1
-    with its lse, timed alone at VidVRD's T=96, to ``band_rows``."""
+    with its lse, timed alone at VidVRD's T=96 and at VrdONE-X's four train
+    shapes, to ``band_rows``."""
     rng = np.random.default_rng(3)
     worst = {"band_attention_dq": 0.0, "band_attention_dkv": 0.0}
     entries = {name: {"by_shape": []} for name in worst}
@@ -749,7 +763,9 @@ def check_band_backward(cuda, ba, mops, band_rows: list) -> dict:
         lib_mask = band_library_mask(mask, w)
         with torch.no_grad():
             dr = ba.band_rowsum(dout, out, h)
-            if headline:
+            if headline or (b, h) == BWD_SHAPES[1][0][:2]:
+                # K1 with its lse at VidVRD's T=96 and at each of
+                # VrdONE-X's train levels
                 band_rows.append(band_row(
                     ba, f"{shape} with lse",
                     lambda: ba.band_attention_cuda(q, k, v, mask,
@@ -3636,15 +3652,408 @@ def check_streaming(cuda, ba, fa, pe_alone: dict, alone: dict) -> dict:
     return launches
 
 
+# -- phase 14: MEGA detector training on the card ----------------------------
+DET_TRAIN_CFG = ROOT / "configs" / "detector" / "mega_vidvrd.yaml"
+DET_TRAIN_STEPS = 3
+# train_detector_torch.py's defaults: the canvas, key proposals, GT slots
+DET_CANVAS, DET_POST_NMS, DET_MAX_GT = (608, 1088), 128, 16
+# the small configuration of tests/test_torch_detector_train.py
+SMALL_TRAIN_DET = dict(num_classes=35, resnet_layers=(1, 1, 1), stage=2,
+                       groups=4, base_num=4, window=3, key_loc=1,
+                       global_size=2)
+SMALL_TRAIN_HW, SMALL_TRAIN_POST_NMS = (64, 64), 8
+DET_GRAD_TOL = 1e-4   # card vs CPU gradients, times 1 + max |g| of a leaf
+DET_DP_PARAM_TOL = 1e-6   # two ranks' step vs one process's, parameters
+
+
+def det_train_batch(rng, b: int, hw, n_ref: tuple, max_gt: int,
+                    n_gt: int = 4) -> dict:
+    """A detector training batch of ``b`` samples on an ``hw`` canvas: key,
+    local, memory and global frames (``n_ref``) of uniform noise, ``n_gt``
+    GT boxes with labels in 1..35 and the rest of ``max_gt`` slots
+    padding."""
+    h, w = hw
+    n_l, n_m, n_g = n_ref
+    frames = rng.uniform(0, 255, (b, 1 + n_l + n_m + n_g, h, w, 3)
+                         ).astype(np.float32)
+    xy = rng.uniform(0, 0.6, (b, n_gt, 2)) * (w, h)
+    wh = rng.uniform(0.15, 0.4, (b, n_gt, 2)) * (w, h)
+    gt_boxes = np.zeros((b, max_gt, 4), np.float32)
+    gt_boxes[:, :n_gt] = np.concatenate([xy, xy + wh], -1)
+    gt_labels = np.zeros((b, max_gt), np.int32)
+    gt_labels[:, :n_gt] = rng.integers(1, 36, (b, n_gt))
+    gt_valid = np.zeros((b, max_gt), bool)
+    gt_valid[:, :n_gt] = True
+    return {"key": frames[:, 0], "local": frames[:, 1:1 + n_l],
+            "mem": frames[:, 1 + n_l:1 + n_l + n_m],
+            "glob": frames[:, 1 + n_l + n_m:], "gt_boxes": gt_boxes,
+            "gt_labels": gt_labels, "gt_valid": gt_valid}
+
+
+@torch.no_grad()
+def calibrate_frozen_bn(det, images: torch.Tensor, rois: torch.Tensor
+                        ) -> None:
+    """Set each frozen batch norm's statistics to those of its input: the
+    backbone's over ``images``, the C5 head's over ``rois`` of the first
+    image, as an ImageNet-trained backbone's statistics are its data's.
+    Random He-normal convolutions through identity norms grow the
+    activations block by block: at R-101's depth the port's own seeded
+    weights give losses near 1e7 and a gradient of NaN."""
+    from vrdone_tpu_torch.models.resnet import FrozenBatchNorm
+
+    def hook(m, args):
+        x = args[0].float()
+        m.running_mean.copy_(x.mean((0, 2, 3)))
+        m.running_var.copy_(x.var((0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(hook) for m in det.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    try:
+        c4 = det.features(images)
+        det.box_head.pooled_features(c4[0], rois)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@torch.no_grad()
+def damp_heads(det) -> None:
+    """A tenth of the MEGA head's and the RPN's and box head's predictor
+    kernels (``tests/test_torch_detector_train.py::damp``): at full scale
+    MEGA's softmaxes saturate, and the small detector's gradient is float
+    noise."""
+    for name, p in det.named_parameters():
+        if p.ndim >= 2 and (name.startswith("mega.") or name.split(".")[-2]
+                            in ("cls_score", "bbox_pred", "cls_logits")):
+            p.mul_(0.1)
+
+
+def small_train_case(device):
+    """The small detector (seed 1, its frozen norms calibrated and its
+    heads damped on the CPU) on ``device``, and a batch of two samples of
+    64 x 64 with one local, memory and global frame each (seed 22)."""
+    from vrdone_tpu_torch.models.detector import MegaDetector
+    det = MegaDetector(**SMALL_TRAIN_DET, device=torch.device("cpu"),
+                       generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(22)
+    batch = det_train_batch(rng, 2, SMALL_TRAIN_HW, (1, 1, 1), 3, n_gt=2)
+    calibrate_frozen_bn(det, torch.from_numpy(batch["key"]),
+                        torch.from_numpy(batch["gt_boxes"][0, :2]))
+    damp_heads(det)
+    return det.to(device), batch
+
+
+def det_step_setup(cfg_path: Path):
+    """The detector config at ``cfg_path`` and a maker of its SGD (its
+    multistep schedule with warmup, as train_detector_torch.py builds
+    them)."""
+    from vrdone_tpu_torch.detector_config import load_detector_config
+    from vrdone_tpu_torch.train.optim import detector_sgd, multistep_schedule
+    cfg = load_detector_config(str(cfg_path))
+    schedule = multistep_schedule(
+        cfg.base_lr, cfg.warmup_iters, tuple(cfg.steps), cfg.gamma,
+        cfg.base_lr * cfg.warmup_factor)
+    return cfg, lambda det: detector_sgd(
+        schedule, det.named_parameters(), momentum=cfg.momentum,
+        weight_decay=cfg.weight_decay, bias_lr_factor=cfg.bias_lr_factor,
+        weight_decay_bias=cfg.weight_decay_bias)
+
+
+def check_detector_train(cuda, ba, fa, ma, pb) -> dict:
+    """Phase 14a: ``configs/detector/mega_vidvrd.yaml`` at full width
+    (R-101-C4, 608 x 1088, 2 local, 3 memory and 2 global frames, 75
+    reference and 128 key proposals, 16 GT slots) from random seeded
+    weights with calibrated frozen norms, DET_TRAIN_STEPS steps at a batch
+    of 1 on the card: finite losses each step, every parameter group moved,
+    the step time (steps 1 and 2), the peak memory, the busy share (a
+    profiled fourth step) and the launches of one step, which must hold
+    no K5, K6 or ``bias_factors`` (training takes the dense route, as JAX
+    trains). Returns the launches of the last step."""
+    from vrdone_tpu_torch.detector_config import mega_detector_kwargs
+    from vrdone_tpu_torch.models.detector import MegaDetector
+    from vrdone_tpu_torch.models.detector_train import (StepPriorities,
+                                                        detector_train_step)
+    cfg, make_opt = det_step_setup(DET_TRAIN_CFG)
+    det = MegaDetector(**mega_detector_kwargs(cfg),
+                       device=torch.device("cpu"),
+                       generator=torch.Generator().manual_seed(0)).to(cuda)
+    rng = np.random.default_rng(21)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in det_train_batch(
+        rng, 1, DET_CANVAS, (cfg.ref_num_local, cfg.ref_num_mem,
+                             cfg.ref_num_global), DET_MAX_GT).items()}
+    calibrate_frozen_bn(det, batch["key"], batch["gt_boxes"][0, :4])
+    opt = make_opt(det)
+    start = {n: p.detach().clone() for n, p in det.named_parameters()}
+    n_params = sum(p.numel() for p in start.values())
+
+    def step(i):
+        return detector_train_step(det, opt, batch,
+                                   StepPriorities(0, i, cuda),
+                                   image_hw=DET_CANVAS,
+                                   post_nms_top_n=DET_POST_NMS)
+
+    ms = []
+    torch.cuda.reset_peak_memory_stats(cuda)
+    for i in range(DET_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        zero_counts(ba, fa)
+        zero_mega_counts(ma, pb)
+        t0 = time.perf_counter()
+        losses = step(i)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        launches = {**band_counts(ba, fa), **mega_counts(ma, pb)}
+        values = {k: v.item() for k, v in losses.items()}
+        print(f"detector train step {i} (mega_vidvrd.yaml, R-101-C4, "
+              f"{DET_CANVAS[0]}x{DET_CANVAS[1]}, 8 frames, TF32 off): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
+        if not all(map(math.isfinite, values.values())):
+            raise AssertionError(f"detector train step {i}: {values}")
+    peak = torch.cuda.max_memory_allocated(cuda) / 2**30
+    moved = {}
+    for group, prefix in (("backbone", "backbone."), ("RPN", "rpn."),
+                          ("box head", "box_head."), ("MEGA head", "mega.")):
+        moved[group] = max((p.detach() - start[n]).abs().max().item()
+                           for n, p in det.named_parameters()
+                           if n.startswith(prefix))
+    print(f"detector train: {n_params} parameters; largest move by group "
+          f"after {DET_TRAIN_STEPS} steps {moved}")
+    if not all(v > 0 and math.isfinite(v) for v in moved.values()):
+        raise AssertionError(f"a parameter group did not move: {moved}")
+    print(f"detector train step times (ms, host clock, steps 0-"
+          f"{DET_TRAIN_STEPS - 1}): " + ", ".join(f"{t:.2f}" for t in ms)
+          + f"; peak memory {peak:.2f} GiB")
+    print(f"detector train step: kernel launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"the detector train step launched "
+                             f"{launches}: training takes the dense route")
+    busy, wall, _ = profile_device(lambda: step(DET_TRAIN_STEPS), 1, "step")
+    print(f"detector train step: busy {busy:.2f} ms of {wall:.2f} ms "
+          f"({100 * busy / wall:.1f}%, profiler on)")
+    del det, opt, start, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def det_losses_and_grads(det, batch, i: int, device) -> tuple[dict, dict]:
+    from vrdone_tpu_torch.models.detector_train import (StepPriorities,
+                                                        mega_detector_losses)
+    tb = {k: torch.from_numpy(v[i]).to(device) for k, v in batch.items()}
+    losses = mega_detector_losses(
+        det, tb["key"], tb["local"], tb["mem"], tb["glob"], SMALL_TRAIN_HW,
+        tb["gt_boxes"], tb["gt_labels"], tb["gt_valid"],
+        StepPriorities(0, 0, device)(i), post_nms_top_n=SMALL_TRAIN_POST_NMS)
+    names = [n for n, _ in det.named_parameters()]
+    params = [p for _, p in det.named_parameters()]
+    grads = torch.autograd.grad(losses["total_loss"], params,
+                                allow_unused=True)
+    return ({k: v.item() for k, v in losses.items()},
+            {n: (torch.zeros_like(p) if g is None else g).cpu()
+             for n, p, g in zip(names, params, grads)})
+
+
+def check_detector_train_vs_cpu(cuda) -> None:
+    """Phase 14b: the small detector's losses and gradients of one sample
+    on the card against the port's CPU run, from the same weights, frames
+    and draws: losses within LOSS_TOL, each leaf's gradient within
+    DET_GRAD_TOL x (1 + max |g|)."""
+    cpu_det, batch = small_train_case(torch.device("cpu"))
+    gpu_det = copy.deepcopy(cpu_det).to(cuda)
+    want, want_g = det_losses_and_grads(cpu_det, batch, 0, torch.device("cpu"))
+    got, got_g = det_losses_and_grads(gpu_det, batch, 0, cuda)
+    loss_err = max(abs(got[k] - v) / (1 + abs(v)) for k, v in want.items())
+    grad_err = {n: ((got_g[n] - g).abs().max()
+                    / (1 + g.abs().max())).item() for n, g in want_g.items()}
+    worst = max(grad_err, key=grad_err.get)
+    print(f"small detector train sample, card vs CPU: losses {got} (CPU "
+          f"{want}), worst loss rel err {loss_err:.3e}; worst gradient "
+          f"{worst} {grad_err[worst]:.3e} of 1 + max |g|")
+    if loss_err > LOSS_TOL or grad_err[worst] > DET_GRAD_TOL:
+        raise AssertionError("the detector's training losses or gradients "
+                             "on the card differ from the CPU's")
+
+
+def det_dp_rank_main(out_dir: str) -> None:
+    """One rank of phase 14d, started by ``check_detector_dp`` with
+    torchrun's environment: a gloo group over CUDA tensors on card 0, one
+    detector step of the small configuration on this rank's sample of the
+    global batch; writes its losses and parameters to
+    ``out_dir/rank<r>.pt``."""
+    from vrdone_tpu_torch.convert import load_npz, load_params
+    from vrdone_tpu_torch.models.detector_train import (StepPriorities,
+                                                        detector_train_step)
+    from vrdone_tpu_torch.parallel import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, device = mesh.init_distributed("cuda:0", backend="gloo")
+    try:
+        det, batch = small_train_case(device)
+        load_params(det, load_npz(os.path.join(out_dir, "start.npz")))
+        _, make_opt = det_step_setup(DET_TRAIN_CFG)
+        rows = mesh.local_batch_slice(2)
+        losses = detector_train_step(
+            det, make_opt(det), {k: torch.from_numpy(v[rows]).to(device)
+                                 for k, v in batch.items()},
+            StepPriorities(0, 0, device), image_hw=SMALL_TRAIN_HW,
+            post_nms_top_n=SMALL_TRAIN_POST_NMS)
+        torch.save({"losses": {k: v.item() for k, v in losses.items()},
+                    "params": [p.detach().cpu() for p in det.parameters()]},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+        mesh.barrier()
+    finally:
+        mesh.shutdown()
+
+
+def check_detector_dp(cuda) -> None:
+    """Phase 14d: two ranks sharing the card over gloo, a sample each, one
+    detector step of the small configuration against one process's step
+    on both samples: losses within LOSS_TOL, parameters within
+    DET_DP_PARAM_TOL, the ranks equal bit for bit."""
+    from vrdone_tpu_torch.convert import params_to_jax
+    from vrdone_tpu_torch.models.detector_train import (StepPriorities,
+                                                        detector_train_step)
+    det, batch = small_train_case(cuda)
+    with tempfile.TemporaryDirectory() as out_dir:
+        # the ranks start from these weights bit for bit
+        np.savez(os.path.join(out_dir, "start.npz"),
+                 **params_to_jax(det.state_dict()))
+        env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(free_port()))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.det_dp_rank_main({out_dir!r})"],
+            cwd=ROOT, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            _, make_opt = det_step_setup(DET_TRAIN_CFG)
+            one = detector_train_step(
+                det, make_opt(det), {k: torch.from_numpy(v).to(cuda)
+                                     for k, v in batch.items()},
+                StepPriorities(0, 0, cuda), image_hw=SMALL_TRAIN_HW,
+                post_nms_top_n=SMALL_TRAIN_POST_NMS)
+        finally:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"detector rank {r} failed:\n"
+                                     f"{log[-3000:]}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=True) for r in range(2)]
+    seconds = time.perf_counter() - t0
+    if ranks[0]["losses"] != ranks[1]["losses"] or not all(
+            torch.equal(a, b) for a, b in zip(ranks[0]["params"],
+                                              ranks[1]["params"])):
+        raise AssertionError("the detector ranks' steps differ")
+    one = {k: v.item() for k, v in one.items()}
+    loss_err = max(abs(ranks[0]["losses"][k] - v) / (1 + abs(v))
+                   for k, v in one.items())
+    gap = max((a - b.cpu()).abs().max().item()
+              for a, b in zip(ranks[0]["params"], det.parameters()))
+    print(f"detector step, 2 ranks on one card (gloo) x 1 sample vs one "
+          f"process x 2: total_loss {ranks[0]['losses']['total_loss']:.6f} "
+          f"vs {one['total_loss']:.6f}, worst loss rel err {loss_err:.3e}; "
+          f"ranks equal bit for bit; largest parameter gap {gap:.3e} "
+          f"({seconds:.1f} s)")
+    if loss_err > LOSS_TOL or gap > DET_DP_PARAM_TOL:
+        raise AssertionError("two ranks' detector step differs from one "
+                             "process's")
+
+
+def check_detector_train_cli(cuda) -> None:
+    """Phase 14c: ``train_detector_torch.py --cfg mega_vidvrd.yaml`` for 4
+    iterations on phase 12's VidVRD-layout corpus (the two train videos),
+    starting from calibrated random weights through ``--init_ckpt``, then
+    ``detect_torch.py --ckpt_path`` on the ``.npz`` it wrote, over 8 frames
+    of the test video; both subprocesses on the card, exit 0, every logged
+    loss finite."""
+    import shutil
+
+    from vrdone_tpu_torch.convert import params_to_jax
+    from vrdone_tpu_torch.detector_config import (load_detector_config,
+                                                  mega_detector_kwargs)
+    from vrdone_tpu_torch.models.detector import MegaDetector
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_frames_corpus(root)
+        det = MegaDetector(**mega_detector_kwargs(load_detector_config(
+            str(DET_TRAIN_CFG))), device=torch.device("cpu"),
+            generator=torch.Generator().manual_seed(0)).to(cuda)
+        rng = np.random.default_rng(23)
+        images = torch.from_numpy(rng.uniform(0, 255, (1, *DET_CANVAS, 3))
+                                  .astype(np.float32)).to(cuda)
+        calibrate_frozen_bn(det, images, torch.tensor(
+            [[40.0, 30.0, 400.0, 500.0], [500.0, 100.0, 900.0, 560.0]],
+            device=cuda))
+        np.savez(root / "init.npz", **params_to_jax(det.state_dict()))
+        del det, images
+        torch.cuda.empty_cache()
+        test_frames = root / "test_frames" / CORPUS_VIDEOS["test"][0]
+        test_frames.mkdir(parents=True)
+        src = root / "frames" / "test" / CORPUS_VIDEOS["test"][0]
+        for f in sorted(os.listdir(src))[:8]:
+            shutil.copy(src / f, test_frames / f)
+        exp = root / "exp"
+        runs = [("train_detector_torch.py",
+                 ["--anno_dir", str(root / "annotations" / "train"),
+                  "--frames_dir", str(root / "frames" / "train"),
+                  "--exp_dir", str(exp), "--dataset", "vidvrd", "--cfg",
+                  str(DET_TRAIN_CFG), "--init_ckpt", str(root / "init.npz"),
+                  "--iters", "4", "--log_interval", "1", "--device",
+                  "cuda"]),
+                ("detect_torch.py",
+                 ["--frames_dir", str(root / "test_frames"), "--out_dir",
+                  str(root / "det"), "--ckpt_path",
+                  str(exp / "detector_4.npz"), "--score_thresh", "0.02",
+                  "--max_proposal", str(CORPUS_TRACKLETS), "--device",
+                  "cuda"])]
+        for script, args in runs:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, str(ROOT / script), *args],
+                               cwd=ROOT, capture_output=True, text=True,
+                               timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"{script} failed:\n{r.stdout[-3000:]}"
+                                     f"\n{r.stderr[-3000:]}")
+            print(f"{script} on the card: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            if script == "train_detector_torch.py":
+                totals = [float(v) for v in re.findall(
+                    r"total_loss: (\S+) ", r.stdout)]
+                print(f"  total_loss by iteration (window median): "
+                      f"{totals}; {r.stdout.strip().splitlines()[-1]}")
+                if len(totals) != 4 or not all(map(math.isfinite, totals)):
+                    raise AssertionError(f"train_detector_torch.py losses "
+                                         f"{totals}")
+        if not (root / "det" / f"{CORPUS_VIDEOS['test'][0]}.pkl").exists():
+            raise AssertionError("detect_torch.py wrote no pickle")
+
+
+def detector_train_phase(cuda, ba, fa, ma, pb) -> dict:
+    """Phase 14: full width, the small detector against the CPU, two ranks
+    against one process, train_detector_torch.py -> detect_torch.py.
+    Returns the launches of a full-width step."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = check_detector_train(cuda, ba, fa, ma, pb)
+    check_detector_train_vs_cpu(cuda)
+    check_detector_dp(cuda)
+    check_detector_train_cli(cuda)
+    print(f"phase 14 (detector training): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one CUDA card")
     parser.add_argument(
-        "--only", choices=("kernels",), default=None,
+        "--only", choices=("kernels", "detector_train"), default=None,
         help="kernels: build the kernels, hold each against its plain "
              "version at the main paths' shapes and time it (the kernel "
              "checks of phases 1, 2, 7 and 8), print their JSON line and "
-             "stop")
+             "stop; detector_train: phase 14 alone (no kernel on its path, "
+             "none built)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card",
@@ -3670,6 +4079,11 @@ def main(argv: list[str] | None = None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    if args.only == "detector_train":
+        print(json.dumps({"detector_train_step": detector_train_phase(
+            cuda, ba, fa, ma, pb)}))
+        return 0
 
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -3807,6 +4221,8 @@ def main(argv: list[str] | None = None) -> int:
     # process's, train_torch.py under torchrun (NCCL), multihost eval
     dp_launches = check_dp_train_step(cfg, raw, cuda, ba, fa)
     check_dp_cli(raw)
+    # 14. MEGA detector training
+    det_train_launches = detector_train_phase(cuda, ba, fa, ma, pb)
 
     # 7. MEGA: detect_video at full width, the small detector against the
     # CPU, detect_torch.py
@@ -3863,12 +4279,14 @@ def main(argv: list[str] | None = None) -> int:
     # run's for the bias band kernel, the VidVRD bf16 eval step's for the
     # bf16 instances, the bf16 rel-PE eval step's at VidOR local width for
     # the bias band kernel's bf16 instance; every path, VrdONE-X's eval
-    # and train steps among them, is in launches_by_path
+    # and train steps and the MEGA detector's train step (none: it takes
+    # the dense route) among them, is in launches_by_path
     by_path = {name: {"eval_forward": launches.get(name, 0),
                       "train_step": train_launches.get(name, 0),
                       "train_step_bf16": train16_launches.get(name, 0),
                       "train_step_bf16_rel_pe": relpe16_launches.get(name, 0),
                       "train_step_dp": dp_launches.get(name, 0),
+                      "detector_train_step": det_train_launches.get(name, 0),
                       **{route: c.get(name, 0)
                          for route, c in detect_launches.items()},
                       "stream": stream_launches.get(name, 0),

@@ -4,6 +4,7 @@ original's under a two-line header, and the dataset items, ground truth,
 eval records and metric dict come out identical from both packages on the
 synthetic corpora."""
 
+import dataclasses
 import importlib
 import inspect
 import os
@@ -243,3 +244,116 @@ def test_rebuilt_and_repackaged_proposals_match(tmp_path):
     assert blobs["jax"][0]["v1"]["traj_proposal"]["num_proposals"] == 2
     assert len(blobs["jax"][0]["v1"]["gt_graph"]["pred_cat_ids"]) == 1
     equal(blobs["port"], blobs["jax"], "blobs")
+
+
+# -- the detector-training path's copies ----------------------------------------
+
+def test_detector_config_is_the_original():
+    """The copy is the original with ``import yaml`` moved into the loader;
+    both parse every detector config the same."""
+    from vrdone_tpu import detector_config as jcfg
+    from vrdone_tpu_torch import detector_config as tcfg
+    ours = inspect.getsource(tcfg).split("\n", 3)
+    assert ours[0] == ("# Copy of vrdone_tpu/detector_config.py with "
+                       "``import yaml`` moved into")
+    theirs = inspect.getsource(jcfg).replace(
+        "from dataclasses import dataclass, replace\n\nimport yaml\n",
+        "from dataclasses import dataclass, replace\n").replace(
+        '(the CLI hook)."""\n    with open(path)',
+        '(the CLI hook)."""\n    import yaml\n    with open(path)')
+    assert ours[3] == theirs
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "detector")
+    for name in sorted(os.listdir(root)):
+        j = jcfg.load_detector_config(os.path.join(root, name))
+        t = tcfg.load_detector_config(os.path.join(root, name))
+        assert dataclasses.asdict(t) == dataclasses.asdict(j), name
+        if j.method == "mega":
+            assert tcfg.mega_detector_kwargs(t) == jcfg.mega_detector_kwargs(j)
+
+
+def test_metric_logger_is_the_original():
+    from vrdone_tpu.utils import metric_logger as jml
+    from vrdone_tpu_torch.utils import metric_logger as tml
+    test_copy_is_the_original("utils.metric_logger")
+    logs = []
+    for mod in (jml, tml):
+        m = mod.MetricLogger()
+        for i in range(30):
+            m.update(loss=float(i % 7), lr=0.1 * i)
+        logs.append(str(m))
+    assert logs[0] == logs[1]
+
+
+DETECTION_FUNCTIONS = ["iou_matrix", "compute_motion_ious",
+                       "calc_vid_prec_rec", "calc_vid_ap",
+                       "eval_detection_vid", "eval_proposal_recall",
+                       "eval_detection_coco"]
+
+
+@pytest.mark.parametrize("name", DETECTION_FUNCTIONS)
+def test_detection_metric_is_the_original(name):
+    from vrdone_tpu.eval import detection as jdet
+    from vrdone_tpu_torch.eval import detection as tdet
+    assert (inspect.getsource(getattr(tdet, name))
+            == inspect.getsource(getattr(jdet, name)))
+    assert tdet.MOTION_RANGES == jdet.MOTION_RANGES
+
+
+def _test_functions(module):
+    return sorted(n for n in dir(module) if n.startswith("test_"))
+
+
+@pytest.mark.parametrize("test_name",
+                         _test_functions(importlib.import_module(
+                             "tests.test_detection_eval")))
+def test_detection_metrics_match_on_the_eval_tests(test_name, monkeypatch):
+    """Each test of tests/test_detection_eval.py with every metric it calls
+    run by both packages: the port's output equals the original's on each
+    call."""
+    from tests import test_detection_eval as tests_mod
+    from vrdone_tpu.eval import detection as jdet
+    from vrdone_tpu_torch.eval import detection as tdet
+    calls = []
+
+    def both(name):
+        def run(*args, **kw):
+            want = getattr(jdet, name)(*args, **kw)
+            np.testing.assert_equal(getattr(tdet, name)(*args, **kw), want)
+            calls.append(name)
+            return want
+        return run
+
+    for name in DETECTION_FUNCTIONS:
+        if hasattr(tests_mod, name):
+            monkeypatch.setattr(tests_mod, name, both(name))
+    getattr(tests_mod, test_name)()
+    assert calls
+
+
+@pytest.mark.parametrize("name", ["conv_w", "bn_params", "bottleneck_params",
+                                  "stage_params", "convert"])
+def test_resnet_conversion_is_the_original(name):
+    from tools import convert_torch_resnet as jconv
+    from vrdone_tpu_torch import convert_resnet as tconv
+    assert (inspect.getsource(getattr(tconv, name))
+            == inspect.getsource(getattr(jconv, name)))
+
+
+def test_sample_ref_indices_is_the_original():
+    from vrdone_tpu.models.detector_train import sample_ref_indices as jref
+    from vrdone_tpu_torch.models.detector_train import (
+        sample_ref_indices as tref)
+    assert inspect.getsource(tref) == inspect.getsource(jref)
+    a, b = np.random.default_rng(4), np.random.default_rng(4)
+    for fid, seg in [(0, 30), (15, 30), (29, 30), (5, 6), (1, 1)]:
+        equal(tref(b, fid, seg), jref(a, fid, seg))
+
+
+@pytest.mark.parametrize("name", ["load_frame", "resize_and_pad",
+                                  "coco_index", "sample_frames"])
+def test_train_detector_host_functions_are_the_originals(name):
+    import train_detector_torch as tcli
+    from tools import train_detector as jcli
+    assert (inspect.getsource(getattr(tcli, name))
+            == inspect.getsource(getattr(jcli, name)))

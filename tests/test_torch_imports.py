@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``vrdone_tpu_torch``,
 ``eval_torch``, ``train_torch``, ``detect_torch``, the two feature
-extractors, the two reference checkpoint converters and ``chip_smoke`` in a fresh interpreter brings no
+extractors, the two reference checkpoint converters, the detector's trainer
+and ResNet converter and ``chip_smoke`` in a fresh interpreter brings no
 JAX, flax, optax or orbax module and nothing of the JAX package into
 ``sys.modules``."""
 
@@ -19,7 +20,8 @@ for name in names + ["eval_torch", "train_torch", "detect_torch",
                      "extract_gt_features_torch",
                      "extract_proposal_features_torch",
                      "convert_reference_checkpoint_torch",
-                     "convert_mega_checkpoint_torch", "chip_smoke"]:
+                     "convert_mega_checkpoint_torch", "train_detector_torch",
+                     "convert_torch_resnet_torch", "chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
@@ -31,7 +33,12 @@ assert {"vrdone_tpu_torch.utils.precision",
         "vrdone_tpu_torch.data.graph",
         "vrdone_tpu_torch.parallel",
         "vrdone_tpu_torch.parallel.mesh",
-        "vrdone_tpu_torch.parallel.comm"} <= set(names), names
+        "vrdone_tpu_torch.parallel.comm",
+        "vrdone_tpu_torch.detector_config",
+        "vrdone_tpu_torch.convert_resnet",
+        "vrdone_tpu_torch.models.detector_train",
+        "vrdone_tpu_torch.eval.detection",
+        "vrdone_tpu_torch.utils.metric_logger"} <= set(names), names
 assert not bad, bad
 """
 
@@ -44,7 +51,9 @@ def test_port_imports_nothing_of_jax():
     assert r.returncode == 0, r.stderr[-3000:]
     n = int(r.stdout.split()[0])
     # the package's modules: config, convert, convert_reference,
-    # convert_mega, data (10, graph among them), eval (4, streaming among them), models (10),
-    # ops (9), parallel (2), train (3), utils (2, precision among them),
-    # and the subpackages themselves
-    assert n >= 51, r.stdout
+    # convert_mega, convert_resnet, detector_config, data (10, graph among
+    # them), eval (5, streaming and detection among them), models (11,
+    # detector_train among them), ops (9), parallel (2), train (3), utils
+    # (3, precision and metric_logger among them), and the subpackages
+    # themselves
+    assert n >= 56, r.stdout

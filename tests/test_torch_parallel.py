@@ -4,7 +4,9 @@ two-process gloo world on the CPU, held against the JAX package.
 One start of two ranks (the module fixture ``world``) runs every two-rank
 check: the comm helpers, and two train steps of a small model with drop
 path and dropout on and ground-truth counts that differ between the ranks,
-at a global batch of 4 items, 2 a rank. Beside it the fixture runs
+at a global batch of 4 items, 2 a rank, then one step of a small MEGA
+detector (``models/detector_train.py``) at a global batch of 2 samples,
+one a rank. Beside it the fixture runs
 ``train_torch.py`` and ``eval_torch.py`` under ``torchrun`` (two ranks
 sharing one directory, every file write of each rank recorded) and one
 process's ``eval_torch.py``, and, in this process, the port's one-process
@@ -20,7 +22,9 @@ invariant to the key biases) takes an Adam step of arbitrary sign on each
 side, so it is held to the most two steps can move it (twice the sum of
 the learning rates, as ``tests/test_torch_train.py`` and
 ``tests/test_train_trajectory.py`` set such leaves apart). The two ranks
-agree bit for bit.
+agree bit for bit. The detector step is held to the port's one-process
+step on both samples within 1e-6 (JAX's detector step is held to the
+port's one-process step in ``tests/test_torch_detector_train.py``).
 """
 
 import dataclasses
@@ -117,6 +121,67 @@ def global_batch(cfg):
     return batch
 
 
+# one step of the small MEGA detector of tests/test_torch_detector_train.py
+# on two samples, its weights the port's seeded draw; a rank runs it on its
+# rows, and this process on both
+DET_STEP_CODE = r"""
+import os, pickle
+import numpy as np
+import torch
+from vrdone_tpu_torch.convert import load_npz, load_params
+from vrdone_tpu_torch.models.detector import MegaDetector
+from vrdone_tpu_torch.models.detector_train import (StepPriorities,
+                                                    detector_train_step)
+from vrdone_tpu_torch.train.optim import detector_sgd, multistep_schedule
+
+
+def detector_step(root, rows):
+    with open(os.path.join(root, "det_setup.pkl"), "rb") as f:
+        kw, batch, seed = pickle.load(f)
+    cpu = torch.device("cpu")
+    det = MegaDetector(**kw, device=cpu)
+    load_params(det, load_npz(os.path.join(root, "det_params.npz")))
+    opt = detector_sgd(multistep_schedule(1e-3, 1, (10,), 0.1, 1e-3 / 3),
+                       det.named_parameters())
+    losses = detector_train_step(
+        det, opt, {k: torch.from_numpy(v[rows]) for k, v in batch.items()},
+        StepPriorities(seed, 0, cpu), image_hw=(64, 64), post_nms_top_n=8)
+    return {"losses": {k: v.item() for k, v in losses.items()},
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in det.named_parameters()}}
+"""
+DET_KW = dict(num_classes=5, resnet_layers=(1, 1, 1), stage=2, groups=4,
+              base_num=4, window=3, key_loc=1, global_size=2)
+
+
+def det_setup(root: str):
+    """The detector's weights, its global batch of two samples (key, local,
+    memory and global frames of 64 x 64, two GT boxes and a padded slot
+    each) and the step code, under ``root``; returns the step function."""
+    from vrdone_tpu_torch.models.detector import MegaDetector
+    det = MegaDetector(**DET_KW, device=CPU,
+                       generator=torch.Generator().manual_seed(SEED))
+    np.savez(os.path.join(root, "det_params.npz"),
+             **params_to_jax(det.state_dict()))
+    rng = np.random.default_rng(5)
+    frames = rng.uniform(0, 255, (2, 4, 64, 64, 3)).astype(np.float32)
+    gt_boxes = np.zeros((2, 3, 4), np.float32)
+    gt_boxes[:, :2] = [[[8, 6, 40, 44], [30, 20, 62, 60]],
+                       [[4, 10, 34, 50], [20, 2, 58, 30]]]
+    batch = {"key": frames[:, 0], "local": frames[:, 1:2],
+             "mem": frames[:, 2:3], "glob": frames[:, 3:4],
+             "gt_boxes": gt_boxes,
+             "gt_labels": np.array([[2, 4, 0], [1, 5, 0]], np.int32),
+             "gt_valid": np.array([[True, True, False]] * 2)}
+    with open(os.path.join(root, "det_setup.pkl"), "wb") as f:
+        pickle.dump((DET_KW, batch, SEED), f)
+    with open(os.path.join(root, "det_step.py"), "w") as f:
+        f.write(DET_STEP_CODE)
+    scope: dict = {}
+    exec(DET_STEP_CODE, scope)
+    return scope["detector_step"]
+
+
 # ---------------------------------------------------------------------------
 # the two ranks
 # ---------------------------------------------------------------------------
@@ -169,6 +234,11 @@ names = [n for n, _ in state.model.named_parameters()]
 out["params"] = {n: p.detach().numpy().copy()
                  for n, p in zip(names, state.params())}
 out["ema"] = {n: p.numpy().copy() for n, p in zip(names, state.ema_params)}
+
+from vrdone_tpu_torch.parallel.mesh import local_batch_slice
+sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[0])))
+from det_step import detector_step
+out["det"] = detector_step(root, local_batch_slice(2))
 mesh.barrier()
 mesh.shutdown()
 with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
@@ -396,6 +466,7 @@ def world(tmp_path_factory):
     np.savez(os.path.join(root, "params.npz"), **flatten_params(params))
     with open(os.path.join(root, "setup.pkl"), "wb") as f:
         pickle.dump((port_config(cfg), TC, batch), f)
+    detector_step = det_setup(root)
     ranks = start_ranks(root)
     cli, cli_errors = {}, []
 
@@ -410,6 +481,7 @@ def world(tmp_path_factory):
     try:
         one = port_steps(cfg, params, batch)
         ref = jax_steps(cfg, params, batch, one.draws)
+        det_one = detector_step(root, slice(0, 2))
     finally:
         outs = [p.communicate(timeout=600)[0] for p in ranks]
         cli_thread.join()
@@ -420,6 +492,7 @@ def world(tmp_path_factory):
         with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
             got.append(pickle.load(f))
     return types.SimpleNamespace(root=root, cfg=cfg, ranks=got, one=one,
+                                 det_one=det_one,
                                  ref=ref, cli=cli, cli_errors=cli_errors)
 
 
@@ -598,6 +671,28 @@ def test_ranks_agree_bit_for_bit(world):
     for kind in ("params", "ema"):
         for k in a[kind]:
             np.testing.assert_array_equal(a[kind][k], b[kind][k])
+
+
+def test_two_rank_detector_step_matches_one_process(world):
+    """One MEGA detector step, a sample a rank: the global batch's mean
+    losses and every parameter against one process's step on both
+    samples; the ranks equal bit for bit."""
+    one = world.det_one
+    a, b = (out["det"] for out in world.ranks)
+    assert a["losses"] == b["losses"]
+    for k in a["params"]:
+        np.testing.assert_array_equal(a["params"][k], b["params"][k])
+    for k, v in one["losses"].items():
+        np.testing.assert_allclose(a["losses"][k], v, rtol=1e-6, atol=1e-6)
+    for k, v in one["params"].items():
+        np.testing.assert_allclose(a["params"][k], v, rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
+    with np.load(os.path.join(world.root, "det_params.npz")) as z:
+        start = dict(z)
+    moved = sum(not np.array_equal(v, start[k])
+                for k, v in params_to_jax({n: torch.from_numpy(x) for n, x in
+                                           one["params"].items()}).items())
+    assert moved > 100
 
 
 # ---------------------------------------------------------------------------

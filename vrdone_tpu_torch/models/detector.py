@@ -159,6 +159,9 @@ class MegaDetector(nn.Module):
     def enhance(self, *args, **kw):
         return self.mega.enhance(*args, **kw)
 
+    def enhance_train(self, *args, **kw):
+        return self.mega.enhance_train(*args, **kw)
+
     def predictions(self, enhanced: Tensor) -> tuple[Tensor, Tensor]:
         return self.box_head.predictions(enhanced)
 

@@ -295,6 +295,50 @@ class MEGAHead(nn.Module):
 
     # -- flows ---------------------------------------------------------------
 
+    def build_memory(self, mem_frames: BoxSet,
+                     glob: BoxSet | None) -> list[BoxSet]:
+        """The training forward's long-range memory from sampled memory
+        frames: the global attention over their flattened fc0-level
+        features (F, B, D), then, per stage, the set the stage reads, the
+        first ``advanced_num`` rows of each frame lifted through the
+        stage's attention and fc. The caller runs it without gradient."""
+        a = self.advanced_num
+        if a > mem_frames.feat.shape[1]:
+            raise ValueError(f"advanced_num {a} > per-frame slots "
+                             f"{mem_frames.feat.shape[1]}")
+        allset = flatten_set(mem_frames)
+        allset = allset._replace(
+            feat=self.attend_global(allset.feat, glob, 0))
+        f, d = mem_frames.feat.shape[0], self.feat_dim
+        cur = allset.feat.reshape(f, -1, d)[:, :a].reshape(-1, d)
+        cur_rois = mem_frames.rois[:, :a].reshape(-1, 4)
+        cur_valid = mem_frames.valid[:, :a].reshape(-1)
+        mem: list[BoxSet] = []
+        ref = allset
+        for i in range(self.stage):
+            mem.append(ref)
+            if i == self.stage - 1:
+                break
+            att = self.attention(cur, cur_rois, ref, i, ver="memory")
+            cur = self.fc(i + 1, cur + att)
+            cur = cur * cur_valid[:, None].to(cur.dtype)
+            ref = BoxSet(cur, cur_rois, cur_valid)
+        return mem
+
+    def enhance_train(self, key_pooled: Tensor, key_rois: Tensor,
+                      key_valid: Tensor, window: BoxSet,
+                      mem_frames: BoxSet | None,
+                      glob: BoxSet | None) -> Tensor:
+        """The training forward's MEGA flow: the memory built from the
+        sampled memory frames without gradient, then ``enhance`` (the
+        global set takes gradient there, not through the memory)."""
+        mem = None
+        if self.memory_enable and mem_frames is not None:
+            with torch.no_grad():
+                mem = self.build_memory(mem_frames, glob)
+        return self.enhance(key_pooled, key_rois, key_valid, window, mem,
+                            glob)
+
     def enhance(self, key_pooled: Tensor, key_rois: Tensor, key_valid: Tensor,
                 window: BoxSet, mem: Sequence[BoxSet] | None,
                 glob: BoxSet | None, *, key_is_fc0: bool = False,

@@ -1,6 +1,7 @@
-"""Region proposal network, inference path, of the C4 detector (counterpart
-of ``vrdone_tpu/models/rpn.py``): the anchor grid, the box coder, the head
-and the static-shape proposal selection."""
+"""Region proposal network of the C4 detector (counterpart of
+``vrdone_tpu/models/rpn.py``): the anchor grid, the box coder and its
+inverse (the training targets), the head and the static-shape proposal
+selection."""
 
 from __future__ import annotations
 
@@ -61,6 +62,26 @@ def decode_boxes(anchors: Tensor, deltas: Tensor,
     return torch.stack([
         pred_ctr_x - 0.5 * pred_w, pred_ctr_y - 0.5 * pred_h,
         pred_ctr_x + 0.5 * pred_w, pred_ctr_y + 0.5 * pred_h], dim=1)
+
+
+def encode_boxes(ref: Tensor, proposals: Tensor,
+                 weights=BBOX_REG_WEIGHTS) -> Tensor:
+    """The inverse of ``decode_boxes``: the deltas that move ``proposals``
+    onto ``ref`` (the regression targets). Widths and heights are clamped
+    to 1 pixel, so degenerate (clipped or padded) boxes give finite
+    targets; the losses gate them out."""
+    wx, wy, ww, wh = weights
+    pw = (proposals[:, 2] - proposals[:, 0]).clamp(min=1.0)
+    ph = (proposals[:, 3] - proposals[:, 1]).clamp(min=1.0)
+    px = proposals[:, 0] + 0.5 * pw
+    py = proposals[:, 1] + 0.5 * ph
+    gw = (ref[:, 2] - ref[:, 0]).clamp(min=1.0)
+    gh = (ref[:, 3] - ref[:, 1]).clamp(min=1.0)
+    gx = ref[:, 0] + 0.5 * gw
+    gy = ref[:, 1] + 0.5 * gh
+    return torch.stack([
+        wx * (gx - px) / pw, wy * (gy - py) / ph,
+        ww * torch.log(gw / pw), wh * torch.log(gh / ph)], dim=1)
 
 
 class RPNHead(nn.Module):

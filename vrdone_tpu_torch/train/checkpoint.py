@@ -42,12 +42,18 @@ def _write(path: str, state: TrainState, *, epoch: int,
         "step": state.step,
         "meta": {"crt_epoch": epoch + 1, "batch_size": batch_size},
     }
+    write_atomically(path, lambda tmp: torch.save(payload, tmp))
+
+
+def write_atomically(path: str, write) -> None:
+    """``write(tmp)`` to a temporary file beside ``path``, then rename it
+    into place: a reader never sees a half-written file."""
     path = os.path.abspath(path)
     fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + ".",
                                dir=os.path.dirname(path))
     os.close(fd)
     try:
-        torch.save(payload, tmp)
+        write(tmp)
         os.replace(tmp, path)
     except BaseException:
         os.unlink(tmp)

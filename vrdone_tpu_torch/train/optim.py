@@ -16,8 +16,9 @@
 
 Updates work in place on lists of tensors with ``torch._foreach_*`` ops
 (one multi-tensor launch per op on the card instead of one per parameter).
-The detector's SGD (``detector_sgd``, ``bias_mask``) waits for the MEGA
-slice.
+The detector's SGD (``detector_sgd``) is optax's chain of the JAX
+package's ``detector_sgd``, with the bias leaves picked by ``bias_mask``
+on their flax names.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..convert import is_flax_kernel
+from ..convert import flax_key, is_flax_kernel
 
 Schedule = Callable[[int], float]
 
@@ -83,6 +84,14 @@ def decay_mask(named_params) -> dict[str, bool]:
     layers. ``named_params``: (name, tensor) pairs, e.g.
     ``model.named_parameters()``."""
     return {name: is_flax_kernel(name, p) for name, p in named_params}
+
+
+def bias_mask(named_params) -> dict[str, bool]:
+    """True on the bias leaves (the reference solver's ``"bias" in key``),
+    taken on the flax leaf name, as the JAX package's ``bias_mask`` takes
+    it: frozen batch norm's ``bias`` is one, its ``running_*`` are not."""
+    return {name: "bias" in flax_key(name, p).rsplit("/", 1)[-1]
+            for name, p in named_params}
 
 
 @torch.no_grad()
@@ -188,6 +197,83 @@ class Optimizer:
         self.count = int(state["count"])
         self.moments = {n: [t.to(device) for t in ts]
                         for n, ts in state["moments"].items()}
+
+
+class DetectorSGD:
+    """The detector's SGD with momentum (the JAX package's
+    ``detector_sgd``, after the reference solver): in optax's order,
+    ``clip_by_global_norm(clip)`` on the raw gradient, ``weight_decay`` x
+    param added to every non-bias leaf's gradient, ``weight_decay_bias``
+    to the bias leaves', the momentum trace m = g + momentum * m (no
+    dampening), bias leaves x ``bias_lr_factor``, then x -lr(count) with
+    ``count`` from 0. ``update`` changes the parameters in place and
+    returns the learning rate it used."""
+
+    def __init__(self, schedule: Schedule, bias: list[bool], *,
+                 momentum: float = 0.9, weight_decay: float = 1e-4,
+                 bias_lr_factor: float = 2.0, weight_decay_bias: float = 0.0,
+                 clip: float = 10.0):
+        self.schedule = schedule
+        self.bias = list(bias)
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.bias_lr_factor = bias_lr_factor
+        self.weight_decay_bias = weight_decay_bias
+        self.clip = clip
+        self.count = 0
+        self.trace: list[torch.Tensor] = []
+
+    @torch.no_grad()
+    def update(self, params: list[torch.Tensor],
+               grads: list[torch.Tensor]) -> float:
+        if len(params) != len(self.bias):
+            raise ValueError(f"{len(params)} parameters, bias mask of "
+                             f"{len(self.bias)}")
+        if not self.trace:
+            self.trace = [torch.zeros_like(p) for p in params]
+        if self.clip and self.clip > 0.0:
+            clip_by_global_norm_(grads, self.clip)
+        lr = self.schedule(self.count)
+        self.count += 1
+        updates = [g.clone() for g in grads]
+        for is_bias, decay in ((False, self.weight_decay),
+                               (True, self.weight_decay_bias)):
+            idx = [i for i, b in enumerate(self.bias) if b == is_bias]
+            if idx and decay:
+                torch._foreach_add_([updates[i] for i in idx],
+                                    torch._foreach_mul([params[i]
+                                                        for i in idx], decay))
+        torch._foreach_mul_(self.trace, self.momentum)
+        torch._foreach_add_(self.trace, updates)
+        updates = [t.clone() for t in self.trace]
+        bias_idx = [i for i, b in enumerate(self.bias) if b]
+        if bias_idx and self.bias_lr_factor != 1.0:
+            torch._foreach_mul_([updates[i] for i in bias_idx],
+                                self.bias_lr_factor)
+        torch._foreach_mul_(updates, -lr)
+        torch._foreach_add_(params, updates)
+        return lr
+
+    def state_dict(self) -> dict:
+        return {"count": self.count,
+                "trace": [t.detach().cpu() for t in self.trace]}
+
+    def load_state_dict(self, state: dict, device) -> None:
+        self.count = int(state["count"])
+        self.trace = [t.to(device) for t in state["trace"]]
+
+
+def detector_sgd(schedule: Schedule, named_params, *, momentum: float = 0.9,
+                 weight_decay: float = 1e-4, bias_lr_factor: float = 2.0,
+                 weight_decay_bias: float = 0.0,
+                 clip: float = 10.0) -> DetectorSGD:
+    """The JAX package's ``detector_sgd(schedule, params, ...)`` over
+    ``named_params`` (e.g. ``model.named_parameters()``), in their
+    order."""
+    return DetectorSGD(schedule, list(bias_mask(named_params).values()),
+                       momentum=momentum, weight_decay=weight_decay,
+                       bias_lr_factor=bias_lr_factor,
+                       weight_decay_bias=weight_decay_bias, clip=clip)
 
 
 def build_optimizer(named_params, training_config: dict,
