@@ -3663,6 +3663,11 @@ SMALL_TRAIN_DET = dict(num_classes=35, resnet_layers=(1, 1, 1), stage=2,
                        global_size=2)
 SMALL_TRAIN_HW, SMALL_TRAIN_POST_NMS = (64, 64), 8
 DET_GRAD_TOL = 1e-4   # card vs CPU gradients, times 1 + max |g| of a leaf
+# a gradient leaf behind a ReLU, max-pool or warp cell that took the other
+# branch in the other fp32 run (``Branches``): the largest gap allowed,
+# times 1 + max |g|, and the most such leaves (phase 15b's DFF sample: 16
+# ReLU sides of 6.25M flipped, 64 of 176 leaves off, the worst 2.4e-3)
+FLIP_GRAD_TOL, FLIP_LEAVES = 1e-2, 100
 DET_DP_PARAM_TOL = 1e-6   # two ranks' step vs one process's, parameters
 
 
@@ -3695,7 +3700,8 @@ def calibrate_frozen_bn(det, images: torch.Tensor, rois: torch.Tensor
                         ) -> None:
     """Set each frozen batch norm's statistics to those of its input: the
     backbone's over ``images``, the C5 head's over ``rois`` of the first
-    image, as an ImageNet-trained backbone's statistics are its data's.
+    image (any detector of the port: C5 under ``box_head`` or alone), as an
+    ImageNet-trained backbone's statistics are its data's.
     Random He-normal convolutions through identity norms grow the
     activations block by block: at R-101's depth the port's own seeded
     weights give losses near 1e7 and a gradient of NaN."""
@@ -3708,9 +3714,11 @@ def calibrate_frozen_bn(det, images: torch.Tensor, rois: torch.Tensor
 
     hooks = [m.register_forward_pre_hook(hook) for m in det.modules()
              if isinstance(m, FrozenBatchNorm)]
+    pool = (det.box_head.pooled_features if hasattr(det, "box_head")
+            else det.pooled)
     try:
         c4 = det.features(images)
-        det.box_head.pooled_features(c4[0], rois)
+        pool(c4[0], rois)
     finally:
         for h in hooks:
             h.remove()
@@ -4044,16 +4052,638 @@ def detector_train_phase(cuda, ba, fa, ma, pb) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15. the other detector methods: base, RDN, FGFA, DFF
+# ---------------------------------------------------------------------------
+
+METHODS = ("base", "rdn", "fgfa", "dff")
+METHOD_CFGS = {m: ROOT / "configs" / "detector" / f"{m}_vidvrd.yaml"
+               for m in METHODS}
+METHOD_STEPS, METHOD_FRAMES = 2, 8
+# the small configurations of tests/test_torch_detector_methods.py
+SMALL_METHOD_KW = {"base": {},
+                   "rdn": dict(base_stage=2, advanced_stage=1, groups=4,
+                               base_num=4, window=3, key_loc=1),
+                   "fgfa": dict(window=3, key_loc=1), "dff": {}}
+SMALL_METHOD_HW = (64, 96)
+# the method's own parameters, beside backbone, RPN and C5/head
+METHOD_GROUPS = {"base": ("head.",), "rdn": ("box_head.", "rdn."),
+                 "fgfa": ("c5.", "head.", "fgfa."),
+                 "dff": ("c5.", "head.", "dff.")}
+
+
+def method_detector(cfg, generator):
+    """The config's detector on the CPU (VidVRD's 35 classes), built by
+    train_detector_torch.py's ``build_detector``."""
+    import types
+
+    from train_detector_torch import build_detector
+    args = types.SimpleNamespace(method=cfg.method,
+                                 base_num=cfg.ref_post_nms_top_n)
+    return build_detector(args, cfg, 35, tuple(cfg.resnet_layers), generator)
+
+
+def method_map(det, method, images, dtype, c4=None):
+    """The map each method detects on, from the first two frames: C4 of
+    frame 1 (base), the fc0 features of three fixed boxes on it (RDN),
+    frame 1's aggregate over frames 0-1 (FGFA), frame 1 propagated from
+    frame 0 (DFF); from the frames' C4 ``c4`` where given."""
+    with torch.no_grad():
+        if c4 is None:
+            c4 = det.features(images[:2], dtype)
+        if method == "fgfa":
+            fe = det.fgfa.precompute_frame(c4)
+            return det.fgfa.aggregate_test(images[1:2], images[:2], fe, 1)
+        if method == "dff":
+            return det.dff.propagate(images[1:2], images[:1], c4[:1])
+        if method == "rdn":
+            h, w = images.shape[1:3]
+            rois = torch.tensor([[0.04, 0.05, 0.37, 0.82],
+                                 [0.46, 0.16, 0.83, 0.92],
+                                 [0.0, 0.0, 1.0, 1.0]],
+                                device=images.device) * torch.tensor(
+                [w - 1, h - 1, w - 1, h - 1], device=images.device)
+            valid = torch.ones(3, dtype=torch.bool, device=images.device)
+            return det.frame_fc0(c4[1], rois, valid)
+        return c4[1:]
+
+
+def check_method_full_width(cuda, method, ba, fa, ma, pb) -> dict:
+    """Phase 15a for one method at its config's full width (R-101-C4, the
+    608 x 1088 canvas of train_detector_torch.py at MIN_SIZE_TRAIN 600,
+    VidVRD's 35 classes, the config's reference frames and windows), random
+    seeded weights with calibrated frozen norms: METHOD_STEPS train steps of
+    one sample (finite losses, every parameter group moved, the last timed,
+    its launches, peak memory and busy share), then the method's
+    *_detect_video over METHOD_FRAMES frames in fp32 and bf16 (finite, fp32
+    outputs of the right shapes, ms a frame, launches). Before the first
+    step, bf16 is held piece by piece (``bf16_piece_gaps``: the stem, each
+    block of C4, the method's part after C4; each within BF16_DETECT_MAX /
+    BF16_DETECT_MEAN of max |x| of its fp32 output, twice those through
+    the flow warp); the whole map's bf16 gap is reported beside the gap a
+    rounding-sized change of the frames (x (1 + 2^-9 noise)) makes in
+    fp32: a random R-101 amplifies any rounding through its blocks.
+    Returns the launches by path."""
+    from train_detector_torch import DETECT_FNS, method_ref_num
+    from vrdone_tpu_torch.models.detector_train import (StepPriorities,
+                                                        detector_train_step)
+    cfg, make_opt = det_step_setup(METHOD_CFGS[method])
+    det = method_detector(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    n_ref = method_ref_num(method, cfg)
+    rng = np.random.default_rng(31)
+    raw = det_train_batch(rng, 1, DET_CANVAS, (n_ref, 0, 0), DET_MAX_GT)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in raw.items()
+             if k not in ("local", "mem", "glob")}
+    batch["ref"] = torch.from_numpy(raw["local"]).to(cuda)
+    calibrate_frozen_bn(det, batch["key"], batch["gt_boxes"][0, :4])
+    images = np.random.default_rng(32).integers(
+        0, 256, (METHOD_FRAMES, *DET_CANVAS, 3), dtype=np.uint8)
+    frames = torch.from_numpy(images[:2]).to(cuda)
+    pieces = bf16_piece_gaps(det, method, frames)
+    limit = {n: (1, 2)[n == "after C4" and method in ("fgfa", "dff")]
+             for n in pieces}
+    worst = max(pieces, key=lambda n: pieces[n][0] / limit[n])
+    mean = max(pieces, key=lambda n: pieces[n][1] / limit[n])
+    noise = 1 + 2.0 ** -9 * torch.randn(
+        frames.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    ref = method_map(det, method, frames, torch.float32)
+    moved = rel_gap(method_map(det, method, frames.float() * noise,
+                               torch.float32), ref)
+    whole = bf16_map_gap(det, method, frames)
+    print(f"{method} bf16, full width, {len(pieces)} pieces each against "
+          f"fp32 on its input: largest gap {pieces[worst][0]:.3e} "
+          f"({worst}), largest mean gap {pieces[mean][1]:.3e} ({mean}), "
+          f"after C4 {pieces['after C4'][0]:.3e} / "
+          f"{pieces['after C4'][1]:.3e} (limits {BF16_DETECT_MAX:.0e} / "
+          f"{BF16_DETECT_MEAN:.0e} of max |x|, x{limit['after C4']} after "
+          f"C4); the whole map: bf16 {whole[0]:.3e} / {whole[1]:.3e}, fp32 "
+          f"from frames x (1 + 2^-9 noise) {moved[0]:.3e} / {moved[1]:.3e}")
+    bad = {n: g for n, g in pieces.items()
+           if g[0] > limit[n] * BF16_DETECT_MAX
+           or g[1] > limit[n] * BF16_DETECT_MEAN}
+    if bad:
+        raise AssertionError(f"{method}: full-width bf16 pieces off fp32: "
+                             f"{bad}")
+    opt = make_opt(det)
+    start = {n: p.detach().clone() for n, p in det.named_parameters()}
+    label = (f"{method} ({METHOD_CFGS[method].name}, R-101-C4, "
+             f"{DET_CANVAS[0]}x{DET_CANVAS[1]}, {n_ref} ref frame(s), "
+             f"TF32 off)")
+
+    def step(i):
+        return detector_train_step(det, opt, batch, StepPriorities(0, i, cuda),
+                                   image_hw=DET_CANVAS,
+                                   post_nms_top_n=DET_POST_NMS, method=method)
+
+    ms = []
+    torch.cuda.reset_peak_memory_stats(cuda)
+    for i in range(METHOD_STEPS):
+        torch.cuda.synchronize()
+        zero_counts(ba, fa)
+        zero_mega_counts(ma, pb)
+        t0 = time.perf_counter()
+        losses = step(i)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        values = {k: v.item() for k, v in losses.items()}
+        if not all(map(math.isfinite, values.values())):
+            raise AssertionError(f"{method} train step {i}: {values}")
+    train_launches = {**band_counts(ba, fa), **mega_counts(ma, pb)}
+    peak = torch.cuda.max_memory_allocated(cuda) / 2**30
+    moved = {}
+    for group in ("backbone.", "rpn.") + METHOD_GROUPS[method]:
+        moved[group[:-1]] = max((p.detach() - start[n]).abs().max().item()
+                                for n, p in det.named_parameters()
+                                if n.startswith(group))
+    print(f"{label} train steps: losses of step {METHOD_STEPS - 1} "
+          + ", ".join(f"{k} {v:.4f}" for k, v in values.items())
+          + f"; step times (ms, host clock) "
+          + ", ".join(f"{t:.2f}" for t in ms) + f"; peak memory {peak:.2f} "
+          f"GiB; largest move by group {moved}; kernel launches "
+          f"{train_launches}")
+    if not all(v > 0 and math.isfinite(v) for v in moved.values()):
+        raise AssertionError(f"{method}: a parameter group did not move: "
+                             f"{moved}")
+    if any(train_launches.values()):
+        raise AssertionError(f"{method} train step launched {train_launches}"
+                             ": no hand kernel is on this path")
+    busy, wall, _ = profile_device(lambda: step(METHOD_STEPS), 1, "step")
+    print(f"{label} train step: busy {busy:.2f} ms of {wall:.2f} ms "
+          f"({100 * busy / wall:.1f}%, profiler on)")
+    del opt, start, batch
+    torch.cuda.empty_cache()
+
+    hw = np.asarray(DET_CANVAS, np.float32)
+    detect = DETECT_FNS[method]
+    det.eval()
+    outs, detect_launches = {}, {}
+    for dtype in ("float32", "bfloat16", "float32", "bfloat16"):
+        torch.cuda.synchronize()
+        zero_counts(ba, fa)
+        zero_mega_counts(ma, pb)
+        t0 = time.perf_counter()
+        outs[dtype] = detect(det, images, hw, compute_dtype=dtype)
+        seconds = time.perf_counter() - t0
+        detect_launches[dtype] = {**band_counts(ba, fa),
+                                  **mega_counts(ma, pb)}
+        print(f"{method}_detect_video {METHOD_FRAMES} frames {dtype}: "
+              f"{1e3 * seconds / METHOD_FRAMES:.2f} ms a frame (host clock, "
+              f"to numpy), kernel launches {detect_launches[dtype]}")
+    for dtype, out in outs.items():
+        for key, v in out.items():
+            if (v.dtype != outs["float32"][key].dtype
+                    or v.shape != outs["float32"][key].shape
+                    or not np.isfinite(v).all()):
+                raise AssertionError(f"{method}_detect_video {dtype}: {key} "
+                                     f"{v.dtype} {v.shape}")
+    if any(any(c.values()) for c in detect_launches.values()):
+        raise AssertionError(f"{method}_detect_video launched "
+                             f"{detect_launches}")
+    out32, out16 = outs["float32"], outs["bfloat16"]
+    same = sum(np.array_equal(out16["valid"][f], out32["valid"][f])
+               and np.allclose(out16["proposals"][f], out32["proposals"][f],
+                               atol=1e-3, rtol=0)
+               for f in range(METHOD_FRAMES))
+    print(f"{method}_detect_video: proposals {out32['proposals'].shape}, "
+          f"{int(out32['valid'].sum())} valid, cls_logits "
+          f"{out32['cls_logits'].shape}; frames whose bf16 proposals equal "
+          f"fp32's: {same} of {METHOD_FRAMES} (reported, not a check: bf16 "
+          f"moves the RPN's near-ties)")
+    del det
+    torch.cuda.empty_cache()
+    return {f"{method}_train_step": train_launches,
+            f"{method}_detect_video": detect_launches["float32"],
+            f"{method}_detect_video_bf16": detect_launches["bfloat16"]}
+
+
+def rel_gap(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """The largest and the mean |got - ref| over max |ref|."""
+    scale = ref.abs().max().item()
+    gap = (got.float() - ref.float()).abs()
+    return gap.max().item() / scale, gap.mean().item() / scale
+
+
+def bf16_map_gap(det, method, frames) -> tuple[float, float]:
+    """The largest and the mean gap of the method's map on a bf16 copy of
+    ``det`` from its fp32 map, over max |fp32|."""
+    from vrdone_tpu_torch.utils.precision import cast_floating
+    ref = method_map(det, method, frames, torch.float32)
+    got = method_map(cast_floating(det, torch.bfloat16), method, frames,
+                     torch.bfloat16)
+    if got.dtype != torch.bfloat16:
+        raise AssertionError(f"{method}: bf16 map is {got.dtype}")
+    return rel_gap(got, ref)
+
+
+def bf16_piece_gaps(det, method, frames) -> dict:
+    """A bf16 copy of ``det`` against ``det`` piece by piece, each fp32
+    piece fed the bf16 piece's own input: C4's stem (the input of its first
+    block), each residual block of C4, and the method's part after C4 (its
+    map from the bf16 copy's C4). Returns piece -> (largest, mean gap) over
+    max |fp32|."""
+    from vrdone_tpu_torch.models.resnet import Bottleneck
+    from vrdone_tpu_torch.utils.precision import cast_floating
+    c16 = cast_floating(det, torch.bfloat16)
+
+    def run(model, dtype):
+        seen = {}
+        hooks = [m.register_forward_hook(
+            lambda m, args, out, n=n: seen.__setitem__(n, (args[0], out)))
+            for n, m in model.backbone.named_modules()
+            if isinstance(m, Bottleneck)]
+        try:
+            with torch.no_grad():
+                c4 = model.features(frames[:2], dtype)
+        finally:
+            for h in hooks:
+                h.remove()
+        return c4, seen
+
+    c4, seen = run(c16, torch.bfloat16)
+    _, seen32 = run(det, torch.float32)
+    blocks = dict(det.backbone.named_modules())
+    gaps = {"stem": rel_gap(seen["layer1.block0"][0],
+                            seen32["layer1.block0"][0])}
+    with torch.no_grad():
+        for name, (x, y) in seen.items():
+            gaps[name] = rel_gap(y, blocks[name](x.float()))
+        gaps["after C4"] = rel_gap(
+            method_map(c16, method, frames, torch.bfloat16, c4),
+            method_map(det, method, frames, torch.float32, c4.float()))
+    return gaps
+
+
+def small_method_case(method, device):
+    """The small detector of tests/test_torch_detector_methods.py (R (1, 1,
+    1), 5 classes, seed 1; the RDN head's and the predictors' kernels
+    damped to a tenth and RDN's Wg biases raised by 1, as there) on
+    ``device``, and a sample of 64 x 96 (seed 24)."""
+    from vrdone_tpu_torch.models.base_rcnn import BaseDetector
+    from vrdone_tpu_torch.models.detector_train import METHOD_REF_OFFSETS
+    from vrdone_tpu_torch.models.flownet import DFFDetector, FGFADetector
+    from vrdone_tpu_torch.models.rdn import RDNDetector
+    cls = {"base": BaseDetector, "rdn": RDNDetector, "fgfa": FGFADetector,
+           "dff": DFFDetector}[method]
+    det = cls(num_classes=5, resnet_layers=(1, 1, 1),
+              **SMALL_METHOD_KW[method], device=torch.device("cpu"),
+              generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for name, p in det.named_parameters():
+            parts = name.split(".")
+            if p.ndim >= 2 and (parts[0] == "rdn" or parts[-2] in (
+                    "cls_score", "bbox_pred", "cls_logits")):
+                p.mul_(0.1)
+            if parts[0] == "rdn" and parts[-2].startswith("Wg") \
+                    and parts[-1] == "bias":
+                p.add_(1.0)
+    rng = np.random.default_rng(24)
+    raw = det_train_batch(rng, 1, SMALL_METHOD_HW,
+                          (METHOD_REF_OFFSETS[method][2], 0, 0), 3, n_gt=2)
+    # labels of the 5 classes on the two valid GT slots
+    labels = np.where(raw["gt_valid"][0], raw["gt_labels"][0] % 5 + 1, 0)
+    sample = {"key": raw["key"][0], "ref": raw["local"][0],
+              "gt_boxes": raw["gt_boxes"][0],
+              "gt_labels": labels.astype(np.int32),
+              "gt_valid": raw["gt_valid"][0]}
+    return det.to(device), sample
+
+
+def method_losses_and_grads(det, method, sample, device,
+                            dtype=torch.float32) -> tuple[dict, dict]:
+    """One sample's losses and every parameter's gradient (on the CPU), on
+    ``det`` in ``dtype`` (fp64: a float64 copy, frames in fp64)."""
+    import functools
+
+    from vrdone_tpu_torch.models.detector_train import (StepPriorities,
+                                                        method_detector_losses)
+    if dtype != torch.float32:
+        det = copy.deepcopy(det).to(dtype)
+        det.features = functools.partial(type(det).features, det,
+                                         compute_dtype=dtype)
+    tb = {k: torch.from_numpy(v).to(device) for k, v in sample.items()}
+    losses = method_detector_losses(
+        method, det, {"key": tb["key"], "ref": tb["ref"]}, SMALL_METHOD_HW,
+        tb["gt_boxes"], tb["gt_labels"], tb["gt_valid"],
+        StepPriorities(0, 0, device)(0), post_nms_top_n=SMALL_TRAIN_POST_NMS)
+    names = [n for n, _ in det.named_parameters()]
+    params = [p for _, p in det.named_parameters()]
+    grads = torch.autograd.grad(losses["total_loss"], params,
+                                allow_unused=True)
+    return ({k: v.item() for k, v in losses.items()},
+            {n: (torch.zeros_like(p) if g is None else g).double().cpu()
+             for n, p, g in zip(names, params, grads)})
+
+
+def leaf_errors(got_g: dict, want_g: dict) -> dict:
+    """Each leaf's largest gradient gap over 1 + max |g| of ``want_g``."""
+    return {n: ((got_g[n] - g).abs().max() / (1 + g.abs().max())).item()
+            for n, g in want_g.items()}
+
+
+def off_leaves(got_g: dict, want_g: dict) -> dict:
+    return {n: e for n, e in leaf_errors(got_g, want_g).items()
+            if e > DET_GRAD_TOL}
+
+
+class Branches:
+    """The branches a detector's forward takes where rounding can choose
+    between two: each ReLU's and leaky ReLU's side (the sign of its input),
+    the stem max-pool's pick in each window, and the flow warp's sample
+    cells (the floor of its coordinates), in call order. With ``replay``,
+    each takes the branch that run took instead."""
+
+    KINDS = ("relu", "leaky_relu", "max_pool", "warp_floor")
+
+    def __init__(self, replay: "Branches | None" = None):
+        self.taken = {k: [] for k in self.KINDS}
+        self.replay = replay
+
+    def take(self, kind: str, choice: torch.Tensor) -> torch.Tensor:
+        if self.replay is not None:
+            choice = self.replay.taken[kind][len(self.taken[kind])].to(
+                choice.device)
+        self.taken[kind].append(choice)
+        return choice
+
+    def differing(self, other: "Branches") -> dict:
+        """Per kind: the elements whose branch differs from ``other``'s,
+        and the elements in all."""
+        out = {}
+        for kind in self.KINDS:
+            a, b = self.taken[kind], other.taken[kind]
+            if [x.shape for x in a] != [x.shape for x in b]:
+                out[kind] = "calls differ"
+                continue
+            out[kind] = (sum(int((x.cpu() != y.cpu()).sum())
+                             for x, y in zip(a, b)),
+                         sum(x.numel() for x in a))
+        return out
+
+
+@contextlib.contextmanager
+def taking(branches: Branches):
+    """Route F.relu, F.leaky_relu, F.max_pool2d and the warp's floor
+    through ``branches`` (relu(x) as x times its side, the pool as a gather
+    at its picks), for a diagnostic run."""
+    from vrdone_tpu_torch.ops import warp
+    saved = (F.relu, F.leaky_relu, F.max_pool2d, warp.grid_sample_bilinear,
+             torch.floor)
+    relu, leaky, pool, sample, floor = saved
+
+    def relu_(x, inplace=False):
+        return x * branches.take("relu", x > 0)
+
+    def leaky_(x, negative_slope=0.01, inplace=False):
+        return torch.where(branches.take("leaky_relu", x > 0), x,
+                           negative_slope * x)
+
+    def pool_(x, *args, **kw):
+        out, idx = pool(x, *args, return_indices=True, **kw)
+        idx = branches.take("max_pool", idx)
+        return x.flatten(2).gather(2, idx.flatten(2)).view_as(out)
+
+    def floor_(x):
+        return branches.take("warp_floor", floor(x))
+
+    def sample_(*args, **kw):
+        torch.floor = floor_
+        try:
+            return sample(*args, **kw)
+        finally:
+            torch.floor = floor
+
+    F.relu, F.leaky_relu, F.max_pool2d = relu_, leaky_, pool_
+    warp.grid_sample_bilinear = sample_
+    try:
+        yield branches
+    finally:
+        (F.relu, F.leaky_relu, F.max_pool2d, warp.grid_sample_bilinear,
+         torch.floor) = saved
+
+
+def locate_flips(cpu_det, gpu_det, method, sample, cuda, want_g) -> dict:
+    """Where the card's fp32 gradient leaves the CPU's: the branches
+    (``Branches``) that differ between the two fp32 runs, then the card's
+    run again with the CPU's branches replayed. Returns the leaves off
+    after the replay."""
+    cpu = Branches()
+    with taking(cpu):
+        method_losses_and_grads(cpu_det, method, sample, torch.device("cpu"))
+    card = Branches()
+    with taking(card):
+        method_losses_and_grads(gpu_det, method, sample, cuda)
+    with taking(Branches(cpu)):
+        _, got_g = method_losses_and_grads(gpu_det, method, sample, cuda)
+    errs = leaf_errors(got_g, want_g)
+    print(f"  small {method}: branches that differ card vs CPU (differ, "
+          f"of): {card.differing(cpu)}; the card with the CPU's branches: "
+          f"worst gradient {max(errs.values()):.3e} "
+          f"({max(errs, key=errs.get)})")
+    return {n: e for n, e in errs.items() if e > DET_GRAD_TOL}
+
+
+def check_methods_vs_cpu(cuda) -> None:
+    """Phase 15b: each method's small detector on the card against the
+    port's CPU run from the same weights, frames and draws: one sample's
+    losses within LOSS_TOL and each leaf's gradient within DET_GRAD_TOL x
+    (1 + max |g|); where leaves are off (at most FLIP_LEAVES, each within
+    FLIP_GRAD_TOL), the branches that differ between the two fp32 runs are
+    counted (``locate_flips``), the card's run with the CPU's branches
+    replayed must hold every leaf, and so must both devices' fp64
+    gradients (as tests/test_torch_detector_methods.py does against JAX);
+    and *_detect_video over 4 frames: valid slots equal,
+    and on the frames whose window's proposals agree within 1e-3 pixel,
+    logits and deltas (and RDN's features) within DETECT_TOL of their
+    largest magnitude; in bf16 the map the method detects on within
+    BF16_DETECT_MAX / BF16_DETECT_MEAN of max |x| of the CPU's bf16 map and
+    of the card's fp32 map (twice those through the flow warp, as JAX's own
+    bf16 tests hold FGFA and DFF), and the bf16 detection's outputs fp32,
+    finite and of the fp32 detection's shapes."""
+    from train_detector_torch import DETECT_FNS
+    from vrdone_tpu_torch.models.mega import window_indices
+    images = np.random.default_rng(25).integers(
+        0, 256, (4, *SMALL_METHOD_HW, 3), dtype=np.uint8)
+    hw = np.asarray(SMALL_METHOD_HW, np.float32)
+    for method in METHODS:
+        cpu_det, sample = small_method_case(method, torch.device("cpu"))
+        gpu_det = copy.deepcopy(cpu_det).to(cuda)
+        want, want_g = method_losses_and_grads(cpu_det, method, sample,
+                                               torch.device("cpu"))
+        got, got_g = method_losses_and_grads(gpu_det, method, sample, cuda)
+        loss_err = max(abs(got[k] - v) / (1 + abs(v)) for k, v in want.items())
+        errs = leaf_errors(got_g, want_g)
+        flipped = {n: e for n, e in errs.items() if e > DET_GRAD_TOL}
+        worst = max(errs, key=errs.get)
+        print(f"small {method} sample, card vs CPU: total_loss "
+              f"{got['total_loss']:.6f} (CPU {want['total_loss']:.6f}), worst "
+              f"loss rel err {loss_err:.3e}; worst gradient {worst} "
+              f"{errs[worst]:.3e}; {len(flipped)} of {len(errs)} leaves off "
+              f"{DET_GRAD_TOL:.0e} (limits {FLIP_GRAD_TOL:.0e}, "
+              f"{FLIP_LEAVES} leaves)")
+        if (loss_err > LOSS_TOL or errs[worst] > FLIP_GRAD_TOL
+                or len(flipped) > FLIP_LEAVES):
+            raise AssertionError(f"{method}: losses or gradients on the card "
+                                 f"differ from the CPU's: {flipped}")
+        if flipped:
+            replayed = locate_flips(cpu_det, gpu_det, method, sample, cuda,
+                                    want_g)
+            _, want64 = method_losses_and_grads(
+                cpu_det, method, sample, torch.device("cpu"), torch.float64)
+            _, got64 = method_losses_and_grads(gpu_det, method, sample, cuda,
+                                               torch.float64)
+            bad = off_leaves(got64, want64)
+            print(f"  small {method} in fp64, card vs CPU: {len(bad)} leaves "
+                  f"off")
+            if bad or replayed:
+                raise AssertionError(f"{method}: gradients on the card differ "
+                                     f"from the CPU's with the CPU's branches "
+                                     f"({replayed}) or in fp64 ({bad})")
+        kw = dict(post_nms_top_n=8)
+        if method == "rdn":
+            kw = dict(key_post_nms=8)
+        elif method == "dff":
+            kw["key_interval"] = 2
+        ref = DETECT_FNS[method](cpu_det, images, hw, **kw)
+        out = DETECT_FNS[method](gpu_det, images, hw, **kw)
+        agree = [np.array_equal(out["valid"][f], ref["valid"][f])
+                 and np.allclose(out["proposals"][f], ref["proposals"][f],
+                                 atol=1e-3, rtol=0) for f in range(4)]
+        clean = [f for f in range(4)
+                 if method != "rdn" and agree[f]
+                 or method == "rdn" and all(agree[int(i)] for i in
+                                            window_indices(f, 4, window=3,
+                                                           key_loc=1))]
+        errs = {k: max((np.abs(out[k][f] - ref[k][f]).max()
+                        / np.abs(ref[k]).max() for f in clean), default=0.0)
+                for k in out if k not in ("valid", "proposals",
+                                          "proposal_scores")}
+        print(f"small {method}_detect_video, card vs CPU: {len(clean)} of 4 "
+              f"frames with agreeing proposals; worst gap of max |x| {errs}")
+        if not clean or any(v > DETECT_TOL for v in errs.values()):
+            raise AssertionError(f"{method}_detect_video on the card differs "
+                                 f"from the CPU's")
+        # bf16: the map on the card against the CPU's bf16 map and against
+        # the card's fp32 map, and the bf16 detection's outputs
+        frames = torch.from_numpy(images[:2])
+        k = 2 if method in ("fgfa", "dff") else 1
+        from vrdone_tpu_torch.utils.precision import cast_floating
+        want16 = method_map(cast_floating(cpu_det, torch.bfloat16), method,
+                            frames, torch.bfloat16)
+        got16 = method_map(cast_floating(gpu_det, torch.bfloat16), method,
+                           frames.to(cuda), torch.bfloat16)
+        rel = rel_gap(got16.cpu(), want16)
+        own = bf16_map_gap(gpu_det, method, frames.to(cuda))
+        out16 = DETECT_FNS[method](gpu_det, images, hw,
+                                   compute_dtype="bfloat16", **kw)
+        print(f"small {method} bf16 map, card vs CPU: largest gap "
+              f"{rel[0]:.3e}, mean {rel[1]:.3e}; against the card's fp32 "
+              f"map {own[0]:.3e}, "
+              f"{own[1]:.3e} (limits {k * BF16_DETECT_MAX:.0e}, "
+              f"{k * BF16_DETECT_MEAN:.0e} of max |x|)")
+        if not (rel[0] <= k * BF16_DETECT_MAX
+                and rel[1] <= k * BF16_DETECT_MEAN
+                and own[0] <= k * BF16_DETECT_MAX
+                and own[1] <= k * BF16_DETECT_MEAN):
+            raise AssertionError(f"{method}: the bf16 map is off")
+        for key, v in out16.items():
+            if (v.dtype != ref[key].dtype or v.shape != ref[key].shape
+                    or not np.isfinite(v).all()):
+                raise AssertionError(f"{method}_detect_video bf16: {key}")
+
+
+def check_method_cli(cuda) -> None:
+    """Phase 15c: ``train_detector_torch.py --cfg rdn_vidvrd.yaml`` and
+    ``fgfa_vidvrd.yaml`` on phase 12's VidVRD-layout corpus from calibrated
+    random weights (``--init_ckpt``): 2 iterations with a checkpoint, then
+    ``--resume`` to 3; the two methods' processes side by side on the card,
+    each exit 0, every logged loss finite, the resumed run starting at
+    iteration 2."""
+    from vrdone_tpu_torch.convert import params_to_jax
+    from vrdone_tpu_torch.detector_config import load_detector_config
+    methods = ("rdn", "fgfa")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_frames_corpus(root)
+        for method in methods:
+            det = method_detector(load_detector_config(
+                str(METHOD_CFGS[method])),
+                torch.Generator().manual_seed(0)).to(cuda)
+            images = torch.from_numpy(np.random.default_rng(33).uniform(
+                0, 255, (1, *DET_CANVAS, 3)).astype(np.float32)).to(cuda)
+            calibrate_frozen_bn(det, images, torch.tensor(
+                [[40.0, 30.0, 400.0, 500.0], [500.0, 100.0, 900.0, 560.0]],
+                device=cuda))
+            np.savez(root / f"{method}_init.npz",
+                     **params_to_jax(det.state_dict()))
+            del det, images
+        torch.cuda.empty_cache()
+        for iters, extra in (("2", []), ("3", ["--resume"])):
+            t0 = time.perf_counter()
+            procs = {method: subprocess.Popen(
+                [sys.executable, str(ROOT / "train_detector_torch.py"),
+                 "--anno_dir", str(root / "annotations" / "train"),
+                 "--frames_dir", str(root / "frames" / "train"),
+                 "--exp_dir", str(root / f"{method}_exp"), "--dataset",
+                 "vidvrd", "--cfg", str(METHOD_CFGS[method]), "--init_ckpt",
+                 str(root / f"{method}_init.npz"), "--iters", iters,
+                 "--save_interval", "2", "--log_interval", "1", "--device",
+                 "cuda", *extra], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True) for method in methods}
+            logs = {m: p.communicate(timeout=600)[0]
+                    for m, p in procs.items()}
+            seconds = time.perf_counter() - t0
+            for method, p in procs.items():
+                log = logs[method]
+                if p.returncode != 0:
+                    raise AssertionError(f"train_detector_torch.py --method "
+                                         f"{method} failed:\n{log[-4000:]}")
+                totals = [float(v) for v in re.findall(r"total_loss: (\S+) ",
+                                                       log)]
+                print(f"train_detector_torch.py --cfg "
+                      f"{METHOD_CFGS[method].name} --iters {iters} "
+                      f"{' '.join(extra)} on the card: exit 0 (both methods "
+                      f"side by side in {seconds:.1f} s); total_loss by "
+                      f"iteration (window median) {totals}")
+                if (len(totals) != (1 if extra else 2)
+                        or not all(map(math.isfinite, totals))):
+                    raise AssertionError(f"{method}: losses {totals}")
+                if extra and "at iteration 2" not in log:
+                    raise AssertionError(f"{method}: --resume did not start "
+                                         f"at iteration 2")
+                if not (root / f"{method}_exp" / "detector_2.npz").exists():
+                    raise AssertionError(f"{method}: no checkpoint written")
+
+
+def detector_methods_phase(cuda, ba, fa, ma, pb) -> dict:
+    """Phase 15: the four methods at full width, the small ones against
+    the CPU, train_detector_torch.py --method rdn / fgfa. Returns the
+    launches by path."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    for method in METHODS:
+        launches.update(check_method_full_width(cuda, method, ba, fa, ma, pb))
+    t1 = time.perf_counter()
+    check_methods_vs_cpu(cuda)
+    t2 = time.perf_counter()
+    check_method_cli(cuda)
+    t3 = time.perf_counter()
+    print(f"phase 15 (detector methods): {t3 - t0:.1f} s (15a {t1 - t0:.1f}, "
+          f"15b {t2 - t1:.1f}, 15c {t3 - t2:.1f})")
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one CUDA card")
     parser.add_argument(
-        "--only", choices=("kernels", "detector_train"), default=None,
+        "--only", choices=("kernels", "detector_train", "detector_methods"),
+        default=None,
         help="kernels: build the kernels, hold each against its plain "
              "version at the main paths' shapes and time it (the kernel "
              "checks of phases 1, 2, 7 and 8), print their JSON line and "
-             "stop; detector_train: phase 14 alone (no kernel on its path, "
-             "none built)")
+             "stop; detector_train: phase 14 alone; detector_methods: phase "
+             "15 alone (no kernel on either path, none built)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card",
@@ -4084,6 +4714,19 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({"detector_train_step": detector_train_phase(
             cuda, ba, fa, ma, pb)}))
         return 0
+    if args.only == "detector_methods":
+        print(json.dumps(detector_methods_phase(cuda, ba, fa, ma, pb)))
+        return 0
+
+    start = last = time.perf_counter()
+
+    def lap(phases: str) -> None:
+        """The seconds the phases just run took, and since the start."""
+        nonlocal last
+        now = time.perf_counter()
+        print(f"[time] {phases}: {now - last:.1f} s (script {now - start:.1f}"
+              f" s)")
+        last = now
 
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -4112,6 +4755,7 @@ def main(argv: list[str] | None = None) -> int:
     kernels["band_attention_pe"], pe_alone = check_band_pe(cuda, ba, mops)
     kernels["band_attention_pe_bf16"] = check_band_pe_bf16(cuda, ba)
     stream_worst, alone = check_stream_kernels(cuda, ba, fa, band_rows)
+    lap("phases 1-2 (build, kernel checks)")
     for name, err in stream_worst.items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     if args.only == "kernels":
@@ -4198,31 +4842,42 @@ def main(argv: list[str] | None = None) -> int:
         n_triplets += n
     print(f"InferenceRunner + decode_video: {n_triplets} triplets")
 
+    lap("phases 3-4 (VidVRD forward, eval runner)")
     # 9. bf16 serving at VidVRD's and VidOR's widths
     bf16_launches = check_bf16_serving(cuda, ba, fa)
+    lap("phase 9 (bf16 serving)")
 
     # 5. the full-width train step: fp32, then bf16 and remat, and both
     # dtypes timed in turns
     state32, train_launches = check_train_step(cfg, raw, cuda, ba, fa)
     train16_launches = check_train_step_bf16(cfg, raw, cuda, ba, fa, state32)
+    lap("phase 5 (train steps)")
     del state32
     torch.cuda.empty_cache()
     # 10. bf16 training with use_rel_pe at VidOR local-attention width
     relpe16_launches = check_train_step_relpe_bf16(cuda, ba, fa)
+    lap("phase 10 (bf16 rel-PE train step)")
     torch.cuda.empty_cache()
     # 11. VrdONE-X: serving, the reference converter and a train step
     vrdone_x_launches = check_vrdone_x(cuda, ba, fa)
+    lap("phase 11 (VrdONE-X)")
 
     # 6. train_torch.py -> eval_torch.py, and a bf16 rel-PE train_torch.py
     check_train_cli(raw)
     check_train_cli(raw, model_over={"use_rel_pe": True, "use_local": True},
                     flags=("--compute_dtype", "bfloat16"), evaluate=False)
+    lap("phase 6 (train/eval CLIs)")
     # 13. data parallelism: two ranks' steps on the card against one
     # process's, train_torch.py under torchrun (NCCL), multihost eval
     dp_launches = check_dp_train_step(cfg, raw, cuda, ba, fa)
     check_dp_cli(raw)
+    lap("phase 13 (data parallelism)")
     # 14. MEGA detector training
     det_train_launches = detector_train_phase(cuda, ba, fa, ma, pb)
+    lap("phase 14 (MEGA detector training)")
+    # 15. the other detector methods: base, RDN, FGFA, DFF
+    method_launches = detector_methods_phase(cuda, ba, fa, ma, pb)
+    lap("phase 15 (detector methods)")
 
     # 7. MEGA: detect_video at full width, the small detector against the
     # CPU, detect_torch.py
@@ -4231,6 +4886,7 @@ def main(argv: list[str] | None = None) -> int:
     check_detect_vs_cpu(cuda)
     check_detect_bf16_vs_cpu(cuda, pb, ma)
     check_detect_cli()
+    lap("phase 7 (detect_video)")
     # 12. detect_video_tta at full width and against the CPU, then frames
     # to triplets with the port alone
     detect_launches.update(check_detect_tta(cuda, pb, ma, det))
@@ -4238,9 +4894,11 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     check_detect_tta_vs_cpu(cuda)
     check_frames_to_triplets(raw, cuda, ma, pb)
+    lap("phase 12 (TTA, frames to triplets)")
 
     # 8. the streaming runner at VidOR local-attention width
     stream_launches = check_streaming(cuda, ba, fa, pe_alone, alone)
+    lap("phase 8 (streaming)")
 
     band = "vrdone_tpu_torch/csrc/band_attention.cu"
     pallas = "vrdone_tpu/ops/pallas/band_attention.py"
@@ -4287,6 +4945,8 @@ def main(argv: list[str] | None = None) -> int:
                       "train_step_bf16_rel_pe": relpe16_launches.get(name, 0),
                       "train_step_dp": dp_launches.get(name, 0),
                       "detector_train_step": det_train_launches.get(name, 0),
+                      **{path: c.get(name, 0)
+                         for path, c in method_launches.items()},
                       **{route: c.get(name, 0)
                          for route, c in detect_launches.items()},
                       "stream": stream_launches.get(name, 0),

@@ -357,3 +357,37 @@ def test_train_detector_host_functions_are_the_originals(name):
     from tools import train_detector as jcli
     assert (inspect.getsource(getattr(tcli, name))
             == inspect.getsource(getattr(jcli, name)))
+
+
+def test_method_ref_offsets_are_the_original():
+    from vrdone_tpu.models.detector_train import METHOD_REF_OFFSETS as joff
+    from vrdone_tpu_torch.models.detector_train import (
+        METHOD_REF_OFFSETS as toff)
+    assert toff == joff
+
+
+@pytest.mark.parametrize("method", ["rdn", "fgfa", "dff", "base"])
+def test_sample_method_refs_is_the_original(method):
+    from vrdone_tpu.models.detector_train import sample_method_refs as jref
+    from vrdone_tpu_torch.models.detector_train import (
+        sample_method_refs as tref)
+    assert inspect.getsource(tref) == inspect.getsource(jref)
+    a, b = np.random.default_rng(5), np.random.default_rng(5)
+    for fid, seg, n in [(0, 40, None), (20, 40, None), (39, 40, 3),
+                        (3, 5, 1), (0, 1, None)]:
+        if method == "base" and n:
+            continue              # one offset: no second ref to draw
+        equal(tref(b, method, fid, seg, ref_num=n),
+              jref(a, method, fid, seg, ref_num=n))
+
+
+def test_fgfa_stream_indices_is_the_original():
+    """The port's fgfa_stream_indices over its window_indices gives the JAX
+    package's windows (the prefill and the clamp at both ends)."""
+    from vrdone_tpu.models.flownet import fgfa_stream_indices as jidx
+    from vrdone_tpu_torch.models.flownet import fgfa_stream_indices as tidx
+    for seg in (1, 5, 19, 40):
+        for t in range(seg):
+            for kw in ({}, {"window": 3, "key_loc": 1}):
+                np.testing.assert_array_equal(
+                    tidx(t, seg, **kw).numpy(), np.asarray(jidx(t, seg, **kw)))

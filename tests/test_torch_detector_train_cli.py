@@ -4,7 +4,8 @@ memory and global frame) on its synthetic corpus of two videos, one
 landscape and one portrait: two iterations with a validation sweep,
 ``--resume`` to four (equal to an unbroken run of four), then
 ``detect_torch.py --ckpt_path`` on the ``.npz`` the trainer wrote; a COCO
-image-mode run; and the refusal of the methods not ported."""
+image-mode run; and ``--method rdn`` (train, validate, resume) with the
+other methods getting past ``--method``."""
 
 import json
 import os
@@ -145,12 +146,50 @@ def test_coco_image_mode(tmp_path):
 
 @pytest.mark.parametrize("method", ["rdn", "base", "fgfa", "dff"])
 def test_other_methods_refuse(tmp_path, method):
+    """Every method is ported: a run without data gets past ``--method`` and
+    is refused for its missing data, as a MEGA run is."""
     sys.path.insert(0, REPO)
     try:
         import train_detector_torch
     finally:
         sys.path.remove(REPO)
-    with pytest.raises(SystemExit,
-                       match="queue 1, the other detector methods"):
+    with pytest.raises(SystemExit, match="need --coco_ann and/or --anno_dir"):
         train_detector_torch.main(["--exp_dir", str(tmp_path), "--method",
                                    method, "--device", "cpu"])
+
+
+def test_rdn_train_resume_and_validate(tmp_path):
+    """``--method rdn`` from a reference-layout config with the advanced
+    stage (two sampled reference frames a sample, RDN's 37-frame window
+    clamped to the 3-frame videos): two iterations with a validation sweep
+    through rdn_detect_video, then ``--resume`` to three, equal to an
+    unbroken run of three."""
+    anno_dir, frames_dir, _ = write_corpus(str(tmp_path))
+    cfg = tmp_path / "rdn.yaml"
+    cfg.write_text("MODEL:\n  VID:\n    METHOD: rdn\n"
+                   "    ROI_BOX_HEAD:\n      ATTENTION:\n"
+                   "        ADVANCED_STAGE: 1\n"
+                   "SOLVER:\n  BASE_LR: 0.001\n  WARMUP_ITERS: 1\n"
+                   "  STEPS: [2]\n  IMS_PER_BATCH: 1\n")
+
+    def train(exp_dir, *extra):
+        return run("train_detector_torch.py", "--anno_dir", anno_dir,
+                   "--frames_dir", frames_dir, "--exp_dir", exp_dir,
+                   "--dataset", "vidvrd", "--cfg", str(cfg), *FLAGS, *extra)
+
+    exp = str(tmp_path / "exp")
+    log = train(exp, "--iters", "2", "--save_interval", "2",
+                "--eval_interval", "2", "--val_anno_dir", anno_dir,
+                "--val_videos", "1")
+    assert "method=rdn" in log and "[2] detector eval: mAP=" in log
+    with np.load(os.path.join(exp, "detector_2.npz")) as z:
+        assert "rdn/Wv2/kernel" in z.files and "rdn/fc2/kernel" in z.files
+    log2 = train(exp, "--iters", "3", "--save_interval", "3", "--resume")
+    assert "at iteration 2" in log2
+    whole = str(tmp_path / "whole")
+    train(whole, "--iters", "3", "--save_interval", "3")
+    with np.load(os.path.join(exp, "detector_3.npz")) as a, \
+            np.load(os.path.join(whole, "detector_3.npz")) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)

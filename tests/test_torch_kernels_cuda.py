@@ -2654,3 +2654,32 @@ def test_mega_head_bf16_on_card_matches_cpu(cuda):
         scale = want.abs().max().item()
         assert max_err(got, want) <= 5e-2 * scale, flags
         assert (got - want).abs().mean().item() <= 5e-3 * scale, flags
+
+
+def test_fgfa_detect_video_on_card_matches_cpu(cuda):
+    """fgfa_detect_video (FlowNetS, the flow warp, EmbedNet and the cosine
+    aggregation; no hand kernel on its path) of a small FGFA detector on
+    the card against the same weights on the CPU: valid slots equal,
+    proposals within 1e-3 pixel, logits and deltas within 1e-3 of their
+    largest magnitude (chip_smoke.py's DETECT_TOL); no MEGA kernel
+    launched."""
+    from vrdone_tpu_torch.models import flownet
+    kw = dict(num_classes=5, resnet_layers=(1, 1, 1), window=3, key_loc=1)
+    cpu_det = flownet.FGFADetector(**kw, device=torch.device("cpu"),
+                                   generator=torch.Generator().manual_seed(2))
+    gpu_det = flownet.FGFADetector(**kw, device=cuda)
+    gpu_det.load_state_dict(cpu_det.state_dict())
+    images = np.random.default_rng(10).integers(0, 256, (3, 64, 96, 3),
+                                                dtype=np.uint8)
+    hw = np.asarray([64, 96], np.float32)
+    ma.launches = pb.launches = pb.factor_launches = 0
+    want = flownet.fgfa_detect_video(cpu_det, images, hw, post_nms_top_n=8)
+    got = flownet.fgfa_detect_video(gpu_det, images, hw, post_nms_top_n=8)
+    torch.cuda.synchronize()
+    assert (ma.launches, pb.launches, pb.factor_launches) == (0, 0, 0)
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    np.testing.assert_allclose(got["proposals"], want["proposals"], rtol=0,
+                               atol=1e-3)
+    for key in ("cls_logits", "bbox_deltas"):
+        scale = np.abs(want[key]).max()
+        assert np.abs(got[key] - want[key]).max() <= 1e-3 * scale, key

@@ -5,8 +5,8 @@ One start of two ranks (the module fixture ``world``) runs every two-rank
 check: the comm helpers, and two train steps of a small model with drop
 path and dropout on and ground-truth counts that differ between the ranks,
 at a global batch of 4 items, 2 a rank, then one step of a small MEGA
-detector (``models/detector_train.py``) at a global batch of 2 samples,
-one a rank. Beside it the fixture runs
+detector (``models/detector_train.py``) and one of a small RDN detector
+with its advanced stage, each at a global batch of 2 samples, one a rank. Beside it the fixture runs
 ``train_torch.py`` and ``eval_torch.py`` under ``torchrun`` (two ranks
 sharing one directory, every file write of each rank recorded) and one
 process's ``eval_torch.py``, and, in this process, the port's one-process
@@ -22,9 +22,10 @@ invariant to the key biases) takes an Adam step of arbitrary sign on each
 side, so it is held to the most two steps can move it (twice the sum of
 the learning rates, as ``tests/test_torch_train.py`` and
 ``tests/test_train_trajectory.py`` set such leaves apart). The two ranks
-agree bit for bit. The detector step is held to the port's one-process
-step on both samples within 1e-6 (JAX's detector step is held to the
-port's one-process step in ``tests/test_torch_detector_train.py``).
+agree bit for bit. The detector steps are held to the port's one-process
+step on both samples within 1e-6 (JAX's detector steps are held to the
+port's one-process steps in ``tests/test_torch_detector_train.py`` and
+``tests/test_torch_detector_methods.py``).
 """
 
 import dataclasses
@@ -149,9 +150,29 @@ def detector_step(root, rows):
     return {"losses": {k: v.item() for k, v in losses.items()},
             "params": {n: p.detach().numpy().copy()
                        for n, p in det.named_parameters()}}
+
+
+def method_step(root, rows):
+    from vrdone_tpu_torch.models.rdn import RDNDetector
+    with open(os.path.join(root, "rdn_setup.pkl"), "rb") as f:
+        kw, batch, seed = pickle.load(f)
+    cpu = torch.device("cpu")
+    det = RDNDetector(**kw, device=cpu)
+    load_params(det, load_npz(os.path.join(root, "rdn_params.npz")))
+    opt = detector_sgd(multistep_schedule(1e-3, 1, (10,), 0.1, 1e-3 / 3),
+                       det.named_parameters())
+    losses = detector_train_step(
+        det, opt, {k: torch.from_numpy(v[rows]) for k, v in batch.items()},
+        StepPriorities(seed, 0, cpu), image_hw=(64, 64), post_nms_top_n=8,
+        method="rdn")
+    return {"losses": {k: v.item() for k, v in losses.items()},
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in det.named_parameters()}}
 """
 DET_KW = dict(num_classes=5, resnet_layers=(1, 1, 1), stage=2, groups=4,
               base_num=4, window=3, key_loc=1, global_size=2)
+RDN_KW = dict(num_classes=5, resnet_layers=(1, 1, 1), base_stage=2,
+              advanced_stage=1, groups=4, base_num=4, window=3, key_loc=1)
 
 
 def det_setup(root: str):
@@ -175,11 +196,22 @@ def det_setup(root: str):
              "gt_valid": np.array([[True, True, False]] * 2)}
     with open(os.path.join(root, "det_setup.pkl"), "wb") as f:
         pickle.dump((DET_KW, batch, SEED), f)
+    # the RDN detector's step: the key and two reference frames a sample
+    from vrdone_tpu_torch.models.rdn import RDNDetector
+    rdn = RDNDetector(**RDN_KW, device=CPU,
+                      generator=torch.Generator().manual_seed(SEED))
+    np.savez(os.path.join(root, "rdn_params.npz"),
+             **params_to_jax(rdn.state_dict()))
+    rdn_batch = {k: v for k, v in batch.items()
+                 if k not in ("local", "mem", "glob")}
+    rdn_batch["ref"] = frames[:, 1:3]
+    with open(os.path.join(root, "rdn_setup.pkl"), "wb") as f:
+        pickle.dump((RDN_KW, rdn_batch, SEED), f)
     with open(os.path.join(root, "det_step.py"), "w") as f:
         f.write(DET_STEP_CODE)
     scope: dict = {}
     exec(DET_STEP_CODE, scope)
-    return scope["detector_step"]
+    return scope["detector_step"], scope["method_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -237,8 +269,9 @@ out["ema"] = {n: p.numpy().copy() for n, p in zip(names, state.ema_params)}
 
 from vrdone_tpu_torch.parallel.mesh import local_batch_slice
 sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[0])))
-from det_step import detector_step
+from det_step import detector_step, method_step
 out["det"] = detector_step(root, local_batch_slice(2))
+out["rdn"] = method_step(root, local_batch_slice(2))
 mesh.barrier()
 mesh.shutdown()
 with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
@@ -466,7 +499,7 @@ def world(tmp_path_factory):
     np.savez(os.path.join(root, "params.npz"), **flatten_params(params))
     with open(os.path.join(root, "setup.pkl"), "wb") as f:
         pickle.dump((port_config(cfg), TC, batch), f)
-    detector_step = det_setup(root)
+    detector_step, method_step = det_setup(root)
     ranks = start_ranks(root)
     cli, cli_errors = {}, []
 
@@ -482,6 +515,7 @@ def world(tmp_path_factory):
         one = port_steps(cfg, params, batch)
         ref = jax_steps(cfg, params, batch, one.draws)
         det_one = detector_step(root, slice(0, 2))
+        rdn_one = method_step(root, slice(0, 2))
     finally:
         outs = [p.communicate(timeout=600)[0] for p in ranks]
         cli_thread.join()
@@ -492,7 +526,7 @@ def world(tmp_path_factory):
         with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
             got.append(pickle.load(f))
     return types.SimpleNamespace(root=root, cfg=cfg, ranks=got, one=one,
-                                 det_one=det_one,
+                                 det_one=det_one, rdn_one=rdn_one,
                                  ref=ref, cli=cli, cli_errors=cli_errors)
 
 
@@ -677,8 +711,22 @@ def test_two_rank_detector_step_matches_one_process(world):
     """One MEGA detector step, a sample a rank: the global batch's mean
     losses and every parameter against one process's step on both
     samples; the ranks equal bit for bit."""
-    one = world.det_one
-    a, b = (out["det"] for out in world.ranks)
+    check_two_rank_detector_step(world, "det")
+
+
+def test_two_rank_method_step_matches_one_process(world):
+    """One RDN detector step (the advanced stage on, two reference frames a
+    sample), a sample a rank, against one process's step on both samples;
+    the ranks equal bit for bit."""
+    check_two_rank_detector_step(world, "rdn")
+
+
+def check_two_rank_detector_step(world, kind):
+    """The global batch's mean losses and every parameter of the two ranks'
+    detector step (``kind`` det: MEGA, rdn: RDN) against one process's
+    step; the ranks equal bit for bit."""
+    one = world.det_one if kind == "det" else world.rdn_one
+    a, b = (out[kind] for out in world.ranks)
     assert a["losses"] == b["losses"]
     for k in a["params"]:
         np.testing.assert_array_equal(a["params"][k], b["params"][k])
@@ -687,7 +735,7 @@ def test_two_rank_detector_step_matches_one_process(world):
     for k, v in one["params"].items():
         np.testing.assert_allclose(a["params"][k], v, rtol=1e-6, atol=1e-6,
                                    err_msg=k)
-    with np.load(os.path.join(world.root, "det_params.npz")) as z:
+    with np.load(os.path.join(world.root, f"{kind}_params.npz")) as z:
         start = dict(z)
     moved = sum(not np.array_equal(v, start[k])
                 for k, v in params_to_jax({n: torch.from_numpy(x) for n, x in

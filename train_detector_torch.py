@@ -1,16 +1,24 @@
-"""Train the MEGA video detector on annotated frames with the PyTorch port
-(the counterpart of ``tools/train_detector.py``, with its flags and
-defaults plus ``--device``, cuda by default).
+"""Train a video detector (any ``--method``: mega, base, rdn, fgfa, dff) on
+annotated frames with the PyTorch port (the counterpart of
+``tools/train_detector.py``, with its flags and defaults plus
+``--device``, cuda by default).
 
-Each sample is a key frame with its local, memory and global reference
-frames through the shared backbone; the RPN losses on the key frame, the
-box-head losses on the MEGA-enhanced key proposals plus the GT boxes, the
-memory built without gradient (``vrdone_tpu_torch/models/
-detector_train.py``), then the detector's SGD (``train/optim.py::
-detector_sgd``). COCO-format images (``--coco_ann``, reference frames are
-copies of the key image) and video annotations (``--anno_dir``) form one
-pool; batches are grouped by aspect (one canvas orientation each), scales
-come from ``--min_sizes``, and the key and reference frames flip together.
+``--method mega`` (the default): each sample is a key frame with its local,
+memory and global reference frames through the shared backbone; the RPN
+losses on the key frame, the box-head losses on the MEGA-enhanced key
+proposals plus the GT boxes, the memory built without gradient. ``base``:
+plain single-frame Faster R-CNN. ``rdn``: the key and ``REF_NUM`` sampled
+reference frames, the box-head losses on the RDN-enhanced predictions.
+``fgfa``: the RPN and the head on the flow-warped, cosine-weighted
+aggregate of the reference frames' features. ``dff``: the features of one
+reference frame propagated by flow and the scale map. The losses are
+``vrdone_tpu_torch/models/detector_train.py``'s, the optimizer the
+detector's SGD (``train/optim.py::detector_sgd``). COCO-format images
+(``--coco_ann``, reference frames are copies of the key image) and video
+annotations (``--anno_dir``) form one pool; batches are grouped by aspect
+(one canvas orientation each), scales come from ``--min_sizes``, and the key
+and reference frames flip together. Periodic validation runs the method's
+own whole-video detection.
 
 Data parallelism takes the place of JAX's dp mesh: under ``torchrun`` each
 rank takes its ``batch_size / world_size`` samples of every global batch,
@@ -27,12 +35,10 @@ data sampler's generator state, which ``--resume`` reads with the newest
 ``.npz``. An orbax checkpoint of the JAX tool crosses over as an ``.npz``
 through ``tools/export_params_npz.py``, run where JAX is.
 
-Only ``--method mega`` is ported; the other methods refuse (ROADMAP.md
-queue 1, the other detector methods).
-
     python train_detector_torch.py --anno_dir <dir of .json> \
         --frames_dir <dir of video dirs of 000001.jpg..> --exp_dir <dir> \
         --cfg configs/detector/mega_vidvrd.yaml [--backbone_pkl r101.pkl]
+    python train_detector_torch.py ... --cfg configs/detector/rdn_vidvrd.yaml
     torchrun --standalone --nproc_per_node 2 train_detector_torch.py ...
 """
 
@@ -47,11 +53,16 @@ import numpy as np
 import torch
 
 from vrdone_tpu_torch.data.category import get_vocab
+from vrdone_tpu_torch.models.base_rcnn import BaseDetector, base_detect_video
 from vrdone_tpu_torch.models.detector import MegaDetector, hflip_boxes
 from vrdone_tpu_torch.models.detector_train import (
-    StepPriorities, detector_train_step, graft_backbone, latest_checkpoint,
-    load_finetune_params, restore_detector_checkpoint,
-    sample_ref_indices, save_detector_checkpoint)
+    METHOD_REF_OFFSETS, StepPriorities, detector_train_step, graft_backbone,
+    latest_checkpoint, load_finetune_params, restore_detector_checkpoint,
+    sample_method_refs, sample_ref_indices, save_detector_checkpoint)
+from vrdone_tpu_torch.models.flownet import (DFFDetector, FGFADetector,
+                                             dff_detect_video,
+                                             fgfa_detect_video)
+from vrdone_tpu_torch.models.rdn import RDNDetector, rdn_detect_video
 from vrdone_tpu_torch.parallel import mesh
 from vrdone_tpu_torch.train.optim import detector_sgd, multistep_schedule
 from vrdone_tpu_torch.utils.logging import setup_logger
@@ -120,6 +131,57 @@ def sample_frames(anno):
     return out
 
 
+# whole-video detection per method, for periodic validation (None: the
+# default of evaluate_video_detections, MEGA's detect_video)
+DETECT_FNS = {"mega": None, "base": base_detect_video,
+              "rdn": rdn_detect_video, "fgfa": fgfa_detect_video,
+              "dff": dff_detect_video}
+
+
+def build_detector(args, cfg, num_classes: int, layers: tuple,
+                   generator: torch.Generator):
+    """The ``--method`` detector on the CPU, from the config as the JAX tool
+    builds it."""
+    kw = dict(num_classes=num_classes, resnet_layers=layers,
+              device=torch.device("cpu"), generator=generator)
+    if args.method == "mega":
+        kw.update(base_num=args.base_num, memory_enable=args.n_mem > 0,
+                  global_enable=args.n_glob > 0)
+        if cfg is not None:
+            kw.update(stage=cfg.stage, groups=cfg.groups,
+                      global_res_stage=cfg.global_res_stage,
+                      ratio=cfg.ratio, window=cfg.mega_window,
+                      key_loc=cfg.mega_key_loc, global_size=cfg.global_size,
+                      memory_enable=cfg.memory_enable and args.n_mem > 0,
+                      global_enable=cfg.global_enable and args.n_glob > 0)
+        return MegaDetector(**kw)
+    if args.method == "base":
+        return BaseDetector(**kw)
+    if args.method == "rdn":
+        return RDNDetector(
+            **kw, base_num=args.base_num,
+            base_stage=cfg.stage if cfg else 2,
+            advanced_stage=cfg.advanced_stage if cfg else 0,
+            groups=cfg.groups if cfg else 16,
+            ratio=cfg.rdn_ratio if cfg else 0.2,
+            window=cfg.rdn_window if cfg else 37,
+            key_loc=cfg.rdn_key_loc if cfg else 18)
+    if args.method == "fgfa":
+        return FGFADetector(**kw, window=cfg.fgfa_window if cfg else 19,
+                            key_loc=cfg.fgfa_key_loc if cfg else 9)
+    return DFFDetector(**kw)
+
+
+def method_ref_num(method: str, cfg) -> int | None:
+    """Reference frames a sample of a non-MEGA method (None for MEGA): the
+    reference defaults, or the config's RDN / FGFA REF_NUM."""
+    if method == "mega":
+        return None
+    if cfg is not None and method in ("rdn", "fgfa"):
+        return getattr(cfg, f"{method}_ref_num")
+    return METHOD_REF_OFFSETS[method][2]
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--anno_dir", default=None,
@@ -135,8 +197,7 @@ def parse_args(argv=None):
                    default="vidvrd")
     p.add_argument("--method", default="mega",
                    choices=["mega", "base", "rdn", "fgfa", "dff"],
-                   help="training scheme (reference MODEL.VID.METHOD); "
-                        "only mega is ported")
+                   help="training scheme (reference MODEL.VID.METHOD)")
     p.add_argument("--iters", type=int, default=150000)
     p.add_argument("--lr", type=float, default=0.001)
     p.add_argument("--min_size", type=int, default=600)
@@ -232,10 +293,6 @@ def main(argv=None):
                          ",".join(map(str, cfg.resnet_layers)))):
             if getattr(args, name) == p.get_default(name):
                 setattr(args, name, v)
-    if args.method != "mega":
-        raise SystemExit(
-            f"--method {args.method} is not ported: only mega trains in the "
-            "port; see ROADMAP.md queue 1, the other detector methods")
     rank, world, device = mesh.join_world(args.device, False)
     try:
         train(p, args, cfg, rank, world, device)
@@ -261,17 +318,8 @@ def train(p, args, cfg, rank: int, world: int, device: torch.device) -> None:
     args.min_size = args.min_sizes[0]
 
     layers = tuple(int(x) for x in args.resnet_layers.split(","))
-    det_kw = dict(num_classes=num_classes, resnet_layers=layers,
-                  base_num=args.base_num, memory_enable=args.n_mem > 0,
-                  global_enable=args.n_glob > 0)
-    if cfg is not None:
-        det_kw.update(stage=cfg.stage, groups=cfg.groups,
-                      global_res_stage=cfg.global_res_stage,
-                      ratio=cfg.ratio, window=cfg.mega_window,
-                      key_loc=cfg.mega_key_loc,
-                      global_size=cfg.global_size,
-                      memory_enable=cfg.memory_enable and args.n_mem > 0,
-                      global_enable=cfg.global_enable and args.n_glob > 0)
+    method = args.method
+    n_refs = method_ref_num(method, cfg)
 
     rng = np.random.default_rng(args.seed)
     if not (args.coco_ann or args.anno_dir):
@@ -307,20 +355,28 @@ def train(p, args, cfg, rank: int, world: int, device: torch.device) -> None:
             return ("coco", path, boxes, np.asarray(cats_ids, np.int32))
         v, fid, boxes, cats = index[i - len(coco_samples)]
         labels = np.asarray([name_to_id[c] for c in cats], np.int32)
-        refs = sample_ref_indices(rng, fid, len(annos[v]["trajectories"]),
-                                  n_local=args.n_local, n_mem=args.n_mem,
-                                  n_glob=args.n_glob)
+        seg_len = len(annos[v]["trajectories"])
+        if method != "mega":
+            refs = {"local": sample_method_refs(rng, method, fid, seg_len,
+                                                ref_num=n_refs),
+                    "mem": [], "glob": []}
+        else:
+            refs = sample_ref_indices(rng, fid, seg_len,
+                                      n_local=args.n_local, n_mem=args.n_mem,
+                                      n_glob=args.n_glob)
         return ("video", v, fid, refs, boxes, labels)
 
     def load_plan(plan):
-        """(key, local, mem, glob, boxes, labels): COCO image mode's
-        reference frames are copies of the key frame (reference
-        vid_mega.py:65-73)."""
+        """(key, local, mem, glob, boxes, labels), a method's reference
+        frames in local: COCO image mode's reference frames are copies of
+        the key frame (reference vid_mega.py:65-73, vid_rdn.py:34-35)."""
         if plan[0] == "coco":
             from PIL import Image
             _, path, boxes, cats = plan
             img = np.asarray(Image.open(path).convert("RGB"),
                              np.float32)[..., ::-1]
+            if method != "mega":
+                return img, [img] * n_refs, [], [], boxes, cats
             return (img, [img] * args.n_local, [img] * args.n_mem,
                     [img] * args.n_glob, boxes, cats)
         _, v, fid, refs, boxes, labels = plan
@@ -382,8 +438,8 @@ def train(p, args, cfg, rank: int, world: int, device: torch.device) -> None:
     # the JAX tool loads its first sample to trace its init: that draw
     plan_sample(groups[group_keys[0]][0])
     t0 = time.time()
-    det = MegaDetector(**det_kw, device=torch.device("cpu"),
-                       generator=torch.Generator().manual_seed(args.seed))
+    det = build_detector(args, cfg, num_classes, layers,
+                         torch.Generator().manual_seed(args.seed))
     n_params = sum(x.numel() for x in det.parameters())
     logger.info(f"detector params: {n_params} "
                 f"(init {time.time() - t0:.1f}s)")
@@ -413,7 +469,7 @@ def train(p, args, cfg, rank: int, world: int, device: torch.device) -> None:
         weight_decay_bias=cfg.weight_decay_bias if cfg else 0.0)
     rows = mesh.local_batch_slice(args.batch_size)
     logger.info(f"batch {args.batch_size} over {world} rank(s) "
-                f"({rows.stop - rows.start} a rank), method={args.method}, "
+                f"({rows.stop - rows.start} a rank), method={method}, "
                 f"device {device}")
 
     def make_batch(gk, ms):
@@ -453,6 +509,10 @@ def train(p, args, cfg, rank: int, world: int, device: torch.device) -> None:
             batch["gt_valid"][j, :k] = True
         for key in ("key", "local", "mem", "glob"):
             batch[key] = np.stack(batch[key])
+        if method != "mega":
+            # key/ref contract of the method step
+            batch["ref"] = batch.pop("local")
+            del batch["mem"], batch["glob"]
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                 for k, v in batch.items()}
 
@@ -477,7 +537,7 @@ def train(p, args, cfg, rank: int, world: int, device: torch.device) -> None:
         losses = detector_train_step(
             det, optimizer, batch, StepPriorities(args.seed, it, device),
             image_hw=canvas_hw_of[(gk, ms)],
-            post_nms_top_n=args.post_nms_top_n)
+            post_nms_top_n=args.post_nms_top_n, method=method)
         meters.update(data_time=data_time,
                       batch_time=time.time() - t_data,
                       **{k: float(x) for k, x in losses.items()})
@@ -499,7 +559,8 @@ def train(p, args, cfg, rank: int, world: int, device: torch.device) -> None:
                     det, args.val_anno_dir,
                     args.val_frames_dir or args.frames_dir,
                     name_to_id=name_to_id, min_size=args.min_size,
-                    canvas=args.canvas, max_videos=args.val_videos)
+                    canvas=args.canvas, max_videos=args.val_videos,
+                    detect_fn=DETECT_FNS[method])
                 logger.info(f"[{it + 1}] detector eval: " + "  ".join(
                     f"{k}={v:.4f}" for k, v in stats.items()))
             mesh.barrier()

@@ -9,8 +9,12 @@ names, so a key maps by joining with ``.``; only layouts change:
   * conv ``kernel`` (K, C_in/g, C_out)    -> ``weight`` (C_out, C_in/g, K)
   * 2-D conv ``kernel`` (kh, kw, C_in, C_out) -> ``weight`` (C_out, C_in, kh, kw)
   * ConvMLP ``layers_<i>_kernel`` (K, C_in, C_out) -> same name, (C_out, C_in, K)
-  * MEGA's ``GroupedLinear`` ``kernel`` (groups, D, dg) under ``l_Wv<i>`` or
-    ``g_Wv<i>`` crosses as it is, name and layout
+  * ``GroupedLinear`` ``kernel`` (groups, D, dg) under MEGA's ``l_Wv<i>`` or
+    ``g_Wv<i>``, or RDN's ``Wv<i>``, crosses as it is, name and layout
+  * a ``ConvTranspose(transpose_kernel=True)`` ``kernel`` (kh, kw, out, in)
+    takes the 2-D conv rule to ``ConvTranspose2d``'s (in, out, kh, kw): the
+    flax kernel is that of the forward convolution whose gradient both
+    layers compute, so no spatial flip
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import numpy as np
 import torch
 from torch import nn
 
-# the GroupedLinear modules of models/mega.py: their rank-3 kernel is no conv
-_GROUPED = re.compile(r"[lg]_Wv\d+")
+# the GroupedLinear modules of models/mega.py and models/rdn.py: their rank-3
+# kernel is no conv
+_GROUPED = re.compile(r"(?:[lg]_)?Wv\d+")
 
 
 def _grouped(parts: list[str]) -> bool:

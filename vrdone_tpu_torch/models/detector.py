@@ -237,6 +237,20 @@ def _cast(det: MegaDetector, dtype: torch.dtype) -> MegaDetector:
     return det if dtype == torch.float32 else cast_floating(det, dtype)
 
 
+def frames_on(images, device: torch.device) -> Tensor:
+    """A video's frames (an array or any indexable sequence of (H, W, 3))
+    as one (T, H, W, 3) tensor on ``device``, in the frames' dtype."""
+    return torch.from_numpy(np.stack([np.ascontiguousarray(images[t])
+                                      for t in range(len(images))])
+                            ).to(device)
+
+
+def stack_outputs(outs: list[dict]) -> dict:
+    """Per-frame output dicts -> numpy arrays stacked over frames."""
+    return {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+            for k in outs[0]}
+
+
 @torch.no_grad()
 def detect_video(det: MegaDetector, images, image_hw, *,
                  key_post_nms: int = 300, seed: int = 0, chunk: int = 4,

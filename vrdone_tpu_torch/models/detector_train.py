@@ -1,7 +1,8 @@
-"""MEGA detector training (counterpart of the MEGA part of
-``vrdone_tpu/models/detector_train.py``): the IoU matcher, the balanced
-sampler, the RPN and box-head losses, the training forward with its
-long-range memory, and one data-parallel step.
+"""Detector training (counterpart of ``vrdone_tpu/models/detector_train.py``):
+the IoU matcher, the balanced sampler, the RPN and box-head losses, MEGA's
+training forward with its long-range memory, the training forwards of the
+base, RDN, FGFA and DFF methods, and one data-parallel step for any of the
+five.
 
 Faster-RCNN losses with static shapes, as in the JAX package: each GT's
 best anchor is force-matched, the pos/neg subsample is a top-k over random
@@ -12,6 +13,15 @@ memory and global frames through the shared backbone, takes the RPN losses
 on the key frame, and the box-head losses on the MEGA-enhanced features of
 the key proposals plus the GT boxes; the attention takes the dense route,
 as JAX trains it.
+
+The other methods (``method_detector_losses``): base runs the key frame
+alone; RDN runs the key and reference frames through the backbone, the
+reference proposals of [key, refs] (boxes without gradient, fc0 with it)
+form the attention's set, and the box head reads the RDN-enhanced key
+proposals; FGFA runs the RPN and the head on the flow-guided aggregate of
+the reference frames' features; DFF runs the backbone on its one reference
+frame and the RPN and the head on the features propagated to the key frame.
+Each appends the GT boxes to its key proposals, which carry no gradient.
 
 Where the JAX package draws the sampler's priorities inside the loss
 (``jax.random.uniform``), the port takes them as tensors from a ``draw``
@@ -28,6 +38,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..convert import load_npz, load_params, params_from_jax, params_to_jax
 from ..ops import boxes as box_ops
@@ -35,7 +46,9 @@ from ..parallel import mesh
 from ..train.checkpoint import write_atomically
 from . import rpn as rpn_lib
 from .detector import MegaDetector, _anchors
+from .flownet import DFFDetector, FGFADetector
 from .mega import BoxSet, flatten_set
+from .rdn import RDNDetector
 
 Tensor = torch.Tensor
 # (n_rpn, n_box) -> the RPN's and the box head's sampling priorities
@@ -151,6 +164,36 @@ def box_head_losses(proposals: Tensor, proposals_valid: Tensor,
     return {"loss_box_cls": cls_loss, "loss_box_reg": reg_loss}
 
 
+def _rpn_on_map(det, feat_map: Tensor):
+    """The RPN on a (1, C, h, w) map -> (anchors, objectness, deltas)
+    flattened over locations x anchors."""
+    logits, deltas = det.rpn(feat_map)
+    anchors = _anchors(logits.shape[1], logits.shape[2], feat_map.device)
+    return anchors, logits[0].reshape(-1), deltas[0].reshape(-1, 4)
+
+
+def _train_rois(anchors: Tensor, obj: Tensor, dl: Tensor, image_hw,
+                gt_boxes: Tensor, gt_valid: Tensor, *,
+                post_nms_top_n: int) -> tuple[Tensor, Tensor]:
+    """The top ``post_nms_top_n`` RPN proposals after NMS, without
+    gradient, with the GT boxes appended."""
+    boxes, _, valid = rpn_lib.select_proposals(
+        anchors, obj.detach(), dl.detach(), image_hw, pre_nms_top_n=2000,
+        post_nms_top_n=post_nms_top_n)
+    return torch.cat([boxes, gt_boxes]), torch.cat([valid, gt_valid])
+
+
+def _ref_sets(det, frames: Tensor, image_hw) -> BoxSet:
+    """Per frame of ``frames`` (F, C, h, w): the top ``base_num`` reference
+    proposals (without gradient) and their fc0 features, frame-major."""
+    sets = []
+    for c4f in frames:
+        with torch.no_grad():
+            b, _, v = det.propose(c4f, image_hw, post_nms_top_n=det.base_num)
+        sets.append((det.frame_fc0(c4f, b, v), b, v))
+    return BoxSet(*(torch.stack(x) for x in zip(*sets)))
+
+
 def train_forward(det: MegaDetector, key_image: Tensor, local_images: Tensor,
                   mem_images: Tensor | None, glob_images: Tensor | None,
                   image_hw, gt_boxes: Tensor, gt_valid: Tensor, *,
@@ -171,35 +214,19 @@ def train_forward(det: MegaDetector, key_image: Tensor, local_images: Tensor,
     if glob_images is not None:
         parts.append(glob_images)
     c4 = det.features(torch.cat(parts))
-    c4_key = c4[0]
-    logits, deltas = det.rpn(c4_key[None])
-    anchors = _anchors(logits.shape[1], logits.shape[2], c4.device)
-    obj = logits[0].reshape(-1)
-    dl = deltas[0].reshape(-1, 4)
-    key_boxes, _, key_valid = rpn_lib.select_proposals(
-        anchors, obj.detach(), dl.detach(), image_hw, pre_nms_top_n=2000,
-        post_nms_top_n=post_nms_top_n)
-    key_boxes = torch.cat([key_boxes, gt_boxes])
-    key_valid = torch.cat([key_valid, gt_valid])
-
-    def ref_sets(frames: Tensor) -> BoxSet:
-        sets = []
-        for c4f in frames:
-            with torch.no_grad():
-                b, _, v = det.propose(c4f, image_hw,
-                                      post_nms_top_n=det.base_num)
-            sets.append((det.frame_fc0(c4f, b, v), b, v))
-        return BoxSet(*(torch.stack(x) for x in zip(*sets)))
-
-    window = ref_sets(c4[:1 + n_l])
+    anchors, obj, dl = _rpn_on_map(det, c4[:1])
+    key_boxes, key_valid = _train_rois(anchors, obj, dl, image_hw, gt_boxes,
+                                       gt_valid,
+                                       post_nms_top_n=post_nms_top_n)
+    window = _ref_sets(det, c4[:1 + n_l], image_hw)
     mem_frames = None
     if mem_images is not None:
         with torch.no_grad():
-            mem_frames = ref_sets(det.features(mem_images))
+            mem_frames = _ref_sets(det, det.features(mem_images), image_hw)
     glob = None
     if glob_images is not None:
-        glob = flatten_set(ref_sets(c4[1 + n_l:]))
-    key_pooled = det.box_head.pooled_features(c4_key, key_boxes)
+        glob = flatten_set(_ref_sets(det, c4[1 + n_l:], image_hw))
+    key_pooled = det.box_head.pooled_features(c4[0], key_boxes)
     x = mega.enhance_train(key_pooled, key_boxes, key_valid, window,
                            mem_frames, glob)
     cls_logits, bbox_deltas = det.box_head.predictions(x)
@@ -228,6 +255,97 @@ def mega_detector_losses(det: MegaDetector, key_image: Tensor,
     return losses
 
 
+# ---------------------------------------------------------------------------
+# The base, RDN, FGFA and DFF training forwards
+# ---------------------------------------------------------------------------
+
+def _two_fc_on_map(det, feat_map: Tensor, image_hw, gt_boxes: Tensor,
+                   gt_valid: Tensor, post_nms_top_n: int):
+    """The RPN and the two-FC head on one (1, C, h, w) map (base, FGFA and
+    DFF)."""
+    anchors, obj, dl = _rpn_on_map(det, feat_map)
+    boxes, valid = _train_rois(anchors, obj, dl, image_hw, gt_boxes, gt_valid,
+                               post_nms_top_n=post_nms_top_n)
+    cls_logits, bbox_deltas = det.head(det.pooled(feat_map[0], boxes))
+    return anchors, obj, dl, boxes, valid, cls_logits, bbox_deltas
+
+
+def base_train_forward(det, key_image: Tensor, ref_images: Tensor,
+                       image_hw, gt_boxes: Tensor, gt_valid: Tensor, *,
+                       post_nms_top_n: int = 128):
+    """Plain Faster R-CNN on the key frame alone (``ref_images`` unused)."""
+    return _two_fc_on_map(det, det.features(key_image[None]), image_hw,
+                          gt_boxes, gt_valid, post_nms_top_n)
+
+
+def fgfa_train_forward(det: FGFADetector, key_image: Tensor,
+                       ref_images: Tensor, image_hw, gt_boxes: Tensor,
+                       gt_valid: Tensor, *, post_nms_top_n: int = 128):
+    """The backbone over key + refs, the refs' features warped onto the key
+    frame and aggregated, the RPN and the head on the aggregate."""
+    feats = det.features(torch.cat([key_image[None], ref_images]))
+    agg = det.fgfa.aggregate_train(key_image[None], ref_images, feats[:1],
+                                   feats[1:])
+    return _two_fc_on_map(det, agg, image_hw, gt_boxes, gt_valid,
+                          post_nms_top_n)
+
+
+def dff_train_forward(det: DFFDetector, key_image: Tensor,
+                      ref_images: Tensor, image_hw, gt_boxes: Tensor,
+                      gt_valid: Tensor, *, post_nms_top_n: int = 128):
+    """The backbone on the one reference frame (1, H, W, 3) only, its
+    features propagated to the key frame by flow and the scale map, the
+    RPN and the head on the propagated map."""
+    prop = det.dff.propagate(key_image[None], ref_images,
+                             det.features(ref_images))
+    return _two_fc_on_map(det, prop, image_hw, gt_boxes, gt_valid,
+                          post_nms_top_n)
+
+
+def rdn_train_forward(det: RDNDetector, key_image: Tensor,
+                      ref_images: Tensor, image_hw, gt_boxes: Tensor,
+                      gt_valid: Tensor, *, post_nms_top_n: int = 128):
+    """The backbone over key + refs; the key frame's RPN output and
+    proposals; per frame of [key, refs...] the top ``base_num`` reference
+    proposals (without gradient) and their fc0 features (with it), the
+    frame-major window; the key proposals' pooled features through
+    ``RDNHead.enhance`` and the box predictors."""
+    c4 = det.features(torch.cat([key_image[None], ref_images]))
+    anchors, obj, dl = _rpn_on_map(det, c4[:1])
+    key_boxes, key_valid = _train_rois(anchors, obj, dl, image_hw, gt_boxes,
+                                       gt_valid,
+                                       post_nms_top_n=post_nms_top_n)
+    window = _ref_sets(det, c4, image_hw)
+    x = det.rdn.enhance(det.box_head.pooled_features(c4[0], key_boxes),
+                        key_boxes, key_valid, window)
+    cls_logits, bbox_deltas = det.predictions(x)
+    return anchors, obj, dl, key_boxes, key_valid, cls_logits, bbox_deltas
+
+
+METHOD_FORWARDS = {"base": base_train_forward, "rdn": rdn_train_forward,
+                   "fgfa": fgfa_train_forward, "dff": dff_train_forward}
+
+
+def method_detector_losses(method: str, det, sample: dict[str, Tensor],
+                           image_hw, gt_boxes: Tensor, gt_labels: Tensor,
+                           gt_valid: Tensor, draw: Draw, *,
+                           post_nms_top_n: int = 128) -> dict:
+    """The per-sample losses of the base, RDN, FGFA and DFF methods: the
+    RPN's on the method's key map, the box head's on its key proposals plus
+    the GT boxes, and their sum ``total_loss``. ``sample``: key (H, W, 3)
+    and ref (R, H, W, 3) raw pixels (R = 0 for base, 1 for DFF)."""
+    (anchors, obj, dl, boxes, valid, cls_logits,
+     bbox_deltas) = METHOD_FORWARDS[method](
+        det, sample["key"], sample["ref"], image_hw, gt_boxes, gt_valid,
+        post_nms_top_n=post_nms_top_n)
+    p_rpn, p_box = draw(anchors.shape[0], boxes.shape[0])
+    losses = rpn_losses(anchors, obj, dl, gt_boxes, gt_valid, p_rpn)
+    losses.update(box_head_losses(boxes, valid, cls_logits, bbox_deltas,
+                                  gt_boxes, gt_labels, gt_valid, p_box))
+    losses["total_loss"] = sum(losses.values())
+    return losses
+
+
 class StepPriorities:
     """The sampling priorities of one train step: global sample i's RPN
     uniforms, then its box head's, from a CPU generator seeded from (seed,
@@ -248,17 +366,20 @@ class StepPriorities:
         return draw
 
 
-def detector_train_step(det: MegaDetector, optimizer,
+def detector_train_step(det: nn.Module, optimizer,
                         batch: dict[str, Tensor],
                         draws: Callable[[int], Draw], *, image_hw,
-                        post_nms_top_n: int = 128) -> dict[str, Tensor]:
-    """One step of the JAX package's ``make_detector_train_step``: the
+                        post_nms_top_n: int = 128,
+                        method: str = "mega") -> dict[str, Tensor]:
+    """One step of the JAX package's ``make_detector_train_step`` (MEGA) or
+    ``make_method_train_step`` (``method`` base, rdn, fgfa or dff): the
     per-sample losses averaged over the global batch, their gradient, then
     ``optimizer`` (``train/optim.py::DetectorSGD``). ``batch``: this rank's
-    samples, key (B, H, W, 3), local (B, L, ...), mem (B, M, ...) and glob
-    (B, G, ...) with M or G 0 to disable, gt_boxes (B, Gt, 4), gt_labels
-    (B, Gt), gt_valid (B, Gt), on the detector's device; every rank holds
-    the same B. ``draws(i)`` gives global sample i's priorities. Each
+    samples, key (B, H, W, 3), gt_boxes (B, Gt, 4), gt_labels (B, Gt),
+    gt_valid (B, Gt), and for MEGA local (B, L, ...), mem (B, M, ...) and
+    glob (B, G, ...) with M or G 0 to disable, for the other methods ref
+    (B, R, ...), on the detector's device; every rank holds the same B.
+    ``draws(i)`` gives global sample i's priorities. Each
     sample's backward runs before the next sample's forward (one sample's
     activations at a time); under torchrun one flat all-reduce sums the
     ranks' gradients, divided by the world size. Returns the global
@@ -269,13 +390,18 @@ def detector_train_step(det: MegaDetector, optimizer,
     grads = [torch.zeros_like(p) for p in params]
     sums = dict.fromkeys(LOSS_NAMES, 0.0)
     for i in range(b):
-        mem = batch["mem"][i] if batch["mem"].shape[1] else None
-        glob = batch["glob"][i] if batch["glob"].shape[1] else None
-        losses = mega_detector_losses(
-            det, batch["key"][i], batch["local"][i], mem, glob, image_hw,
-            batch["gt_boxes"][i], batch["gt_labels"][i],
-            batch["gt_valid"][i], draws(first + i),
-            post_nms_top_n=post_nms_top_n)
+        gt = (batch["gt_boxes"][i], batch["gt_labels"][i],
+              batch["gt_valid"][i], draws(first + i))
+        if method == "mega":
+            mem = batch["mem"][i] if batch["mem"].shape[1] else None
+            glob = batch["glob"][i] if batch["glob"].shape[1] else None
+            losses = mega_detector_losses(
+                det, batch["key"][i], batch["local"][i], mem, glob, image_hw,
+                *gt, post_nms_top_n=post_nms_top_n)
+        else:
+            losses = method_detector_losses(
+                method, det, {"key": batch["key"][i], "ref": batch["ref"][i]},
+                image_hw, *gt, post_nms_top_n=post_nms_top_n)
         g = torch.autograd.grad(losses["total_loss"] / b, params,
                                 allow_unused=True)
         # a parameter the loss does not reach gets a zero gradient, as in JAX
@@ -308,15 +434,18 @@ def _flatten(prefix: str, node) -> dict[str, np.ndarray]:
     return {prefix: np.asarray(node)}
 
 
-def graft_backbone(det: MegaDetector, backbone_pkl: dict) -> None:
-    """Seed the C4 backbone and the C5 head in place from a converted
-    torchvision ResNet pickle (``{"c4": ..., "c5": ...}`` flax trees, as
-    ``convert_resnet.convert`` or ``tools/convert_torch_resnet.py`` write
-    it). The trees must hold exactly the modules' leaves, with their
-    shapes; values are cast to the parameters' dtype."""
+def graft_backbone(det: nn.Module, backbone_pkl: dict) -> None:
+    """Seed the C4 backbone and the C5 head of any of the five detectors in
+    place from a converted torchvision ResNet pickle (``{"c4": ...,
+    "c5": ...}`` flax trees, as ``convert_resnet.convert`` or
+    ``tools/convert_torch_resnet.py`` write it): C5 lies under
+    ``box_head/c5`` in MEGA and RDN, under ``c5`` in base, FGFA and DFF.
+    The trees must hold exactly the modules' leaves, with their shapes;
+    values are cast to the parameters' dtype."""
+    c5 = "box_head/c5" if hasattr(det, "box_head") else "c5"
     state = {}
     for prefix, tree in (("backbone", backbone_pkl["c4"]),
-                         ("box_head/c5", backbone_pkl["c5"])):
+                         (c5, backbone_pkl["c5"])):
         part = params_from_jax(_flatten(prefix, tree))
         own = {k: v for k, v in det.state_dict().items()
                if k.startswith(prefix.replace("/", ".") + ".")}
@@ -336,7 +465,7 @@ def graft_backbone(det: MegaDetector, backbone_pkl: dict) -> None:
     det.load_state_dict(state, strict=False)
 
 
-def load_finetune_params(det: MegaDetector, ckpt_path: str) -> None:
+def load_finetune_params(det: nn.Module, ckpt_path: str) -> None:
     """Weights-only restore (the reference's finetune): every parameter
     from a detector ``.npz`` of flax keys; the optimizer and the schedule
     start fresh. Raises if a key is missing or extra, or a shape
@@ -344,7 +473,7 @@ def load_finetune_params(det: MegaDetector, ckpt_path: str) -> None:
     load_params(det, load_npz(ckpt_path))
 
 
-def save_detector_checkpoint(exp_dir: str, it: int, det: MegaDetector,
+def save_detector_checkpoint(exp_dir: str, it: int, det: nn.Module,
                              optimizer, data_rng: np.random.Generator
                              ) -> str:
     """Rank 0 writes ``detector_{it}.npz`` (the weights under flax keys,
@@ -381,7 +510,7 @@ def latest_checkpoint(exp_dir: str) -> str | None:
     return os.path.join(exp_dir, f"detector_{max(its)}.npz") if its else None
 
 
-def restore_detector_checkpoint(path: str, det: MegaDetector, optimizer,
+def restore_detector_checkpoint(path: str, det: nn.Module, optimizer,
                                 data_rng: np.random.Generator) -> int:
     """Load ``path`` (``.npz``) and its ``.state.pt`` into the detector,
     the optimizer and the data generator, in place. Returns the
@@ -420,3 +549,30 @@ def sample_ref_indices(rng: np.random.Generator, frame_id: int,
     # replacement only when the video is shorter than n_glob
     glob = rng.choice(seg_len, size=n_glob, replace=seg_len < n_glob)
     return {"local": local, "mem": mem, "glob": glob}
+
+
+# Copies of vrdone_tpu/models/detector_train.py::METHOD_REF_OFFSETS and
+# ::sample_method_refs, kept so that the port imports nothing of the JAX
+# package; tests pin them.
+METHOD_REF_OFFSETS = {
+    # method: (min_offset, max_offset, ref_num) — reference defaults.py
+    "rdn": (-18, 18, 2),    # VID.RDN (:419-424)
+    "fgfa": (-9, 9, 2),     # VID.FGFA (:453-458)
+    "dff": (-9, 0, 1),      # VID.DFF (:462-463, one ref frame)
+    "base": (0, 0, 0),
+}
+
+
+def sample_method_refs(rng: np.random.Generator, method: str,
+                       frame_id: int, seg_len: int,
+                       ref_num: int | None = None) -> np.ndarray:
+    """Reference-frame sampling for the non-MEGA methods (reference
+    vid_rdn/vid_fgfa/vid_dff.py _get_train: offsets chosen without
+    replacement in [MIN_OFFSET, MAX_OFFSET], clamped to the segment)."""
+    lo, hi, n = METHOD_REF_OFFSETS[method]
+    if ref_num is not None:
+        n = ref_num
+    if n == 0:
+        return np.zeros((0,), np.int64)
+    offsets = rng.choice(hi - lo + 1, size=n, replace=False) + lo
+    return np.clip(frame_id + offsets, 0, seg_len - 1)

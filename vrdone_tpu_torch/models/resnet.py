@@ -31,7 +31,7 @@ def init_truncated(w: Tensor, fan_in: int, scale: float,
 
 class FrozenBatchNorm(nn.Module):
     """Batch norm with frozen statistics, folded to a scale and an offset
-    in fp32."""
+    in fp32 (fp64 for fp64 activations)."""
 
     def __init__(self, features: int, *, device: torch.device):
         super().__init__()
@@ -41,9 +41,10 @@ class FrozenBatchNorm(nn.Module):
         self.running_var = nn.Parameter(torch.ones(features, device=device))
 
     def forward(self, x: Tensor) -> Tensor:
-        scale = self.weight.float() * torch.rsqrt(self.running_var.float()
+        acc = torch.promote_types(x.dtype, torch.float32)
+        scale = self.weight.to(acc) * torch.rsqrt(self.running_var.to(acc)
                                                   + 1e-5)
-        offset = self.bias.float() - self.running_mean.float() * scale
+        offset = self.bias.to(acc) - self.running_mean.to(acc) * scale
         return (x * scale.to(x.dtype)[:, None, None]
                 + offset.to(x.dtype)[:, None, None])
 
@@ -145,7 +146,8 @@ class ResNetC4(nn.Module):
 
 
 class ResNetC5Head(nn.Module):
-    """C5 over RoI crops, then the spatial mean taken in fp32:
+    """C5 over RoI crops, then the spatial mean taken in fp32 (fp64 for an
+    fp64 head):
     (R, 1024, 14, 14) -> (R, 2048)."""
 
     def __init__(self, blocks: int = 3, stride_in_1x1: bool = False, *,
@@ -158,4 +160,5 @@ class ResNetC5Head(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         h = self.layer4(x)
-        return h.float().mean(dim=(2, 3)).to(h.dtype)
+        acc = torch.promote_types(h.dtype, torch.float32)
+        return h.to(acc).mean(dim=(2, 3)).to(h.dtype)

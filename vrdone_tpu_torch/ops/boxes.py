@@ -94,7 +94,8 @@ def roi_align(features: Tensor, rois: Tensor, *, spatial_scale: float,
         lo = torch.floor(cc).long()
         hi = (lo + 1).clamp(max=size - 1)
         frac = cc - lo.float()
-        wgt = torch.zeros(*cc.shape, size, device=rois.device)
+        wgt = torch.zeros(*cc.shape, size, dtype=cc.dtype,
+                          device=rois.device)
         wgt.scatter_add_(-1, lo[..., None], (1.0 - frac)[..., None])
         wgt.scatter_add_(-1, hi[..., None], frac[..., None])
         return wgt.reshape(-1, n_out, sr, size).mean(2).to(features.dtype)
