@@ -4,6 +4,9 @@
     python3 chip_smoke.py --only kernels  # the build and the kernel checks
                                           # of 1, 2, 7 and 8 (with their
                                           # bf16 ones); no ``ok`` line
+    python3 chip_smoke.py --only detector_train    # phase 14 alone
+    python3 chip_smoke.py --only detector_methods  # phase 15 alone
+    python3 chip_smoke.py --only retinanet_heads   # phase 16 alone
 
 Builds the hand-written CUDA kernels from ``vrdone_tpu_torch/csrc`` (nvcc,
 one process per source, all started together, into
@@ -179,6 +182,38 @@ one process per source, all started together, into
      the card over gloo, a sample each, against one process's step; then
      ``train_detector_torch.py`` for 4 iterations on phase 12's corpus and
      ``detect_torch.py --ckpt_path`` on the ``.npz`` it wrote.
+ 15. (run right after 14) the base, RDN, FGFA and DFF detectors
+     (``configs/detector/{base,rdn,fgfa,dff}_vidvrd.yaml``) at full width:
+     two train steps each (finite losses, every parameter group moved,
+     times, peak memory, busy share, launches: all 0), bf16 held block by
+     block, each method's detection over 8 frames in fp32 and bf16; the
+     small detectors on the card against the CPU (losses, gradients with
+     the CPU's branches replayed where rounding flips one, detection, bf16
+     maps); ``train_detector_torch.py --cfg rdn/fgfa_vidvrd.yaml`` with
+     ``--resume``.
+ 16. (run right after 15) RetinaNet and the mask / keypoint RoI heads, no
+     kernel built for them: RetinaNet at full width (R-101, FPN at 256
+     channels, 4 convs a tower, 9 anchors, VidVRD's 35 classes, 608x1088,
+     random seeded weights; the body's frozen norms calibrated on the
+     batch, and the class logits' kernel scaled by 100 and their bias
+     raised until 1% of the anchor-class logits pass ``score_thresh``, as
+     at the prior bias every logit lies under it and the NMS would see
+     nothing): bf16 held piece by piece (stem, each block, FPN, head, each
+     fed the bf16 run's own input; ``BF16_DETECT_MAX`` / ``_MEAN``), one
+     forward and backward of ``retinanet_losses`` at a batch of 2 (finite
+     losses, a nonzero gradient in every parameter group, times, peak
+     memory, busy share), ``detect_image`` in fp32, in bf16 on the fp32
+     parameters and on a ``cast_floating`` copy, timed in turns (every box
+     on the canvas, fp32 outputs); ``MaskHead(num_classes=36)`` and
+     ``KeypointHead(17)`` over 512 RoIs of (14, 14, 256), each loss on its
+     targets forward and backward (finite, every kernel moved, times), and
+     inference at 100 RoIs through ``select_mask_probs`` ->
+     ``paste_masks_in_image`` and ``heatmaps_to_keypoints``; a small
+     RetinaNet and small heads on the card against the CPU (forward
+     ``DETECT_TOL``, losses ``LOSS_TOL``, gradients ``DET_GRAD_TOL`` with
+     phase 15's flip rule, ``detect_image``'s keep, valid and labels equal,
+     the bf16 copy ``BF16_DETECT_MAX`` / ``_MEAN``). Every path launches
+     none of K1-K7 and no ``bias_factors``.
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
@@ -3696,15 +3731,13 @@ def det_train_batch(rng, b: int, hw, n_ref: tuple, max_gt: int,
 
 
 @torch.no_grad()
-def calibrate_frozen_bn(det, images: torch.Tensor, rois: torch.Tensor
-                        ) -> None:
-    """Set each frozen batch norm's statistics to those of its input: the
-    backbone's over ``images``, the C5 head's over ``rois`` of the first
-    image (any detector of the port: C5 under ``box_head`` or alone), as an
-    ImageNet-trained backbone's statistics are its data's.
-    Random He-normal convolutions through identity norms grow the
-    activations block by block: at R-101's depth the port's own seeded
-    weights give losses near 1e7 and a gradient of NaN."""
+def frozen_bn_from_inputs(root, run) -> None:
+    """Set each frozen batch norm's statistics under ``root`` to those of
+    its input while ``run()`` runs, as an ImageNet-trained backbone's
+    statistics are its data's. Random He-normal convolutions through
+    identity norms grow the activations block by block: at R-101's depth
+    the port's own seeded weights give losses near 1e7 and a gradient of
+    NaN."""
     from vrdone_tpu_torch.models.resnet import FrozenBatchNorm
 
     def hook(m, args):
@@ -3712,16 +3745,23 @@ def calibrate_frozen_bn(det, images: torch.Tensor, rois: torch.Tensor
         m.running_mean.copy_(x.mean((0, 2, 3)))
         m.running_var.copy_(x.var((0, 2, 3), unbiased=False))
 
-    hooks = [m.register_forward_pre_hook(hook) for m in det.modules()
+    hooks = [m.register_forward_pre_hook(hook) for m in root.modules()
              if isinstance(m, FrozenBatchNorm)]
-    pool = (det.box_head.pooled_features if hasattr(det, "box_head")
-            else det.pooled)
     try:
-        c4 = det.features(images)
-        pool(c4[0], rois)
+        run()
     finally:
         for h in hooks:
             h.remove()
+
+
+def calibrate_frozen_bn(det, images: torch.Tensor, rois: torch.Tensor
+                        ) -> None:
+    """``frozen_bn_from_inputs`` for a detector: the backbone's norms over
+    ``images``, the C5 head's over ``rois`` of the first image (any
+    detector of the port: C5 under ``box_head`` or alone)."""
+    pool = (det.box_head.pooled_features if hasattr(det, "box_head")
+            else det.pooled)
+    frozen_bn_from_inputs(det, lambda: pool(det.features(images)[0], rois))
 
 
 @torch.no_grad()
@@ -4461,22 +4501,23 @@ def taking(branches: Branches):
          torch.floor) = saved
 
 
-def locate_flips(cpu_det, gpu_det, method, sample, cuda, want_g) -> dict:
+def locate_flips(grads_on, label: str, want_g) -> dict:
     """Where the card's fp32 gradient leaves the CPU's: the branches
     (``Branches``) that differ between the two fp32 runs, then the card's
-    run again with the CPU's branches replayed. Returns the leaves off
-    after the replay."""
+    run again with the CPU's branches replayed. ``grads_on(on_card)`` runs
+    the CPU's or the card's model and returns its gradients. Returns the
+    leaves off after the replay."""
     cpu = Branches()
     with taking(cpu):
-        method_losses_and_grads(cpu_det, method, sample, torch.device("cpu"))
+        grads_on(False)
     card = Branches()
     with taking(card):
-        method_losses_and_grads(gpu_det, method, sample, cuda)
+        grads_on(True)
     with taking(Branches(cpu)):
-        _, got_g = method_losses_and_grads(gpu_det, method, sample, cuda)
+        got_g = grads_on(True)
     errs = leaf_errors(got_g, want_g)
-    print(f"  small {method}: branches that differ card vs CPU (differ, "
-          f"of): {card.differing(cpu)}; the card with the CPU's branches: "
+    print(f"  {label}: branches that differ card vs CPU (differ, of): "
+          f"{card.differing(cpu)}; the card with the CPU's branches: "
           f"worst gradient {max(errs.values()):.3e} "
           f"({max(errs, key=errs.get)})")
     return {n: e for n, e in errs.items() if e > DET_GRAD_TOL}
@@ -4525,8 +4566,11 @@ def check_methods_vs_cpu(cuda) -> None:
             raise AssertionError(f"{method}: losses or gradients on the card "
                                  f"differ from the CPU's: {flipped}")
         if flipped:
-            replayed = locate_flips(cpu_det, gpu_det, method, sample, cuda,
-                                    want_g)
+            replayed = locate_flips(
+                lambda on_card: method_losses_and_grads(
+                    gpu_det if on_card else cpu_det, method, sample,
+                    cuda if on_card else torch.device("cpu"))[1],
+                f"small {method}", want_g)
             _, want64 = method_losses_and_grads(
                 cpu_det, method, sample, torch.device("cpu"), torch.float64)
             _, got64 = method_losses_and_grads(gpu_det, method, sample, cuda,
@@ -4673,17 +4717,560 @@ def detector_methods_phase(cuda, ba, fa, ma, pb) -> dict:
     return launches
 
 
+# -- phase 16: RetinaNet and the mask / keypoint RoI heads --------------------
+
+# the VidVRD detector's classes (vrdone_tpu/detector_config.py:25)
+RETINA_CLASSES = 35
+RETINA_BATCH, RETINA_FRAMES = 2, 4   # train step images; images a route
+# the share of anchor-class logits above score_thresh (``prepare_retinanet``)
+RETINA_PASS = 1e-2
+# the RoI heads' batch an image, their input's side and width, and the RoIs
+# an image's inference runs on
+HEAD_ROIS, HEAD_RES, HEAD_CH, HEAD_INFER_ROIS = 512, 14, 256, 100
+KEYPOINTS = 17
+SMALL_RETINA = dict(num_classes=5, resnet_layers=(1, 1, 1, 1),
+                    out_channels=16)
+SMALL_RETINA_HW = (64, 96)
+RETINA_GROUPS = ("body.stem", "body.layer1", "body.layer2", "body.layer3",
+                 "body.layer4", "fpn.", "head.cls_tower", "head.bbox_tower",
+                 "head.cls_logits", "head.bbox_pred")
+
+
+def counted(fn, ba, fa, ma, pb):
+    """``fn()`` with every kernel's launch count set to 0 just before it,
+    and the launches it made."""
+    zero_counts(ba, fa)
+    zero_mega_counts(ma, pb)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {**band_counts(ba, fa), **mega_counts(ma, pb)}
+
+
+@torch.no_grad()
+def prepare_retinanet(model, images: torch.Tensor,
+                      score_thresh: float = 0.05) -> None:
+    """Random seeded weights made usable: the body's frozen norms set from
+    ``images`` (``frozen_bn_from_inputs``), then the class scores spread.
+    Drawn N(0, 0.01) behind four N(0, 0.01) tower convolutions, every class
+    logit lies within about 1e-2 of the prior bias -log 99, under
+    ``score_thresh``: no candidate would reach the NMS. So the class
+    logits' kernel is scaled by 100 and their bias raised until RETINA_PASS
+    of the anchor-class logits of ``images[:1]`` pass."""
+    frozen_bn_from_inputs(model.body, lambda: model(images))
+    cls = model.head.cls_logits
+    cls.weight.mul_(100.0)
+    logits = torch.cat([x.flatten() for x in model(images[:1])[0]]).float()
+    cut = logits.kthvalue(int((1 - RETINA_PASS) * logits.numel())).values
+    cls.bias.add_(math.log(score_thresh / (1 - score_thresh)) - cut)
+
+
+def retina_sample(rng, b: int, hw, max_gt: int, n_gt: int,
+                  num_classes: int) -> tuple:
+    """``b`` images of uniform noise with ``n_gt`` of ``max_gt`` GT slots
+    valid (``det_train_batch``), labels in 1..num_classes: (images, boxes,
+    labels, valid) arrays."""
+    raw = det_train_batch(rng, b, hw, (0, 0, 0), max_gt, n_gt=n_gt)
+    labels = np.where(raw["gt_valid"],
+                      (raw["gt_labels"] - 1) % num_classes + 1, 0)
+    return (raw["key"], raw["gt_boxes"], labels.astype(np.int32),
+            raw["gt_valid"])
+
+
+def retina_losses(model, batch) -> dict:
+    from vrdone_tpu_torch.models import retinanet as rn
+    images, gtb, gtl, gtv = batch
+    lg, bb = model(images)
+    anchors = torch.from_numpy(rn.all_anchors(images.shape[1:3])).to(
+        images.device)
+    return rn.retinanet_losses(
+        anchors, rn.flatten_levels(lg, model.num_classes),
+        rn.flatten_levels(bb, 4), gtb, gtl, gtv,
+        num_classes=model.num_classes)
+
+
+def loss_grads(model, loss_of) -> tuple[dict, dict]:
+    """The losses ``loss_of(model)`` gives (a dict, or one tensor) and every
+    parameter's gradient of their sum (on the CPU, fp64)."""
+    losses = loss_of(model)
+    if not isinstance(losses, dict):
+        losses = {"loss": losses}
+    total = sum(v for k, v in losses.items() if k != "num_pos")
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(total, [p for _, p in
+                                        model.named_parameters()])
+    return ({k: v.item() for k, v in losses.items()},
+            {n: g.double().cpu() for n, g in zip(names, grads)})
+
+
+def retina_bf16_pieces(model, images: torch.Tensor) -> dict:
+    """A bf16 copy of ``model`` against ``model`` piece by piece, each fp32
+    piece fed the bf16 piece's own input: the stem (the input of the first
+    block), each residual block of the body, the FPN (from the bf16 C3-C5)
+    and the head (from the bf16 P3-P7), the worst level of each. Returns
+    piece -> (largest, mean gap) over max |fp32|."""
+    from vrdone_tpu_torch.models.detector import _pixel_mean
+    from vrdone_tpu_torch.models.resnet import Bottleneck
+    from vrdone_tpu_torch.utils.precision import cast_floating
+    c16 = cast_floating(model)
+    x = (images.float() - _pixel_mean(images.device)).permute(
+        0, 3, 1, 2).contiguous()
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda m, args, out, n=n: seen.__setitem__(n, (args[0], out)))
+        for n, m in c16.body.named_modules() if isinstance(m, Bottleneck)]
+    try:
+        with torch.no_grad():
+            cs = c16.body(x.bfloat16())
+            feats = c16.fpn(*cs)
+            logits, deltas = c16.head(feats)
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def worst(pairs):
+        gaps = [rel_gap(a, b) for a, b in pairs]
+        return max(g[0] for g in gaps), max(g[1] for g in gaps)
+
+    body = model.body
+    blocks = dict(body.named_modules())
+    with torch.no_grad():
+        stem = F.max_pool2d(F.relu(body.stem_bn(body.stem(x))), 3, stride=2,
+                            padding=1)
+        gaps = {"stem": rel_gap(seen["layer1.block0"][0], stem)}
+        for name, (xin, y) in seen.items():
+            gaps[name] = rel_gap(y, blocks[name](xin.float()))
+        gaps["fpn"] = worst(zip(feats, model.fpn(*(c.float() for c in cs))))
+        l32, d32 = model.head([f.float() for f in feats])
+        gaps["head"] = worst(zip(logits + deltas, l32 + d32))
+    return gaps
+
+
+def check_retinanet_full_width(cuda, ba, fa, ma, pb) -> dict:
+    """Phase 16a: RetinaNet at full width (R-101, FPN at 256 channels, 4
+    convs a tower, 9 anchors, VidVRD's 35 classes, 608 x 1088), random
+    seeded weights made usable by ``prepare_retinanet``: bf16 held piece by
+    piece (``retina_bf16_pieces``, BF16_DETECT_MAX / BF16_DETECT_MEAN of max
+    |x|); forward and backward of ``retinanet_losses`` at a batch of 2 with
+    16 GT slots (finite losses, a nonzero gradient in every parameter
+    group, step times, peak memory, busy share, launches); then
+    ``detect_image`` over RETINA_FRAMES images in fp32, in bf16 on the fp32
+    parameters and on a ``cast_floating`` copy, timed in turns (ms an
+    image, launches; every valid box on the canvas, fp32 outputs). Returns
+    the launches by path."""
+    from vrdone_tpu_torch.models import retinanet as rn
+    from vrdone_tpu_torch.utils.precision import cast_floating
+    model = rn.RetinaNet(RETINA_CLASSES, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+    raw = retina_sample(np.random.default_rng(41), RETINA_BATCH, CANVAS,
+                        DET_MAX_GT, 4, RETINA_CLASSES)
+    batch = tuple(torch.from_numpy(a).to(cuda) for a in raw)
+    prepare_retinanet(model, batch[0])
+    frames = torch.from_numpy(np.random.default_rng(42).integers(
+        0, 256, (RETINA_FRAMES, *CANVAS, 3), dtype=np.uint8)).to(cuda)
+    label = (f"RetinaNet (R-101, FPN 256, {RETINA_CLASSES} classes, "
+             f"{CANVAS[0]}x{CANVAS[1]}, TF32 off)")
+    pieces = retina_bf16_pieces(model, frames[:1])
+    worst = max(pieces, key=lambda n: pieces[n][0])
+    mean = max(pieces, key=lambda n: pieces[n][1])
+    print(f"{label} bf16, {len(pieces)} pieces each against fp32 on its "
+          f"input: largest gap {pieces[worst][0]:.3e} ({worst}), largest "
+          f"mean gap {pieces[mean][1]:.3e} ({mean}); FPN {pieces['fpn'][0]:.3e}"
+          f" / {pieces['fpn'][1]:.3e}, head {pieces['head'][0]:.3e} / "
+          f"{pieces['head'][1]:.3e} (limits {BF16_DETECT_MAX:.0e} / "
+          f"{BF16_DETECT_MEAN:.0e} of max |x|)")
+    bad = {n: g for n, g in pieces.items()
+           if g[0] > BF16_DETECT_MAX or g[1] > BF16_DETECT_MEAN}
+    if bad:
+        raise AssertionError(f"RetinaNet: full-width bf16 pieces off fp32: "
+                             f"{bad}")
+
+    params = list(model.parameters())
+
+    def step():
+        losses = retina_losses(model, batch)
+        return losses, torch.autograd.grad(
+            losses["loss_retina_cls"] + losses["loss_retina_reg"], params)
+
+    ms = []
+    torch.cuda.reset_peak_memory_stats(cuda)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (losses, grads), train_launches = counted(step, ba, fa, ma, pb)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated(cuda) / 2**30
+    values = {k: v.item() for k, v in losses.items()}
+    names = [n for n, _ in model.named_parameters()]
+    largest = {g: max((d.abs().max().item() for n, d in zip(names, grads)
+                       if n.startswith(g)), default=0.0)
+               for g in RETINA_GROUPS}
+    print(f"{label} forward + backward at a batch of {RETINA_BATCH}: losses "
+          + ", ".join(f"{k} {v:.4f}" for k, v in values.items())
+          + "; times (ms, host clock) " + ", ".join(f"{t:.2f}" for t in ms)
+          + f"; peak memory {peak:.2f} GiB; largest |grad| by group "
+          + ", ".join(f"{g} {v:.3e}" for g, v in largest.items())
+          + f"; kernel launches {train_launches}")
+    if not (all(map(math.isfinite, values.values())) and values["num_pos"]
+            and all(torch.isfinite(g).all() for g in grads)
+            and all(v > 0 for v in largest.values())):
+        raise AssertionError(f"RetinaNet step: losses {values}, largest "
+                             f"gradients {largest}")
+    del grads
+    busy, wall, _ = profile_device(step, 1, "step")
+    print(f"{label} forward + backward: busy {busy:.2f} ms of {wall:.2f} ms "
+          f"({100 * busy / wall:.1f}%, profiler on)")
+
+    routes = {"float32": (model, "float32"),
+              "bfloat16 on fp32 parameters": (model, "bfloat16"),
+              "bfloat16": (cast_floating(model), "bfloat16")}
+    outs, detect_launches = {}, {}
+    for route in list(routes) * 2:
+        m, dt = routes[route]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[route], detect_launches[route] = counted(
+            lambda: [rn.detect_image(m, frames[i], CANVAS, compute_dtype=dt)
+                     for i in range(RETINA_FRAMES)], ba, fa, ma, pb)
+        seconds = time.perf_counter() - t0
+        print(f"detect_image {route}, {RETINA_FRAMES} images: "
+              f"{1e3 * seconds / RETINA_FRAMES:.2f} ms an image (host "
+              f"clock), valid detections "
+              f"{[int(o['valid'].sum()) for o in outs[route]]}, kernel "
+              f"launches {detect_launches[route]}")
+    h, w = CANVAS
+    for route, frame_outs in outs.items():
+        for out in frame_outs:
+            boxes = out["boxes"][out["valid"]]
+            if not (out["boxes"].dtype == out["scores"].dtype == torch.float32
+                    and out["valid"].any()
+                    and torch.isfinite(out["scores"]).all()
+                    and (boxes >= 0).all() and (boxes[:, 2] <= w - 1).all()
+                    and (boxes[:, 3] <= h - 1).all()):
+                raise AssertionError(f"detect_image {route}: "
+                                     f"{out['boxes'].dtype}, boxes {boxes}")
+    return {"retinanet_train_step": train_launches,
+            "retinanet_detect_image": detect_launches["float32"],
+            "retinanet_detect_image_bf16_on_fp32_params":
+                detect_launches["bfloat16 on fp32 parameters"],
+            "retinanet_detect_image_bf16": detect_launches["bfloat16"]}
+
+
+def heads_sample(rng, hw, n_rois: int, max_gt: int, n_gt: int,
+                 n_kp: int, num_classes: int) -> dict:
+    """One image's RoI-head sample on an ``hw`` canvas: ``n_gt`` of
+    ``max_gt`` GT slots valid (``det_train_batch``'s boxes), each with the
+    ellipse inscribed in its box as its mask and ``n_kp`` keypoints about
+    it (some outside, visibility 0-2); ``n_rois`` proposals, the first
+    half GT boxes jittered by 10% of their size, the rest anywhere, the
+    last 8 padding."""
+    raw = det_train_batch(rng, 1, hw, (0, 0, 0), max_gt, n_gt=n_gt)
+    gtb, gtv = raw["gt_boxes"][0], raw["gt_valid"][0]
+    gtl = np.where(gtv, (raw["gt_labels"][0] - 1) % num_classes + 1, 0)
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    bitmaps = np.zeros((max_gt, h, w), np.float32)
+    kp = np.zeros((max_gt, n_kp, 3), np.float32)
+    for g in range(n_gt):
+        x1, y1, x2, y2 = gtb[g]
+        cx, cy, rx, ry = (x1 + x2) / 2, (y1 + y2) / 2, (x2 - x1) / 2, (
+            y2 - y1) / 2
+        bitmaps[g] = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1
+        kp[g, :, 0] = rng.uniform(x1 - 0.1 * rx, x2 + 0.1 * rx, n_kp)
+        kp[g, :, 1] = rng.uniform(y1 - 0.1 * ry, y2 + 0.1 * ry, n_kp)
+        kp[g, :, 2] = rng.integers(0, 3, n_kp)
+    half = n_rois // 2
+    src = rng.integers(0, n_gt, half)
+    size = gtb[src, 2:] - gtb[src, :2]
+    props = np.zeros((n_rois, 4), np.float32)
+    props[:half] = gtb[src] + rng.normal(0, 0.1, (half, 4)) * np.tile(size,
+                                                                      2)
+    xy = rng.uniform(0, 0.8, (n_rois - half, 2)) * (w, h)
+    props[half:] = np.concatenate(
+        [xy, xy + rng.uniform(0.05, 0.4, (n_rois - half, 2)) * (w, h)], 1)
+    props[:, 2:] = np.maximum(props[:, 2:], props[:, :2] + 1)
+    props = np.clip(props, 0, [w - 1, h - 1, w - 1, h - 1]).astype(
+        np.float32)
+    pvalid = np.arange(n_rois) < n_rois - 8
+    return {"props": props, "pvalid": pvalid, "gtb": gtb,
+            "gtl": gtl.astype(np.int32), "gtv": gtv, "bitmaps": bitmaps,
+            "kp": kp}
+
+
+def head_losses(s: dict, res: int) -> dict:
+    """name -> the loss of that head's output on ``s``'s targets (mask
+    BCE on 2*res masks, keypoint cross entropy on 4*res heatmaps)."""
+    from vrdone_tpu_torch.models import mask_keypoint as mk
+    labels, pos, masks = mk.mask_head_targets(
+        s["props"], s["pvalid"], s["gtb"], s["gtl"], s["gtv"], s["bitmaps"],
+        2 * res)
+    kpos, heat, kvalid = mk.keypoint_head_targets(
+        s["props"], s["pvalid"], s["gtb"], s["gtv"], s["kp"], 4 * res)
+    return {"mask_head": lambda out: mk.mask_loss(out, labels, pos, masks),
+            "keypoint_head": lambda out: mk.keypoint_loss(
+                out, heat, kvalid, roi_weight=kpos),
+            "positives": (int(pos.sum()), int(kpos.sum()),
+                          float(masks[pos > 0].mean()), int(kvalid.sum()))}
+
+
+def check_heads_full_width(cuda, ba, fa, ma, pb) -> dict:
+    """Phase 16b: ``MaskHead(num_classes=36)`` (four 3x3 convs of 256, the
+    2x deconvolution, 1x1 logits) and ``KeypointHead(17)`` (eight 3x3
+    convs of 512, the k4 s2 p1 deconvolution, 2x bilinear) over HEAD_ROIS
+    RoIs of (14, 14, 256) N(0, 1) features, random seeded weights: each
+    loss on its targets (``mask_head_targets`` from elliptical GT masks,
+    ``keypoint_head_targets``), forward and backward (finite, every kernel
+    moved), forward and step times, launches; then inference at
+    HEAD_INFER_ROIS RoIs through ``select_mask_probs`` ->
+    ``paste_masks_in_image`` and ``heatmaps_to_keypoints`` on the card's
+    outputs. Returns the launches by path."""
+    from vrdone_tpu_torch.models import mask_keypoint as mk
+    gen = torch.Generator(cuda).manual_seed(5)
+    heads = {"mask_head": mk.MaskHead(HEAD_CH, RETINA_CLASSES + 1,
+                                      device=cuda, generator=gen),
+             "keypoint_head": mk.KeypointHead(HEAD_CH, KEYPOINTS,
+                                              device=cuda, generator=gen)}
+    raw = heads_sample(np.random.default_rng(43), CANVAS, HEAD_ROIS,
+                       DET_MAX_GT, 4, KEYPOINTS, RETINA_CLASSES)
+    s = {k: torch.from_numpy(v).to(cuda) for k, v in raw.items()}
+    feats = torch.randn(HEAD_ROIS, HEAD_RES, HEAD_RES, HEAD_CH,
+                        generator=gen, device=cuda)
+    losses = head_losses(s, HEAD_RES)
+    print(f"RoI heads at {HEAD_ROIS} RoIs of ({HEAD_RES}, {HEAD_RES}, "
+          f"{HEAD_CH}) (TF32 off): mask positives, keypoint positives, mean "
+          f"mask target on positives, valid keypoints "
+          f"{losses['positives']}")
+    launches = {}
+    for name, head in heads.items():
+        params = list(head.parameters())
+
+        def step():
+            loss = losses[name](head(feats))
+            return loss, torch.autograd.grad(loss, params)
+
+        ms, fwd = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (loss, grads), launches[f"{name}_train_step"] = counted(
+                step, ba, fa, ma, pb)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        with torch.no_grad():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                head(feats)
+                torch.cuda.synchronize()
+                fwd.append(1e3 * (time.perf_counter() - t0))
+        kernels = {n: g.abs().max().item() for (n, p), g in
+                   zip(head.named_parameters(), grads) if p.ndim >= 2}
+        print(f"{name} at {HEAD_ROIS} RoIs: loss {loss.item():.4f}; forward "
+              + ", ".join(f"{t:.2f}" for t in fwd) + " ms, forward + "
+              "backward " + ", ".join(f"{t:.2f}" for t in ms)
+              + f" ms (host clock); smallest max |grad| of a kernel "
+              f"{min(kernels.values()):.3e}; kernel launches "
+              f"{launches[f'{name}_train_step']}")
+        if not (math.isfinite(loss.item())
+                and all(torch.isfinite(g).all() for g in grads)
+                and min(kernels.values()) > 0):
+            raise AssertionError(f"{name}: loss {loss.item()}, kernels' "
+                                 f"gradients {kernels}")
+
+    n = HEAD_INFER_ROIS
+    boxes = raw["props"][:n]
+    labels = torch.from_numpy(np.random.default_rng(45).integers(
+        1, RETINA_CLASSES + 1, n)).to(cuda)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        probs, launches["mask_head_inference"] = counted(
+            lambda: mk.select_mask_probs(heads["mask_head"](feats[:n]),
+                                         labels).cpu().numpy(),
+            ba, fa, ma, pb)
+        maps, launches["keypoint_head_inference"] = counted(
+            lambda: heads["keypoint_head"](feats[:n]).cpu().numpy(),
+            ba, fa, ma, pb)
+        t1 = time.perf_counter()
+    masks = mk.paste_masks_in_image(probs, boxes, CANVAS)
+    t2 = time.perf_counter()
+    xy, scores = mk.heatmaps_to_keypoints(maps, boxes)
+    t3 = time.perf_counter()
+    print(f"RoI heads inference at {n} RoIs: both heads on the card "
+          f"{1e3 * (t1 - t0):.2f} ms (to numpy), paste_masks_in_image "
+          f"{1e3 * (t2 - t1):.2f} ms, heatmaps_to_keypoints "
+          f"{1e3 * (t3 - t2):.2f} ms (host); mask pixels a RoI "
+          f"{masks.sum((1, 2)).mean():.1f}; kernel launches "
+          f"{launches['mask_head_inference']}, "
+          f"{launches['keypoint_head_inference']}")
+    inside = ((xy[..., 0] >= boxes[:, :1]) & (xy[..., 1] >= boxes[:, 1:2])
+              & (xy[..., 0] <= boxes[:, 2:3] + 1)
+              & (xy[..., 1] <= boxes[:, 3:4] + 1))
+    if not (masks.shape == (n, *CANVAS) and masks.dtype == bool
+            and masks.any() and np.isfinite(scores).all() and inside.all()):
+        raise AssertionError(f"RoI heads inference: masks {masks.shape}, "
+                             f"keypoints inside their boxes {inside.mean()}")
+    return launches
+
+
+def check_retina_heads_vs_cpu(cuda) -> None:
+    """Phase 16c: small RetinaNet (R (1, 1, 1, 1), FPN 16, 5 classes, 64 x
+    96, ``prepare_retinanet`` on the CPU) and small heads (two 3x3 convs of
+    16 each, 8 RoIs of (7, 7, 16)) on the card against the same weights on
+    the CPU: RetinaNet's levels within DETECT_TOL of max |x|; the losses
+    within LOSS_TOL, each leaf's gradient within DET_GRAD_TOL x (1 + max
+    |g|), where leaves are off (at most FLIP_LEAVES, each within
+    FLIP_GRAD_TOL) the CPU's branches replayed on the card and both
+    devices' fp64 gradients must hold every leaf (phase 15b's rule);
+    ``detect_image``'s keep, valid and labels equal, boxes and scores within
+    DETECT_TOL of max |x|; the bf16 copy's levels within BF16_DETECT_MAX /
+    BF16_DETECT_MEAN of max |x| of the CPU's bf16 run."""
+    from vrdone_tpu_torch.models import mask_keypoint as mk
+    from vrdone_tpu_torch.models import retinanet as rn
+    from vrdone_tpu_torch.utils.precision import cast_floating
+    cpu = torch.device("cpu")
+    model = rn.RetinaNet(**SMALL_RETINA, device=cpu,
+                         generator=torch.Generator().manual_seed(1))
+    raw = retina_sample(np.random.default_rng(44), 2, SMALL_RETINA_HW, 3, 2,
+                        SMALL_RETINA["num_classes"])
+    prepare_retinanet(model, torch.from_numpy(raw[0]))
+    gen = torch.Generator().manual_seed(6)
+    heads = {"mask_head": mk.MaskHead(16, 6, (16, 16), device=cpu,
+                                      generator=gen),
+             "keypoint_head": mk.KeypointHead(16, 4, (16, 16), device=cpu,
+                                              generator=gen)}
+    hraw = heads_sample(np.random.default_rng(46), SMALL_RETINA_HW, 16, 3, 2,
+                        4, 5)
+    feats = torch.randn(16, 7, 7, 16, generator=gen)
+    cases = {"RetinaNet": (model, tuple(torch.from_numpy(a) for a in raw),
+                           retina_losses)}
+    for name, head in heads.items():
+        cases[name] = (head, (feats, {k: torch.from_numpy(v)
+                                      for k, v in hraw.items()}),
+                       lambda m, b, name=name: head_losses(b[1], 7)[name](
+                           m(b[0])))
+
+    def on(batch, device, dtype=torch.float32):
+        """``batch`` (tensors in tuples and dicts) on ``device``, its
+        floating tensors in ``dtype``."""
+        if isinstance(batch, dict):
+            return {k: on(v, device, dtype) for k, v in batch.items()}
+        if isinstance(batch, tuple):
+            return tuple(on(v, device, dtype) for v in batch)
+        return batch.to(device, dtype if batch.is_floating_point()
+                        else batch.dtype)
+
+    for name, (cpu_m, cpu_b, loss_of) in cases.items():
+        gpu_m = copy.deepcopy(cpu_m).to(cuda)
+        gpu_b = on(cpu_b, cuda)
+        if name == "RetinaNet":
+            with torch.no_grad():
+                want = sum(cpu_m(cpu_b[0]), [])
+                got = sum(gpu_m(gpu_b[0]), [])
+            fwd = max(rel_gap(g.cpu(), w)[0] for g, w in zip(got, want))
+            print(f"small RetinaNet forward, card vs CPU: worst level "
+                  f"{fwd:.3e} of max |x| (limit {DETECT_TOL:.0e})")
+            if not fwd <= DETECT_TOL:
+                raise AssertionError("small RetinaNet forward off the CPU's")
+        want, want_g = loss_grads(cpu_m, lambda m: loss_of(m, cpu_b))
+        got, got_g = loss_grads(gpu_m, lambda m: loss_of(m, gpu_b))
+        loss_err = max(abs(got[k] - v) / (1 + abs(v))
+                       for k, v in want.items())
+        errs = leaf_errors(got_g, want_g)
+        flipped = {n: e for n, e in errs.items() if e > DET_GRAD_TOL}
+        worst = max(errs, key=errs.get)
+        print(f"small {name}, card vs CPU: losses {got} (CPU {want}), worst "
+              f"loss rel err {loss_err:.3e}; worst gradient {worst} "
+              f"{errs[worst]:.3e}; {len(flipped)} of {len(errs)} leaves off "
+              f"{DET_GRAD_TOL:.0e}")
+        if (loss_err > LOSS_TOL or errs[worst] > FLIP_GRAD_TOL
+                or len(flipped) > FLIP_LEAVES):
+            raise AssertionError(f"{name}: losses or gradients on the card "
+                                 f"differ from the CPU's: {flipped}")
+        if flipped:
+            replayed = locate_flips(
+                lambda on_card: loss_grads(
+                    gpu_m if on_card else cpu_m,
+                    lambda m: loss_of(m, gpu_b if on_card else cpu_b))[1],
+                f"small {name}", want_g)
+            b64 = {dev: on(cpu_b, dev, torch.float64) for dev in (cpu, cuda)}
+            want64 = loss_grads(copy.deepcopy(cpu_m).double(),
+                                lambda m: loss_of(m, b64[cpu]))[1]
+            got64 = loss_grads(copy.deepcopy(gpu_m).double(),
+                               lambda m: loss_of(m, b64[cuda]))[1]
+            bad = off_leaves(got64, want64)
+            print(f"  small {name} in fp64, card vs CPU: {len(bad)} leaves "
+                  f"off")
+            if bad or replayed:
+                raise AssertionError(f"{name}: gradients on the card differ "
+                                     f"from the CPU's with the CPU's branches "
+                                     f"({replayed}) or in fp64 ({bad})")
+
+    gpu_m = copy.deepcopy(model).to(cuda)
+    hw = SMALL_RETINA_HW
+    for i, img in enumerate(raw[0]):
+        want = rn.detect_image(model, torch.from_numpy(img), hw)
+        got = {k: v.cpu() for k, v in rn.detect_image(
+            gpu_m, torch.from_numpy(img), hw).items()}
+        errs = {k: rel_gap(got[k], want[k])[0] for k in ("boxes", "scores")}
+        print(f"small detect_image {i}, card vs CPU: {int(want['valid'].sum())}"
+              f" valid; boxes, scores within {errs} of max |x|")
+        if not (torch.equal(got["valid"], want["valid"])
+                and torch.equal(got["labels"], want["labels"])
+                and want["valid"].sum() > 0
+                and all(e <= DETECT_TOL for e in errs.values())):
+            raise AssertionError("small detect_image on the card differs "
+                                 "from the CPU's")
+    images = torch.from_numpy(raw[0])
+    with torch.no_grad():
+        want = sum(cast_floating(model)(images, torch.bfloat16), [])
+        got = sum(cast_floating(gpu_m)(images.to(cuda), torch.bfloat16), [])
+    gaps = {f"{kind} P{3 + i % 5}": rel_gap(g.cpu(), w) for i, (kind, g, w)
+            in enumerate(zip(["logits"] * 5 + ["deltas"] * 5, got, want))}
+    big = max(gaps, key=lambda n: gaps[n][0])
+    mean = max(gaps, key=lambda n: gaps[n][1])
+    print(f"small RetinaNet bf16 copy, card vs CPU: largest gap "
+          f"{gaps[big][0]:.3e} ({big}), largest mean gap {gaps[mean][1]:.3e} "
+          f"({mean}) of max |x| (limits {BF16_DETECT_MAX:.0e}, "
+          f"{BF16_DETECT_MEAN:.0e}); by level {gaps}")
+    big, mean = gaps[big][0], gaps[mean][1]
+    if not (got[0].dtype == torch.bfloat16 and big <= BF16_DETECT_MAX
+            and mean <= BF16_DETECT_MEAN):
+        raise AssertionError("small RetinaNet bf16 off the CPU's")
+
+
+def retinanet_heads_phase(cuda, ba, fa, ma, pb) -> dict:
+    """Phase 16: RetinaNet and the mask / keypoint heads at full width, and
+    small ones against the CPU. Returns the launches by path, all 0: no
+    TPU kernel lies on these paths."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = check_retinanet_full_width(cuda, ba, fa, ma, pb)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    launches.update(check_heads_full_width(cuda, ba, fa, ma, pb))
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    check_retina_heads_vs_cpu(cuda)
+    t3 = time.perf_counter()
+    print(f"phase 16 (RetinaNet, mask and keypoint heads): {t3 - t0:.1f} s "
+          f"(16a {t1 - t0:.1f}, 16b {t2 - t1:.1f}, 16c {t3 - t2:.1f})")
+    if any(any(c.values()) for c in launches.values()):
+        raise AssertionError(f"phase 16 launched {launches}: no hand kernel "
+                             f"is on these paths")
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one CUDA card")
     parser.add_argument(
-        "--only", choices=("kernels", "detector_train", "detector_methods"),
+        "--only", choices=("kernels", "detector_train", "detector_methods",
+                           "retinanet_heads"),
         default=None,
         help="kernels: build the kernels, hold each against its plain "
              "version at the main paths' shapes and time it (the kernel "
              "checks of phases 1, 2, 7 and 8), print their JSON line and "
              "stop; detector_train: phase 14 alone; detector_methods: phase "
-             "15 alone (no kernel on either path, none built)")
+             "15 alone; retinanet_heads: phase 16 alone (no kernel on these "
+             "three paths, none built)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card",
@@ -4716,6 +5303,9 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if args.only == "detector_methods":
         print(json.dumps(detector_methods_phase(cuda, ba, fa, ma, pb)))
+        return 0
+    if args.only == "retinanet_heads":
+        print(json.dumps(retinanet_heads_phase(cuda, ba, fa, ma, pb)))
         return 0
 
     start = last = time.perf_counter()
@@ -4878,6 +5468,9 @@ def main(argv: list[str] | None = None) -> int:
     # 15. the other detector methods: base, RDN, FGFA, DFF
     method_launches = detector_methods_phase(cuda, ba, fa, ma, pb)
     lap("phase 15 (detector methods)")
+    # 16. RetinaNet and the mask / keypoint RoI heads
+    retina_launches = retinanet_heads_phase(cuda, ba, fa, ma, pb)
+    lap("phase 16 (RetinaNet, mask and keypoint heads)")
 
     # 7. MEGA: detect_video at full width, the small detector against the
     # CPU, detect_torch.py
@@ -4937,8 +5530,9 @@ def main(argv: list[str] | None = None) -> int:
     # run's for the bias band kernel, the VidVRD bf16 eval step's for the
     # bf16 instances, the bf16 rel-PE eval step's at VidOR local width for
     # the bias band kernel's bf16 instance; every path, VrdONE-X's eval
-    # and train steps and the MEGA detector's train step (none: it takes
-    # the dense route) among them, is in launches_by_path
+    # and train steps, the MEGA detector's train step (none: it takes the
+    # dense route), the other detector methods' and phase 16's RetinaNet
+    # and RoI-head paths (none) among them, is in launches_by_path
     by_path = {name: {"eval_forward": launches.get(name, 0),
                       "train_step": train_launches.get(name, 0),
                       "train_step_bf16": train16_launches.get(name, 0),
@@ -4946,7 +5540,8 @@ def main(argv: list[str] | None = None) -> int:
                       "train_step_dp": dp_launches.get(name, 0),
                       "detector_train_step": det_train_launches.get(name, 0),
                       **{path: c.get(name, 0)
-                         for path, c in method_launches.items()},
+                         for path, c in {**method_launches,
+                                         **retina_launches}.items()},
                       **{route: c.get(name, 0)
                          for route, c in detect_launches.items()},
                       "stream": stream_launches.get(name, 0),

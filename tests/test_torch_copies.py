@@ -391,3 +391,26 @@ def test_fgfa_stream_indices_is_the_original():
             for kw in ({}, {"window": 3, "key_loc": 1}):
                 np.testing.assert_array_equal(
                     tidx(t, seg, **kw).numpy(), np.asarray(jidx(t, seg, **kw)))
+
+
+@pytest.mark.parametrize("module,name", [
+    ("retinanet", "generate_cell_anchors"), ("retinanet", "octave_sizes"),
+    ("retinanet", "level_anchors"), ("retinanet", "all_anchors"),
+    ("mask_keypoint", "_bilinear_resize"),
+    ("mask_keypoint", "paste_masks_in_image"),
+    ("mask_keypoint", "heatmaps_to_keypoints")])
+def test_retinanet_and_mask_host_functions_are_the_originals(module, name):
+    """RetinaNet's anchor functions and the mask / keypoint heads' host
+    post-processing (numpy only) are the JAX package's, word for word."""
+    ours = importlib.import_module(f"vrdone_tpu_torch.models.{module}")
+    theirs = importlib.import_module(f"vrdone_tpu.models.{module}")
+    assert (inspect.getsource(getattr(ours, name))
+            == inspect.getsource(getattr(theirs, name)))
+
+
+def test_retinanet_constants_are_the_originals():
+    from vrdone_tpu.models import retinanet as jr
+    from vrdone_tpu_torch.models import retinanet as tr
+    for name in ("ANCHOR_SIZES", "ANCHOR_STRIDES", "ASPECT_RATIOS", "OCTAVE",
+                 "SCALES_PER_OCTAVE", "BOX_WEIGHTS"):
+        assert getattr(tr, name) == getattr(jr, name), name

@@ -41,6 +41,8 @@ assert {"vrdone_tpu_torch.utils.precision",
         "vrdone_tpu_torch.models.flownet",
         "vrdone_tpu_torch.models.base_rcnn",
         "vrdone_tpu_torch.models.rdn",
+        "vrdone_tpu_torch.models.retinanet",
+        "vrdone_tpu_torch.models.mask_keypoint",
         "vrdone_tpu_torch.eval.detection",
         "vrdone_tpu_torch.utils.metric_logger"} <= set(names), names
 assert not bad, bad
@@ -56,8 +58,9 @@ def test_port_imports_nothing_of_jax():
     n = int(r.stdout.split()[0])
     # the package's modules: config, convert, convert_reference,
     # convert_mega, convert_resnet, detector_config, data (10, graph among
-    # them), eval (5, streaming and detection among them), models (14,
-    # detector_train, flownet, base_rcnn and rdn among them), ops (10, warp
-    # among them), parallel (2), train (3), utils (3, precision and
-    # metric_logger among them), and the subpackages themselves
-    assert n >= 60, r.stdout
+    # them), eval (5, streaming and detection among them), models (16,
+    # detector_train, flownet, base_rcnn, rdn, retinanet and mask_keypoint
+    # among them), ops (10, warp among them), parallel (2), train (3), utils
+    # (3, precision and metric_logger among them), and the subpackages
+    # themselves
+    assert n >= 62, r.stdout

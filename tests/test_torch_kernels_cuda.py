@@ -472,15 +472,40 @@ def test_band_backward_invalid_queries_pass_nothing_back(cuda):
     assert (grads[0][0][~mask] == 0).all()
 
 
+def traced_kernels(run, path, part: str, seen_all) -> list:
+    """(name, grid, block) of each kernel whose name matches the regex
+    ``part`` in ``torch.profiler`` runs of ``run`` (three calls a run, each
+    followed by a synchronize), profiled again (up to three runs) until
+    ``seen_all(found)`` holds: the profiler misses some launches made
+    through ``ctypes``. Every run's kernels are returned, so a check on each
+    of them holds on every trace taken."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    found = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run()
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        found += [(e["name"], e["args"]["grid"], e["args"]["block"])
+                  for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("cat") == "kernel"
+                  and re.search(part, e.get("name", ""))]
+        if seen_all(found):
+            break
+    return found
+
+
 def test_band_backward_instance_is_what_launches(cuda, tmp_path):
     """The instance ``backward_instance`` reports is the one the C side
     launches: the kernel's template arguments (head-dim bucket, vector or
     scalar copies, K2 or K3, owner rows a warp), its grid and its block,
     read from a ``torch.profiler`` trace."""
-    import json
     import re
-
-    from torch.profiler import ProfilerActivity, profile
     for b, t, h, d, w in ((24, 96, 4, 128, 3), (24, 12, 4, 128, 3),
                           (128, 48, 4, 128, 3), (8, 1500, 8, 64, 4),
                           (4, 70, 4, 33, 4)):
@@ -490,19 +515,12 @@ def test_band_backward_instance_is_what_launches(cuda, tmp_path):
             t)).to(cuda)
         out, lse = ba.band_attention_cuda(q, k, v, mask, with_lse=True, **kw)
         args = (q, k, v, mask, lse, ba.band_rowsum(dout, out, h), dout)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                ba.band_attention_dq_cuda(*args, **kw)
-                ba.band_attention_dkv_cuda(*args, **kw)
-                torch.cuda.synchronize()
-        trace = tmp_path / f"trace{t}.json"
-        prof.export_chrome_trace(str(trace))
         seen = set()
-        for e in json.loads(trace.read_text())["traceEvents"]:
+        for name, grid, block in traced_backward_kernels(
+                args, kw, tmp_path / f"trace{t}.json"):
             m = re.search(r"band_backward_kernel<(\d+), (true|false), "
-                          r"(true|false), (\d+), (\w+)>", e.get("name", ""))
-            if e.get("cat") != "kernel" or m is None:
+                          r"(true|false), (\d+), (\w+)>", name)
+            if m is None:
                 continue
             assert m[5] == "float"
             dkv = m[3] == "true"
@@ -511,9 +529,8 @@ def test_band_backward_instance_is_what_launches(cuda, tmp_path):
             assert (int(m[1]), m[2] == "true", int(m[4])) == (
                 inst["bucket"], inst["vec"], inst["rows_warp"])
             blocks = b * h * -(-inst["tiles"] // inst["per_block"])
-            assert e["args"]["grid"] == [blocks, 1, 1]
-            assert e["args"]["block"] == [
-                32 * inst["rows"] // inst["rows_warp"], 1, 1]
+            assert grid == [blocks, 1, 1]
+            assert block == [32 * inst["rows"] // inst["rows_warp"], 1, 1]
             seen.add(dkv)
         assert seen == {False, True}, (b, t, h, d, w)
 
@@ -1417,18 +1434,6 @@ def test_band_pe_bf16_autograd_matches_plain(cuda, t, window_size, d):
     assert (got[0][3] == 0).all()  # a batch row with no valid query
 
 
-def band_forward_kernels_in_trace(prof, path):
-    """(name, grid, block) of each band forward kernel (the FMA body
-    ``band_forward_kernel`` or the tensor-core one
-    ``band_forward_mma_kernel``) in a ``torch.profiler`` run's trace."""
-    import json
-    prof.export_chrome_trace(str(path))
-    return [(e["name"], e["args"]["grid"], e["args"]["block"])
-            for e in json.loads(path.read_text())["traceEvents"]
-            if e.get("cat") == "kernel"
-            and "band_forward" in e.get("name", "")]
-
-
 def check_mma_launch(name, grid, block, inst, b, h, pe):
     """One trace entry of a bf16 band forward: the tensor-core kernel with
     the template arguments, grid and block of ``inst`` (from
@@ -1457,7 +1462,6 @@ def test_band_pe_bf16_instance_is_what_launches(cuda, tmp_path):
     (32 threads a warp of 16 rows) from a ``torch.profiler`` trace against
     ``forward_instance(pe=True)``; the FMA body never runs on bf16
     streams."""
-    from torch.profiler import ProfilerActivity, profile
     for b, t, h, d, ws in ((16, 512, 8, 64, 9), (8, 768, 8, 64, 9),
                            (4, 70, 4, 20, 8), (4, 100, 4, 256, 31)):
         q, k, v, mask = streams(t + d, b, t, t, h * d, [t] * b, cuda)
@@ -1465,15 +1469,13 @@ def test_band_pe_bf16_instance_is_what_launches(cuda, tmp_path):
         pe = pe_table(t, h, ws, cuda).to(torch.bfloat16)
         inst = ba.forward_instance(cuda.index or 0, b, t, h, d, ws, pe=True,
                                    dtype=torch.bfloat16)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                ba.band_attention_pe_cuda(q, k, v, mask, pe, n_head=h,
-                                          window_size=ws)
-                torch.cuda.synchronize()
         seen = 0
-        for name, grid, block in band_forward_kernels_in_trace(
-                prof, tmp_path / f"trace{t}.json"):
+        for name, grid, block in traced_kernels(
+                lambda: ba.band_attention_pe_cuda(q, k, v, mask, pe,
+                                                  n_head=h, window_size=ws),
+                tmp_path / f"trace{t}.json", "band_forward",
+                lambda found: any("band_forward_mma_kernel" in n
+                                  for n, _, _ in found)):
             seen += check_mma_launch(name, grid, block, inst, b, h, True)
         assert seen, (b, t, h, d)
 
@@ -2048,40 +2050,20 @@ def test_band_backward_bf16_p_sums_to_one_against_the_forward_lse(cuda, t,
     assert (dq[~mask] == 0).all()
 
 
-def band_backward_kernels_in_trace(prof, path):
-    """(name, grid, block) of each band backward kernel (the FMA body
-    ``band_backward_kernel`` or the tensor-core one
-    ``band_backward_mma_kernel``) in a ``torch.profiler`` run's trace."""
-    import json
-    prof.export_chrome_trace(str(path))
-    return [(e["name"], e["args"]["grid"], e["args"]["block"])
-            for e in json.loads(path.read_text())["traceEvents"]
-            if e.get("cat") == "kernel"
-            and "band_backward" in e.get("name", "")]
-
-
 def traced_backward_kernels(args, kw, path):
     """(name, grid, block) of the band backward kernels in
-    ``torch.profiler`` runs of three dQ and dK/dV launches each, profiled
-    again (up to three runs) until a dQ and a dK/dV kernel are both in the
-    trace: the profiler misses some launches made through ``ctypes``."""
+    ``traced_kernels`` runs of a dQ and a dK/dV launch, profiled again
+    until a dQ and a dK/dV kernel are both in the traces."""
     import re
 
-    from torch.profiler import ProfilerActivity, profile
-    found = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                ba.band_attention_dq_cuda(*args, **kw)
-                ba.band_attention_dkv_cuda(*args, **kw)
-                torch.cuda.synchronize()
-        found += band_backward_kernels_in_trace(prof, path)
-        kinds = {m[1] for name, _, _ in found
-                 if (m := re.search(r"kernel<\d+, \w+, (\w+)", name))}
-        if kinds == {"true", "false"}:
-            break
-    return found
+    def both(found):
+        return {m[1] for name, _, _ in found
+                if (m := re.search(r"kernel<\d+, \w+, (\w+)", name))} == {
+            "true", "false"}
+
+    return traced_kernels(lambda: (ba.band_attention_dq_cuda(*args, **kw),
+                                   ba.band_attention_dkv_cuda(*args, **kw)),
+                          path, "band_backward", both)
 
 
 def test_band_backward_bf16_instance_is_what_launches(cuda, tmp_path):
@@ -2201,10 +2183,7 @@ def test_bf16_instance_is_what_launches(cuda, tmp_path):
     ``torch.profiler`` trace, against ``forward_instance`` and
     ``_variant``; the FMA kernels, fp32's (``band_forward_kernel``,
     ``masked_attention_fwd_kernel``), never run on bf16 streams."""
-    import json
     import re
-
-    from torch.profiler import ProfilerActivity, profile
     for b, t, h, d, w, tq in ((128, 96, 4, 128, 3, 9), (16, 512, 8, 64, 4, 9),
                               (4, 70, 4, 20, 4, 70), (4, 40, 4, 32, 9, 9)):
         q, k, v, mask = streams(t + d, b, t, t, h * d, [t] * b, cuda)
@@ -2212,31 +2191,25 @@ def test_bf16_instance_is_what_launches(cuda, tmp_path):
         kw = dict(n_head=h, window_size=2 * w + 1)
         inst = ba.forward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
                                    dtype=torch.bfloat16)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                ba.band_attention_cuda(q, k, v, mask, **kw)
-                fa.full_attention_cuda(q[:, :tq].contiguous(), k, v, mask,
-                                       n_head=h)
-                torch.cuda.synchronize()
-        trace = tmp_path / f"trace{t}.json"
-        prof.export_chrome_trace(str(trace))
         seen = set()
-        for e in json.loads(trace.read_text())["traceEvents"]:
-            if e.get("cat") != "kernel":
-                continue
-            name = e.get("name", "")
+        for name, grid, block in traced_kernels(
+                lambda: (ba.band_attention_cuda(q, k, v, mask, **kw),
+                         fa.full_attention_cuda(q[:, :tq].contiguous(), k, v,
+                                                mask, n_head=h)),
+                tmp_path / f"trace{t}.json", "band_forward|masked_attention",
+                lambda found: all(any(part in n for n, _, _ in found) for part
+                                  in ("band_forward_mma_kernel",
+                                      "masked_attention_mma_kernel"))):
             if "band_forward" in name:
-                if check_mma_launch(name, e["args"]["grid"],
-                                    e["args"]["block"], inst, b, h, False):
+                if check_mma_launch(name, grid, block, inst, b, h, False):
                     seen.add("band")
             elif m := re.search(r"masked_attention_mma_kernel<(\d+), "
                                 r"(\d+), (\d+)>", name):
                 rows, bucket = fa._variant(tq, d, torch.bfloat16)
                 warps, tiles = int(m[2]), int(m[3])
                 assert (int(m[1]), 16 * tiles * warps) == (bucket, rows)
-                assert e["args"]["grid"] == [b * h * -(-tq // rows), 1, 1]
-                assert e["args"]["block"] == [32 * warps, 1, 1]
+                assert grid == [b * h * -(-tq // rows), 1, 1]
+                assert block == [32 * warps, 1, 1]
                 seen.add("full")
             assert "masked_attention_fwd_kernel" not in name
         assert seen == {"band", "full"}, (b, t, h, d)
@@ -2248,24 +2221,20 @@ def test_fp32_band_forward_launches_the_fma_kernel(cuda, tmp_path):
     of ``forward_instance`` (8 threads a query row), never the bf16
     tensor-core kernel."""
     import re
-
-    from torch.profiler import ProfilerActivity, profile
     b, t, h, d, w = 16, 512, 8, 64, 4
     q, k, v, mask = streams(5, b, t, t, h * d, [t] * b, cuda)
     pe = pe_table(5, h, 2 * w + 1, cuda)
     kw = dict(n_head=h, window_size=2 * w + 1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            ba.band_attention_cuda(q, k, v, mask, **kw)
-            ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw)
-            torch.cuda.synchronize()
+    fma = r"band_forward_kernel<(\d+), (true|false), (true|false), (\w+)>"
     seen = set()
-    for name, grid, block in band_forward_kernels_in_trace(
-            prof, tmp_path / "trace.json"):
+    for name, grid, block in traced_kernels(
+            lambda: (ba.band_attention_cuda(q, k, v, mask, **kw),
+                     ba.band_attention_pe_cuda(q, k, v, mask, pe, **kw)),
+            tmp_path / "trace.json", "band_forward",
+            lambda found: {m[3] for n, _, _ in found
+                           if (m := re.search(fma, n))} == {"true", "false"}):
         assert "band_forward_mma_kernel" not in name, name
-        m = re.search(r"band_forward_kernel<(\d+), (true|false), "
-                      r"(true|false), (\w+)>", name)
+        m = re.search(fma, name)
         assert m is not None and m[4] == "float", name
         pe_arg = m[3] == "true"
         inst = ba.forward_instance(cuda.index or 0, b, t, h, d, 2 * w + 1,
@@ -2402,17 +2371,6 @@ def test_mega_attention_bf16_refuses_mixed_dtypes(cuda):
         <= BF16_TOL
 
 
-def mega_kernels_in_trace(prof, path):
-    """(name, grid, block) of each kernel whose name holds
-    ``mega_attention`` in a ``torch.profiler`` run's trace."""
-    import json
-    prof.export_chrome_trace(str(path))
-    return [(e["name"], e["args"]["grid"], e["args"]["block"])
-            for e in json.loads(path.read_text())["traceEvents"]
-            if e.get("cat") == "kernel"
-            and "mega_attention" in e.get("name", "")]
-
-
 def test_mega_attention_bf16_instance_is_what_launches(cuda, tmp_path):
     """A bf16 call launches the tensor-core kernel
     ``mega_attention_mma_kernel<bucket, groups>`` with the bucket and the
@@ -2422,8 +2380,6 @@ def test_mega_attention_bf16_instance_is_what_launches(cuda, tmp_path):
     merge; never the FMA kernel ``mega_attention_kernel`` (fp32's), read
     from a ``torch.profiler`` trace."""
     import re
-
-    from torch.profiler import ProfilerActivity, profile
     for g, n, m, dg, dgo in ((16, 675, 3750, 64, 64), (16, 40, 300, 256, 256),
                              (5, 13, 77, 30, 40)):
         q, k, vp, ub, valid, *bias = mega_bf16_case(2, g, n, m, dg, dgo, 0.9,
@@ -2432,14 +2388,14 @@ def test_mega_attention_bf16_instance_is_what_launches(cuda, tmp_path):
         bucket, groups = ma.mma_instance(g, dg, dgo)
         assert rows == 16 and bucket == max(16, 1 << (max(dg, dgo) - 1)
                                             .bit_length())
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
-                torch.cuda.synchronize()
+        want = ("mega_attention_mma_kernel",) + (
+            ("mega_attention_merge",) if splits > 1 else ())
         seen = set()
-        for name, grid, block in mega_kernels_in_trace(
-                prof, tmp_path / f"trace{dg}.json"):
+        for name, grid, block in traced_kernels(
+                lambda: ma.fused_mega_attention(q, k, vp, ub, valid, *bias),
+                tmp_path / f"trace{dg}.json", "mega_attention",
+                lambda found: all(any(part in x for x, _, _ in found)
+                                  for part in want)):
             assert not re.search(r"mega_attention_kernel<", name), name
             if mm := re.search(r"mega_attention_mma_kernel<(\d+), (\d+)>",
                                name):
@@ -2460,21 +2416,17 @@ def test_mega_attention_fp32_launches_the_fma_kernel(cuda, tmp_path):
     ``mega_attention_kernel<rows, floats a lane, float>`` with the rows of
     ``launch_plan``, and never the bf16 tensor-core kernel."""
     import re
-
-    from torch.profiler import ProfilerActivity, profile
     n, m = 675, 3750
     q, k, vp, ub, valid, *bias = mega_case(2, 16, n, m, 64, 64, 0.9, cuda)
     rows, splits = ma.launch_plan(cuda.index or 0, n, m, 16, 64, 64)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            ma.fused_mega_attention(q, k, vp, ub, valid, *bias)
-            torch.cuda.synchronize()
+    fma = r"mega_attention_kernel<(\d+), (\d+), (\w+)>"
     seen = set()
-    for name, grid, _ in mega_kernels_in_trace(prof, tmp_path / "trace.json"):
+    for name, grid, _ in traced_kernels(
+            lambda: ma.fused_mega_attention(q, k, vp, ub, valid, *bias),
+            tmp_path / "trace.json", "mega_attention",
+            lambda found: any(re.search(fma, x) for x, _, _ in found)):
         assert "mega_attention_mma_kernel" not in name, name
-        if mm := re.search(r"mega_attention_kernel<(\d+), (\d+), (\w+)>",
-                           name):
+        if mm := re.search(fma, name):
             assert (int(mm[1]), mm[3]) == (rows, "float")
             assert grid == [-(-n // rows), splits, 1]
             seen.add("kernel")

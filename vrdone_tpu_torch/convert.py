@@ -15,6 +15,11 @@ names, so a key maps by joining with ``.``; only layouts change:
     takes the 2-D conv rule to ``ConvTranspose2d``'s (in, out, kh, kw): the
     flax kernel is that of the forward convolution whose gradient both
     layers compute, so no spatial flip
+  * a ``Deconv`` ``kernel`` (kh, kw, in, out) of ``models/mask_keypoint.py``,
+    which JAX stores spatially flipped (the kernel of its convolution over
+    the zero-inserted input), takes the 2-D conv rule too and crosses
+    flipped: the port's ``Deconv`` flips it back and swaps in and out for
+    ``conv_transpose2d``, unlike the ``ConvTranspose`` rule above
 """
 
 from __future__ import annotations

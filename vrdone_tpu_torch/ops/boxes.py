@@ -38,13 +38,17 @@ def nms(boxes: Tensor, scores: Tensor, iou_threshold: float,
     IoU tile resolves the suppression inside the block by iterating
     a_j = orig_j & !any(i < j: a_i & iou_ij > thr) to its fixed point (the
     greedy solution), then masks every later box its survivors suppress.
+    The walk stops after the block of the last finite score: the blocks
+    past it hold no live box, so they neither survive nor suppress.
     """
     n = boxes.shape[0]
     k = max_out if max_out is not None else n
     order = torch.sort(-scores, stable=True).indices
     boxes_s = boxes[order]
     alive = torch.isfinite(scores[order])
-    for s in range(0, n, block):
+    live = int(torch.where(alive, torch.arange(n, device=boxes.device),
+                           -1).max()) + 1 if n else 0
+    for s in range(0, live, block):
         e = min(s + block, n)
         tile = box_iou(boxes_s[s:e], boxes_s) > iou_threshold    # (b, N)
         idx = torch.arange(e - s, device=boxes.device)
