@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only detector_train    # phase 14 alone
     python3 chip_smoke.py --only detector_methods  # phase 15 alone
     python3 chip_smoke.py --only retinanet_heads   # phase 16 alone
+    python3 chip_smoke.py --only sequence_parallel # phase 17 alone
 
 Builds the hand-written CUDA kernels from ``vrdone_tpu_torch/csrc`` (nvcc,
 one process per source, all started together, into
@@ -62,10 +63,10 @@ one process per source, all started together, into
      each policy against the plain step (losses within ``LOSS_TOL``, drop
      path on), and fp32 and bf16 steps at 24 and 96 pairs timed in turns
      and profiled;
-  6. runs ``train_torch.py`` for one epoch on a tiny synthetic corpus on
-     the card, then ``eval_torch.py`` on its checkpoint, and
-     ``train_torch.py --compute_dtype bfloat16`` with ``use_rel_pe`` and
-     ``use_local`` on the same corpus;
+  6. runs ``train_torch.py --compute_dtype bfloat16`` with ``use_rel_pe``
+     and ``use_local`` for one epoch on a tiny synthetic corpus on the card
+     (``train_torch.py`` -> ``eval_torch.py`` in fp32 on the card runs in
+     12's chain, and under ``torchrun`` in 13);
   7. holds MEGA's position-bias kernel (K6) and the ``bias_factors``
      kernel (the torch ``pe_setup``'s port) against their plain versions
      at a frame's three local-stage shapes and times each alone beside its
@@ -87,8 +88,8 @@ one process per source, all started together, into
      bf16 in turns) and its stream phase's kernels a frame; checks a small
      detector on the card against the CPU, stage by stage and whole, and
      in bf16 against the port's bf16 CPU run stage by stage
-     (``BF16_DETECT_MAX``, ``BF16_DETECT_MEAN``), and runs
-     ``detect_torch.py`` on the card (bf16, its default);
+     (``BF16_DETECT_MAX``, ``BF16_DETECT_MEAN``) (``detect_torch.py`` on
+     the card, bf16 by default, runs in 12's chain and in 14);
   8. holds the band kernel with the relative-position bias (K4) against
      its plain version at the streamed stem's and branches' shapes,
      ``BandAttentionPE``'s gradients against plain autograd, K4's bf16
@@ -137,9 +138,10 @@ one process per source, all started together, into
      reference's layout, saved as a ``.pth``, through
      ``convert_reference_checkpoint_torch.py`` and ``eval_torch.py``'s
      loader into a fresh model whose forward is the first's bit for bit),
-     and one fp32 train step at the config's 20 pairs against the CPU
-     (losses within ``LOSS_TOL``), its launches (K1 with lse, K2, K3 7
-     each, full attention dense) and its time and profile.
+     and fp32 train steps at 4 pairs against the CPU (losses within
+     ``LOSS_TOL``), the launches of a step at the config's 20 pairs (K1
+     with lse, K2, K3 7 each, full attention dense) and its time and
+     profile.
  12. (run right after 7) ``detect_video_tta`` at full width (MEGA's
      defaults, 8 frames of 608x1088, ``scales=(0.75,)`` with flips: four
      views) in fp32 and bf16: its K5 (K5 bf16) and ``bias_factors``
@@ -214,6 +216,21 @@ one process per source, all started together, into
      phase 15's flip rule, ``detect_image``'s keep, valid and labels equal,
      the bf16 copy ``BF16_DETECT_MAX`` / ``_MEAN``). Every path launches
      none of K1-K7 and no ``bias_factors``.
+ 17. (run right after 13) sequence and tensor parallelism: two ranks
+     sharing the card over gloo (``par_rank_main``), each taking three
+     fp32 steps (TF32 off, drop path as configured) against one process's
+     three steps on the whole batches: 17a dp 1 x sp 2 on
+     ``configs/vidor_local.yaml`` (T = 512, window 9, ``use_local``: the
+     S/O mutual layers are band layers too), 256 columns a rank of the
+     config's global batch of 48 pairs; 17b dp 1 x tp 2 on
+     ``configs/vidvrd.yaml`` at width 512 (``tp_min_size`` at its default)
+     at 24 pairs. Losses within ``LOSS_TOL``, the ranks' parameters equal
+     bit for bit, the largest parameter gap to one process within the most
+     three Adam steps move a leaf; step times, peak memory, parameter and
+     optimizer memory of each rank against one process's; under sp each
+     rank's launches (K1 with its lse, K2 and K3 once a band layer at
+     T_local + 2w, no dense band form), under tp the sharded leaves and
+     elements.
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
@@ -300,6 +317,7 @@ BF16_SERVING = (("vidvrd.yaml", 8, 128, 8, False),
 # VrdONE-X (configs/vidor_x.yaml, the CLIP-fused backbone): pairs held
 # against the CPU, pairs served (VidOR's eval width, bench.py:239-265)
 VRDONE_X_CHECK, VRDONE_X_RATE = 2, 16
+VRDONE_X_TRAIN_CHECK = 4   # pairs of its train steps held against the CPU
 RELPE_TRAIN_PAIRS = (2, 48)  # bf16 rel-PE steps: on both devices; timed
 # K2/K3 bf16 held and timed alone, (B, H, d, w, T): the bf16 train step's
 # band shapes (24 pairs, T = 96, 48, 24, 12) and its 96-pair T = 96, and
@@ -1217,9 +1235,10 @@ def check_vrdone_x(cuda, ba, fa) -> dict:
     reference's layout, saved as a ``.pth``, through
     ``convert_reference_checkpoint_torch.py`` and ``eval_torch.py``'s
     loader into a fresh model, whose forward is the first's bit for bit);
-    ``check_train_step`` at the config's 20 pairs (three steps on the card
-    and the CPU: losses, step-0 gradients, parameter and EMA drift; the
-    launches of a fourth), and the step timed and profiled. Returns the
+    ``check_train_step`` at VRDONE_X_TRAIN_CHECK pairs (three steps on the
+    card and the CPU: losses, step-0 gradients, parameter and EMA drift;
+    the launches of a fourth at the config's 20 pairs), and the step at 20
+    pairs timed and profiled. Returns the
     launches of the eval step and of the train step by kernel."""
     from convert_reference_checkpoint_torch import convert
     from eval_torch import load_weights
@@ -1302,12 +1321,15 @@ def check_vrdone_x(cuda, ba, fa) -> dict:
     del fresh, again, gpu_model, out
     torch.cuda.empty_cache()
 
-    # three train steps at the config's pairs on both devices, checked as
-    # VidVRD's are, then the card's step timed at those pairs
+    # three train steps on both devices, checked as VidVRD's are, at
+    # VRDONE_X_TRAIN_CHECK pairs (the CPU's three full-width steps at the
+    # config's 20 took most of this phase), the launches of a step at the
+    # config's pairs, then the card's step timed at those pairs
     n_pairs = raw["training_dataset_config"]["num_pairs"]
     num_gt = raw["training_dataset_config"]["proposal_max_preds"]
     state, train_launches = check_train_step(
-        cfg, raw, cuda, ba, fa, pairs=(n_pairs, n_pairs), label="vidor_x ")
+        cfg, raw, cuda, ba, fa, pairs=(VRDONE_X_TRAIN_CHECK, n_pairs),
+        label="vidor_x ")
     tb = batch_to_device(train_batch(rng, cfg, n_pairs, num_gt), cuda)
 
     def step():
@@ -1378,6 +1400,28 @@ class PoolReplay:
             self.picks.append(idx.cpu())
             self.windows += idx.numel()
         return out.transpose(1, 2)
+
+
+def check_step0_gradients(label: str, names, got, want) -> float:
+    """The step-0 gradients (the first moments after step 0, 0.1 g) ``got``
+    against ``want``: over the whole model by norm within STEP_GRAD_TOL,
+    and the three leaves furthest off printed for the record (a leaf whose
+    gradient is a sum that nearly cancels, as softmax makes of the key
+    projections', carries a larger share of rounding). Returns the gap."""
+    num = sum(((a - b) ** 2).sum() for a, b in zip(got, want))
+    den = sum((b ** 2).sum() for b in want)
+    rel = (num / den).sqrt().item()
+    top = max(g.abs().max().item() for g in want)
+    leaves = sorted(((a - b).abs().max().item()
+                     / max(b.abs().max().item(), 1e-30), n,
+                     b.abs().max().item() / top)
+                    for n, a, b in zip(names, got, want))[-3:]
+    print(f"{label}: |dg| / |g| over the model {rel:.3e}; worst leaves (max "
+          f"err / leaf max, leaf max / model max): " + "; ".join(
+              f"{n} {e:.2e}, {m:.2e}" for e, n, m in reversed(leaves)))
+    if not rel <= STEP_GRAD_TOL:
+        raise AssertionError(f"{label}: off by {rel}")
+    return rel
 
 
 def check_train_step(cfg, raw, cuda, ba, fa, pairs=TRAIN_PAIRS[:2],
@@ -1463,27 +1507,8 @@ def check_train_step(cfg, raw, cuda, ba, fa, pairs=TRAIN_PAIRS[:2],
             raise AssertionError(f"{label}train step {step}: {worst} off by "
                                  f"{errs[worst]}")
     names = [n for n, _ in states["cpu"].model.named_parameters()]
-
-    # the step-0 gradients (its first moments, 0.1 g): over the whole model
-    # by norm, and the three leaves furthest off for the record (a leaf
-    # whose gradient is a sum that nearly cancels, as softmax makes of the
-    # key projections', carries a larger share of rounding)
-    num = sum(((a - b) ** 2).sum() for a, b in zip(first_grads["cuda"],
-                                                  first_grads["cpu"]))
-    den = sum((b ** 2).sum() for b in first_grads["cpu"])
-    rel = (num / den).sqrt().item()
-    top = max(g.abs().max().item() for g in first_grads["cpu"])
-    leaves = sorted(((a - b).abs().max().item()
-                     / max(b.abs().max().item(), 1e-30), n,
-                     b.abs().max().item() / top)
-                    for n, a, b in zip(names, first_grads["cuda"],
-                                       first_grads["cpu"]))[-3:]
-    print(f"{label}step 0 gradients CUDA vs CPU: |dg| / |g| over the model "
-          f"{rel:.3e}; worst leaves (max err / leaf max, leaf max / model "
-          f"max): " + "; ".join(f"{n} {e:.2e}, {m:.2e}"
-                                for e, n, m in reversed(leaves)))
-    if rel > STEP_GRAD_TOL:
-        raise AssertionError(f"{label}step-0 gradients off by {rel}")
+    check_step0_gradients(f"{label}step 0 gradients CUDA vs CPU", names,
+                          first_grads["cuda"], first_grads["cpu"])
     # parameters and EMA, against each leaf's largest value plus the total
     # learning rate, the most Adam moves a coordinate: a zero-initialised
     # leaf holds only its steps, and Adam's (0.09 g0 + 0.1 g1) can cancel
@@ -1932,42 +1957,26 @@ def write_cli_corpus(root: str, raw, model_over: dict | None = None) -> str:
     return cfg_path
 
 
-def check_train_cli(raw, device: str = "cuda", model_over: dict | None = None,
-                    flags: tuple = (), evaluate: bool = True) -> None:
+def check_train_cli(raw, model_over: dict, flags: tuple) -> None:
     """train_torch.py for one epoch of a tiny synthetic corpus on the card,
     with ``model_over`` set in the config's model_config and ``flags``
-    added, then (with ``evaluate``) eval_torch.py on its last
-    checkpoint."""
+    added: exit 0 and a checkpoint written."""
     with tempfile.TemporaryDirectory() as root:
         cfg_path = write_cli_corpus(root, raw, model_over)
         exp = os.path.join(root, "exp")
-        common = ["--data_name", "vidvrd", "--cfg_path", cfg_path,
-                  "--exp_dir", exp, "--device", device]
-        ckpt = os.path.join(exp, "model_last.ckpt")
-        runs = [("train_torch.py", list(flags))]
-        if evaluate:
-            runs.append(("eval_torch.py", ["--ckpt_path", ckpt,
-                                           "--topk", "3"]))
-        for script, extra in runs:
-            t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, str(ROOT / script), *common,
-                                *extra], cwd=ROOT, capture_output=True,
-                               text=True, timeout=600)
-            if r.returncode != 0:
-                raise AssertionError(f"{script} failed:\n{r.stdout[-3000:]}"
-                                     f"\n{r.stderr[-3000:]}")
-            over = f" with {model_over}" if model_over else ""
-            print(f"{' '.join([script, *extra])} on {device}{over}: exit 0 "
-                  f"in {time.perf_counter() - t0:.1f} s")
-        if not os.path.exists(ckpt):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, str(ROOT / "train_torch.py"), "--data_name",
+             "vidvrd", "--cfg_path", cfg_path, "--exp_dir", exp, "--device",
+             "cuda", *flags], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"train_torch.py failed:\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        print(f"{' '.join(['train_torch.py', *flags])} on cuda with "
+              f"{model_over}: exit 0 in {time.perf_counter() - t0:.1f} s")
+        if not os.path.exists(os.path.join(exp, "model_last.ckpt")):
             raise AssertionError("train_torch.py wrote no checkpoint")
-        if not evaluate:
-            return
-        metrics = dict(re_metric(r.stdout))
-        if set(metrics) != set(METRIC_NAMES) or not all(
-                map(math.isfinite, metrics.values())):
-            raise AssertionError(f"eval_torch.py metrics {metrics}")
-        print(f"train_torch.py -> eval_torch.py: {metrics}")
 
 
 METRIC_NAMES = ("RelDet_mAP", "RelDet_AR@50", "RelDet_AR@100",
@@ -2201,6 +2210,279 @@ def check_dp_cli(raw) -> None:
     print(f"eval_torch.py --multihost, 2 ranks on one card: merged "
           f"predictions of {len(preds['one'])} videos ({n} relations) and "
           f"metrics equal one process's: {metrics['one']}")
+
+
+# -- phase 17: sequence and tensor parallelism on the card -------------------
+SP_PAIRS = 48   # configs/vidor_local.yaml's global batch: 3 items of 16 pairs
+TP_PAIRS = 24   # configs/vidvrd.yaml's: 6 items of 4
+PAR_RANKS = 2   # ranks sharing the one card: dp 1 x sp 2, then dp 1 x tp 2
+PAR_STEPS = 3
+
+
+def par_setup(name: str, device, pairs: int, layout=None, tp=False):
+    """Phase 17's train state and global batches for ``configs/<name>``,
+    alike in every process: ``dp_setup``'s weights (seed 0, drop-path
+    scales near 1; the scales are never sharded) in ``layout``, this
+    rank's shards of them with ``tp``, and PAR_STEPS batches of ``pairs``
+    pairs from seed 17; and the config."""
+    from vrdone_tpu_torch.config import (load_yaml_config,
+                                         model_config_from_yaml)
+    from vrdone_tpu_torch.models.layers import AffineDropPath
+    from vrdone_tpu_torch.train.loop import create_train_state
+    raw = load_yaml_config(str(ROOT / "configs" / name))
+    cfg = model_config_from_yaml(raw)
+    gen = torch.Generator().manual_seed(0)
+    state, _ = create_train_state(cfg, raw["training_config"], 100,
+                                  device=device, generator=gen,
+                                  layout=layout, tp=tp)
+    with torch.no_grad():
+        for m in state.model.modules():
+            if isinstance(m, AffineDropPath):
+                m.scale.copy_(torch.empty_like(m.scale, device="cpu")
+                              .uniform_(0.5, 1.5, generator=gen))
+    state.ema_params = [p.detach().clone() for p in state.params()]
+    num_gt = raw["training_dataset_config"]["proposal_max_preds"]
+    rng = np.random.default_rng(17)
+    return state, cfg, [train_batch(rng, cfg, pairs, num_gt)
+                        for _ in range(PAR_STEPS)]
+
+
+@contextlib.contextmanager
+def band_lengths(ba):
+    """Records the T of each K1 (with or without its lse), K2 and K3 call
+    made through the band wrappers while open."""
+    seen, saved = [], {}
+    for name in ("band_attention_cuda", "band_attention_dq_cuda",
+                 "band_attention_dkv_cuda"):
+        saved[name] = fn = getattr(ba, name)
+
+        def recorded(q, *args, _fn=fn, _name=name, **kw):
+            seen.append((_name, q.shape[1], kw.get("with_lse", False)))
+            return _fn(q, *args, **kw)
+
+        setattr(ba, name, recorded)
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(ba, name, fn)
+
+
+def par_train_steps(state, batches, cut, device, ba, fa) -> dict:
+    """PAR_STEPS train steps on ``cut(batch)`` of each global batch (drop
+    path as configured, the draws of ``step_generator(0, step)``): the
+    losses, each step's time, the peak memory, the launches of the last
+    step with the T of each band call, and the parameter and optimizer
+    bytes; and the step-0 gradients (the first moments after step 0, tp
+    shards gathered whole)."""
+    from vrdone_tpu_torch.train.checkpoint import state_payload
+    from vrdone_tpu_torch.train.loop import (batch_to_device, step_generator,
+                                             train_step)
+    out = {"losses": [], "ms": []}
+    torch.cuda.reset_peak_memory_stats(device)
+    with dense_band_calls(ba) as dense, band_lengths(ba) as lengths:
+        for step, batch in enumerate(batches):
+            tb = batch_to_device(cut(batch), device)
+            torch.cuda.synchronize()
+            zero_counts(ba, fa)
+            dense[0] = 0
+            lengths.clear()
+            t0 = time.perf_counter()
+            _, losses = train_step(state, tb, step_generator(0, step))
+            torch.cuda.synchronize()
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            out["losses"].append({k: v.item() for k, v in losses.items()})
+            if step == 0:
+                out["first_grads"] = state_payload(
+                    state, epoch=0, batch_size=0)["opt_state"]["moments"][
+                        "mu"]
+        out["launches"] = {**band_counts(ba, fa), "dense band form": dense[0],
+                           "dense full attention": fa.dense_calls}
+        out["band_lengths"] = sorted(set(lengths))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    out["param_mib"] = sum(p.numel() * p.element_size()
+                           for p in state.params()) / 2 ** 20
+    out["opt_mib"] = sum(t.numel() * t.element_size() for ts in
+                         state.optimizer.moments.values()
+                         for t in ts) / 2 ** 20
+    # the most the steps move a leaf whose gradient is float noise (an Adam
+    # update of arbitrary sign, at most lr a step) on each of two sides
+    out["noise_bound"] = 2 * sum(state.optimizer.schedule(t)
+                                 for t in range(len(batches)))
+    return out
+
+
+def par_rank_main(out_dir: str) -> None:
+    """One rank of phase 17, started by ``check_sequence_tensor_parallel``
+    with torchrun's environment: a gloo group over CUDA tensors on card 0
+    (NCCL refuses two ranks on one card); 17a, dp 1 x sp 2 on
+    ``configs/vidor_local.yaml``: PAR_STEPS steps on this rank's time
+    columns of SP_PAIRS pairs; 17b, dp 1 x tp 2 on ``configs/vidvrd.yaml``
+    (``tp_min_size`` at its default): PAR_STEPS steps on TP_PAIRS pairs
+    with this rank's shards. Writes the losses, times, memory, launches and
+    the whole (gathered) parameters to ``out_dir/rank<r>.pt``."""
+    from vrdone_tpu_torch.ops import band_attention as ba
+    from vrdone_tpu_torch.ops import full_attention as fa
+    from vrdone_tpu_torch.parallel import mesh
+    from vrdone_tpu_torch.train.checkpoint import state_payload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, device = mesh.init_distributed("cuda:0", backend="gloo")
+    try:
+        out = {"rank": rank, "world": world}
+        for key, name, pairs, sizes in (("sp", "vidor_local.yaml", SP_PAIRS,
+                                         (1, 1, PAR_RANKS)),
+                                        ("tp", "vidvrd.yaml", TP_PAIRS,
+                                         (1, PAR_RANKS, 1))):
+            layout = mesh.make_layout(*sizes)
+            state, _, batches = par_setup(name, device, pairs, layout,
+                                          tp=key == "tp")
+            res = par_train_steps(
+                state, batches, lambda b: mesh.time_slice(b, layout), device,
+                ba, fa)
+            whole = state_payload(state, epoch=0, batch_size=0)
+            res.update(params=whole["params"], tp_dims=state.tp_dims,
+                       coords=(layout.dp, layout.tp, layout.sp))
+            out[key] = res
+            del state
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        mesh.barrier()
+    finally:
+        mesh.shutdown()
+
+
+def check_sequence_tensor_parallel(cuda, ba, fa) -> dict:
+    """Phase 17: PAR_RANKS ranks on the one card over gloo
+    (``par_rank_main``) against one process's steps on the whole batches:
+    17a sp (``configs/vidor_local.yaml``, T = 512, window 9, ``use_local``,
+    256 columns a rank) and 17b tp (``configs/vidvrd.yaml`` at width 512,
+    the large kernels' output features split). Losses within LOSS_TOL,
+    each rank's step-0 gradients (tp shards gathered) within STEP_GRAD_TOL
+    of one process's (the warmup's small learning rate leaves the later
+    losses and the parameters blind to a wrong gradient), the ranks'
+    parameters equal bit for bit, the largest parameter gap to one process
+    within the most three Adam steps move a leaf, step times, peak
+    memory, the parameter and optimizer memory; under sp each rank's K1
+    (with its lse), K2 and K3 once a band layer at T_local + 2w and no
+    dense band form, under tp the sharded leaves and elements. Returns the
+    launches of sp rank 0's last step."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        env = dict(os.environ, WORLD_SIZE=str(PAR_RANKS),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.par_rank_main({out_dir!r})"],
+            cwd=ROOT, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(PAR_RANKS)]
+        one, cfgs = {}, {}
+        try:
+            for key, name, pairs in (("sp", "vidor_local.yaml", SP_PAIRS),
+                                     ("tp", "vidvrd.yaml", TP_PAIRS)):
+                state, cfgs[key], batches = par_setup(name, cuda, pairs)
+                one[key] = par_train_steps(state, batches, lambda b: b, cuda,
+                                           ba, fa)
+                one[key]["params"] = {n: p.detach().cpu() for n, p in
+                                      state.model.named_parameters()}
+                del state
+                torch.cuda.empty_cache()
+        finally:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"phase 17 rank {r} failed:\n"
+                                     f"{log[-3000:]}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=True) for r in range(PAR_RANKS)]
+    for key, label in (("sp", f"sequence-parallel (dp 1 x sp {PAR_RANKS}, "
+                        f"vidor_local.yaml, {SP_PAIRS} pairs x "
+                        f"{cfgs['sp'].max_seq_len})"),
+                       ("tp", f"tensor-parallel (dp 1 x tp {PAR_RANKS}, "
+                        f"vidvrd.yaml, {TP_PAIRS} pairs x "
+                        f"{cfgs['tp'].max_seq_len})")):
+        ref, got = one[key], [rank[key] for rank in ranks]
+        for step in range(PAR_STEPS):
+            errs = {k: abs(got[0]["losses"][step][k] - v) / (1 + abs(v))
+                    for k, v in ref["losses"][step].items()}
+            worst = max(errs, key=errs.get)
+            print(f"{label} step {step}: total_loss "
+                  f"{got[0]['losses'][step]['total_loss']:.6f} vs one process "
+                  f"{ref['losses'][step]['total_loss']:.6f}; worst loss term "
+                  f"{worst} rel err {errs[worst]:.3e}")
+            if errs[worst] > LOSS_TOL:
+                raise AssertionError(f"{label} step {step}: {worst} off by "
+                                     f"{errs[worst]}")
+        for r in range(1, PAR_RANKS):
+            if got[r]["losses"] != got[0]["losses"] or not all(
+                    torch.equal(v, got[0]["params"][n])
+                    for n, v in got[r]["params"].items()):
+                raise AssertionError(f"{label}: rank {r}'s step differs from "
+                                     f"rank 0's")
+        for r in range(PAR_RANKS):
+            check_step0_gradients(
+                f"{label} rank {r}: step 0 gradients vs one process",
+                list(ref["params"]), got[r]["first_grads"],
+                ref["first_grads"])
+        gap = max((got[0]["params"][n] - v).abs().max().item()
+                  for n, v in ref["params"].items())
+        bound = ref["noise_bound"]
+        print(f"{label}: parameters after {PAR_STEPS} steps: ranks equal bit "
+              f"for bit; largest gap to one process {gap:.3e} (bound "
+              f"{bound:.3e})")
+        if not gap <= bound:
+            raise AssertionError(f"{label}: parameters {gap} from one "
+                                 f"process's")
+        print(f"{label} step times (ms, gloo on one card, TF32 off): "
+              + "; ".join(f"{who} " + ", ".join(f"{t:.2f}" for t in ms)
+                          for who, ms in [("one process", ref["ms"])] + [
+                              (f"rank {r}", g["ms"])
+                              for r, g in enumerate(got)]))
+        print(f"{label} peak memory (GiB): one process "
+              f"{ref['peak_gib']:.2f}; " + "; ".join(
+                  f"rank {r} {g['peak_gib']:.2f}" for r, g in enumerate(got))
+              + f"; parameters (MiB) {ref['param_mib']:.1f} vs rank "
+              + ", ".join(f"{g['param_mib']:.1f}" for g in got)
+              + f"; optimizer moments (MiB) {ref['opt_mib']:.1f} vs rank "
+              + ", ".join(f"{g['opt_mib']:.1f}" for g in got))
+    sp_cfg = cfgs["sp"]
+    w = sp_cfg.n_mha_win_size // 2
+    t_ext = sp_cfg.max_seq_len // PAR_RANKS + 2 * w
+    blocks = (2 * sp_cfg.backbone_arch[1] + sp_cfg.backbone_arch[2]
+              + 4 * sp_cfg.backbone_arch[1])   # stems, branches, S/O layers
+    for r, g in enumerate(rank["sp"] for rank in ranks):
+        launches = g["launches"]
+        expect = {name: 0 for name in launches}
+        expect.update(band_attention=blocks, band_attention_dq=blocks,
+                      band_attention_dkv=blocks,
+                      **{"dense full attention":
+                         2 * sp_cfg.predictor.num_layers})
+        print(f"sequence-parallel step, rank {r} at "
+              f"{sp_cfg.max_seq_len // PAR_RANKS} frames: kernel launches "
+              f"{launches}; band calls (wrapper, T, lse) {g['band_lengths']}")
+        if launches != expect:
+            raise AssertionError(f"sp rank {r} launches {launches}, expected "
+                                 f"{expect}")
+        top = {(n, t, lse) for n, t, lse in g["band_lengths"]
+               if t == t_ext}
+        if ("band_attention_cuda", t_ext, True) not in top or not {
+                "band_attention_dq_cuda", "band_attention_dkv_cuda"} <= {
+                n for n, _, _ in top}:
+            raise AssertionError(f"sp rank {r}: no K1 with lse, K2 and K3 "
+                                 f"at T_local + 2w = {t_ext}")
+        print(f"sequence-parallel rank {r}: the halo rows are "
+              f"{2 * w} of {t_ext} query rows at the full-resolution levels "
+              f"({100 * 2 * w / t_ext:.1f}%)")
+    for r, g in enumerate(rank["tp"] for rank in ranks):
+        elements = sum(one["tp"]["params"][n].numel() for n in g["tp_dims"])
+        print(f"tensor-parallel rank {r}: {len(g['tp_dims'])} sharded leaves "
+              f"of {len(one['tp']['params'])}, {elements} of "
+              f"{sum(v.numel() for v in one['tp']['params'].values())} "
+              f"elements split over {PAR_RANKS}")
+        if not g["tp_dims"]:
+            raise AssertionError("tensor parallelism sharded no leaf")
+    return {k: v for k, v in ranks[0]["sp"]["launches"].items()
+            if not k.startswith("dense")}
 
 
 def synthetic_video(rng, lengths, feat_dim):
@@ -2931,34 +3213,6 @@ def check_detect_bf16_vs_cpu(cuda, pb, ma) -> None:
            if not (v[0] <= v[2] and v[1] <= BF16_DETECT_MEAN)}
     if bad:
         raise AssertionError(f"bf16 small detector off: {bad}")
-
-
-def check_detect_cli(device: str = "cuda") -> None:
-    """detect_torch.py over a tiny synthetic frames directory."""
-    from PIL import Image
-    rng = np.random.default_rng(10)
-    with tempfile.TemporaryDirectory() as root:
-        frames = Path(root) / "frames" / "vid0"
-        frames.mkdir(parents=True)
-        for i in range(6):
-            Image.fromarray(rng.integers(0, 256, (120, 200, 3),
-                                         dtype=np.uint8)).save(
-                frames / f"{i:06d}.jpg")
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, str(ROOT / "detect_torch.py"), "--frames_dir",
-             str(Path(root) / "frames"), "--out_dir", str(Path(root) / "out"),
-             "--canvas", "128", "224", "--score_thresh", "0.02",
-             "--device", device],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            raise AssertionError(f"detect_torch.py failed:\n"
-                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-        if not (Path(root) / "out" / "vid0.pkl").exists():
-            raise AssertionError("detect_torch.py wrote no pickle")
-        print(f"detect_torch.py on {device} (R-101, 6 frames, its default "
-              f"--compute_dtype bfloat16): exit 0 in "
-              f"{time.perf_counter() - t0:.1f} s; {r.stdout.strip()}")
 
 
 # -- phase 12: detect_video_tta, and frames to triplets with the port alone --
@@ -5263,14 +5517,15 @@ def main(argv: list[str] | None = None) -> int:
         description="Smoke run of the PyTorch port on one CUDA card")
     parser.add_argument(
         "--only", choices=("kernels", "detector_train", "detector_methods",
-                           "retinanet_heads"),
+                           "retinanet_heads", "sequence_parallel"),
         default=None,
         help="kernels: build the kernels, hold each against its plain "
              "version at the main paths' shapes and time it (the kernel "
              "checks of phases 1, 2, 7 and 8), print their JSON line and "
              "stop; detector_train: phase 14 alone; detector_methods: phase "
              "15 alone; retinanet_heads: phase 16 alone (no kernel on these "
-             "three paths, none built)")
+             "three paths, none built); sequence_parallel: phase 17 alone "
+             "(its kernels built)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card",
@@ -5306,6 +5561,11 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if args.only == "retinanet_heads":
         print(json.dumps(retinanet_heads_phase(cuda, ba, fa, ma, pb)))
+        return 0
+    if args.only == "sequence_parallel":
+        ba._kernel()
+        print(json.dumps({"train_step_sp": check_sequence_tensor_parallel(
+            cuda, ba, fa)}))
         return 0
 
     start = last = time.perf_counter()
@@ -5452,16 +5712,20 @@ def main(argv: list[str] | None = None) -> int:
     vrdone_x_launches = check_vrdone_x(cuda, ba, fa)
     lap("phase 11 (VrdONE-X)")
 
-    # 6. train_torch.py -> eval_torch.py, and a bf16 rel-PE train_torch.py
-    check_train_cli(raw)
+    # 6. a bf16 rel-PE train_torch.py (train_torch.py -> eval_torch.py on
+    # the card in fp32 runs in phase 12's chain and, under torchrun, in 13)
     check_train_cli(raw, model_over={"use_rel_pe": True, "use_local": True},
-                    flags=("--compute_dtype", "bfloat16"), evaluate=False)
+                    flags=("--compute_dtype", "bfloat16"))
     lap("phase 6 (train/eval CLIs)")
     # 13. data parallelism: two ranks' steps on the card against one
     # process's, train_torch.py under torchrun (NCCL), multihost eval
     dp_launches = check_dp_train_step(cfg, raw, cuda, ba, fa)
     check_dp_cli(raw)
     lap("phase 13 (data parallelism)")
+    # 17. sequence and tensor parallelism: two ranks' sp and tp steps on the
+    # card against one process's
+    sp_launches = check_sequence_tensor_parallel(cuda, ba, fa)
+    lap("phase 17 (sequence and tensor parallelism)")
     # 14. MEGA detector training
     det_train_launches = detector_train_phase(cuda, ba, fa, ma, pb)
     lap("phase 14 (MEGA detector training)")
@@ -5478,7 +5742,6 @@ def main(argv: list[str] | None = None) -> int:
     detect_launches = check_detect_video(cuda, pb, ma, det)
     check_detect_vs_cpu(cuda)
     check_detect_bf16_vs_cpu(cuda, pb, ma)
-    check_detect_cli()
     lap("phase 7 (detect_video)")
     # 12. detect_video_tta at full width and against the CPU, then frames
     # to triplets with the port alone
@@ -5538,6 +5801,7 @@ def main(argv: list[str] | None = None) -> int:
                       "train_step_bf16": train16_launches.get(name, 0),
                       "train_step_bf16_rel_pe": relpe16_launches.get(name, 0),
                       "train_step_dp": dp_launches.get(name, 0),
+                      "train_step_sp": sp_launches.get(name, 0),
                       "detector_train_step": det_train_launches.get(name, 0),
                       **{path: c.get(name, 0)
                          for path, c in {**method_launches,

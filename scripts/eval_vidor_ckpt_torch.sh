@@ -1,0 +1,13 @@
+#!/usr/bin/env bash
+# The port's counterpart of eval_vidor_ckpt.sh: eval_torch.py with its
+# arguments, one process a card under torchrun (NPROC of them, every card of
+# this host by default; --multihost merges the ranks' predictions).
+set -e
+NPROC=${NPROC:-$(nvidia-smi -L | wc -l)}
+python -m torch.distributed.run --standalone --nproc_per_node "$NPROC" \
+    eval_torch.py --multihost \
+    --data_name vidor \
+    --cfg_path configs/vidor.yaml \
+    --exp_dir "${1:-experiments/vidor_torch}" \
+    --ckpt_path "${2:?usage: eval_vidor_ckpt_torch.sh EXP_DIR CKPT}" \
+    --topk 6

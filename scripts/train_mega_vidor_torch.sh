@@ -1,0 +1,13 @@
+#!/usr/bin/env bash
+# The port's counterpart of train_mega_vidor.sh: train_detector_torch.py
+# with its arguments, one process a card under torchrun (NPROC of them,
+# every card of this host by default), each on its samples of every batch.
+set -e
+NPROC=${NPROC:-$(nvidia-smi -L | wc -l)}
+python -m torch.distributed.run --standalone --nproc_per_node "$NPROC" \
+    train_detector_torch.py \
+    --cfg configs/detector/mega_vidor.yaml \
+    --dataset vidor \
+    --anno_dir datasets/vidor/annotations/training \
+    --frames_dir datasets/vidor/frames \
+    --exp_dir "${1:-experiments/detector_vidor_torch}"

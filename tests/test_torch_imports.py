@@ -34,6 +34,7 @@ assert {"vrdone_tpu_torch.utils.precision",
         "vrdone_tpu_torch.parallel",
         "vrdone_tpu_torch.parallel.mesh",
         "vrdone_tpu_torch.parallel.comm",
+        "vrdone_tpu_torch.parallel.collectives",
         "vrdone_tpu_torch.detector_config",
         "vrdone_tpu_torch.convert_resnet",
         "vrdone_tpu_torch.models.detector_train",
@@ -60,7 +61,7 @@ def test_port_imports_nothing_of_jax():
     # convert_mega, convert_resnet, detector_config, data (10, graph among
     # them), eval (5, streaming and detection among them), models (16,
     # detector_train, flownet, base_rcnn, rdn, retinanet and mask_keypoint
-    # among them), ops (10, warp among them), parallel (2), train (3), utils
-    # (3, precision and metric_logger among them), and the subpackages
-    # themselves
-    assert n >= 62, r.stdout
+    # among them), ops (10, warp among them), parallel (3, collectives among
+    # them), train (3), utils (3, precision and metric_logger among them),
+    # and the subpackages themselves
+    assert n >= 63, r.stdout

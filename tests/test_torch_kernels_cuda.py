@@ -2635,3 +2635,94 @@ def test_fgfa_detect_video_on_card_matches_cpu(cuda):
     for key in ("cls_logits", "bbox_deltas"):
         scale = np.abs(want[key]).max()
         assert np.abs(got[key] - want[key]).max() <= 1e-3 * scale, key
+
+
+def halo_extended(x, a, t_local, w, fill_rows_with_zero=False):
+    """Rows [a - w, a + t_local + w) of the global (B, T, ...) ``x``, zero
+    past the global edges (all of the halo rows zero with
+    ``fill_rows_with_zero``): what a sequence-parallel rank's band layer
+    reads (``ops/masked.py::band_attention`` under ``time_sharded``)."""
+    pad = torch.zeros((x.shape[0], w, *x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    ext = torch.cat([pad, x, pad], 1)[:, a:a + t_local + 2 * w].clone()
+    if fill_rows_with_zero:
+        ext[:, :w] = 0
+        ext[:, w + t_local:] = 0
+    return ext
+
+
+@pytest.mark.parametrize("t_local,w,ranks", [(256, 4, 2), (3, 3, 4)])
+def test_band_kernels_on_halo_extended_streams(cuda, tmp_path, t_local, w,
+                                               ranks):
+    """The band kernels a sequence-parallel rank launches: K1 with its lse,
+    K2 and K3 over T_local + 2w rows (q's halo rows zero, k's and v's and
+    the key mask's the neighbours', masked zeros past the global edges),
+    through ``mops.band_attention`` on leaves that require grad. The
+    central rows equal the plain version's rows of the whole sequence, the
+    halo query rows get no gradient, and the k and v gradients of every
+    extended row (the halo gradients a rank sends back) equal the plain
+    version's for the upstream gradient of this rank's rows alone. The
+    shapes: VidOR local's 256 frames a rank at sp 2 (window 9), and 3
+    frames a rank at sp 4 with a half-window of 3 (a halo as wide as a
+    shard). The trace shows the kernels at T_local + 2w, as
+    ``forward_instance`` and ``backward_instance`` report them."""
+    import re
+    b, h, d = 3, 8, 64
+    t = ranks * t_local
+    window = 2 * w + 1
+    kw = dict(n_head=h, window_size=window)
+    q, k, v, mask = streams(t_local + w, b, t, t, h * d,
+                            [t, t - t_local - 1, t_local], cuda)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+        t_local)).to(cuda)
+    te = t_local + 2 * w
+    for r in range(ranks):
+        a = r * t_local
+        rows = torch.zeros(t, 1, device=cuda)
+        rows[a:a + t_local] = 1
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = ba.band_attention_plain(*leaves, mask, **kw)
+        (ref * dout * rows).sum().backward()
+        ext = [halo_extended(x, a, t_local, w, i == 0).requires_grad_()
+               for i, x in enumerate((q, k, v))]
+        m_ext = halo_extended(mask, a, t_local, w)
+        launched = (ba.launches, ba.dq_launches, ba.dkv_launches)
+        out = mops.band_attention(*ext, m_ext, **kw)
+        (out[:, w:w + t_local] * dout[:, a:a + t_local]).sum().backward()
+        assert (ba.launches, ba.dq_launches, ba.dkv_launches) == tuple(
+            n + 1 for n in launched)
+        assert max_err(out[:, w:w + t_local], ref[:, a:a + t_local]) <= TOL
+        dq = ext[0].grad
+        assert max_err(dq[:, w:w + t_local],
+                       leaves[0].grad[:, a:a + t_local]) <= 1e-5 * max(
+            1.0, leaves[0].grad.abs().max().item())
+        assert dq[:, :w].abs().max().item() == 0
+        assert dq[:, w + t_local:].abs().max().item() == 0
+        for got, leaf in zip(ext[1:], leaves[1:]):
+            want = halo_extended(leaf.grad, a, t_local, w)
+            assert max_err(got.grad, want) <= 1e-5 * max(
+                1.0, leaf.grad.abs().max().item()), (r, t_local)
+
+    ext = [halo_extended(x, t_local, t_local, w, i == 0).requires_grad_()
+           for i, x in enumerate((q, k, v))]
+    m_ext = halo_extended(mask, t_local, t_local, w)
+    fwd = ba.forward_instance(cuda.index or 0, b, te, h, d, window)
+    seen = set()
+
+    def step():
+        out = mops.band_attention(*ext, m_ext, **kw)
+        out[:, w:w + t_local].sum().backward()
+
+    for name, grid, _ in traced_kernels(
+            step, tmp_path / "trace.json", "band_",
+            lambda found: {("backward" in n) for n, _, _ in found} == {
+                True, False}):
+        if "band_forward_kernel" in name:
+            assert grid == [b * h * -(-fwd["tiles"] // fwd["per_block"]), 1,
+                            1], (grid, fwd)
+            seen.add("K1")
+        elif m := re.search(r"band_backward_kernel<\d+, (true|false), "
+                            r"(true|false)", name):
+            seen.add("K3" if m[2] == "true" else "K2")
+        assert "mma" not in name, name
+    assert seen == {"K1", "K2", "K3"}

@@ -359,13 +359,15 @@ def torchrun(root: str, name: str, script: str, *args) -> str:
 
 
 def cli_runs(root: str, out: dict) -> None:
-    """train_torch.py on two ranks, then eval_torch.py on its checkpoint on
-    two ranks and in one process (own GT caches and dataset caches, as the
-    two evaluations run at once)."""
+    """train_torch.py on two data-parallel ranks and, at the same time, on
+    two sequence-parallel ranks (``--n_sp 2``), then eval_torch.py on the
+    first's checkpoint on two ranks and in one process, and on the
+    second's in one process (own GT caches and dataset caches, as the runs
+    overlap)."""
     dirs = make_vidvrd_corpus(root, n_videos=4, n_frames=40, seed=0)
     dirs.update(make_vidvrd_test_corpus(root, n_videos=2, seed=1))
     paths = {}
-    for name in ("train", "dp", "one"):
+    for name in ("train", "dp", "one", "train_sp", "sp"):
         cfg = tiny_yaml(root, dirs)
         cfg["training_config"]["training_epoch"] = 1
         cfg["dataset_config"]["cache_dir"] = os.path.join(root, f"cache_"
@@ -375,32 +377,51 @@ def cli_runs(root: str, out: dict) -> None:
         paths[name] = os.path.join(root, f"{name}.yaml")
         with open(paths[name], "w") as f:
             yaml.safe_dump(cfg, f)
-    exp = os.path.join(root, "exp")
+    exp, exp_sp = os.path.join(root, "exp"), os.path.join(root, "exp_sp")
     common = ["--data_name", "vidvrd", "--device", "cpu"]
-    out["train"] = torchrun(root, "writes_train", "train_torch.py",
-                            "--cfg_path", paths["train"], "--exp_dir", exp,
-                            "--multihost", "--n_dp", "2", *common)
+    runs: dict = {}
+
+    def in_thread(name, fn):
+        def guarded():
+            try:
+                runs[name] = fn()
+            except BaseException as e:   # re-raised below
+                runs[name] = e
+        thread = threading.Thread(target=guarded)
+        thread.start()
+        return thread
+
+    def joined(*threads):
+        for thread in threads:
+            thread.join()
+        for v in runs.values():
+            if isinstance(v, BaseException):
+                raise v
+
+    joined(in_thread("train", lambda: torchrun(
+        root, "writes_train", "train_torch.py", "--cfg_path", paths["train"],
+        "--exp_dir", exp, "--multihost", "--n_dp", "2", *common)),
+        in_thread("train_sp", lambda: torchrun(
+            root, "writes_train_sp", "train_torch.py", "--cfg_path",
+            paths["train_sp"], "--exp_dir", exp_sp, "--n_sp", "2", *common)))
+
+    def one(name, ckpt):
+        return run([sys.executable, "eval_torch.py", "--cfg_path",
+                    paths[name], "--exp_dir", os.path.join(root,
+                                                           f"eval_{name}"),
+                    "--ckpt_path", ckpt, "--topk", "3", "--save_result",
+                    *common], env=child_env())
+
     ckpt = os.path.join(exp, "model_last.ckpt")
-    evals = {}
-
-    def one():
-        evals["one"] = run([sys.executable, "eval_torch.py", "--cfg_path",
-                            paths["one"], "--exp_dir",
-                            os.path.join(root, "eval_one"), "--ckpt_path",
-                            ckpt, "--topk", "3", "--save_result", *common],
-                           env=child_env())
-
-    thread = threading.Thread(target=one)
-    thread.start()
-    try:
-        evals["dp"] = torchrun(root, "writes_eval", "eval_torch.py",
-                               "--cfg_path", paths["dp"], "--exp_dir",
-                               os.path.join(root, "eval_dp"), "--ckpt_path",
-                               ckpt, "--topk", "3", "--save_result",
-                               "--multihost", *common)
-    finally:
-        thread.join()
-    out.update(evals)
+    joined(in_thread("one", lambda: one("one", ckpt)),
+           in_thread("sp", lambda: one("sp", os.path.join(
+               exp_sp, "model_last.ckpt"))),
+           in_thread("dp", lambda: torchrun(
+               root, "writes_eval", "eval_torch.py", "--cfg_path",
+               paths["dp"], "--exp_dir", os.path.join(root, "eval_dp"),
+               "--ckpt_path", ckpt, "--topk", "3", "--save_result",
+               "--multihost", *common)))
+    out.update(runs)
 
 
 # ---------------------------------------------------------------------------
@@ -846,6 +867,26 @@ def test_eval_cli_two_ranks_equals_one_process(world):
     assert results[0] == results[1] and results[0]
 
 
+def test_train_cli_sequence_parallel_scores_like_one_process(world):
+    """train_torch.py --n_sp 2 under torchrun: two ranks split each batch's
+    time axis, rank 0 alone writes, and eval_torch.py in one process scores
+    its checkpoint as it scores the data-parallel run's (both take one
+    process's steps on the global batch)."""
+    out = cli_result(world, "train_sp")
+    assert "Training Over..." in out
+    assert "data-parallel ranks: 1, sequence-parallel ranks: 2" in out
+    assert "frames a rank: 24" in out
+    assert writes(world, "writes_train_sp", 1) == []
+    assert os.path.join(world.root, "exp_sp", "model_last.ckpt") in writes(
+        world, "writes_train_sp", 0)
+    got = {k: float(v) for k, v in METRICS.findall(cli_result(world, "sp"))}
+    want = {k: float(v) for k, v in METRICS.findall(cli_result(world,
+                                                               "one"))}
+    assert len(want) == 6 and got.keys() == want.keys()
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-3, (k, got[k], v)
+
+
 def test_eval_cli_rank0_alone_writes(world):
     cli_result(world, "dp")
     assert writes(world, "writes_eval", 1) == []
@@ -859,8 +900,8 @@ def test_eval_cli_rank0_alone_writes(world):
 
 
 @pytest.mark.parametrize("script,args,error,match", [
-    ("train_torch", ["--n_sp", "2"], NotImplementedError,
-     "queue 1, sequence and tensor parallelism"),
+    ("train_torch", ["--n_sp", "2"], SystemExit,
+     "--n_sp 2 ranks is not the world size 1"),
     ("train_torch", ["--n_dp", "2"], SystemExit, "world size 1"),
     ("train_torch", ["--multihost"], SystemExit, "torchrun"),
     ("eval_torch", ["--eval_dp", "2", "--device", "cpu"], SystemExit,
@@ -869,8 +910,9 @@ def test_eval_cli_rank0_alone_writes(world):
      "cuda device"),
 ])
 def test_cli_refusals(monkeypatch, tmp_path, script, args, error, match):
-    """What is not ported, an --n_dp other than the world size, --multihost
-    outside torchrun, and more eval devices than the host has."""
+    """An --n_sp or an --n_dp whose product with the other is not the world
+    size, --multihost outside torchrun, and more eval devices than the host
+    has."""
     import importlib
     mod = importlib.import_module(script)
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):

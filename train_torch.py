@@ -17,18 +17,21 @@ Data parallelism takes the place of JAX's dp mesh: launched by
 ``cuda:LOCAL_RANK``; NCCL on cards, gloo with ``--device cpu``), each
 rank packs its rows of every global batch and the train step sums the
 ranks' gradients (``vrdone_tpu_torch/parallel``), so N ranks take the
-step one process takes on the global batch. ``--n_dp``, when given, must
-equal the world size; ``--multihost`` is the same path on a multi-node
-``torchrun``. Rank 0 writes the logs, ``config.yaml`` and checkpoints.
-Not ported (it raises): ``--n_sp`` above 1; see ROADMAP.md queue 1,
-sequence and tensor parallelism.
+step one process takes on the global batch. ``--n_sp`` shards the time
+axis of each batch over n_sp ranks as JAX's "sp" mesh axis does (halo
+exchanges, gathered keys, time-reduced losses summed over the ranks): the
+world size must be n_dp x n_sp, ``--n_dp`` defaults to world / n_sp, and
+``max_seq_len`` must divide by n_sp x scale_factor ** backbone_arch[2].
+``--multihost`` is the same path on a multi-node ``torchrun``. Rank 0
+writes the logs, ``config.yaml`` and checkpoints. Tensor parallelism, as
+in the JAX package, has no flag: ``create_train_state(..., tp=True)``.
 
     python train_torch.py --data_name vidvrd --cfg_path configs/vidvrd.yaml \
         --exp_dir experiments/vidvrd_torch --device cuda \
         [--compute_dtype bfloat16] [--remat --remat_policy dots]
     torchrun --standalone --nproc_per_node 8 train_torch.py \
         --data_name vidvrd --cfg_path configs/vidvrd.yaml \
-        --exp_dir experiments/vidvrd_torch --device cuda
+        --exp_dir experiments/vidvrd_torch --device cuda [--n_sp 2]
 """
 
 from __future__ import annotations
@@ -70,12 +73,13 @@ def parse_args():
                    help="remat policy (dots = save the Dense layers' "
                         "matrix products, full = recompute everything)")
     p.add_argument("--n_dp", type=int, default=None,
-                   help="data-parallel size: must equal the world size "
-                        "(torchrun --nproc_per_node x nodes; 1 without "
-                        "torchrun)")
+                   help="data-parallel size (default: world size / n_sp; "
+                        "the world is torchrun --nproc_per_node x nodes, 1 "
+                        "without torchrun)")
     p.add_argument("--n_sp", type=int, default=1,
-                   help="not ported beyond 1 (ROADMAP.md queue 1, sequence "
-                        "and tensor parallelism)")
+                   help="sequence-parallel size (shards the time axis of "
+                        "each batch over n_sp ranks; n_dp x n_sp ranks are "
+                        "used)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 10-20")
     p.add_argument("--multihost", action="store_true", default=False,
@@ -85,27 +89,29 @@ def parse_args():
                    help="resume from <exp_dir>/model_last.ckpt if present")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the train step, e.g. cuda or cpu")
-    return p.parse_args()
+    args = p.parse_args()
+    if args.n_sp < 1 or (args.n_dp is not None and args.n_dp < 1):
+        p.error("--n_sp and --n_dp must be at least 1")
+    return args
 
 
 def main():
     args = parse_args()
-    if args.n_sp > 1:
-        raise NotImplementedError(
-            "--n_sp > 1 is not ported; see ROADMAP.md queue 1, sequence and "
-            "tensor parallelism")
     rank, world, device = mesh.join_world(args.device, args.multihost)
     try:
-        if args.n_dp is not None and args.n_dp != world:
-            raise SystemExit(f"--n_dp {args.n_dp} is not the world size "
-                             f"{world}; launch with torchrun "
-                             f"--nproc_per_node {args.n_dp}")
-        train(args, rank, world, device)
+        n_dp = world // args.n_sp if args.n_dp is None else args.n_dp
+        if n_dp * args.n_sp != world:
+            raise SystemExit(f"--n_dp {n_dp} x --n_sp {args.n_sp} ranks is "
+                             f"not the world size {world}; launch with "
+                             f"torchrun --nproc_per_node "
+                             f"{max(n_dp, 1) * args.n_sp}")
+        train(args, rank, device, mesh.make_layout(n_dp, 1, args.n_sp))
     finally:
         mesh.shutdown()
 
 
-def train(args, rank: int, world: int, device: torch.device) -> None:
+def train(args, rank: int, device: torch.device,
+          layout: mesh.Layout) -> None:
     config = load_yaml_config(args.cfg_path)
     config["training_config"]["seed"] = args.seed
     config["dataset_config"].update(config["training_dataset_config"])
@@ -116,12 +122,20 @@ def train(args, rank: int, world: int, device: torch.device) -> None:
     if args.remat_policy:
         config["model_config"]["remat_policy"] = args.remat_policy
     model_cfg = model_config_from_yaml(config)
+    if layout.n_sp > 1:
+        try:
+            mesh.check_time_split(model_cfg.max_seq_len, layout.n_sp,
+                                  model_cfg.scale_factor,
+                                  model_cfg.backbone_arch[2])
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
 
     os.makedirs(args.exp_dir, exist_ok=True)
     logger = setup_logger("Train", os.path.join(args.exp_dir, "logfile"),
                           distributed_rank=rank, filename="train_log.json")
     logger.info(f"PyTorch {torch.__version__}, device: {device}, "
-                f"data-parallel ranks: {world}")
+                f"data-parallel ranks: {layout.n_dp}, sequence-parallel "
+                f"ranks: {layout.n_sp}")
     logger.info(f"Config:\n{json.dumps(config, indent=4)}")
     if rank == 0:
         with open(os.path.join(args.exp_dir, "config.yaml"), "w") as f:
@@ -143,14 +157,15 @@ def train(args, rank: int, world: int, device: torch.device) -> None:
     loader = TrainLoader(dataset, batch_size, pack_size,
                          model_cfg.max_seq_len, num_gt,
                          packed_channels(model_cfg), seed=args.seed,
-                         process_index=rank, process_count=world)
+                         process_index=layout.dp, process_count=layout.n_dp)
     steps_per_epoch = loader.steps_per_epoch()
-    logger.info(f"Pairs per step: {pack_size} ({pack_size // world} a rank); "
-                f"steps/epoch: {steps_per_epoch}")
+    logger.info(f"Pairs per step: {pack_size} ({pack_size // layout.n_dp} a "
+                f"rank); frames a rank: {model_cfg.max_seq_len // layout.n_sp}"
+                f"; steps/epoch: {steps_per_epoch}")
 
     state, schedule = create_train_state(
         model_cfg, tc, steps_per_epoch, device=device,
-        generator=torch.Generator().manual_seed(args.seed))
+        generator=torch.Generator().manual_seed(args.seed), layout=layout)
     n_params = sum(p.numel() for p in state.params())
     logger.info(f"Number of model parameters: {n_params}")
 
@@ -189,7 +204,8 @@ def train(args, rank: int, world: int, device: torch.device) -> None:
                       if device.type == "cuda" else [])])
                 profiler.start()
             state, losses = train_step(
-                state, batch_to_device(batch, device),
+                state, batch_to_device(mesh.time_slice(batch, layout),
+                                       device),
                 step_generator(args.seed, total_steps))
             if profiler is not None and total_steps == 20:
                 profiler.stop()

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import masked as mops
+from ..parallel import collectives
 from .layers import (ChannelLayerNorm, ConvMLP, DecoderLayer, MaskedConv1D,
                      TransformerBlock)
 
@@ -132,12 +133,15 @@ class SOSBackbone(nn.Module):
 
     def _pe(self, t: int) -> Tensor:
         """The table cut to t frames; at eval, stretched linearly past
-        max_len (training sequences never exceed it)."""
+        max_len (training sequences never exceed it). Time-sharded, the
+        global table's rows of this rank's t columns."""
         if self.training:
-            if t > self.max_len:
-                raise ValueError(f"training sequence of {t} frames exceeds "
-                                 f"max_seq_len {self.max_len}")
-            return self.pos_embd[:t]
+            layout = collectives.time_layout()
+            start = 0 if layout is None else layout.sp * t
+            if start + t > self.max_len:
+                raise ValueError(f"training sequence of {start + t} frames "
+                                 f"exceeds max_seq_len {self.max_len}")
+            return self.pos_embd[start:start + t]
         if t >= self.max_len:
             return mops.resize_pe_linear(self.pos_embd, t)
         return self.pos_embd[:t]

@@ -18,6 +18,15 @@ identity and ``AffineDropPath`` applies only its per-channel scale.
 Parameters are allocated uninitialised on the given ``device``;
 ``init_weights`` fills them from a ``torch.Generator`` with the reference's
 initialisers, or they are loaded from a converted JAX checkpoint.
+
+Tensor parallelism (``parallel/mesh.py::shard_params_``): a module whose
+``TP_SHARDABLE`` names a parameter can hold only this rank's shard of it
+(recorded in ``tp_dims`` and ``tp_layout``). ``MaskedConv1D``, ``Dense``
+and ``ConvMLP`` are then output-sharded: they compute the rank's shard of
+their output features and gather the rest from the tp ranks; a sharded
+``query_embed`` or ``rel_pe`` is gathered whole where it is read. Time
+sharding needs nothing here: ``ops/masked.py`` takes the halos and
+gathers.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import masked as mops
+from ..parallel import collectives
 
 Tensor = torch.Tensor
 Generator = Optional[torch.Generator]
@@ -42,6 +52,24 @@ class Module(nn.Module):
     def __init__(self):
         super().__init__()
         self.training = False
+
+
+def tp_param(module: nn.Module, name: str) -> Tensor:
+    """The whole parameter ``name`` of ``module``: gathered from the tp
+    ranks when the module holds a shard of it."""
+    p = getattr(module, name)
+    dim = getattr(module, "tp_dims", {}).get(name)
+    if dim is None:
+        return p
+    return collectives.gather_features(p, dim, module.tp_layout)
+
+
+def _tp_output(module: nn.Module, y: Tensor,
+               bias: Optional[Tensor]) -> Tensor:
+    """An output-sharded layer's whole output: the tp ranks' feature
+    shards gathered, then the (replicated) bias added."""
+    y = collectives.gather_features(y, y.ndim - 1, module.tp_layout)
+    return y if bias is None else y + bias
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +133,8 @@ class ChannelLayerNorm(Module):
 class MaskedConv1D(Module):
     """Mask-preserving conv1d (reference models/blocks.py:63-113)."""
 
+    TP_SHARDABLE = ("weight",)
+
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, groups: int = 1, use_bias: bool = True, *,
                  device: torch.device):
@@ -124,13 +154,29 @@ class MaskedConv1D(Module):
             self.bias.zero_()  # reference zero-inits conv bias
 
     def forward(self, x: Tensor, mask: Tensor) -> tuple[Tensor, Tensor]:
-        return mops.masked_conv1d(x, mask, self.weight, self.bias,
-                                  stride=self.stride, groups=self.groups)
+        if not getattr(self, "tp_dims", None):
+            return mops.masked_conv1d(x, mask, self.weight, self.bias,
+                                      stride=self.stride, groups=self.groups)
+        # output-sharded: a grouped conv's shard reads its groups' inputs
+        layout, groups = self.tp_layout, self.groups
+        if groups > 1:
+            if groups % layout.n_tp:
+                raise ValueError(f"{groups} groups do not split over "
+                                 f"n_tp {layout.n_tp}")
+            c = x.shape[-1] // layout.n_tp
+            x = x[..., layout.tp * c:(layout.tp + 1) * c]
+            groups //= layout.n_tp
+        out = _tp_output(self, mops.conv1d(x, self.weight, stride=self.stride,
+                                           groups=groups), self.bias)
+        out_mask = mops.downsample_mask(mask, self.stride, out.shape[1])
+        return out * out_mask[..., None].to(out.dtype), out_mask
 
 
 class Dense(Module):
     """Linear layer on the last axis, torch-style fan-in init, constant
     bias (zero unless ``bias_value`` is given)."""
+
+    TP_SHARDABLE = ("weight",)
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  bias_value: float = 0.0, *, device: torch.device):
@@ -147,7 +193,9 @@ class Dense(Module):
             self.bias.fill_(self.bias_value)
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if not getattr(self, "tp_dims", None):
+            return F.linear(x, self.weight, self.bias)
+        return _tp_output(self, F.linear(x, self.weight), self.bias)
 
 
 class ConvMLP(Module):
@@ -163,6 +211,8 @@ class ConvMLP(Module):
         self.dropout = dropout
         self.act = get_activation(act)
         dims = [hidden_dim] * (num_layers - 1) + [output_dim]
+        self.TP_SHARDABLE = tuple(f"layers_{i}_kernel" for i in range(
+            num_layers)) if kernel_size > 1 else ()
         c_in = in_features
         for i, d in enumerate(dims):
             if kernel_size == 1:
@@ -186,6 +236,10 @@ class ConvMLP(Module):
         for i in range(self.num_layers):
             if self.kernel_size == 1:
                 x = getattr(self, f"layers_{i}")(x)
+            elif f"layers_{i}_kernel" in getattr(self, "tp_dims", {}):
+                x = _tp_output(self, mops.conv1d(
+                    x, getattr(self, f"layers_{i}_kernel")),
+                    getattr(self, f"layers_{i}_bias"))
             else:
                 x = mops.conv1d(x, getattr(self, f"layers_{i}_kernel"),
                                 getattr(self, f"layers_{i}_bias"))
@@ -346,6 +400,8 @@ class _BandAttnBase(Module):
     window_size) relative-position bias ``rel_pe``, initialised as the JAX
     package does (truncated normal at +-2 std, std sqrt(2 / n_embd))."""
 
+    TP_SHARDABLE = ("rel_pe",)
+
     def __init__(self, n_embd: int, n_head: int, window_size: int,
                  use_rel_pe: bool, proj_pdrop: float,
                  preproc_kernels: Optional[tuple[int, int, int, int]] = None,
@@ -379,7 +435,8 @@ class _BandAttnBase(Module):
         out = mops.band_attention(self.query(q), self.key(k), self.value(v),
                                   kv_mask, n_head=self.n_head,
                                   window_size=self.window_size,
-                                  rel_pe=self.rel_pe)
+                                  rel_pe=None if self.rel_pe is None
+                                  else tp_param(self, "rel_pe"))
         out = mops.dropout(self.proj(out), self.proj_pdrop, self.training,
                            generator)
         return out * mask[..., None].to(out.dtype)

@@ -12,6 +12,14 @@ Shapes (``...`` is any batch of leading axes):
     gt_labels:   (..., G) int     gt_masks:   (..., G, T) {0,1}
     gt_segs:     (..., G, 2)      gt_valid:   (..., G) bool
     seq_mask:    (..., T) bool    -- the per-item temporal validity
+
+Under sequence parallelism (inside ``parallel.collectives.time_sharded``)
+T is a rank's contiguous columns of the global time axis: the time
+reductions take their partial sums over the rank's columns and sum them
+over the sp ranks before any nonlinear use (the numerators and
+denominators of the costs and of the dice loss, never the finished
+values), the focal loss's per-pair mean divides by the global T, and the
+fuzzy targets' positions start at the columns' global offset.
 """
 
 from __future__ import annotations
@@ -21,10 +29,21 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
+
 Tensor = torch.Tensor
 
 FOCAL_ALPHA = 0.25
 FOCAL_GAMMA = 2.0
+
+
+def _total(*xs: Tensor) -> tuple:
+    """Each of ``xs`` summed over the sp ranks when the tensors are
+    time-sharded (one collective), else as it is."""
+    layout = collectives.time_layout()
+    if layout is None:
+        return xs
+    return tuple(collectives.sum_time(torch.stack(xs), layout).unbind(0))
 
 
 def _bce_with_logits(logits: Tensor, targets: Tensor) -> Tensor:
@@ -48,7 +67,10 @@ def fuzzy_targets(gt_masks: Tensor, gt_segs: Tensor, seq_mask: Tensor,
     length = e - s
     # padded slots have length 0; keep the math finite
     safe_len = torch.where(length > 0, length, torch.ones_like(length))
-    t_idx = torch.arange(gt_masks.shape[-1], dtype=torch.float32,
+    t = gt_masks.shape[-1]
+    layout = collectives.time_layout()
+    start = 0 if layout is None else layout.sp * t
+    t_idx = torch.arange(start, start + t, dtype=torch.float32,
                          device=gt_masks.device)
     dist = (t_idx - center[..., None]).abs()         # (..., G, T)
     smask = seq_mask[..., None, :]
@@ -92,7 +114,10 @@ def pairwise_focal_cost(pred_masks: Tensor, gt_tgt: Tensor,
     tgt = gt_tgt * m
     cost = fp @ tgt.transpose(-1, -2) + fn @ ((1 - gt_tgt) * m).transpose(
         -1, -2)
-    return cost / m.sum(-1, keepdim=True)
+    if collectives.time_layout() is None:
+        return cost / m.sum(-1, keepdim=True)
+    cost, count = _total(cost, m.sum(-1, keepdim=True).expand(cost.shape))
+    return cost / count
 
 
 def pairwise_dice_cost(pred_masks: Tensor, gt_tgt: Tensor,
@@ -104,6 +129,7 @@ def pairwise_dice_cost(pred_masks: Tensor, gt_tgt: Tensor,
     tgt = gt_tgt * m
     num = 2.0 * (p @ tgt.transpose(-1, -2))
     den = p.sum(-1)[..., :, None] + tgt.sum(-1)[..., None, :]
+    num, den = _total(num, den)
     return 1.0 - (num + 1.0) / (den + 1.0)
 
 
@@ -112,7 +138,8 @@ def matching_cost(pred_logits: Tensor, pred_masks: Tensor, gt_labels: Tensor,
                   seq_mask: Tensor, *, cost_class: float, cost_mask: float,
                   cost_dice: float, scale_range: float | None) -> Tensor:
     """(..., Q, G) total matching cost, finite everywhere (invalid columns
-    are re-masked by the matcher)."""
+    are re-masked by the matcher). Time-sharded, every sp rank gets the
+    whole cost."""
     del gt_valid  # the matcher masks the invalid columns
     if scale_range is not None:
         tgt = fuzzy_targets(gt_masks, gt_segs, seq_mask, scale_range)
@@ -141,13 +168,18 @@ def classification_loss(pred_logits: Tensor, target_classes: Tensor,
 
 def _focal(pred: Tensor, tgt: Tensor, bce_tgt: Tensor,
            loss_mask: Tensor, pair_valid: Tensor, num_masks: Tensor) -> Tensor:
+    """The focal loss; time-sharded, this rank's partial sum of it (the
+    per-pair mean over the global T)."""
     prob = torch.sigmoid(pred)
     ce = _bce_with_logits(pred, bce_tgt)
     p_t = prob * tgt + (1 - prob) * (1 - tgt)
     loss = ce * (1 - p_t) ** FOCAL_GAMMA
     alpha_t = FOCAL_ALPHA * tgt + (1 - FOCAL_ALPHA) * (1 - tgt)
     loss = alpha_t * loss * loss_mask.to(loss.dtype)
-    per_pair = loss.mean(dim=1) * pair_valid.to(loss.dtype)
+    layout = collectives.time_layout()
+    mean = (loss.mean(dim=1) if layout is None
+            else loss.sum(dim=1) / (layout.n_sp * loss.shape[1]))
+    per_pair = mean * pair_valid.to(loss.dtype)
     return per_pair.sum() / num_masks
 
 
@@ -176,11 +208,14 @@ def matched_focal_fuzzy_loss(pred: Tensor, tgt: Tensor, segs: Tensor,
 
 def _dice(pred: Tensor, tgt: Tensor, loss_mask: Tensor, pair_valid: Tensor,
           num_masks: Tensor) -> Tensor:
+    """The dice loss; time-sharded, its numerators and denominators summed
+    over the sp ranks, so every rank has the whole loss."""
     m = loss_mask.to(pred.dtype)
     p = torch.sigmoid(pred) * m
     t = tgt * m
     num = 2.0 * (p * t).sum(-1)
     den = p.sum(-1) + t.sum(-1)
+    num, den = _total(num, den)
     loss = (1.0 - (num + 1.0) / (den + 1.0)) * pair_valid.to(pred.dtype)
     return loss.sum() / num_masks
 

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.hungarian import match_padded
+from ..parallel import collectives
 from . import losses as LO
 from .backbone import SOSBackbone
 from .fpn import FPN1DFuse
@@ -126,7 +127,8 @@ def match(cfg: ModelConfig, pred_logits: Tensor, pred_masks: Tensor,
 
     pred_logits (L, B, Q, K+1), pred_masks (L, B, Q, T). Returns
     (row_for_col (L, B, G) int64, matched (B, G) bool). One batched matcher
-    call over all L x B problems, as the JAX package vmaps the levels."""
+    call over all L x B problems, as the JAX package vmaps the levels.
+    Time-sharded, every sp rank matches the same whole cost."""
     scale_range = cfg.scale_range if cfg.with_fuzzy else None
     with torch.no_grad():
         cost = LO.matching_cost(
@@ -188,12 +190,18 @@ def _single_level_losses(cfg: ModelConfig, pred_logits: Tensor,
                 flat(pred_sel), flat(tgt), flat(loss_mask), pv, num_masks)
             out["loss_dice"] = cfg.loss_dice * LO.matched_dice_loss(
                 flat(pred_sel), flat(tgt), flat(loss_mask), pv, num_masks)
+    layout = collectives.time_layout()
+    if layout is not None:
+        # whole on every sp rank: each carries 1/n_sp of it
+        for key in ("loss_class", "loss_dice"):
+            if key in out:
+                out[key] = out[key] / layout.n_sp
     return out
 
 
 def compute_losses(cfg: ModelConfig, predictions: dict, gt: dict,
-                   reduce: Optional[Callable[[Tensor], Tensor]] = None
-                   ) -> dict:
+                   reduce: Optional[Callable[[Tensor], Tensor]] = None,
+                   copies: int = 1) -> dict:
     """The training objective with deep supervision (reference
     maskvrd.py:569-588): the final level's terms as ``loss_*``, auxiliary
     level i's as ``loss_*_{i}``, and their sum as ``total_loss``.
@@ -201,9 +209,16 @@ def compute_losses(cfg: ModelConfig, predictions: dict, gt: dict,
     The normalisers are the global batch's, as in the JAX package: the
     count of valid ground truth in valid items (``num_masks``) and each
     level's class-weight sum. Under data parallelism ``reduce`` sums a
-    count over the ranks (``parallel.mesh.all_reduce_sum``) before the
-    division, so each rank's losses are its partial sums of the global
-    ones and their sum over the ranks is the global loss."""
+    count over the ranks that hold the other rows (``parallel.mesh.
+    all_reduce_sum`` on the dp group) before the division, so each rank's
+    losses are its partial sums of the global ones. Under sequence
+    parallelism (called inside ``collectives.time_sharded``) the mask terms
+    are the partial sums of the rank's columns, and the terms that come out
+    whole on every sp rank (the class and dice losses) carry 1/n_sp of
+    their value;
+    the ``copies`` ranks that hold the same rows and columns (tensor
+    parallelism) carry 1/copies of every term. The sum over all ranks is
+    then the global loss whatever the layout."""
     reduce = reduce or (lambda x: x)
     num_masks = reduce((gt["gt_valid"] & gt["item_valid"][:, None]).sum()
                        .float()).clamp(min=1)
@@ -218,6 +233,8 @@ def compute_losses(cfg: ModelConfig, predictions: dict, gt: dict,
     per = [dict(sorted(_single_level_losses(
         cfg, logits[i], masks[i], gt, num_masks, row_for_col[i],
         matched, reduce).items())) for i in range(logits.shape[0])]
+    if copies > 1:
+        per = [{k: v / copies for k, v in level.items()} for level in per]
     loss_dict = dict(per[0])
     for i, level in enumerate(per[1:]):
         loss_dict.update({f"{k}_{i}": v for k, v in level.items()})

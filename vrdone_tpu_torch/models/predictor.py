@@ -5,6 +5,11 @@ N learned queries decode against the coarsest pyramid level; each query
 emits a class logit vector and a temporal mask embedding, and the mask
 logits come from an einsum against the full-resolution FPN mask features
 (reference MaskedTransformerPredictor, models/predictor.py:15-125).
+
+Time-sharded (``parallel.collectives.time_sharded``), the coarsest level
+and its mask are gathered whole along T before the decoder, which then
+runs alike on every sp rank, and the mask logits stay the rank's columns
+of the full-resolution features.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ import math
 import torch
 from torch import nn
 
-from .layers import ChannelLayerNorm, ConvMLP, Dense, DecoderOnly
+from ..parallel import collectives
+from .layers import ChannelLayerNorm, ConvMLP, Dense, DecoderOnly, tp_param
 
 Tensor = torch.Tensor
 
@@ -22,6 +28,8 @@ NON_ATTN_CONST = -10.0  # fill for invalid temporal positions (reference :85)
 
 
 class MaskedTransformerPredictor(nn.Module):
+
+    TP_SHARDABLE = ("query_embed",)
 
     def __init__(self, n_input: int, n_embd: int, n_head: int, n_hidden: int,
                  num_queries: int, num_classes: int, path_pdrop: float = 0.1,
@@ -64,13 +72,20 @@ class MaskedTransformerPredictor(nn.Module):
         src = self.input_norm(x)
         if self.input_proj is not None:
             src = self.input_proj(src) * mask[..., None].to(src.dtype)
-        hs, _ = self.transformer(src, mask, self.query_embed,
-                                 generator=generator)         # (L, B, Q, C)
-        outputs_class = self.class_embed(hs)                   # (L, B, Q, K+1)
+        layout = collectives.time_layout()
+        if layout is not None:
+            src = collectives.gather_time(src, layout)
+            mask = collectives.gather_time_mask(mask, layout)
+        with collectives.time_whole():
+            hs, _ = self.transformer(src, mask,
+                                     tp_param(self, "query_embed"),
+                                     generator=generator)     # (L, B, Q, C)
+            outputs_class = self.class_embed(hs)               # (L, B, Q, K+1)
+            mask_embed = self.mask_embed(
+                hs if self.deep_supervision else hs[-1], generator)
         out = {"pred_logits": outputs_class[-1]}
         invalid = ~output_mask                                 # (B, T0)
-        if self.deep_supervision:
-            mask_embed = self.mask_embed(hs, generator)        # (L, B, Q, C)
+        if self.deep_supervision:                              # (L, B, Q, C)
             # fp32 products of the operands, as JAX's einsum with
             # preferred_element_type=float32 takes them under bf16
             seg = torch.einsum("lbqc,btc->lbqt", mask_embed.float(),
@@ -80,8 +95,7 @@ class MaskedTransformerPredictor(nn.Module):
             out["aux_outputs"] = [
                 {"pred_logits": outputs_class[i], "pred_masks": seg[i]}
                 for i in range(seg.shape[0] - 1)]
-        else:
-            mask_embed = self.mask_embed(hs[-1], generator)    # (B, Q, C)
+        else:                                                  # (B, Q, C)
             seg = torch.einsum("bqc,btc->bqt", mask_embed.float(),
                                mask_features.float())
             out["pred_masks"] = seg.masked_fill(invalid[:, None, :],

@@ -18,6 +18,16 @@ gradient is needed, band attention takes its differentiable kernel form
 (``BandAttention``, or ``BandAttentionPE`` with a relative-position bias);
 full attention takes the dense form by argument (``allow_kernel=False``),
 as the JAX package trains through it.
+
+Under sequence parallelism (inside ``parallel.collectives.time_sharded``)
+each (B, T, C) stream is this rank's contiguous columns of the global one,
+each shard starting on a multiple of the stride of the level it is at.
+The ops then compute exactly the rank's columns of the global op:
+convolutions and max-pools read halos sized from their kernel, stride and
+padding (the zero or -inf padding only at the global edges), band
+attention runs its unchanged kernels over the neighbours' w = window // 2
+key rows on each side and keeps the central queries, and full attention
+gathers its keys, values and key mask along T (the queries stay local).
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
 from . import full_attention as _fa
 from .band_attention import (BandAttention, BandAttentionPE,
                              band_attention_cuda, band_attention_pe_cuda,
@@ -55,9 +66,26 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor,
     weight: (C_out, C_in // groups, K); bias: (C_out,) or None.
     """
     k = weight.shape[-1]
+    layout = collectives.time_layout()
+    if layout is None:
+        out = F.conv1d(x.transpose(1, 2), weight, bias, stride=stride,
+                       padding=k // 2, groups=groups)
+        return out.transpose(1, 2)
+    x = _halo_window(x, k, stride, k // 2, 0.0, layout)
     out = F.conv1d(x.transpose(1, 2), weight, bias, stride=stride,
-                   padding=k // 2, groups=groups)
+                   groups=groups)
     return out.transpose(1, 2)
+
+
+def _halo_window(x: torch.Tensor, kernel: int, stride: int, padding: int,
+                 fill: float, layout) -> torch.Tensor:
+    """This rank's columns with the global rows that its outputs of a
+    window op (``kernel``, ``stride``, ``padding``) read: ``padding`` rows
+    before and kernel - padding - stride after (none when that is
+    negative). The op over them, unpadded, gives exactly the rank's
+    T_local / stride outputs."""
+    return collectives.halo(x, padding, max(0, kernel - padding - stride),
+                            fill, layout)
 
 
 def downsample_mask(mask: torch.Tensor, stride: int,
@@ -80,8 +108,12 @@ def masked_conv1d(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
 def max_pool1d(x: torch.Tensor, *, kernel: int, stride: int,
                padding: int) -> torch.Tensor:
     """Max pool over the time axis of (B, T, C), padding with -inf."""
-    return F.max_pool1d(x.transpose(1, 2), kernel, stride,
-                        padding).transpose(1, 2)
+    layout = collectives.time_layout()
+    if layout is None:
+        return F.max_pool1d(x.transpose(1, 2), kernel, stride,
+                            padding).transpose(1, 2)
+    x = _halo_window(x, kernel, stride, padding, float("-inf"), layout)
+    return F.max_pool1d(x.transpose(1, 2), kernel, stride).transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +148,12 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The output is not masked by the query mask. ``allow_kernel`` mirrors the
     JAX package's ``full_attention_auto(allow_flash=deterministic)``: callers
     pass ``not self.training``, and training runs the dense form, whose
-    autograd is the backward (the kernel has none)."""
+    autograd is the backward (the kernel has none). Time-sharded, the keys,
+    values and key mask are gathered along T."""
+    layout = collectives.time_layout()
+    if layout is not None:
+        k, v, kv_mask = _unpack(collectives.gather_time(
+            _pack(k, v, kv_mask), layout), k.shape[-1])
     if q.device.type == "cpu":
         return full_attention_plain(q, k, v, kv_mask, n_head=n_head)
     if not allow_kernel:
@@ -132,7 +169,41 @@ def band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = window_size // 2; kv_mask (B, T) bool; rel_pe an optional
     (n_head, window_size) relative-position bias. On a card the JAX
     package's length threshold for its kernel does not apply: every call
-    takes a kernel."""
+    takes a kernel.
+
+    Time-sharded, k, v and the key mask take the neighbours' w rows on
+    each side (masked keys past the global edges, which weigh exactly
+    nothing, as absent keys), q takes w zero rows on each side (the kernels
+    need Tq == Tk), the unchanged op runs over T_local + 2w and the central
+    rows are kept. The discarded rows get a zero upstream gradient, so the
+    backward adds nothing through them; the halo gradients of k and v go
+    back to the neighbours."""
+    layout = collectives.time_layout()
+    if layout is None:
+        return _band_attention(q, k, v, kv_mask, n_head, window_size, rel_pe)
+    w, t = window_size // 2, q.shape[1]
+    k, v, kv_mask = _unpack(collectives.halo(_pack(k, v, kv_mask), w, w,
+                                             0.0, layout), k.shape[-1])
+    out = _band_attention(F.pad(q, (0, 0, w, w)), k, v, kv_mask, n_head,
+                          window_size, rel_pe)
+    return out[:, w:w + t]
+
+
+def _pack(k: torch.Tensor, v: torch.Tensor,
+          kv_mask: torch.Tensor) -> torch.Tensor:
+    """k, v and the key mask as one (B, T, 2C + 1) tensor, for one
+    collective."""
+    return torch.cat([k, v, kv_mask[..., None].to(k.dtype)], -1)
+
+
+def _unpack(kvm: torch.Tensor, c: int):
+    """``_pack``'s inverse: contiguous k and v, the bool key mask."""
+    return (kvm[..., :c].contiguous(), kvm[..., c:2 * c].contiguous(),
+            kvm[..., 2 * c] > 0.5)
+
+
+def _band_attention(q, k, v, kv_mask, n_head, window_size, rel_pe):
+    """The dispatch of ``band_attention`` on whole streams."""
     if rel_pe is None:
         plain, fn, kernel, pe = (band_attention_plain, BandAttention,
                                  band_attention_cuda, ())
@@ -184,16 +255,22 @@ def resize_pe_linear(pe: torch.Tensor, new_len: int) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class StepDraws:
     """Where a train step's drop-path and dropout uniforms come from, under
-    data parallelism. Every tensor drawn for has the batch as its leading
-    dimension; each draw is taken at the global batch's shape
+    data and sequence parallelism. Every tensor drawn for has the batch as
+    its leading dimension; each draw is taken at the global batch's shape
     (``global_batch`` rows) from ``generator``, the same seed on every rank,
-    and this rank keeps its own rows from ``row_offset``. So N ranks draw
-    what one process draws for the whole batch, as JAX draws once for the
-    global batch and shards the draw. One process is ``row_offset`` 0 with
-    ``global_batch`` its batch: the draws of ``generator`` alone."""
+    and this rank keeps its own rows from ``row_offset``. A draw for a
+    time-sharded tensor (inside ``collectives.time_sharded``: axis 1 is
+    time) is taken at the level's global length, ``time_parts`` times the
+    rank's, and the rank keeps its columns, part ``time_index``. So N ranks
+    draw what one process draws for the whole batch, as JAX draws once for
+    the global batch and shards the draw. One process is ``row_offset`` 0
+    with ``global_batch`` its batch and one time part: the draws of
+    ``generator`` alone."""
     generator: torch.Generator
     global_batch: int
     row_offset: int = 0
+    time_parts: int = 1
+    time_index: int = 0
 
     def draw(self, shape: tuple[int, ...]) -> torch.Tensor:
         """fp32 U[0, 1) of the global ``shape``, on the generator's
@@ -208,26 +285,37 @@ class StepDraws:
         gen.set_state(state)
         return dataclasses.replace(self, generator=gen)
 
+    def local(self, shape: tuple[int, ...]) -> torch.Tensor:
+        """This rank's part, of ``shape``, of the global draw."""
+        lo, parts = self.row_offset, 1
+        if len(shape) >= 2 and collectives.time_layout() is not None:
+            parts = self.time_parts
+        u = self.draw((self.global_batch, shape[1] * parts, *shape[2:])
+                      if len(shape) >= 2 else (self.global_batch,))
+        if lo + shape[0] > u.shape[0]:
+            raise ValueError(f"rows {lo}..{lo + shape[0]} of a draw for "
+                             f"{u.shape[0]}")
+        u = u[lo:lo + shape[0]]
+        if parts > 1:
+            u = u[:, self.time_index * shape[1]:
+                  (self.time_index + 1) * shape[1]]
+        return u
+
 
 def _uniform(shape, generator: torch.Generator | StepDraws,
              like: torch.Tensor,
              dtype: torch.dtype | None = None) -> torch.Tensor:
     """U[0, 1) draws of ``dtype`` (``like``'s by default) from
-    ``generator`` on its own device, moved to ``like``'s: this rank's rows
-    of a draw at the global batch's shape when ``generator`` is a
-    ``StepDraws``. With a CPU generator a CPU run and a card run from one
-    seed draw the same numbers. Below fp32's precision the fp32 draws are
-    cut down to the dtype's mantissa, multiples of its eps in [0, 1 - eps],
-    as ``jax.random.uniform`` draws them (rounding to nearest would give
+    ``generator`` on its own device, moved to ``like``'s: this rank's part
+    of a draw at the global shape when ``generator`` is a ``StepDraws``.
+    With a CPU generator a CPU run and a card run from one seed draw the
+    same numbers. Below fp32's precision the fp32 draws are cut down to the
+    dtype's mantissa, multiples of its eps in [0, 1 - eps], as
+    ``jax.random.uniform`` draws them (rounding to nearest would give
     1.0)."""
     dtype = like.dtype if dtype is None else dtype
     if isinstance(generator, StepDraws):
-        lo = generator.row_offset
-        u = generator.draw((generator.global_batch, *shape[1:]))
-        if lo + shape[0] > u.shape[0]:
-            raise ValueError(f"rows {lo}..{lo + shape[0]} of a draw for "
-                             f"{u.shape[0]}")
-        u = u[lo:lo + shape[0]]
+        u = generator.local(tuple(shape))
     else:
         u = torch.rand(shape, generator=generator, device=generator.device)
     eps = torch.finfo(dtype).eps

@@ -1,12 +1,19 @@
-"""The data-parallel layout (counterpart of the dp part of
-``vrdone_tpu/parallel/mesh.py``).
+"""The device layout (counterpart of ``vrdone_tpu/parallel/mesh.py``).
 
-The JAX package shards each global batch over the "dp" axis of one device
-mesh, and XLA inserts the gradient all-reduce. The port runs one process
-per card under ``torchrun``, which sets ``RANK``, ``WORLD_SIZE`` and
-``LOCAL_RANK``: each process packs its contiguous rows of the global batch
-(``local_batch_slice``, process-major as the mesh orders its devices), and
-the train step sums the ranks' partial gradients with one all-reduce
+The JAX package lays its devices out as one ("dp", "tp", "sp") mesh: "dp"
+shards the batch, "tp" the output features of the large kernels
+(``tp_shardings``), "sp" the time axis of the temporal batch tensors
+(``sp_batch_shardings``), and GSPMD places every collective. The port runs
+one process per card under ``torchrun``, which sets ``RANK``,
+``WORLD_SIZE`` and ``LOCAL_RANK``. ``make_layout(n_dp, n_tp, n_sp)`` gives
+rank r the coordinates of ``make_mesh``'s row-major reshape (dp = r //
+(n_tp n_sp), tp = (r // n_sp) % n_tp, sp = r % n_sp) and the process
+groups of the ranks that differ only in sp, only in tp and only in dp, and
+the dp x sp group of each tp index; ``parallel/collectives.py`` holds the
+collectives placed on them. Each rank packs its contiguous rows of the
+global batch (``local_batch_slice``, by its dp index) and, under
+sequence parallelism, keeps its contiguous time columns of them
+(``time_slice``); the train step sums the ranks' partial gradients
 (``train/loop.py``). With no process group every helper gives the
 one-process answer, so the same code runs in one process.
 
@@ -14,18 +21,19 @@ The default group is NCCL on the card and gloo on the CPU. Host-side
 collectives (the pickled objects of the eval merge, barriers) run on a
 gloo group of their own, so they work whatever the default backend is,
 two ranks sharing one card included.
-
-The tensor- and sequence-parallel layouts of the JAX mesh
-(``tp_shardings``, ``sp_batch_shardings``) are GSPMD's and not ported;
-see ROADMAP.md queue 1, sequence and tensor parallelism.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
+from torch import nn
+
+from ..convert import is_flax_kernel
 
 _host_group = None   # the gloo group of the host-side collectives
 
@@ -100,21 +108,172 @@ def host_group():
     return _host_group
 
 
-def local_batch_slice(global_batch_size: int) -> slice:
-    """The rows of the global batch this process packs: contiguous, in
-    rank order (``vrdone_tpu/parallel/mesh.py::local_batch_slice``)."""
-    n = process_count()
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """This rank's place in the dp x tp x sp layout: the sizes, its
+    coordinates and its groups (``None`` stands for the default group of
+    all ranks). A group may hold this rank alone (the dp group at n_dp 1):
+    a collective over it returns its input."""
+    n_dp: int = 1
+    n_tp: int = 1
+    n_sp: int = 1
+    dp: int = 0
+    tp: int = 0
+    sp: int = 0
+    dp_group: Any = None      # the ranks that differ only in dp
+    tp_group: Any = None      # ... only in tp
+    sp_group: Any = None      # ... only in sp
+    dpsp_group: Any = None    # the dp x sp ranks of this tp index
+
+
+def default_layout() -> Layout:
+    """Data parallelism over every rank of the process group (one process
+    without one): ``make_layout()``'s layout, without new groups."""
+    return Layout(n_dp=process_count(), dp=process_index())
+
+
+def make_layout(n_dp: Optional[int] = None, n_tp: int = 1,
+                n_sp: int = 1) -> Layout:
+    """This rank's layout in a (n_dp, n_tp, n_sp) arrangement of the
+    process group's ranks, in the row-major order of JAX's ``make_mesh``;
+    ``n_dp`` defaults to world / (n_tp n_sp). Every rank makes every group,
+    in the same order (``torch.distributed.new_group``'s rule), so every
+    rank calls this with the same sizes. Sizes whose product is not the
+    world size raise."""
+    world, rank = process_count(), process_index()
+    if n_dp is None:
+        n_dp = world // (n_tp * n_sp)
+    if min(n_dp, n_tp, n_sp) < 1 or n_dp * n_tp * n_sp != world:
+        raise ValueError(f"a layout of n_dp {n_dp} x n_tp {n_tp} x n_sp "
+                         f"{n_sp} needs that many ranks; the world has "
+                         f"{world}")
+    if n_tp == n_sp == 1:
+        return default_layout()
+    ranks = torch.arange(world).reshape(n_dp, n_tp, n_sp)
+    coords = [int(c) for c in (ranks == rank).nonzero()[0]]
+
+    def family(lines: torch.Tensor):
+        """One group for each line of ranks (every rank makes each); this
+        rank's."""
+        mine = None
+        for line in lines.reshape(-1, lines.shape[-1]).tolist():
+            group = dist.new_group(line)
+            if rank in line:
+                mine = group
+        return mine
+
+    return Layout(
+        n_dp=n_dp, n_tp=n_tp, n_sp=n_sp, dp=coords[0], tp=coords[1],
+        sp=coords[2],
+        dp_group=family(ranks.permute(1, 2, 0)),
+        tp_group=family(ranks.permute(0, 2, 1)),
+        sp_group=family(ranks),
+        dpsp_group=family(ranks.permute(1, 0, 2).reshape(n_tp, -1)))
+
+
+def local_batch_slice(global_batch_size: int,
+                      layout: Optional[Layout] = None) -> slice:
+    """The rows of the global batch this process packs: contiguous, in the
+    order of the dp index (``vrdone_tpu/parallel/mesh.py::
+    local_batch_slice``; under dp alone the dp index is the rank)."""
+    layout = layout or default_layout()
+    n = layout.n_dp
     assert global_batch_size % n == 0, (global_batch_size, n)
     local = global_batch_size // n
-    r = process_index()
-    return slice(r * local, (r + 1) * local)
+    return slice(layout.dp * local, (layout.dp + 1) * local)
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, in place, on the default group; ``x``
-    itself without a process group."""
+# the time axis of each temporal key of a training batch (the JAX
+# package's sp_batch_shardings: feats and seq_mask P(dp, sp), gt_masks
+# P(dp, None, sp)); every other key is sharded over dp only
+TIME_AXES = {"feats": 1, "seq_mask": 1, "gt_masks": 2}
+
+
+def check_time_split(max_seq_len: int, n_sp: int, scale_factor: int,
+                     n_levels: int) -> None:
+    """Raise unless ``max_seq_len`` splits into n_sp shards that every
+    pyramid level divides alike: each shard must start on a multiple of the
+    coarsest level's stride, scale_factor ** n_levels."""
+    stride = scale_factor ** n_levels
+    if max_seq_len % (n_sp * stride):
+        raise ValueError(
+            f"max_seq_len {max_seq_len} does not split over n_sp {n_sp}: "
+            f"sequence parallelism needs max_seq_len divisible by n_sp x "
+            f"scale_factor ** backbone_arch[2] = {n_sp} x {stride}")
+
+
+def time_slice(batch: dict, layout: Layout) -> dict:
+    """This rank's time columns of a batch of its rows: ``feats``,
+    ``seq_mask`` and ``gt_masks`` cut to the contiguous columns [sp T /
+    n_sp, (sp + 1) T / n_sp); numpy arrays or tensors, the other keys as
+    they are."""
+    if layout.n_sp == 1:
+        return batch
+    out = dict(batch)
+    for key, axis in TIME_AXES.items():
+        x = batch[key]
+        t = x.shape[axis] // layout.n_sp
+        index = (slice(None),) * axis + (slice(layout.sp * t,
+                                               (layout.sp + 1) * t),)
+        out[key] = x[index]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the parameters' shards
+# ---------------------------------------------------------------------------
+
+def tp_plan(model: nn.Module, n_tp: int,
+            min_size: int = 1 << 16) -> dict[str, int]:
+    """{parameter name: the dimension its shards split} under JAX's
+    ``tp_shardings`` rule, taken on each leaf's JAX-layout shape: two or
+    more axes, at least ``min_size`` elements and a last axis that n_tp
+    divides. That axis is the output features, dim 0 in the port's layout,
+    of a kernel, and the last dim of any other leaf (``query_embed``)."""
+    plan = {}
+    for name, p in model.named_parameters():
+        # the JAX layout (convert.py::params_to_jax) reverses a kernel's axes
+        dim = 0 if is_flax_kernel(name, p) else p.ndim - 1
+        if (n_tp > 1 and p.ndim >= 2 and p.numel() >= min_size
+                and p.shape[dim] % n_tp == 0):
+            plan[name] = dim
+    return plan
+
+
+def shard_params_(model: nn.Module, layout: Layout,
+                  min_size: int = 1 << 16) -> dict[str, int]:
+    """Keep only this rank's shard of each leaf of ``tp_plan`` (counterpart
+    of ``shard_params``), and record it on the leaf's module as
+    ``tp_dims`` {attribute: dim} and ``tp_layout``, which its forward
+    reads. Returns the plan."""
+    plan = tp_plan(model, layout.n_tp, min_size)
+    modules = dict(model.named_modules())
+    for name, dim in plan.items():
+        owner, _, attr = name.rpartition(".")
+        module = modules[owner]
+        if attr not in getattr(module, "TP_SHARDABLE", ()):
+            raise NotImplementedError(
+                f"{name}: {type(module).__name__} has no tensor-parallel "
+                f"form for {attr}")
+        full = getattr(module, attr)
+        setattr(module, attr, nn.Parameter(
+            take_shard(full.detach(), dim, layout).clone()))
+        module.tp_dims = {**getattr(module, "tp_dims", {}), attr: dim}
+        module.tp_layout = layout
+    return plan
+
+
+def take_shard(x: torch.Tensor, dim: int, layout: Layout) -> torch.Tensor:
+    """This rank's shard of the full tensor ``x`` along ``dim``."""
+    n = x.shape[dim] // layout.n_tp
+    return x.narrow(dim, layout.tp * n, n)
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (the default group: all
+    ranks), in place; ``x`` itself without a process group."""
     if is_distributed():
-        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
 

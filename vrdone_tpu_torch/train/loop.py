@@ -23,9 +23,20 @@ divides its losses by the global normalisers (``compute_losses``'
 ``reduce``), and sums the ranks' partial gradients with one all-reduce of
 a flat buffer; the clip, AdamW and EMA then run alike on every rank. The
 step takes its gradients with ``torch.autograd.grad``, so DDP's hooks would
-never fire: the all-reduce is the step's own. Sequence and tensor
-parallelism are not ported (ROADMAP.md queue 1, sequence and tensor
-parallelism).
+never fire: the all-reduce is the step's own.
+
+Sequence and tensor parallelism (a ``parallel.mesh.Layout`` of dp x tp x
+sp ranks, ``TrainState.layout``): N ranks take the step one process takes
+on the global batch, as JAX's sp and tp steps equal its dp step. Under sp
+a rank holds its time columns of its dp rows (``mesh.time_slice``), and
+the forward (halos, gathers, the decoder whole on the gathered coarsest
+level) and the losses (time reductions summed over the sp ranks) run under
+``collectives.time_sharded``; under tp (``create_train_state(...,
+tp=True)``) a rank holds only its shards of the large kernels (and their
+moments and EMA). The objective is the sum of every rank's loss, so the
+gradient of a replicated leaf is summed over all ranks (the same flat
+all-reduce), that of a tp shard over the dp x sp ranks of its tp index,
+and the losses over all ranks.
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ from ..config import ModelConfig
 from ..convert import load_params
 from ..models.maskvrd import MaskVRD, compute_losses
 from ..ops.masked import StepDraws
-from ..parallel import mesh
+from ..parallel import collectives, mesh
 from ..utils.precision import cast_tensors, compute_dtype
 from . import optim
 
@@ -56,31 +67,37 @@ DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters are the trained ones), their EMA in the
-    order of ``model.parameters()``, the optimizer and the step count."""
+    """The model (its parameters are the trained ones, or this rank's
+    shards of them: ``tp_dims``), their EMA in the order of
+    ``model.parameters()``, the optimizer, the step count and the rank's
+    layout."""
     model: MaskVRD
     ema_params: list[torch.Tensor]
     optimizer: optim.Optimizer
     step: int = 0
     ema_decay: float = 0.999
+    layout: mesh.Layout = dataclasses.field(default_factory=mesh.Layout)
+    tp_dims: dict[str, int] = dataclasses.field(default_factory=dict)
 
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())
-
-    def ema_state_dict(self) -> dict[str, torch.Tensor]:
-        """The EMA parameters under the model's ``state_dict`` names."""
-        names = [n for n, _ in self.model.named_parameters()]
-        return dict(zip(names, self.ema_params))
 
 
 def create_train_state(cfg: ModelConfig, training_config: dict,
                        num_iters_per_epoch: int, *, device: torch.device,
                        generator: Optional[torch.Generator] = None,
-                       flax_params: Optional[dict] = None
+                       flax_params: Optional[dict] = None,
+                       layout: Optional[mesh.Layout] = None,
+                       tp: bool = False, tp_min_size: int = 1 << 16
                        ) -> tuple[TrainState, optim.Schedule]:
     """Build the model (random init from ``generator``, or the flattened
     flax parameters ``flax_params``), its EMA copy and the optimizer. The
-    parameters are fp32 whatever ``cfg.compute_dtype`` is."""
+    parameters are fp32 whatever ``cfg.compute_dtype`` is. ``layout``
+    (``mesh.make_layout``; data parallelism over every rank by default) is
+    the rank's place; with ``tp`` the rank keeps only its shards of the
+    leaves JAX's ``tp_shardings`` shards at ``tp_min_size``
+    (``mesh.shard_params_``), as the JAX package's
+    ``create_train_state(..., tp=True)``."""
     compute_dtype(cfg.compute_dtype)   # raises for a name it does not take
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {cfg.remat_policy!r}, not one of "
@@ -92,17 +109,24 @@ def create_train_state(cfg: ModelConfig, training_config: dict,
     model = MaskVRD(cfg, device=torch.device("cpu"), generator=generator)
     if flax_params is not None:
         load_params(model, flax_params)
+    layout = layout or mesh.default_layout()
+    tp_dims = mesh.shard_params_(model, layout, tp_min_size) if tp else {}
     model.to(device)
     opt, schedule = optim.build_optimizer(model.named_parameters(),
                                           training_config,
                                           num_iters_per_epoch)
+    if tp_dims:
+        opt.sharded = [n in tp_dims for n, _ in model.named_parameters()]
+        opt.shard_sum = functools.partial(mesh.all_reduce_sum,
+                                          group=layout.tp_group)
     state = TrainState(
         model=model,
         ema_params=[p.detach().clone() for p in model.parameters()],
         optimizer=opt,
         # reference ModelEma decay 0.999; configurable as in the JAX package
         # (short runs evaluate EMA weights and need a faster average)
-        ema_decay=float(training_config.get("ema_decay", 0.999)))
+        ema_decay=float(training_config.get("ema_decay", 0.999)),
+        layout=layout, tp_dims=tp_dims)
     return state, schedule
 
 
@@ -115,14 +139,15 @@ def batch_to_device(batch: dict[str, np.ndarray],
 
 
 def _forward(model: MaskVRD, batch: dict[str, torch.Tensor],
-             draws: Optional[StepDraws]) -> dict:
+             draws: Optional[StepDraws], layout: mesh.Layout) -> dict:
     """The step's forward in training mode, as the JAX train step's
     ``forward``: in bf16 on ``cast_tensors`` of the fp32 parameters with
     bf16 features, and with ``remat`` under ``checkpoint``. The drop-path
     and dropout masks come from a generator rebuilt from ``draws``'
     generator state at each run, so the recompute draws the masks the
     forward drew (``checkpoint`` restores the default generators, not this
-    one); ``draws`` itself is not advanced."""
+    one); ``draws`` itself is not advanced. Each run is time-sharded as
+    ``layout`` says, the recompute too."""
     cfg = model.config
     dtype = compute_dtype(cfg.compute_dtype)
     rng = None if draws is None else draws.generator.get_state()
@@ -130,10 +155,12 @@ def _forward(model: MaskVRD, batch: dict[str, torch.Tensor],
     def run():
         gen = None if rng is None else draws.restarted(rng)
         feats = batch["feats"].to(dtype)
-        if dtype == torch.float32:
-            return model(feats, batch["seq_mask"], gen)
-        return torch.func.functional_call(
-            model, cast_tensors(model, dtype), (feats, batch["seq_mask"], gen))
+        with collectives.time_sharded(layout):
+            if dtype == torch.float32:
+                return model(feats, batch["seq_mask"], gen)
+            return torch.func.functional_call(
+                model, cast_tensors(model, dtype),
+                (feats, batch["seq_mask"], gen))
 
     if not cfg.remat:
         return run()
@@ -145,17 +172,22 @@ def _forward(model: MaskVRD, batch: dict[str, torch.Tensor],
 
 
 def step_draws(generator: Optional[torch.Generator | StepDraws],
-               local_batch: int) -> Optional[StepDraws]:
+               local_batch: int,
+               layout: Optional[mesh.Layout] = None) -> Optional[StepDraws]:
     """The step's draws for this rank: at the global batch's shape
-    (``local_batch`` rows a rank) from ``generator``, keeping the rows from
-    this rank's offset. A ``StepDraws`` keeps its own source of draws."""
+    (``local_batch`` rows a dp index) from ``generator``, keeping the rows
+    from this rank's dp offset (the sp and tp ranks of one dp index draw
+    alike) and, for a time-sharded tensor, its sp columns. A ``StepDraws``
+    keeps its own source of draws."""
     if generator is None:
         return None
-    n, r = mesh.process_count(), mesh.process_index()
+    layout = layout or mesh.default_layout()
+    kw = dict(global_batch=layout.n_dp * local_batch,
+              row_offset=layout.dp * local_batch, time_parts=layout.n_sp,
+              time_index=layout.sp)
     if isinstance(generator, StepDraws):
-        return dataclasses.replace(generator, global_batch=n * local_batch,
-                                   row_offset=r * local_batch)
-    return StepDraws(generator, n * local_batch, r * local_batch)
+        return dataclasses.replace(generator, **kw)
+    return StepDraws(generator, **kw)
 
 
 def train_step(state: TrainState, batch: dict[str, torch.Tensor],
@@ -163,13 +195,18 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor],
                ) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """One optimisation step on ``batch`` (tensors on the model's device;
     under data parallelism this rank's rows of the global batch, the same
-    number on every rank). Updates ``state`` in place and returns it with
+    number on every rank; under sequence parallelism their time columns,
+    ``mesh.time_slice``). Updates ``state`` in place and returns it with
     the detached losses of the global batch."""
-    model = state.model
+    model, layout = state.model, state.layout
     model.train()
-    preds = _forward(model, batch,
-                     step_draws(generator, batch["feats"].shape[0]))
-    losses = compute_losses(model.config, preds, batch, mesh.all_reduce_sum)
+    b = batch["feats"].shape[0]
+    preds = _forward(model, batch, step_draws(generator, b, layout), layout)
+    with collectives.time_sharded(layout):
+        losses = compute_losses(
+            model.config, preds, batch,
+            functools.partial(mesh.all_reduce_sum, group=layout.dp_group),
+            copies=layout.n_tp)
     params = state.params()
     grads = torch.autograd.grad(losses["total_loss"], params,
                                 allow_unused=True)
@@ -180,10 +217,21 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor],
     if mesh.is_distributed():
         # in a process group, even of one (the sums are then collectives),
         # each rank's loss is its partial sum over the global normalisers:
-        # the SUM of the ranks' gradients (and losses) is the global one
-        flat = mesh.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
-        grads = [g.view_as(p) for g, p in
-                 zip(flat.split([p.numel() for p in params]), params)]
+        # the SUM of the ranks' gradients (and losses) is the global one;
+        # a tp shard's is summed over the dp x sp ranks of its tp index
+        names = [n for n, _ in model.named_parameters()]
+        for group, idx in ((None, [i for i, n in enumerate(names)
+                                   if n not in state.tp_dims]),
+                           (layout.dpsp_group,
+                            [i for i, n in enumerate(names)
+                             if n in state.tp_dims])):
+            if not idx:
+                continue
+            flat = mesh.all_reduce_sum(
+                torch.cat([grads[i].reshape(-1) for i in idx]), group)
+            for i, g in zip(idx, flat.split([params[i].numel()
+                                             for i in idx])):
+                grads[i] = g.view_as(params[i])
         total = mesh.all_reduce_sum(torch.stack(list(losses.values())))
         losses = dict(zip(losses, total.unbind()))
     state.optimizer.update([p.data for p in params], grads)

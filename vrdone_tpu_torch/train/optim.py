@@ -95,11 +95,23 @@ def bias_mask(named_params) -> dict[str, bool]:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         sharded: list[bool] | None = None,
+                         shard_sum: Callable[[torch.Tensor],
+                                             torch.Tensor] | None = None
+                         ) -> None:
     """optax.clip_by_global_norm in place: g / norm * max_norm when the
     global L2 norm is not below max_norm, else unchanged. Stays on the
-    device (no host sync)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    device (no host sync). Under tensor parallelism the leaves flagged in
+    ``sharded`` are this rank's shards: their squared norms are summed over
+    the tp ranks by ``shard_sum``, and the replicated leaves count once."""
+    norms = torch._foreach_norm(grads)
+    if sharded is None or not any(sharded):
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        sq = torch.stack(norms) ** 2
+        flags = torch.tensor(sharded, device=sq.device)
+        norm = torch.sqrt(sq[~flags].sum() + shard_sum(sq[flags].sum()))
     keep = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -112,7 +124,10 @@ class Optimizer:
     ``optax.chain(clip_by_global_norm(clip), adamw(schedule, 0.9, 0.999,
     1e-8, weight_decay, mask))`` or ``chain(add_decayed_weights(wd, mask),
     sgd(schedule, momentum))``. ``update`` changes the parameters in place
-    and returns the learning rate it used."""
+    and returns the learning rate it used. Under tensor parallelism
+    ``sharded`` flags the parameters that are this rank's shards and
+    ``shard_sum`` sums over the tp ranks (the clip's norm); every other
+    step is elementwise, so it runs on the shards as on whole leaves."""
 
     def __init__(self, kind: str, schedule: Schedule, decay: list[bool], *,
                  weight_decay: float, clip: float = 0.0,
@@ -127,6 +142,9 @@ class Optimizer:
         self.clip = clip
         self.momentum = momentum
         self.b1, self.b2, self.eps = b1, b2, eps
+        # Set by train/loop.py::create_train_state under tensor parallelism.
+        self.sharded: list[bool] | None = None
+        self.shard_sum: Callable[[torch.Tensor], torch.Tensor] | None = None
         self.count = 0
         self.moments: dict[str, list[torch.Tensor]] = {}
 
@@ -144,7 +162,8 @@ class Optimizer:
         if not self.moments:
             self._init(params)
         if self.clip and self.clip > 0.0:
-            clip_by_global_norm_(grads, self.clip)
+            clip_by_global_norm_(grads, self.clip, self.sharded,
+                                 self.shard_sum)
         lr = self.schedule(self.count)
         self.count += 1
         decayed = [i for i, d in enumerate(self.decay) if d]
