@@ -44,7 +44,14 @@ one process per source, all started together, into
      mutual layers (B*H=48*8, T=512, d=64, w=4), each timed alone beside
      its fp32 instance, the plain version, SDPA's bf16 backward and the
      bound at the dense bf16 rate, with both instances' registers and
-     spills where this run built them;
+     spills where this run built them; then K7 with its lse and the full
+     attention's backward, K8 (dQ) and K9 (dK, dV) in
+     ``csrc/masked_attention_bwd.cu``, in fp32 and bf16 at every full
+     attention's shape of phase 18's step (``FLASH_SHAPES``: B*H=48*8,
+     512x512 at d=64; 9x9 and 9x64 at d=32) against ``full_attention_plain``,
+     ``full_attention_lse_plain`` and ``full_attention_backward_plain``,
+     each timed alone beside the plain version, SDPA (its backward for K8
+     and K9) and the bound;
   3. runs the full-width VidVRD ``MaskVRD`` eval forward
      (``configs/vidvrd.yaml``, random seeded weights) on the card against
      the same weights on the CPU, counts the kernel launches of one forward
@@ -231,6 +238,18 @@ one process per source, all started together, into
      rank's launches (K1 with its lse, K2 and K3 once a band layer at
      T_local + 2w, no dense band form), under tp the sharded leaves and
      elements.
+ 18. (run right after 17) flash training (``VRDONE_FLASH_TRAIN=1``) at
+     ``configs/vidor.yaml``'s full width (T=512, 8 heads, ``use_local``
+     off, random seeded weights): three fp32 steps at 4 pairs on the card
+     and the CPU (losses, step-0 gradients, drift) and the launches of a
+     step at the config's 48 pairs (K7 with its lse, K8 and K9 once each of
+     the 16 full attentions, no dense form), the kernels held on that
+     step's own inputs; three bf16 steps under remat at 4 pairs against the
+     port's bf16 CPU steps (``BF16_LOSS_TOL``, step-0 gradients within
+     ``BF16_STEP_GRAD_TOL``) and the kernels on a 48-pair step's inputs;
+     the card's flash step against its dense step at 48 pairs in fp32 and
+     in bf16 under remat (losses, step-0 gradients, launches), both timed
+     in turns with their peak memory.
 
 Any failed check raises. The second-to-last line of output is a JSON object
 of per-kernel results; the last is ``{"ok": true, "device": {...}}``. With
@@ -253,6 +272,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -326,6 +346,22 @@ RELPE_TRAIN_PAIRS = (2, 48)  # bf16 rel-PE steps: on both devices; timed
 BWD_BF16_SHAPES = tuple((TRAIN_PAIRS[1], 4, 128, 3, t) for t in (96, 48, 24,
                                                                  12)) + (
     (TRAIN_PAIRS[2], 4, 128, 3, 96), (RELPE_TRAIN_PAIRS[1], 8, 64, 4, 512))
+# phase 18, flash training (VRDONE_FLASH_TRAIN=1) at configs/vidor.yaml's
+# width: pairs held against the CPU, and the config's global batch (3 items
+# of 16 pairs), at which the card's steps are counted, held dense against
+# flash and timed
+FLASH_PAIRS = (4, 48)
+# (B, H, d, Tq, Tk) of the full attentions of that step: the 8 S/O
+# cross-attentions, and the predictor's self-attention (9 queries) and
+# cross-attention (9 queries over the coarsest level's 64 frames), 4 each
+FLASH_SHAPES = ((FLASH_PAIRS[1], 8, 64, 512, 512),
+                (FLASH_PAIRS[1], 8, 32, 9, 9), (FLASH_PAIRS[1], 8, 32, 9, 64))
+# bf16 train step's first gradients, card vs the port's CPU run (or the
+# card's dense step), |dg| / |g| over the model: the bound the CPU parity
+# test holds the port's bf16 step to against JAX's
+# (tests/test_torch_bf16_train.py::BF16_GRAD_NORM); both round to bf16 in
+# their own places
+BF16_STEP_GRAD_TOL = 0.15
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
 
@@ -1015,6 +1051,177 @@ def check_band_backward_bf16(cuda, ba, band_rows: list) -> dict:
     return entries
 
 
+def full_backward_bound(kernel: str, b, h, d, tq, tk, mask, esize,
+                        peak) -> tuple[float, str]:
+    """The bound of K7 with its lse ("fwd"), K8 ("dq") or K9 ("dkv") at a
+    shape: each input read once and each output written once (streams of
+    ``esize`` bytes, lse and Dr fp32, the mask a byte a key), against 4, 6
+    or 8 operations a (query, valid key) pair a channel at ``peak``."""
+    nq, nk, stats = b * tq * h * d, b * tk * h * d, 4 * b * h * tq
+    n_bytes, per = {"fwd": (esize * (2 * nq + 2 * nk) + stats, 4),
+                    "dq": (esize * (3 * nq + 2 * nk) + 2 * stats, 6),
+                    "dkv": (esize * (2 * nq + 4 * nk) + 2 * stats, 8)}[kernel]
+    return bound_ms(n_bytes + mask.numel(),
+                    per * d * h * tq * int(mask.sum()), peak)
+
+
+def hold_full_backward(fa, label: str, q, k, v, mask, lse, dr, dout,
+                       h: int) -> list:
+    """K7 (output and lse, launched again), K8 and K9 on one set of inputs
+    (``lse`` the one the backward reads) against their plain versions: K7's
+    output within KERNEL_TOL, its lse within LSE_TOL (+inf exactly where a
+    row has no valid key) and equal to ``lse``; dQ, dK, dV within GRAD_TOL
+    of max(1, max |grad|) in fp32, everything within BF16_KERNEL_TOL of 1 +
+    max |plain| in bf16; an invalid key's dK and dV exactly 0. Prints the
+    gaps and raises on any; returns the max abs errors of K7's output, dQ,
+    dK and dV."""
+    fp32 = q.dtype == torch.float32
+    with torch.no_grad():
+        out, lse2 = fa.full_attention_cuda(q, k, v, mask, n_head=h,
+                                           with_lse=True)
+        ref = fa.full_attention_plain(q, k, v, mask, n_head=h)
+        ref_lse = fa.full_attention_lse_plain(q, k, mask, n_head=h)
+    got = (fa.full_attention_dq_cuda(q, k, v, mask, lse, dr, dout, n_head=h),
+           *fa.full_attention_dkv_cuda(q, k, v, mask, lse, dr, dout,
+                                       n_head=h))
+    want = (ref, *fa.full_attention_backward_plain(q, k, v, mask, lse, dr,
+                                                   dout, n_head=h))
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref_lse)
+    lse_err = ((lse2 - ref_lse).abs()[fin]
+               / (1 + ref_lse.abs()[fin])).max().item()
+    errs, limits = [], []
+    for i, (g, w) in enumerate(zip((out, *got), want)):
+        w = w.float()
+        errs.append((g.float() - w).abs().max().item())
+        limits.append(BF16_KERNEL_TOL * (1 + w.abs().max().item()) if not fp32
+                      else KERNEL_TOL if i == 0
+                      else GRAD_TOL * max(1.0, w.abs().max().item()))
+    zero = bool((got[1][~mask] == 0).all() and (got[2][~mask] == 0).all())
+    same = torch.equal(lse, lse2)
+    print(f"{label} {q.dtype}: K7 out, dQ, dK, dV max_abs_err "
+          + ", ".join(f"{e:.3e}" for e in errs) + " (limits "
+          + ", ".join(f"{x:.3e}" for x in limits) + f"); lse rel err "
+          f"{lse_err:.3e}, equal to the backward's: {same}; invalid keys' "
+          f"dK, dV all 0: {zero}")
+    if not (lse_err <= LSE_TOL and same and zero
+            and torch.equal(torch.isposinf(lse2), ~fin)
+            and all(e <= x for e, x in zip(errs, limits))):
+        raise AssertionError(f"{label} {q.dtype}: kernels off their plain "
+                             "versions")
+    return errs
+
+
+def check_full_backward(cuda, fa, full_rows: dict) -> dict:
+    """K7 with its lse, K8 (dQ) and K9 (dK, dV) at every full attention's
+    shape of the flash train step (``FLASH_SHAPES``), in fp32 and bf16, on
+    streams with a key mask of random lengths: each against its plain
+    version on the same streams (``hold_full_backward``). Each timed alone (queued behind a device sleep) beside the
+    plain version (K8 and K9: the whole plain backward), the one library
+    call (SDPA's forward with the key mask for K7, its backward for K8 and
+    K9) and the bound (the fp32 FMA rate, or the bf16 tensor-core rate),
+    with the instance and, where this run built it, its registers. Returns
+    the JSON entries ``masked_attention_dq`` / ``_dkv`` and their bf16
+    twins (headline: the S/O cross-attention), and appends K7 with its lse
+    to ``full_rows`` (the by_shape rows of ``masked_attention`` and
+    ``masked_attention_bf16``); returns their worst errors too, under
+    those names."""
+    rng = np.random.default_rng(11)
+    usage = instance_usage("masked_attention_bwd")
+    names = {torch.float32: ("masked_attention", "masked_attention_dq",
+                             "masked_attention_dkv"),
+             torch.bfloat16: ("masked_attention_bf16",
+                              "masked_attention_dq_bf16",
+                              "masked_attention_dkv_bf16")}
+    entries = {n: {"by_shape": [], "max_abs_err": 0.0}
+               for trio in names.values() for n in trio[1:]}
+    worst_fwd = {trio[0]: 0.0 for trio in names.values()}
+    for dtype, (n_fwd, n_dq, n_dkv) in names.items():
+        fp32 = dtype == torch.float32
+        peak, esize = (PEAK_FLOPS, 4) if fp32 else (PEAK_BF16_MMA, 2)
+        for b, h, d, tq, tk in FLASH_SHAPES:
+            q, k, v, mask = attention_inputs(rng, b, tq, tk, h * d, cuda)
+            mask[1, tk // 3] = False   # an invalid key inside a valid stretch
+            dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
+                np.float32)).to(cuda)
+            q, k, v, dout = (x.to(dtype) for x in (q, k, v, dout))
+            shape = f"B*H={b}*{h} Tq={tq} Tk={tk} d={d}"
+            kw = dict(n_head=h)
+            with torch.no_grad():
+                out, lse = fa.full_attention_cuda(q, k, v, mask,
+                                                  with_lse=True, **kw)
+                dr = fa.band_rowsum(dout, out, h)
+            args = (q, k, v, mask, lse, dr, dout)
+            out_err, *errs = hold_full_backward(
+                fa, f"full attention backward {shape}", *args, h)
+            worst_fwd[n_fwd] = max(worst_fwd[n_fwd], out_err)
+            entries[n_dq]["max_abs_err"] = max(entries[n_dq]["max_abs_err"],
+                                               errs[0])
+            entries[n_dkv]["max_abs_err"] = max(
+                entries[n_dkv]["max_abs_err"], *errs[1:])
+            # K7 with its lse alone, beside its plain versions and SDPA
+            lib_in = [heads(x, h).detach().requires_grad_() for x in (q, k, v)]
+            lib_mask = mask[:, None, None, :]
+            fwd = lambda: fa.full_attention_cuda(q, k, v, mask, with_lse=True,
+                                                 **kw)
+            bms, by = full_backward_bound("fwd", b, h, d, tq, tk, mask, esize,
+                                          peak)
+            with torch.no_grad():
+                row = dict(shape=f"{shape} with lse", max_abs_err=out_err,
+                           ms=time_ms(fwd), device_ms=queued_device_ms(fwd),
+                           plain_ms=time_ms(lambda: (
+                               fa.full_attention_plain(q, k, v, mask, **kw),
+                               fa.full_attention_lse_plain(q, k, mask,
+                                                           **kw))),
+                           library_ms=time_ms(
+                               lambda: F.scaled_dot_product_attention(
+                                   *lib_in, attn_mask=lib_mask)),
+                           bound_ms=bms, bound_by=by)
+            full_rows[n_fwd].append(row)
+            print(f"{n_fwd} {shape} with lse: the kernel alone "
+                  f"{row['device_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                  f"ms, library (SDPA) {row['library_ms']:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by})")
+            lib_out = F.scaled_dot_product_attention(*lib_in,
+                                                     attn_mask=lib_mask)
+            lib_dout = heads(dout, h)
+            plain_ms = time_ms(lambda: fa.full_attention_backward_plain(
+                *args, **kw), iters=5)
+            for name, kernel, lib_wrt, part, n_own in (
+                    (n_dq, lambda: fa.full_attention_dq_cuda(*args, **kw),
+                     lib_in[:1], "dq", tq),
+                    (n_dkv, lambda: fa.full_attention_dkv_cuda(*args, **kw),
+                     lib_in[1:], "dkv", tk)):
+                def library(wrt=lib_wrt):
+                    return torch.autograd.grad(lib_out, wrt, lib_dout,
+                                               retain_graph=True)
+
+                bms, by = full_backward_bound(part, b, h, d, tq, tk, mask,
+                                              esize, peak)
+                row = dict(shape=shape, ms=time_ms(kernel),
+                           device_ms=queued_device_ms(kernel),
+                           plain_ms=plain_ms, library_ms=time_ms(library),
+                           bound_ms=bms, bound_by=by)
+                i = fa.backward_instance(cuda.index or 0, n_own, d)
+                rows, bucket = i["rows"], i["bucket"]
+                inst = (f"masked_attention_bwd_kernel<{bucket}, {rows // 16}"
+                        f", {'float' if fp32 else 'bf16'}, "
+                        f"{str(part == 'dkv').lower()}>")
+                regs = usage.get(inst, "registers not reported, already "
+                                 "built")
+                print(f"{name} {shape} (instance {inst}: {rows} owner rows "
+                      f"a block; {regs}): the kernel alone "
+                      f"{row['device_ms']:.4f} ms, plain backward (all three "
+                      f"gradients) {plain_ms:.4f} ms, library (SDPA) "
+                      f"backward {row['library_ms']:.4f} ms, bound "
+                      f"{bms:.4f} ms ({by})")
+                entries[name]["by_shape"].append(row)
+                if (tq, tk) == (512, 512):
+                    entries[name].update(row)
+            del lib_in, lib_out, args
+    return entries, worst_fwd
+
+
 def build_models(cfg, cuda):
     from vrdone_tpu_torch.models.layers import AffineDropPath
     from vrdone_tpu_torch.models.maskvrd import MaskVRD
@@ -1148,7 +1355,6 @@ def check_bf16_serving(cuda, ba, fa) -> dict:
             x, mask = x.to(cuda), mask.to(cuda)
             x16 = x.to(bf)
             zero_counts(ba, fa)
-            fa.bf16_launches = 0
             with dense_band_calls(ba) as dense:
                 _, scores, catids, masks_bin = serve(gpu16, x16, mask, topk)
                 torch.cuda.synchronize()
@@ -1402,12 +1608,14 @@ class PoolReplay:
         return out.transpose(1, 2)
 
 
-def check_step0_gradients(label: str, names, got, want) -> float:
+def check_step0_gradients(label: str, names, got, want,
+                          tol: float = STEP_GRAD_TOL) -> float:
     """The step-0 gradients (the first moments after step 0, 0.1 g) ``got``
-    against ``want``: over the whole model by norm within STEP_GRAD_TOL,
-    and the three leaves furthest off printed for the record (a leaf whose
-    gradient is a sum that nearly cancels, as softmax makes of the key
-    projections', carries a larger share of rounding). Returns the gap."""
+    against ``want``: over the whole model by norm within ``tol``
+    (STEP_GRAD_TOL by default), and the three leaves furthest off printed
+    for the record (a leaf whose gradient is a sum that nearly cancels, as
+    softmax makes of the key projections', carries a larger share of
+    rounding). Returns the gap."""
     num = sum(((a - b) ** 2).sum() for a, b in zip(got, want))
     den = sum((b ** 2).sum() for b in want)
     rel = (num / den).sqrt().item()
@@ -1419,20 +1627,22 @@ def check_step0_gradients(label: str, names, got, want) -> float:
     print(f"{label}: |dg| / |g| over the model {rel:.3e}; worst leaves (max "
           f"err / leaf max, leaf max / model max): " + "; ".join(
               f"{n} {e:.2e}, {m:.2e}" for e, n, m in reversed(leaves)))
-    if not rel <= STEP_GRAD_TOL:
+    if not rel <= tol:
         raise AssertionError(f"{label}: off by {rel}")
     return rel
 
 
 def check_train_step(cfg, raw, cuda, ba, fa, pairs=TRAIN_PAIRS[:2],
-                     label: str = ""):
+                     label: str = "", flash: bool = False):
     """Three full-width fp32 train steps at ``pairs[0]`` pairs on the card
     and on the CPU from the same weights, batch and drop-path draws: losses
     within LOSS_TOL, step-0 gradients within STEP_GRAD_TOL, parameters and
     EMA within DRIFT_TOL; then the launches of one step at ``pairs[1]``
     pairs (K1, K2 and K3 fp32 once a band layer, the dense full attention,
-    no K7 and no dense band form). Returns the card's train state and the
-    launches of that one step per kernel."""
+    no K7 and no dense band form; with ``flash``, which the caller has set
+    in ``ops.masked.FLASH_TRAIN``, K7 with its lse, K8 and K9 once a full
+    attention and no dense full attention). Returns the card's train state
+    and the launches of that one step per kernel."""
     from vrdone_tpu_torch.models.layers import AffineDropPath
     from vrdone_tpu_torch.models.maskvrd import match
     from vrdone_tpu_torch.ops import masked as mops
@@ -1539,14 +1749,19 @@ def check_train_step(cfg, raw, cuda, ba, fa, pairs=TRAIN_PAIRS[:2],
         train_step(state, tb, step_generator(0, state.step))
         torch.cuda.synchronize()
     launches = band_counts(ba, fa)
-    got = {**launches, "dense band form": dense[0],
+    got = {**launches, "K7 with lse": fa.lse_launches,
+           "dense band form": dense[0],
            "dense full attention": fa.dense_calls}
     blocks = 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
+    full = 4 * cfg.backbone_arch[1] + 2 * cfg.predictor.num_layers
     expect = {name: 0 for name in got}
     expect.update(band_attention=blocks, band_attention_dq=blocks,
-                  band_attention_dkv=blocks,
-                  **{"dense full attention": 4 * cfg.backbone_arch[1]
-                     + 2 * cfg.predictor.num_layers})
+                  band_attention_dkv=blocks)
+    if flash:
+        expect.update(masked_attention=full, masked_attention_dq=full,
+                      masked_attention_dkv=full, **{"K7 with lse": full})
+    else:
+        expect["dense full attention"] = full
     print(f"{label}train step at {pairs[1]} pairs: kernel launches {got}")
     if got != expect:
         raise AssertionError(f"{label}train launches {got}, expected "
@@ -1556,7 +1771,8 @@ def check_train_step(cfg, raw, cuda, ba, fa, pairs=TRAIN_PAIRS[:2],
 
 def band_counts(ba, fa) -> dict:
     """The launches of the band kernels (K1, K4, K2, K3), fp32 and bf16
-    instances apart, and of K7 since the counts were last set to 0."""
+    instances apart, of K7 and of the full attention's backward (K8, K9),
+    fp32 and bf16 apart, since the counts were last set to 0."""
     return {"band_attention": ba.launches - ba.bf16_launches,
             "band_attention_bf16": ba.bf16_launches,
             "band_attention_pe": ba.pe_launches - ba.pe_bf16_launches,
@@ -1565,7 +1781,12 @@ def band_counts(ba, fa) -> dict:
             "band_attention_dq_bf16": ba.bf16_dq_launches,
             "band_attention_dkv": ba.dkv_launches - ba.bf16_dkv_launches,
             "band_attention_dkv_bf16": ba.bf16_dkv_launches,
-            "masked_attention": fa.launches}
+            "masked_attention": fa.launches - fa.bf16_launches,
+            "masked_attention_bf16": fa.bf16_launches,
+            "masked_attention_dq": fa.dq_launches - fa.bf16_dq_launches,
+            "masked_attention_dq_bf16": fa.bf16_dq_launches,
+            "masked_attention_dkv": fa.dkv_launches - fa.bf16_dkv_launches,
+            "masked_attention_dkv_bf16": fa.bf16_dkv_launches}
 
 
 def zero_counts(ba, fa) -> None:
@@ -1573,7 +1794,9 @@ def zero_counts(ba, fa) -> None:
     ba.pe_launches = ba.pe_bf16_launches = 0
     ba.dq_launches = ba.bf16_dq_launches = 0
     ba.dkv_launches = ba.bf16_dkv_launches = 0
-    fa.launches = fa.dense_calls = 0
+    fa.launches = fa.bf16_launches = fa.dense_calls = fa.lse_launches = 0
+    fa.dq_launches = fa.bf16_dq_launches = 0
+    fa.dkv_launches = fa.bf16_dkv_launches = 0
 
 
 def level_costs(cfg, preds, tb):
@@ -1594,14 +1817,16 @@ def level_costs(cfg, preds, tb):
 
 
 def bf16_steps_vs_cpu(cfg16, tc, cuda, batch, label: str,
-                      must_move: str | None = None) -> dict:
+                      must_move: str | None = None,
+                      grads: dict | None = None) -> dict:
     """Three bf16 train steps of ``cfg16`` on ``batch`` on the card against
     the port's bf16 CPU steps from the same weights, batch and drop-path
     draws: losses within BF16_LOSS_TOL, matchings equal or near-ties
     within MATCH_TIE_TOL, step 0's CPU run replaying the card's max-pool
     picks; the masters, EMA and moments stay fp32, and on both devices
-    every parameter whose name ends with ``must_move`` has moved. Returns
-    the train states by device."""
+    every parameter whose name ends with ``must_move`` has moved. With
+    ``grads``, each device's first moments after step 0 (0.1 g) go there
+    by device name. Returns the train states by device."""
     from vrdone_tpu_torch.models.layers import AffineDropPath
     from vrdone_tpu_torch.ops import masked as mops
     from vrdone_tpu_torch.train.loop import (batch_to_device,
@@ -1650,6 +1875,9 @@ def bf16_steps_vs_cpu(cfg16, tc, cuda, batch, label: str,
             finally:
                 mops.max_pool1d = max_pool1d
             seconds[name] = time.perf_counter() - t0
+            if step == 0 and grads is not None:
+                grads[name] = [m.detach().cpu().clone()
+                               for m in state.optimizer.moments["mu"]]
         errs = {k: abs(losses["cuda"][k].item() - v.item())
                 / (1 + abs(v.item())) for k, v in losses["cpu"].items()}
         worst = max(errs, key=errs.get)
@@ -1777,14 +2005,14 @@ def check_train_step_bf16(cfg, raw, cuda, ba, fa, state32) -> dict:
         tb = batch_to_device(train_batch(rng, cfg, n_pairs, num_gt), cuda)
         steps = {"fp32": state32, "bf16": state16}
         for st in steps.values():
-            for _ in range(3):
+            for _ in range(2):
                 train_step(st, tb, step_generator(0, st.step))
         torch.cuda.synchronize()
         ms, peak = {k: [] for k in steps}, {}
         for k in ("fp32", "bf16", "bf16", "fp32"):
             st = steps[k]
             torch.cuda.reset_peak_memory_stats()
-            iters = 10
+            iters = 5
             t0 = time.perf_counter()
             for _ in range(iters):
                 _, losses = train_step(st, tb, step_generator(0, st.step))
@@ -2483,6 +2711,219 @@ def check_sequence_tensor_parallel(cuda, ba, fa) -> dict:
             raise AssertionError("tensor parallelism sharded no leaf")
     return {k: v for k, v in ranks[0]["sp"]["launches"].items()
             if not k.startswith("dense")}
+
+
+@contextlib.contextmanager
+def flash_inputs(fa, seen: dict):
+    """While open, keep the inputs of the first K8 launch of each shape
+    (q, k, v, key mask, lse, Dr, dO: what K7, K8 and K9 take) in ``seen``,
+    keyed by (B, H, d, Tq, Tk)."""
+    dq_cuda = fa.full_attention_dq_cuda
+
+    def record(*args, n_head):
+        q, k = args[:2]
+        key = (q.shape[0], n_head, q.shape[2] // n_head, q.shape[1],
+               k.shape[1])
+        if key not in seen:
+            seen[key] = tuple(a.detach().clone() for a in args)
+        return dq_cuda(*args, n_head=n_head)
+
+    fa.full_attention_dq_cuda = record
+    try:
+        yield seen
+    finally:
+        fa.full_attention_dq_cuda = dq_cuda
+
+
+def check_step_inputs(fa, seen: dict, label: str) -> None:
+    """K7 with its lse, K8 and K9 on the inputs a train step gave them, one
+    shape at a time, against their plain versions (``hold_full_backward``;
+    the lse the step saved must equal K7's again); the shapes must be
+    ``FLASH_SHAPES``, at which ``check_full_backward`` times each kernel
+    alone."""
+    if set(seen) != set(FLASH_SHAPES):
+        raise AssertionError(f"{label}: K8 launched at (B, H, d, Tq, Tk) "
+                             f"{sorted(seen)}, timed at {FLASH_SHAPES}")
+    for (b, h, d, tq, tk), args in sorted(seen.items()):
+        hold_full_backward(fa, f"{label} step's own inputs, B*H={b}*{h} "
+                           f"Tq={tq} Tk={tk} d={d}", *args, h)
+
+
+def flash_against_dense(cfg, tc, cuda, tb, ba, fa, mops, label: str,
+                        loss_tol: float, grad_tol: float) -> dict:
+    """One step of ``cfg`` on the card's batch ``tb`` with the opt-in on
+    and off, from copies of one fresh state (lr 0 at step 0, so the first
+    moments are 0.1 g), the dense step replaying the flash step's max-pool
+    picks: losses within ``loss_tol`` of 1 + |loss|, step-0 gradients
+    within ``grad_tol`` by norm; the launches of both (flash: K7 with its
+    lse once a full attention, more under remat, whose recompute runs it
+    again, K8 and K9 once, no dense form; dense: no K7, K8 or K9); then
+    both timed in turns (dense, flash, flash, dense) with their peak
+    memory. Returns the flash step's launches; leaves FLASH_TRAIN on."""
+    from vrdone_tpu_torch.train.loop import create_train_state, train_step
+    from vrdone_tpu_torch.train.loop import step_generator
+    base, _ = create_train_state(cfg, tc, 100, device=cuda,
+                                 generator=torch.Generator().manual_seed(0))
+    states = {mode: copy.deepcopy(base) for mode in ("flash", "dense")}
+    del base
+    full = 4 * cfg.backbone_arch[1] + 2 * cfg.predictor.num_layers
+    blocks = 2 * cfg.backbone_arch[1] + cfg.backbone_arch[2]
+    bf16 = "_bf16" if cfg.compute_dtype == "bfloat16" else ""
+    times = 2 if cfg.remat else 1
+    max_pool1d, pool = mops.max_pool1d, PoolReplay()
+    losses, grads, counts = {}, {}, {}
+    for mode in ("flash", "dense"):
+        mops.FLASH_TRAIN = mode == "flash"
+        pool.replay = mode == "dense"
+        torch.cuda.synchronize()
+        zero_counts(ba, fa)
+        mops.max_pool1d = pool
+        try:
+            _, losses[mode] = train_step(states[mode], tb,
+                                         step_generator(0, 0))
+            torch.cuda.synchronize()
+        finally:
+            mops.max_pool1d = max_pool1d
+        counts[mode] = {**band_counts(ba, fa), "K7 with lse": fa.lse_launches,
+                        "dense full attention": fa.dense_calls}
+        grads[mode] = [m.detach().clone()
+                       for m in states[mode].optimizer.moments["mu"]]
+        print(f"vidor {label} {mode} train step at {FLASH_PAIRS[1]} pairs: "
+              f"kernel launches {counts[mode]}")
+    mops.FLASH_TRAIN = True
+    for mode, got in counts.items():
+        k7, dense = got[f"masked_attention{bf16}"], got["dense full attention"]
+        expect = {name: 0 for name in got}
+        expect.update({f"band_attention{bf16}": times * blocks,
+                       f"band_attention_dq{bf16}": blocks,
+                       f"band_attention_dkv{bf16}": blocks})
+        if mode == "flash":
+            expect.update({f"masked_attention{bf16}": k7, "K7 with lse": k7,
+                           f"masked_attention_dq{bf16}": full,
+                           f"masked_attention_dkv{bf16}": full})
+        else:
+            expect["dense full attention"] = dense
+        # the recompute under remat may stop before the last full attention
+        if got != expect or not full <= (k7 if mode == "flash" else dense) \
+                <= times * full:
+            raise AssertionError(f"{label} {mode} launches {got}, expected "
+                                 f"{expect} with {full}..{times * full} full "
+                                 "attentions")
+    errs = {k: abs(losses["flash"][k].item() - v.item()) / (1 + abs(v.item()))
+            for k, v in losses["dense"].items()}
+    worst = max(errs, key=errs.get)
+    print(f"vidor {label} flash vs dense on the card at {FLASH_PAIRS[1]} "
+          f"pairs: total_loss dense {losses['dense']['total_loss'].item():.6f}"
+          f" flash {losses['flash']['total_loss'].item():.6f}; worst loss "
+          f"term {worst} rel err {errs[worst]:.3e} (limit {loss_tol}); "
+          f"max-pool picks replayed that differ {pool.flips} of "
+          f"{pool.windows}")
+    if errs[worst] > loss_tol:
+        raise AssertionError(f"{label} flash vs dense: {worst} off by "
+                             f"{errs[worst]}")
+    names = [n for n, _ in states["dense"].model.named_parameters()]
+    check_step0_gradients(f"vidor {label} step 0 gradients, flash vs dense "
+                          "on the card", names, grads["flash"],
+                          grads["dense"], grad_tol)
+    del grads
+    ms, peak = {"dense": [], "flash": []}, {}
+    iters = 3
+    for mode in ("dense", "flash", "flash", "dense"):
+        mops.FLASH_TRAIN = mode == "flash"
+        st = states[mode]
+        if not ms[mode]:   # its first timed turn: one step to warm up
+            train_step(st, tb, step_generator(0, st.step))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            _, step_losses = train_step(st, tb, step_generator(0, st.step))
+        torch.cuda.synchronize()
+        ms[mode].append(1e3 * (time.perf_counter() - t0) / iters)
+        peak[mode] = max(peak.get(mode, 0.0),
+                         torch.cuda.max_memory_allocated() / 2**30)
+        if not all(torch.isfinite(v) for v in step_losses.values()):
+            raise AssertionError(f"non-finite {label} {mode} losses")
+    mops.FLASH_TRAIN = True
+    for mode in ("dense", "flash"):
+        print(f"vidor train step {FLASH_PAIRS[1]} pairs T=512 {label} "
+              f"{mode}: {ms[mode][0]:.2f} / {ms[mode][1]:.2f} ms per step, "
+              f"{1e3 * FLASH_PAIRS[1] / ms[mode][0]:.1f} / "
+              f"{1e3 * FLASH_PAIRS[1] / ms[mode][1]:.1f} pairs/s, peak "
+              f"memory {peak[mode]:.2f} GiB")
+    del states
+    torch.cuda.empty_cache()
+    return counts["flash"]
+
+
+def check_flash_train(cuda, ba, fa) -> dict:
+    """Phase 18, flash training (``VRDONE_FLASH_TRAIN=1``, set here through
+    ``ops.masked.FLASH_TRAIN``) at ``configs/vidor.yaml``'s full width
+    (T = 512, 8 heads, ``use_local`` off: the S/O cross-attentions at d =
+    64 and the predictor's at d = 32 are full attentions; random seeded
+    weights): 18a three fp32 steps at 4 pairs on the card and the CPU
+    (``check_train_step``: losses, step-0 gradients, drift) and the
+    launches of a step at 48 pairs (K7 with its lse, K8 and K9 16 each, no
+    dense form), the kernels held on that step's own inputs; 18b three bf16
+    steps under remat at 4 pairs against the port's bf16 CPU steps
+    (``BF16_LOSS_TOL``, step-0 gradients within ``BF16_STEP_GRAD_TOL``), the
+    kernels on a 48-pair step's inputs; 18c the card's flash step against
+    its dense step at 48 pairs, fp32 and bf16 under remat (losses, step-0
+    gradients, launches, step times and peak memory in turns). Returns the
+    flash steps' launches by path."""
+    from vrdone_tpu_torch.config import load_yaml_config, model_config_from_yaml
+    from vrdone_tpu_torch.ops import masked as mops
+    from vrdone_tpu_torch.train.loop import (batch_to_device, step_generator,
+                                             train_step)
+    raw = load_yaml_config(str(ROOT / "configs" / "vidor.yaml"))
+    cfg = model_config_from_yaml(raw)
+    tc = raw["training_config"]
+    num_gt = raw["training_dataset_config"]["proposal_max_preds"]
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16", remat=True,
+                                remat_policy="dots")
+    rng = np.random.default_rng(12)
+    launches = {}
+    mops.FLASH_TRAIN = True
+    try:
+        # 18a
+        seen = {}
+        with flash_inputs(fa, seen):
+            state32, launches["train_step_flash"] = check_train_step(
+                cfg, raw, cuda, ba, fa, pairs=FLASH_PAIRS,
+                label="vidor flash ", flash=True)
+        del state32
+        check_step_inputs(fa, {k: v for k, v in seen.items()
+                               if k[0] == FLASH_PAIRS[1]}, "vidor flash fp32")
+        del seen
+        # 18b
+        grads = {}
+        states = bf16_steps_vs_cpu(
+            cfg16, tc, cuda, train_batch(rng, cfg, FLASH_PAIRS[0], num_gt),
+            "vidor flash (remat)", grads=grads)
+        names = [n for n, _ in states["cpu"].model.named_parameters()]
+        check_step0_gradients("vidor flash bf16 (remat) step 0 gradients "
+                              "CUDA vs CPU", names, grads["cuda"],
+                              grads["cpu"], BF16_STEP_GRAD_TOL)
+        state16 = states["cuda"]
+        del states, grads
+        tb = batch_to_device(train_batch(rng, cfg, FLASH_PAIRS[1], num_gt),
+                             cuda)
+        seen = {}
+        with flash_inputs(fa, seen):
+            train_step(state16, tb, step_generator(0, state16.step))
+        del state16
+        check_step_inputs(fa, seen, "vidor flash bf16 (remat)")
+        del seen
+        # 18c
+        flash_against_dense(cfg, tc, cuda, tb, ba, fa, mops, "fp32",
+                            LOSS_TOL, STEP_GRAD_TOL)
+        launches["train_step_flash_bf16"] = flash_against_dense(
+            cfg16, tc, cuda, tb, ba, fa, mops, "bf16 remat", BF16_LOSS_TOL,
+            BF16_STEP_GRAD_TOL)
+    finally:
+        mops.FLASH_TRAIN = False
+    torch.cuda.empty_cache()
+    return launches
 
 
 def synthetic_video(rng, lengths, feat_dim):
@@ -3445,12 +3886,13 @@ def check_frames_to_triplets(raw, cuda, ma, pb) -> None:
     """Phase 12b, the port alone from raw frames to triplets on the card,
     each step a subprocess: extract_gt_features_torch.py over
     the train annotations (its defaults: R-101, 16 box slots, window 25,
-    global 10), train_torch.py for one epoch of configs/vidvrd.yaml on
-    those features, detect_torch.py on the test frames (``--score_thresh
-    0.02``, at most CORPUS_TRACKLETS tracklets and at least one),
-    extract_proposal_features_torch.py on its proposal pickles, and
-    eval_torch.py on the checkpoint (every proposal's features read, six
-    finite metrics); the detector and the extractors read one whole
+    global 10), then train_torch.py for one epoch of configs/vidvrd.yaml on
+    those features, and beside them detect_torch.py on the test frames
+    (``--score_thresh 0.02``, at most CORPUS_TRACKLETS tracklets and at
+    least one), then extract_proposal_features_torch.py on its proposal
+    pickles; last eval_torch.py on the checkpoint (every proposal's
+    features read, six finite metrics); the detector and the extractors
+    read one whole
     detector's ``.npz`` (``write_corpus_checkpoint``). Then the extraction's
     frames a second at full width in fp32 and bf16 (in turns, no MEGA
     kernel launched: the dense route), and extract_gt_features_torch.py on
@@ -3506,14 +3948,32 @@ def check_frames_to_triplets(raw, cuda, ma, pb) -> None:
             ("eval_torch.py",
              [*common, "--ckpt_path", str(exp / "model_last.ckpt"),
               "--topk", "3"])]
+        def lane(part):
+            """Run the steps of ``part`` one after another, to the first
+            that fails: (script, completed process, seconds) each."""
+            done = []
+            for script, args in part:
+                t0 = time.perf_counter()
+                done.append((script, subprocess.run(
+                    [sys.executable, str(ROOT / script), *args], cwd=ROOT,
+                    capture_output=True, text=True, timeout=600),
+                    time.perf_counter() - t0))
+                if done[-1][1].returncode != 0:
+                    break
+            return done
+
+        # the train lane (GT features, then training) and the test lane
+        # (detection, then proposal features) are independent: side by side
+        # on the card, then the evaluation, which reads both
+        with ThreadPoolExecutor(2) as pool:
+            lanes = list(pool.map(lane, (steps[:2], steps[2:4])))
         n_props = {}
-        for script, args in steps:
-            t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, str(ROOT / script), *args],
-                               cwd=ROOT, capture_output=True, text=True,
-                               timeout=600)
+        for script, r, seconds in [*lanes[0], *lanes[1],
+                                   *(lane(steps[4:]) if all(
+                                       r.returncode == 0 for _, r, _ in
+                                       lanes[0] + lanes[1]) else [])]:
             print(f"frames to triplets: {script} on {device}: exit "
-                  f"{r.returncode} in {time.perf_counter() - t0:.1f} s"
+                  f"{r.returncode} in {seconds:.1f} s"
                   + (f"; {r.stdout.strip()}" if script.startswith(
                       ("extract", "detect")) else ""))
             if r.returncode != 0:
@@ -5517,15 +5977,17 @@ def main(argv: list[str] | None = None) -> int:
         description="Smoke run of the PyTorch port on one CUDA card")
     parser.add_argument(
         "--only", choices=("kernels", "detector_train", "detector_methods",
-                           "retinanet_heads", "sequence_parallel"),
+                           "retinanet_heads", "sequence_parallel",
+                           "flash_train"),
         default=None,
         help="kernels: build the kernels, hold each against its plain "
              "version at the main paths' shapes and time it (the kernel "
-             "checks of phases 1, 2, 7 and 8), print their JSON line and "
+             "checks of phases 1, 2, 7, 8 and 18), print their JSON line and "
              "stop; detector_train: phase 14 alone; detector_methods: phase "
              "15 alone; retinanet_heads: phase 16 alone (no kernel on these "
              "three paths, none built); sequence_parallel: phase 17 alone "
-             "(its kernels built)")
+             "(its kernels built); flash_train: phase 18 alone, with the "
+             "kernel checks of K7 with its lse, K8 and K9")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card",
@@ -5567,6 +6029,18 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({"train_step_sp": check_sequence_tensor_parallel(
             cuda, ba, fa)}))
         return 0
+    if args.only == "flash_train":
+        with ThreadPoolExecutor() as pool:
+            list(pool.map(lambda f: f(), (ba._kernel, fa._kernel,
+                                          fa._bwd_kernel)))
+        for line in ptxas_usage(_build.BUILD_LOG["masked_attention_bwd"][1]):
+            print(f"    {line}")
+        entries, _ = check_full_backward(cuda, fa, {
+            "masked_attention": [], "masked_attention_bf16": []})
+        print(json.dumps({"train_step_flash": check_flash_train(cuda, ba,
+                                                                fa),
+                          "kernels": entries}))
+        return 0
 
     start = last = time.perf_counter()
 
@@ -5578,30 +6052,45 @@ def main(argv: list[str] | None = None) -> int:
               f" s)")
         last = now
 
-    # 1. build: one nvcc per source, all started together
+    # 1. build: one nvcc per source, all started together; the checks of
+    # K7 with its lse, K8, K9, K5 and K6 (phase 2) run while
+    # band_attention.cu, the longest build, still compiles
     t0 = time.perf_counter()
-    from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor() as pool:
-        list(pool.map(lambda f: f(), (ba._kernel, fa._kernel, ma._kernel,
+        band_built = pool.submit(ba._kernel)
+        list(pool.map(lambda f: f(), (fa._kernel, fa._bwd_kernel, ma._kernel,
                                       pb._kernel)))
-    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+        print(f"K7, K8/K9, K5 and K6 built and loaded in "
+              f"{time.perf_counter() - t0:.1f} s; their checks run while "
+              "band_attention.cu compiles")
+        full_rows = {"masked_attention": [], "masked_attention_bf16": []}
+        full_backward, worst_full = check_full_backward(cuda, fa, full_rows)
+        mega = check_mega_kernels(cuda, pb, ma)
+        band_built.result()
+    print(f"kernels built and loaded, and those checks run, in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name, (seconds, log) in _build.BUILD_LOG.items():
         print(f"  {name}: nvcc {seconds:.1f} s")
         for line in ptxas_usage(log):
             print(f"    {line}")
 
     # 2. each kernel against its plain version at the slices' shapes: the
-    # eval forward's and the train step's, the detector's (K5, K6) and the
-    # stream's (K4, and K1 and K7 at the stream's shapes)
+    # eval forward's and the train step's, the flash train step's (K7 with
+    # its lse, K8, K9), the detector's (K5, K6) and the stream's (K4, and K1
+    # and K7 at the stream's shapes)
     kernels = check_kernels(cuda, ba, fa)
     kernels.update(check_bf16_kernels(cuda, ba, fa))
+    kernels.update(full_backward)
+    for name, err in worst_full.items():
+        kernels[name]["by_shape"] += full_rows[name]
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     band_rows = kernels["band_attention"]["by_shape"]
     kernels.update(check_band_backward(cuda, ba, mops, band_rows))
     band16 = kernels["band_attention_bf16"]
     kernels.update(check_band_backward_bf16(cuda, ba, band16["by_shape"]))
     band16["max_abs_err"] = max(r["max_abs_err"]
                                 for r in band16["by_shape"])
-    kernels.update(check_mega_kernels(cuda, pb, ma))
+    kernels.update(mega)
     kernels["band_attention_pe"], pe_alone = check_band_pe(cuda, ba, mops)
     kernels["band_attention_pe_bf16"] = check_band_pe_bf16(cuda, ba)
     stream_worst, alone = check_stream_kernels(cuda, ba, fa, band_rows)
@@ -5726,6 +6215,9 @@ def main(argv: list[str] | None = None) -> int:
     # card against one process's
     sp_launches = check_sequence_tensor_parallel(cuda, ba, fa)
     lap("phase 17 (sequence and tensor parallelism)")
+    # 18. flash training at VidOR width: K7 with its lse, K8 and K9
+    flash_launches = check_flash_train(cuda, ba, fa)
+    lap("phase 18 (flash training)")
     # 14. MEGA detector training
     det_train_launches = detector_train_phase(cuda, ba, fa, ma, pb)
     lap("phase 14 (MEGA detector training)")
@@ -5759,6 +6251,9 @@ def main(argv: list[str] | None = None) -> int:
     band = "vrdone_tpu_torch/csrc/band_attention.cu"
     pallas = "vrdone_tpu/ops/pallas/band_attention.py"
     masked = "vrdone_tpu_torch/csrc/masked_attention.cu"
+    masked_bwd = "vrdone_tpu_torch/csrc/masked_attention_bwd.cu"
+    flash = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
+             "({}, via vrdone_tpu/ops/masked.py:203{})")
     sources = {"band_attention": (band, f"{pallas}:42"),
                "band_attention_bf16": (band, f"{pallas}:42 (bf16 operands)"),
                "band_attention_pe": (band, f"{pallas}:42 (with_pe)"),
@@ -5773,6 +6268,14 @@ def main(argv: list[str] | None = None) -> int:
                "masked_attention": (masked, "vrdone_tpu/ops/masked.py:203"),
                "masked_attention_bf16": (masked, "vrdone_tpu/ops/masked.py:"
                                          "203 (bf16 operands)"),
+               "masked_attention_dq": (masked_bwd, flash.format(
+                   1456, "_flash_attention_bwd_dq", "")),
+               "masked_attention_dkv": (masked_bwd, flash.format(
+                   1121, "_flash_attention_bwd_dkv", "")),
+               "masked_attention_dq_bf16": (masked_bwd, flash.format(
+                   1456, "_flash_attention_bwd_dq", ", bf16 operands")),
+               "masked_attention_dkv_bf16": (masked_bwd, flash.format(
+                   1121, "_flash_attention_bwd_dkv", ", bf16 operands")),
                "mega_attention": ("vrdone_tpu_torch/csrc/mega_attention.cu",
                                   "vrdone_tpu/ops/pallas/mega_attention.py:56"),
                "mega_attention_bf16": (
@@ -5802,6 +6305,8 @@ def main(argv: list[str] | None = None) -> int:
                       "train_step_bf16_rel_pe": relpe16_launches.get(name, 0),
                       "train_step_dp": dp_launches.get(name, 0),
                       "train_step_sp": sp_launches.get(name, 0),
+                      **{path: c.get(name, 0)
+                         for path, c in flash_launches.items()},
                       "detector_train_step": det_train_launches.get(name, 0),
                       **{path: c.get(name, 0)
                          for path, c in {**method_launches,
@@ -5823,7 +6328,11 @@ def main(argv: list[str] | None = None) -> int:
                  "band_attention_bf16": "serve_bf16_vidvrd",
                  "band_attention_dq_bf16": "train_step_bf16",
                  "band_attention_dkv_bf16": "train_step_bf16",
-                 "masked_attention_bf16": "serve_bf16_vidvrd"}
+                 "masked_attention_bf16": "serve_bf16_vidvrd",
+                 "masked_attention_dq": "train_step_flash",
+                 "masked_attention_dkv": "train_step_flash",
+                 "masked_attention_dq_bf16": "train_step_flash_bf16",
+                 "masked_attention_dkv_bf16": "train_step_flash_bf16"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],

@@ -26,7 +26,12 @@ of the backward kernels (K2, K3: the tensor-core kernel
 same bf16 streams, lse and Dr within the same limit: the same promotions
 (P and dS in fp32, which the kernel feeds to the tensor cores as bf16
 hi/lo pairs), each gradient rounded to bf16 once, sums taken in another
-order.
+order. K7's lse and the full attention's backward kernels (K8: dQ, K9: dK
+and dV) are held to ``full_attention_lse_plain`` and
+``full_attention_backward_plain`` on the same streams, lse and Dr: 1e-5 of
+1 + |lse|, 1e-5 of max(1, max |grad|) in fp32, ``BF16_TOL`` in bf16 (the
+same rounding points: P and dS rounded to bf16 before their products, sums
+in another order).
 """
 
 import ctypes
@@ -2726,3 +2731,231 @@ def test_band_kernels_on_halo_extended_streams(cuda, tmp_path, t_local, w,
             seen.add("K3" if m[2] == "true" else "K2")
         assert "mma" not in name, name
     assert seen == {"K1", "K2", "K3"}
+
+
+# ---------------------------------------------------------------------------
+# the full attention's backward (K8: dQ, K9: dK and dV) and K7's lse
+# ---------------------------------------------------------------------------
+
+def full_backward_case(cuda, seed, b, tq, tk, h, d, dtype, shift=False):
+    """Streams of ``dtype`` (item 0 whole, item 1 padded with an invalid
+    key inside, item 2 without a valid key when b > 2), dout, and K7's
+    output and lse; ``shift`` moves every stream off 16-byte alignment."""
+    lens = [tk, max(1, 2 * tk // 3), 0][:b] + [tk] * max(0, b - 3)
+    q, k, v, mask = streams(seed, b, tq, tk, h * d, lens, cuda)
+    mask[1, tk // 3] = False
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+        seed)).to(cuda)
+    q, k, v, dout = (x.to(dtype) for x in (q, k, v, dout))
+    if shift:
+        q, k, v, dout = (shifted(x) for x in (q, k, v, dout))
+    out, lse = fa.full_attention_cuda(q, k, v, mask, n_head=h, with_lse=True)
+    return q, k, v, mask, dout, out, lse
+
+
+def full_backward_errs(q, k, v, mask, dout, out, lse, h):
+    """K8 and K9 against ``full_attention_backward_plain`` on the same
+    streams, lse and Dr: each gradient's max error over its limit (1e-5 of
+    max(1, max |plain|) in fp32, as ``chip_smoke.py``'s GRAD_TOL: a
+    gradient can be 0 analytically, as dK is with a single key, where the
+    two sides' rounding of dP - Dr is all that is left; ``BF16_TOL`` of
+    1 + max |plain| in bf16), K7's lse error over its limit (1e-5 of
+    1 + |lse|, +inf exactly where a row has no valid key), and the launched
+    gradients."""
+    dr = ba.band_rowsum(dout, out, h)
+    args = (q, k, v, mask, lse, dr, dout)
+    got = (fa.full_attention_dq_cuda(*args, n_head=h),
+           *fa.full_attention_dkv_cuda(*args, n_head=h))
+    want = fa.full_attention_backward_plain(*args, n_head=h)
+    ref_lse = fa.full_attention_lse_plain(q, k, mask, n_head=h)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isposinf(lse), ~fin)
+    ratios = [((lse - ref_lse).abs()[fin] / (1 + ref_lse.abs()[fin])).max()
+              .item() / 1e-5]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == q.dtype and torch.isfinite(g).all()
+        w = w.float()
+        limit = (1e-5 * max(1.0, w.abs().max().item())
+                 if q.dtype == torch.float32
+                 else BF16_TOL * (1 + w.abs().max().item()))
+        ratios.append(max_err(g.float(), w) / limit)
+    return ratios, got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("tq,tk,d,h", [
+    # VidOR's S/O cross-attention, the predictor's 9 x 9 and 9 x 64 (its
+    # cross-attention over the coarsest level), and 9 x 512
+    (512, 512, 64, 8), (9, 9, 32, 8), (9, 64, 32, 8), (9, 512, 32, 8),
+    # the head-dim buckets, Tq != Tk, both off the 32-row tiles
+    (100, 70, 32, 2), (65, 97, 64, 2), (100, 70, 128, 2), (40, 33, 256, 2),
+    (33, 17, 128, 2), (17, 200, 256, 2), (1, 1, 32, 2),
+    # head dims off their bucket and off a multiple of 4 or 8
+    (48, 48, 20, 3), (70, 45, 100, 2)])
+def test_full_backward_kernels_match_plain(cuda, tq, tk, d, h, dtype):
+    """K7's lse and K8 / K9 against their plain versions: Tq != Tk, padded
+    keys, an item without a valid key (its dQ and its keys' dK and dV 0),
+    every head-dim bucket; an invalid key gets exactly zero dK and dV."""
+    case = full_backward_case(cuda, tq * 7 + tk + d, 3, tq, tk, h, d, dtype)
+    mask = case[3]
+    ratios, (dq, dk, dv) = full_backward_errs(*case, h)
+    assert max(ratios) <= 1, ratios
+    assert (dq[2] == 0).all()
+    assert (dk[~mask] == 0).all() and (dv[~mask] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [32, 40, 64, 128, 256])
+def test_full_backward_unaligned_streams_take_the_scalar_path(cuda, d,
+                                                              dtype):
+    """Streams one element off 16-byte alignment take the element-wise
+    copies and give the vector path's gradients."""
+    kw = dict(b=3, tq=70, tk=45, h=2, d=d, dtype=dtype)
+    aligned = full_backward_case(cuda, d, **kw)
+    ratios, got = full_backward_errs(
+        *full_backward_case(cuda, d, **kw, shift=True), 2)
+    assert max(ratios) <= 1, ratios
+    _, want = full_backward_errs(*aligned, 2)
+    for g, w in zip(got, want):
+        assert max_err(g.float(), w.float()) <= 1e-6 * (
+            1 + w.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_full_attention_function_matches_plain_autograd(cuda, dtype,
+                                                         monkeypatch):
+    """With ``FLASH_TRAIN`` a full attention that needs a gradient runs
+    ``FullAttention`` on the card: one K7 launch with the lse, one K8 and
+    one K9, no dense form; its gradients are autograd's of the plain
+    version (fp32) or within ``BF16_TOL`` of it (bf16, where the kernels
+    round P and dS to bf16 before their products). Under no_grad the same
+    dispatch launches K7 alone."""
+    monkeypatch.setattr(mops, "FLASH_TRAIN", True)
+    q, k, v, mask, dout, _, _ = full_backward_case(cuda, 5, 3, 96, 80, 4, 32,
+                                                   dtype)
+    for name in ("launches", "lse_launches", "dq_launches", "dkv_launches",
+                 "bf16_dq_launches", "bf16_dkv_launches", "dense_calls"):
+        setattr(fa, name, 0)
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = mops.full_attention(*qkv, mask, n_head=4, allow_kernel=False)
+    grads = torch.autograd.grad(out, qkv, dout)
+    torch.cuda.synchronize()
+    bf16 = int(dtype == torch.bfloat16)
+    assert (fa.launches, fa.lse_launches, fa.dq_launches, fa.dkv_launches,
+            fa.bf16_dq_launches, fa.bf16_dkv_launches,
+            fa.dense_calls) == (1, 1, 1, 1, bf16, bf16, 0)
+    ref_in = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = fa.full_attention_plain(*ref_in, mask, n_head=4)
+    want = torch.autograd.grad(ref, ref_in, dout)
+    for g, w in zip(grads, want):
+        w = w.float()
+        limit = (1e-5 * max(1.0, w.abs().max().item()) if bf16 == 0
+                 else BF16_TOL * (1 + w.abs().max().item()))
+        assert max_err(g.float(), w) <= limit
+    with torch.no_grad():
+        mops.full_attention(q, k, v, mask, n_head=4, allow_kernel=False)
+    assert (fa.launches, fa.lse_launches, fa.dense_calls) == (2, 1, 0)
+
+
+def test_full_backward_refuses_and_never_falls_back(cuda, monkeypatch):
+    """A head dim past 256, mixed dtypes or a wrong lse raise before any
+    launch (the C side refuses the head dim too); with ``FLASH_TRAIN`` a
+    head dim past 256 raises in the function's forward rather than taking a
+    plain version."""
+    monkeypatch.setattr(mops, "FLASH_TRAIN", True)
+    q, k, v, mask, dout, out, lse = full_backward_case(cuda, 1, 2, 16, 16, 2,
+                                                       32, torch.float32)
+    dr = ba.band_rowsum(dout, out, 2)
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    wide = [x.repeat(1, 1, 9) for x in (q, k, v, dout)]   # d = 288
+    wide_lse = torch.zeros(2, 2, 16, device=cuda)
+    for fn in (fa.full_attention_dq_cuda, fa.full_attention_dkv_cuda):
+        with pytest.raises(ValueError, match="head dim"):
+            fn(*wide[:3], mask, wide_lse, wide_lse, wide[3], n_head=2)
+        with pytest.raises(TypeError, match="dtype"):
+            fn(q, k, v, mask, lse, dr, dout.to(torch.bfloat16), n_head=2)
+        with pytest.raises(ValueError, match="lse"):
+            fn(q, k, v, mask, lse[:, :1].contiguous(), dr, dout, n_head=2)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fa.backward_instance(cuda.index or 0, 16, 288)
+    leaves = [x.clone().requires_grad_() for x in wide[:3]]
+    with pytest.raises(ValueError, match="head dim"):
+        mops.full_attention(*leaves, mask, n_head=2)
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == before
+
+
+def test_full_backward_instance_is_what_launches(cuda, tmp_path):
+    """The instance ``backward_instance`` reports is the one the C side
+    launches, for K8 (owners: the Tq queries) and K9 (the Tk keys) in both
+    dtypes: the kernel's template arguments (head-dim bucket, owner rows /
+    16, element type, K9 or K8), its grid and its block, read from a
+    ``torch.profiler`` trace; the rule's rows at the step's shapes."""
+    import re
+    for b, tq, tk, h, d in ((4, 512, 512, 8, 64), (4, 9, 512, 8, 32),
+                            (4, 9, 9, 8, 32), (2, 100, 70, 2, 128),
+                            (2, 40, 33, 2, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask, dout, out, lse = full_backward_case(
+                cuda, tq + d, b, tq, tk, h, d, dtype)
+            args = (q, k, v, mask, lse, ba.band_rowsum(dout, out, h), dout)
+            elem = "float" if dtype == torch.float32 else "__nv_bfloat16"
+            seen = set()
+            for name, grid, block in traced_kernels(
+                    lambda: (fa.full_attention_dq_cuda(*args, n_head=h),
+                             fa.full_attention_dkv_cuda(*args, n_head=h)),
+                    tmp_path / f"trace{tq}_{d}.json",
+                    "masked_attention_bwd_kernel",
+                    lambda found: {"true>" in n for n, _, _ in found} == {
+                        True, False}):
+                m = re.search(r"masked_attention_bwd_kernel<(\d+), (\d+), "
+                              r"([\w ]+), (true|false)>", name)
+                assert m is not None, name
+                kv = m[4] == "true"
+                n_own = tk if kv else tq
+                inst = fa.backward_instance(cuda.index or 0, n_own, d)
+                assert inst["rows"] == (16 if n_own <= 16 else
+                                        {32: 64, 64: 64, 128: 32, 256: 16}[
+                                            inst["bucket"]])
+                assert (int(m[1]), 16 * int(m[2]), m[3]) == (
+                    inst["bucket"], inst["rows"], elem)
+                assert grid == [b * h * -(-n_own // inst["rows"]), 1, 1]
+                assert block == [128, 1, 1]
+                seen.add(kv)
+            assert seen == {False, True}, (tq, tk, d, dtype)
+
+
+def test_flash_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One train step of a small MaskVRD with drop path on and
+    ``FLASH_TRAIN``: on the card every full attention runs K7 with its lse,
+    K8 and K9 (the predictor's at Tq = 9), none the dense form; the losses
+    and first gradients agree with the CPU's opt-in step (the plain
+    versions) as ``test_train_step_on_card_matches_cpu`` holds the dense
+    step."""
+    from vrdone_tpu_torch.train.loop import (create_train_state,
+                                             step_generator, train_step)
+    monkeypatch.setattr(mops, "FLASH_TRAIN", True)
+    cfg, tc, batch = small_train_case()
+    states, losses = {}, {}
+    for name in ("launches", "lse_launches", "dq_launches", "dkv_launches",
+                 "dense_calls"):
+        setattr(fa, name, 0)
+    for dev in (torch.device("cpu"), cuda):
+        state, _ = create_train_state(
+            cfg, tc, 1, device=dev, generator=torch.Generator().manual_seed(0))
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _, losses[dev.type] = train_step(state, tb, step_generator(0, 0))
+        states[dev.type] = state
+    torch.cuda.synchronize()
+    full = 4 * cfg.backbone_arch[1] + 2 * cfg.predictor.num_layers
+    assert (fa.launches, fa.lse_launches, fa.dq_launches, fa.dkv_launches,
+            fa.dense_calls) == (full, full, full, full, 0)
+    for k, v in losses["cpu"].items():
+        assert abs(losses["cuda"][k].item() - v.item()) <= 1e-4 * (
+            1 + abs(v.item())), k
+    for m, r in zip(states["cuda"].optimizer.moments["mu"],
+                    states["cpu"].optimizer.moments["mu"]):
+        assert max_err(m.cpu(), r) <= 1e-3 * r.abs().max().item() + 1e-7

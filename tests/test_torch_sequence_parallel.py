@@ -8,7 +8,9 @@ tiny_cfg`` (T = 48 over a (1, 1, 2) pyramid: 48 / 24 / 12 frames, window
 7, drop path on, deep supervision) in each of dp 1 x sp 4 (interior ranks
 with both neighbours, 3 frames a rank at the coarsest level), dp 2 x sp 2,
 dp 2 x tp 2 and dp 1 x tp 2 x sp 2 (tp_min_size 256, as JAX's own test
-sets it), then each collective against its one-process op under dp 1 x
+sets it), and dp 2 x sp 2 again with ``VRDONE_FLASH_TRAIN`` on (every
+full attention through ``FullAttention``'s plain route behind the key
+gather), then each collective against its one-process op under dp 1 x
 sp 4, value and gradient. In this process the port's one-process step
 and the JAX package's ``train_step`` run on the global batch from the same
 flax parameters and the same draws.
@@ -63,9 +65,11 @@ STEPS = 3
 SEED = 11
 LOSS_RTOL, LOSS_ATOL = 2e-4, 1e-5   # tests/test_train_step.py's
 OP_TOL = 1e-5
-# name: (n_dp, n_tp, n_sp, tp_min_size)
+# name: (n_dp, n_tp, n_sp, tp_min_size); a name ending in "_flash" trains
+# with ops.masked.FLASH_TRAIN on
 LAYOUTS = {"dp1_sp4": (1, 1, 4, 1 << 16), "dp2_sp2": (2, 1, 2, 1 << 16),
-           "dp2_tp2": (2, 2, 1, 256), "dp1_tp2_sp2": (1, 2, 2, 256)}
+           "dp2_tp2": (2, 2, 1, 256), "dp1_tp2_sp2": (1, 2, 2, 256),
+           "dp2_sp2_flash": (2, 1, 2, 1 << 16)}
 
 RANK_CODE = r"""
 import os, pickle, sys, types
@@ -87,7 +91,19 @@ with open(os.path.join(root, "setup.pkl"), "rb") as f:
     cfg, tc, batch, layouts, steps, seed = pickle.load(f)
 params = load_npz(os.path.join(root, "params.npz"))
 out = {"layouts": {}, "ops": {}}
+# count the full attentions that take the flash-training function
+flash_apply, flash_calls = mops.FullAttention.apply, [0]
+
+
+def counted_apply(*args):
+    flash_calls[0] += 1
+    return flash_apply(*args)
+
+
+mops.FullAttention = types.SimpleNamespace(apply=counted_apply)
 for name, (n_dp, n_tp, n_sp, tp_min) in layouts.items():
+    mops.FLASH_TRAIN = name.endswith("_flash")
+    flash_calls[0] = 0
     lay = mesh.make_layout(n_dp, n_tp, n_sp)
     state, _ = create_train_state(cfg, tc, 5, device=device,
                                   flax_params=params, layout=lay,
@@ -101,6 +117,7 @@ for name, (n_dp, n_tp, n_sp, tp_min) in layouts.items():
     for step in range(steps):
         state, losses = train_step(state, local, step_generator(seed, step))
         res["losses"].append({k: v.item() for k, v in losses.items()})
+    res["flash_calls"] = flash_calls[0]
     whole = state_payload(state, epoch=0, batch_size=0)
     res["params"] = {k: v.numpy() for k, v in whole["params"].items()}
     res["ema"] = {k: v.numpy() for k, v in whole["ema_params"].items()}
@@ -120,6 +137,7 @@ for name, (n_dp, n_tp, n_sp, tp_min) in layouts.items():
                  *sum(fresh.optimizer.moments.values(), [])],
                 [*state.params(), *state.ema_params,
                  *sum(state.optimizer.moments.values(), [])]))
+mops.FLASH_TRAIN = False
 
 # -- each collective against its one-process op, under dp 1 x sp 4 --------
 lay = mesh.make_layout(1, 1, world)
@@ -211,6 +229,12 @@ check("full attention, keys gathered",
       lambda q, k, v, m: mops.full_attention(q, k, v, m, n_head=heads,
                                              allow_kernel=False),
       [x, x.flip(1), x * 0.5], [mask])
+mops.FLASH_TRAIN = True
+check("full attention, keys gathered, flash",
+      lambda q, k, v, m: mops.full_attention(q, k, v, m, n_head=heads,
+                                             allow_kernel=False),
+      [x, x.flip(1), x * 0.5], [mask])
+mops.FLASH_TRAIN = False
 
 # the time reductions: costs and losses over (..., T) with T last
 q = gq = 4
@@ -352,7 +376,9 @@ def test_layout_steps_match_jax(world, layout):
 def test_layout_ranks_agree_and_hold_their_part(world, layout):
     """The ranks' coordinates are make_mesh's row-major ones, each holds
     its rows and columns of the global batch, the tp ranks hold shards, and
-    all agree bit for bit on the losses and the whole parameters."""
+    all agree bit for bit on the losses and the whole parameters; the
+    flash layout's full attentions, and no other layout's, take the
+    flash-training function."""
     n_dp, n_tp, n_sp, _ = LAYOUTS[layout]
     b, t = world.batch["feats"].shape[:2]
     outs = [out["layouts"][layout] for out in world.ranks]
@@ -362,6 +388,7 @@ def test_layout_ranks_agree_and_hold_their_part(world, layout):
         assert res["shapes"]["feats"][:2] == (b // n_dp, t // n_sp)
         assert res["shapes"]["gt_masks"][2] == t // n_sp
         assert bool(res["sharded"]) == (n_tp > 1)
+        assert (res["flash_calls"] > 0) == layout.endswith("_flash")
         assert res["losses"] == outs[0]["losses"]
         for kind in ("params", "ema"):
             for k, v in res[kind].items():
@@ -435,7 +462,8 @@ OPS = ["conv k3 s1", "conv k3 s2 depthwise", "max-pool k3 s2",
        "band attention window 9 at 3 frames a rank",
        "band attention window 9 rel_pe at 3 frames a rank",
        "band attention window 7 at 12 frames a rank",
-       "full attention, keys gathered", "pairwise focal cost",
+       "full attention, keys gathered",
+       "full attention, keys gathered, flash", "pairwise focal cost",
        "pairwise dice cost", "matched focal fuzzy loss",
        "matched dice fuzzy loss", "fuzzy_targets", "_pe"]
 

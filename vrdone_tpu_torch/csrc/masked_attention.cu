@@ -1,4 +1,6 @@
-// Key-masked full attention forward for Hopper (sm_90a), fp32 and bf16.
+// Key-masked full attention forward for Hopper (sm_90a), fp32 and bf16,
+// with each row's log-sum-exp on request (the input of the backward, K8 and
+// K9 in masked_attention_bwd.cu).
 //
 // Replaces the TPU path vrdone_tpu/ops/masked.py::_full_attention_flash, which
 // called the Pallas library kernel
@@ -191,6 +193,7 @@ struct Problem {
   const E* v;
   const unsigned char* mask;
   E* out;
+  float* lse;  // (B, H, Tq) fp32, or null
   int B, Tq, Tk, H, D;
   float scale;
 };
@@ -462,6 +465,9 @@ masked_attention_fwd_kernel(const Problem<E> p, int row_tiles, bool vec) {
     const int row = i0 + row0 + 4 * i;
     if (row >= Tq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if (p.lse != nullptr && col == 0)
+      p.lse[(size_t)bh * Tq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     E* orow = p.out + qbase + (size_t)row * C;
 #pragma unroll
     for (int jc = 0; jc < DB / 32; ++jc) {
@@ -483,6 +489,7 @@ masked_attention_fwd_kernel(const Problem<E> p, int row_tiles, bool vec) {
 // The bf16 kernel, on the tensor cores.
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DB, int W, int MT>
 struct MmaTiles {
@@ -802,6 +809,10 @@ masked_attention_mma_kernel(const Problem<bf16> p, int row_tiles, bool vec) {
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const float inv = sum > 0.f ? 1.f / sum : 0.f;
+      const int row = i0 + warp * 16 * MT + 16 * mt + (lane >> 2) + 8 * r;
+      if (p.lse != nullptr && (lane & 3) == 0 && row < Tq)
+        p.lse[(size_t)bh * Tq + row] =
+            sum > 0.f ? m[mt][r] * kLn2 + logf(sum) : INFINITY;
       uint32_t* orow = reinterpret_cast<uint32_t*>(
           qw + (16 * mt + (lane >> 2) + 8 * r) * kS + 2 * (lane & 3));
 #pragma unroll
@@ -936,13 +947,13 @@ void pick_instance(int Tq, int D, int elem_bytes, int* rows, int* bucket) {
 
 template <typename E>
 int forward(const E* q, const E* k, const E* v, const unsigned char* mask,
-            E* out, int B, int Tq, int Tk, int H, int D, float scale,
-            void* stream) {
+            E* out, float* lse, int B, int Tq, int Tk, int H, int D,
+            float scale, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || D < 1 || D > kMaxD)
     return (int)cudaErrorInvalidValue;
   int rows, bucket;
   pick_instance(Tq, D, (int)sizeof(E), &rows, &bucket);
-  const Problem<E> p{q, k, v, mask, out, B, Tq, Tk, H, D, scale};
+  const Problem<E> p{q, k, v, mask, out, lse, B, Tq, Tk, H, D, scale};
   const cudaStream_t s = (cudaStream_t)stream;
   if constexpr (std::is_same_v<E, bf16>) {
     return (int)launch_bf16(rows, bucket, p, s);
@@ -956,25 +967,28 @@ int forward(const E* q, const E* k, const E* v, const unsigned char* mask,
 }  // namespace
 
 // `scale` is 1/sqrt(D), rounded to fp32 by the caller as the JAX package
-// rounds it. Returns the CUDA error code of the launch (0 on success). Does
-// not synchronise; runs on `stream`.
+// rounds it. With a non-null `lse` it also writes each row's log-sum-exp of
+// its scaled scores over the valid keys, (B, H, Tq) fp32, +inf for a row
+// with no valid key (the backward, masked_attention_bwd.cu, reads it).
+// Returns the CUDA error code of the launch (0 on success). Does not
+// synchronise; runs on `stream`.
 extern "C" int masked_attention_forward(const float* q, const float* k,
                                         const float* v,
                                         const unsigned char* mask,
-                                        float* out, int B, int Tq, int Tk,
-                                        int H, int D, float scale,
+                                        float* out, float* lse, int B, int Tq,
+                                        int Tk, int H, int D, float scale,
                                         void* stream) {
-  return forward(q, k, v, mask, out, B, Tq, Tk, H, D, scale, stream);
+  return forward(q, k, v, mask, out, lse, B, Tq, Tk, H, D, scale, stream);
 }
 
 // The same with bf16 streams (q, k, v and out), on the tensor cores.
 extern "C" int masked_attention_forward_bf16(const bf16* q, const bf16* k,
                                              const bf16* v,
                                              const unsigned char* mask,
-                                             bf16* out, int B, int Tq,
-                                             int Tk, int H, int D,
+                                             bf16* out, float* lse, int B,
+                                             int Tq, int Tk, int H, int D,
                                              float scale, void* stream) {
-  return forward(q, k, v, mask, out, B, Tq, Tk, H, D, scale, stream);
+  return forward(q, k, v, mask, out, lse, B, Tq, Tk, H, D, scale, stream);
 }
 
 // The instance a launch takes for Tq queries of head dim D in streams of

@@ -17,7 +17,10 @@ hand-written CUDA kernels, which raise on what they do not take. Where a
 gradient is needed, band attention takes its differentiable kernel form
 (``BandAttention``, or ``BandAttentionPE`` with a relative-position bias);
 full attention takes the dense form by argument (``allow_kernel=False``),
-as the JAX package trains through it.
+as the JAX package trains through it, unless ``VRDONE_FLASH_TRAIN=1``
+(``FLASH_TRAIN``) opts training into its differentiable kernel form
+(``FullAttention``: K7 with its lse, K8 and K9), as the JAX package's flag
+opts into the flash kernel's backward.
 
 Under sequence parallelism (inside ``parallel.collectives.time_sharded``)
 each (B, T, C) stream is this rank's contiguous columns of the global one,
@@ -33,6 +36,7 @@ gathers its keys, values and key mask along T (the queries stay local).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -43,7 +47,8 @@ from . import full_attention as _fa
 from .band_attention import (BandAttention, BandAttentionPE,
                              band_attention_cuda, band_attention_pe_cuda,
                              band_attention_pe_plain, band_attention_plain)
-from .full_attention import full_attention_cuda, full_attention_plain
+from .full_attention import (FullAttention, full_attention_cuda,
+                             full_attention_plain)
 from .heads import merge_heads, split_heads
 
 __all__ = [
@@ -141,6 +146,13 @@ def channel_layernorm(x: torch.Tensor, weight: torch.Tensor | None,
 # attention dispatch
 # ---------------------------------------------------------------------------
 
+# Train-time flash opt-in, read once at import as the JAX package reads it
+# (vrdone_tpu/ops/masked.py::FLASH_TRAIN): training runs every full
+# attention through ``FullAttention`` instead of the dense form. The default
+# stays dense, as in JAX.
+FLASH_TRAIN = os.environ.get("VRDONE_FLASH_TRAIN", "0") == "1"
+
+
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_mask: torch.Tensor, *, n_head: int,
                    allow_kernel: bool = True) -> torch.Tensor:
@@ -148,15 +160,22 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The output is not masked by the query mask. ``allow_kernel`` mirrors the
     JAX package's ``full_attention_auto(allow_flash=deterministic)``: callers
     pass ``not self.training``, and training runs the dense form, whose
-    autograd is the backward (the kernel has none). Time-sharded, the keys,
-    values and key mask are gathered along T."""
+    autograd is the backward. With ``FLASH_TRAIN`` (JAX's ``allow_flash or
+    FLASH_TRAIN``) a call that needs a gradient takes ``FullAttention``
+    (its plain versions on the CPU) and any other call on a card K7; on a
+    card the JAX package's length thresholds do not apply. Time-sharded,
+    the keys, values and key mask are gathered along T in front of either
+    form (the gather's adjoint returns dK and dV to their ranks)."""
     layout = collectives.time_layout()
     if layout is not None:
         k, v, kv_mask = _unpack(collectives.gather_time(
             _pack(k, v, kv_mask), layout), k.shape[-1])
+    if FLASH_TRAIN and torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        return FullAttention.apply(q, k, v, kv_mask, n_head)
     if q.device.type == "cpu":
         return full_attention_plain(q, k, v, kv_mask, n_head=n_head)
-    if not allow_kernel:
+    if not (allow_kernel or FLASH_TRAIN):
         _fa.dense_calls += 1
         return full_attention_plain(q, k, v, kv_mask, n_head=n_head)
     return full_attention_cuda(q, k, v, kv_mask, n_head=n_head)
