@@ -46,7 +46,8 @@ one process per source, all started together, into
      bound at the dense bf16 rate, with both instances' registers and
      spills where this run built them; then K7 with its lse and the full
      attention's backward, K8 (dQ) and K9 (dK, dV) in
-     ``csrc/masked_attention_bwd.cu``, in fp32 and bf16 at every full
+     ``csrc/masked_attention_bwd.cu`` (bf16 on the tensor cores:
+     ``masked_attention_bwd_mma_kernel``), in fp32 and bf16 at every full
      attention's shape of phase 18's step (``FLASH_SHAPES``: B*H=48*8,
      512x512 at d=64; 9x9 and 9x64 at d=32) against ``full_attention_plain``,
      ``full_attention_lse_plain`` and ``full_attention_backward_plain``,
@@ -1112,6 +1113,18 @@ def hold_full_backward(fa, label: str, q, k, v, mask, lse, dr, dout,
     return errs
 
 
+def full_backward_kernel(inst: dict, fp32: bool, dkv: bool) -> str:
+    """The name and template arguments of the K8 (``dkv`` False) or K9
+    kernel an instance (``ops/full_attention.py::backward_instance``)
+    launches, as ptxas and the profiler print it: the FMA body in fp32, the
+    tensor-core kernel in bf16."""
+    if fp32:
+        return (f"masked_attention_bwd_kernel<{inst['bucket']}, "
+                f"{inst['rows'] // 16}, {str(dkv).lower()}>")
+    return (f"masked_attention_bwd_mma_kernel<{inst['bucket']}, "
+            f"{inst['rows'] // 16}, {inst['tile']}, {str(dkv).lower()}>")
+
+
 def check_full_backward(cuda, fa, full_rows: dict) -> dict:
     """K7 with its lse, K8 (dQ) and K9 (dK, dV) at every full attention's
     shape of the flash train step (``FLASH_SHAPES``), in fp32 and bf16, on
@@ -1202,15 +1215,14 @@ def check_full_backward(cuda, fa, full_rows: dict) -> dict:
                            device_ms=queued_device_ms(kernel),
                            plain_ms=plain_ms, library_ms=time_ms(library),
                            bound_ms=bms, bound_by=by)
-                i = fa.backward_instance(cuda.index or 0, n_own, d)
-                rows, bucket = i["rows"], i["bucket"]
-                inst = (f"masked_attention_bwd_kernel<{bucket}, {rows // 16}"
-                        f", {'float' if fp32 else 'bf16'}, "
-                        f"{str(part == 'dkv').lower()}>")
+                i = fa.backward_instance(cuda.index or 0, n_own, d, dtype)
+                inst = full_backward_kernel(i, fp32, part == "dkv")
+                row["instance"] = inst
                 regs = usage.get(inst, "registers not reported, already "
                                  "built")
-                print(f"{name} {shape} (instance {inst}: {rows} owner rows "
-                      f"a block; {regs}): the kernel alone "
+                print(f"{name} {shape} (instance {inst}: {i['rows']} owner "
+                      f"rows a block, {i['tile']}-row partner tiles; {regs})"
+                      ": the kernel alone "
                       f"{row['device_ms']:.4f} ms, plain backward (all three "
                       f"gradients) {plain_ms:.4f} ms, library (SDPA) "
                       f"backward {row['library_ms']:.4f} ms, bound "

@@ -27,11 +27,11 @@ same bf16 streams, lse and Dr within the same limit: the same promotions
 (P and dS in fp32, which the kernel feeds to the tensor cores as bf16
 hi/lo pairs), each gradient rounded to bf16 once, sums taken in another
 order. K7's lse and the full attention's backward kernels (K8: dQ, K9: dK
-and dV) are held to ``full_attention_lse_plain`` and
-``full_attention_backward_plain`` on the same streams, lse and Dr: 1e-5 of
-1 + |lse|, 1e-5 of max(1, max |grad|) in fp32, ``BF16_TOL`` in bf16 (the
-same rounding points: P and dS rounded to bf16 before their products, sums
-in another order).
+and dV; bf16 on the tensor cores, ``masked_attention_bwd_mma_kernel``) are
+held to ``full_attention_lse_plain`` and ``full_attention_backward_plain``
+on the same streams, lse and Dr: 1e-5 of 1 + |lse|, 1e-5 of max(1, max
+|grad|) in fp32, ``BF16_TOL`` in bf16 (the same rounding points: P and dS
+rounded to bf16 before their products, sums in another order).
 """
 
 import ctypes
@@ -2891,41 +2891,209 @@ def test_full_backward_refuses_and_never_falls_back(cuda, monkeypatch):
 def test_full_backward_instance_is_what_launches(cuda, tmp_path):
     """The instance ``backward_instance`` reports is the one the C side
     launches, for K8 (owners: the Tq queries) and K9 (the Tk keys) in both
-    dtypes: the kernel's template arguments (head-dim bucket, owner rows /
-    16, element type, K9 or K8), its grid and its block, read from a
-    ``torch.profiler`` trace; the rule's rows at the step's shapes."""
+    dtypes, at every head-dim bucket: fp32 the FMA body
+    ``masked_attention_bwd_kernel<bucket, rows / 16, K9>`` (128 threads),
+    bf16 the tensor-core kernel ``masked_attention_bwd_mma_kernel<
+    bucket, rows / 16, partner tile rows, K9>`` (a warp for each 16 owner
+    rows) and never the FMA body; grid and block as the instance says,
+    read from a ``torch.profiler`` trace; the rule's rows and tiles at the
+    step's shapes."""
     import re
     for b, tq, tk, h, d in ((4, 512, 512, 8, 64), (4, 9, 512, 8, 32),
-                            (4, 9, 9, 8, 32), (2, 100, 70, 2, 128),
-                            (2, 40, 33, 2, 256)):
+                            (4, 9, 9, 8, 32), (4, 9, 64, 8, 32),
+                            (2, 100, 70, 2, 128), (2, 40, 33, 2, 256),
+                            (2, 20, 30, 2, 100)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask, dout, out, lse = full_backward_case(
                 cuda, tq + d, b, tq, tk, h, d, dtype)
             args = (q, k, v, mask, lse, ba.band_rowsum(dout, out, h), dout)
-            elem = "float" if dtype == torch.float32 else "__nv_bfloat16"
+            fp32 = dtype == torch.float32
             seen = set()
             for name, grid, block in traced_kernels(
                     lambda: (fa.full_attention_dq_cuda(*args, n_head=h),
                              fa.full_attention_dkv_cuda(*args, n_head=h)),
-                    tmp_path / f"trace{tq}_{d}.json",
-                    "masked_attention_bwd_kernel",
+                    tmp_path / f"trace{tq}_{tk}_{d}.json",
+                    "masked_attention_bwd_(mma_)?kernel",
                     lambda found: {"true>" in n for n, _, _ in found} == {
                         True, False}):
-                m = re.search(r"masked_attention_bwd_kernel<(\d+), (\d+), "
-                              r"([\w ]+), (true|false)>", name)
+                m = re.search(r"masked_attention_bwd_(mma_)?kernel<(\d+), "
+                              r"(\d+), (?:(\d+), )?(true|false)>", name)
                 assert m is not None, name
-                kv = m[4] == "true"
+                assert (m[1] is None) == fp32, name
+                kv = m[5] == "true"
                 n_own = tk if kv else tq
-                inst = fa.backward_instance(cuda.index or 0, n_own, d)
-                assert inst["rows"] == (16 if n_own <= 16 else
-                                        {32: 64, 64: 64, 128: 32, 256: 16}[
-                                            inst["bucket"]])
-                assert (int(m[1]), 16 * int(m[2]), m[3]) == (
-                    inst["bucket"], inst["rows"], elem)
+                inst = fa.backward_instance(cuda.index or 0, n_own, d, dtype)
+                if fp32:
+                    assert inst["rows"] == (16 if n_own <= 16 else
+                                            {32: 64, 64: 64, 128: 32,
+                                             256: 16}[inst["bucket"]])
+                    assert inst["tile"] == 32 and m[4] is None, name
+                    threads = 128
+                else:
+                    assert inst["rows"] == (16 if n_own <= 16 else 32
+                                            if n_own <= 32 else 64)
+                    assert inst["tile"] == (64 if inst["bucket"] <= 64
+                                            else 32)
+                    assert int(m[4]) == inst["tile"], name
+                    threads = 2 * inst["rows"]
+                assert (int(m[2]), 16 * int(m[3])) == (inst["bucket"],
+                                                       inst["rows"])
                 assert grid == [b * h * -(-n_own // inst["rows"]), 1, 1]
-                assert block == [128, 1, 1]
+                assert block == [threads, 1, 1]
                 seen.add(kv)
             assert seen == {False, True}, (tq, tk, d, dtype)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("tq", [1, 31, 32, 33, 63, 64, 65, 513])
+def test_full_backward_bf16_tile_edges(cuda, tq, d):
+    """The tensor-core instance at the edges of its tiles, for every Tk of
+    the same list: 16, 32 or 64 owner rows a block (one warp for each 16),
+    partner tiles of 64 rows (32 at the 128 and 256 buckets) and 8-row n8
+    tiles, with an item whose keys are all valid, one with an invalid key
+    inside its valid stretch and one without a valid key (its dQ and its
+    keys' dK and dV exactly 0)."""
+    for tk in (1, 31, 32, 33, 63, 64, 65, 513):
+        case = full_backward_case(cuda, tq * 1000 + tk + d, 3, tq, tk, 2, d,
+                                  torch.bfloat16)
+        mask = case[3]
+        ratios, (dq, dk, dv) = full_backward_errs(*case, 2)
+        assert max(ratios) <= 1, (tk, ratios)
+        assert (dq[2] == 0).all(), tk
+        assert (dk[~mask] == 0).all() and (dv[~mask] == 0).all(), tk
+
+
+def padded(x, fill):
+    """A contiguous copy of x at the start of a larger buffer that holds
+    ``fill`` past x's end (what a kernel would read past the last row)."""
+    buf = torch.full((x.numel() + 4 * x.shape[-1],), fill, device=x.device,
+                     dtype=x.dtype)
+    y = buf[:x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("tq,tk,d", [
+    (96, 96, 128), (9, 12, 64), (512, 100, 64), (40, 70, 20), (17, 33, 256),
+    (70, 200, 64)])
+def test_full_backward_bf16_never_reads_invalid_keys(cuda, tq, tk, d):
+    """NaN in k and v at every invalid key, and in q, k, v, dout, lse and Dr
+    past their last row: K8 and K9 give the gradients of the clean streams
+    bit for bit (the copies zero-fill invalid keys and rows past the edge,
+    and P and dS exclude them by selection, where 0 * NaN would be NaN on
+    the tensor cores), and those are within ``BF16_TOL`` of the plain
+    version."""
+    h = 2
+    q, k, v, mask, dout, out, lse = full_backward_case(
+        cuda, tq + tk + d, 3, tq, tk, h, d, torch.bfloat16)
+    k, v = (torch.where(mask[..., None], x, 0) for x in (k, v))
+    dr = ba.band_rowsum(dout, out, h)
+    ratios, want = full_backward_errs(q, k, v, mask, dout, out, lse, h)
+    assert max(ratios) <= 1, ratios
+    nan = float("nan")
+    k_bad, v_bad = (padded(torch.where(mask[..., None], x, nan), nan)
+                    for x in (k, v))
+    args = (padded(q, nan), k_bad, v_bad, mask, padded(lse, nan),
+            padded(dr, nan), padded(dout, nan))
+    got = (fa.full_attention_dq_cuda(*args, n_head=h),
+           *fa.full_attention_dkv_cuda(*args, n_head=h))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("tq,tk,d", [(512, 512, 64), (96, 80, 128),
+                                     (40, 33, 256), (9, 64, 32)])
+def test_full_backward_bf16_is_deterministic(cuda, tq, tk, d):
+    """Two launches of K8 and of K9 on the same streams are equal bit for
+    bit: each owns its rows (no atomics, no second pass)."""
+    case = full_backward_case(cuda, 7, 4, tq, tk, 4, d, torch.bfloat16)
+    q, k, v, mask, dout, out, lse = case
+    args = (q, k, v, mask, lse, ba.band_rowsum(dout, out, 4), dout)
+    first = (fa.full_attention_dq_cuda(*args, n_head=4),
+             *fa.full_attention_dkv_cuda(*args, n_head=4))
+    second = (fa.full_attention_dq_cuda(*args, n_head=4),
+              *fa.full_attention_dkv_cuda(*args, n_head=4))
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_full_backward_bf16_keeps_fp32_scale_at_large_scores(cuda):
+    """Scores near 30 at d = 128, as ``test_full_bf16_keeps_fp32_scale_at_
+    large_scores`` has them for K7 (key j one-hot 320 at channel j % 128,
+    query channels in [1, 1.125)): rounding q * scale to bf16 would move a
+    score by up to 0.06, P and the gradients with it; K8 and K9 scale the
+    fp32 dot and agree with the plain version."""
+    b, tq, tk, h, d = 4, 96, 96, 4, 128
+    rng = np.random.default_rng(30)
+    q = 1 + rng.random((b, tq, h * d)) / 8
+    k = np.zeros((b, tk, h, d))
+    k[:, np.arange(tk), :, np.arange(tk) % d] = 320.0
+    v = rng.standard_normal((b, tk, h * d))
+    dout = rng.standard_normal((b, tq, h * d))
+    mask = np.ones((b, tk), bool)
+    mask[1, 50:] = False
+    q, k, v, dout = (torch.from_numpy(x.astype(np.float32)).reshape(
+        b, -1, h * d).to(cuda, torch.bfloat16) for x in (q, k, v, dout))
+    mask = torch.from_numpy(mask).to(cuda)
+    out, lse = fa.full_attention_cuda(q, k, v, mask, n_head=h, with_lse=True)
+    ratios, _ = full_backward_errs(q, k, v, mask, dout, out, lse, h)
+    assert max(ratios) <= 1, ratios
+
+
+def test_full_backward_bf16_invalid_key_blocks_write_zeros(cuda):
+    """A K9 block whose 64 owner keys are all invalid (keys 64-127 of item
+    0, and every key of item 1) writes zeros and stops: its dK and dV are
+    exactly 0 though the memory the wrapper allocates held NaN just before;
+    the other gradients agree with the plain version."""
+    b, tq, tk, h, d = 2, 70, 200, 2, 64
+    assert fa.backward_instance(cuda.index or 0, tk, d,
+                                torch.bfloat16)["rows"] == 64
+    q, k, v, mask = streams(3, b, tq, tk, h * d, [tk, 0], cuda)
+    mask[0, 64:128] = False
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+        3)).to(cuda)
+    q, k, v, dout = to_bf16(q, k, v, dout)
+    out, lse = fa.full_attention_cuda(q, k, v, mask, n_head=h, with_lse=True)
+    junk = [torch.full_like(k, float("nan")) for _ in range(2)]
+    del junk   # two blocks of dK's size, freed full of NaN
+    ratios, (dq, dk, dv) = full_backward_errs(q, k, v, mask, dout, out, lse,
+                                              h)
+    assert max(ratios) <= 1, ratios
+    assert (dk[~mask] == 0).all() and (dv[~mask] == 0).all()
+    assert (dq[1] == 0).all()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_full_backward_bf16_walks_past_the_mask_window(cuda, d):
+    """K8's tensor-core blocks hold the valid-key bits of 4096 keys and move
+    the window on past them, as ``test_full_bf16_walks_past_the_mask_window``
+    has it for K7: a run of invalid keys across key 4096 (item 1) and an
+    item whose first window holds no valid key (item 2). At d = 256 dQ is
+    summed in two passes over the keys, the second starting again at the
+    block's first tile with a valid key, in the window that holds it. NaN in
+    k and v at every invalid key: the gradients equal the clean streams' bit
+    for bit, and those agree with the plain version."""
+    b, tq, tk, h = 3, 70, 4500, 2
+    q, k, v, mask = streams(45, b, tq, tk, h * d, [tk] * b, cuda)
+    mask[1, 4000:4200] = False
+    mask[2, :4100] = False
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+        45)).to(cuda)
+    q, k, v, dout = to_bf16(q, k, v, dout)
+    k, v = (torch.where(mask[..., None], x, 0) for x in (k, v))
+    out, lse = fa.full_attention_cuda(q, k, v, mask, n_head=h, with_lse=True)
+    ratios, want = full_backward_errs(q, k, v, mask, dout, out, lse, h)
+    assert max(ratios) <= 1, ratios
+    assert (want[1][~mask] == 0).all() and (want[2][~mask] == 0).all()
+    nan = float("nan")
+    k_bad, v_bad = (torch.where(mask[..., None], x, nan) for x in (k, v))
+    args = (q, k_bad, v_bad, mask, lse, ba.band_rowsum(dout, out, h), dout)
+    got = (fa.full_attention_dq_cuda(*args, n_head=h),
+           *fa.full_attention_dkv_cuda(*args, n_head=h))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_flash_train_step_on_card_matches_cpu(cuda, monkeypatch):

@@ -297,6 +297,7 @@ namespace {
 
 using element::bf16;
 using warp_mma::cp_async16;
+using warp_mma::cp_async4;
 using warp_mma::cp_async_commit;
 using warp_mma::cp_async_wait;
 using warp_mma::ldmatrix_x4;
@@ -325,14 +326,6 @@ struct Lane {
   static constexpr int kNC = DB / (32 * kVW);
   static constexpr int kN = kVW * kNC;  // channels a lane holds
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool fill) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(fill ? 4 : 0)
-               : "memory");
-}
 
 // One head of a (B, T, H*d) stream: rows of C = H*d floats, the head's
 // channels [0, D) from `base`.

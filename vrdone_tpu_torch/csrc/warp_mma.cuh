@@ -1,5 +1,6 @@
 // Warp-level tensor-core and copy primitives shared by the bf16 attention
-// kernels on mma.sync: masked_attention.cu (K7 bf16) and mega_attention.cu
+// kernels on mma.sync: masked_attention.cu (K7 bf16), masked_attention_bwd.cu
+// (K8 and K9 bf16), band_attention.cu (K1-K4 bf16) and mega_attention.cu
 // (K5 bf16). Fragment layouts are PTX's for m16n8k16 with row-major A and
 // column-major B: lane l holds rows l / 4 and l / 4 + 8 of A and of the
 // fp32 accumulator, and columns 2 (l % 4) and 2 (l % 4) + 1 of each 8-wide
@@ -21,6 +22,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+// The same for 4 bytes (one float), through L1.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(fill ? 4 : 0)
                : "memory");
 }
 

@@ -18,8 +18,9 @@ rowsum(dO * O), K8 and K9 backward on a card; the plain versions of the same
 CPU. ``full_attention_cuda`` alone has no backward and refuses inputs that
 need one.
 
-Both versions take fp32 or bf16 streams (bf16 serving; the kernel's bf16
-instances run their products on the tensor cores). In bf16 they
+Both versions take fp32 or bf16 streams (bf16 serving and training; the
+kernels' bf16 instances, forward and backward, run their products on the
+tensor cores, the fp32 ones on the FMA pipes). In bf16 they
 follow the JAX dense form's promotions: the scores in fp32 from the
 widened operands, q scaled in fp32 (the scale is a numpy float, which JAX
 does not treat as weak, so ``qh * scale`` is fp32), softmax in fp32, P
@@ -174,7 +175,7 @@ def _bwd_kernel() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
     lib.masked_attention_backward_instance.restype = ctypes.c_int
     lib.masked_attention_backward_instance.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3)
     lib.masked_attention_bwd_error_string.restype = ctypes.c_char_p
     lib.masked_attention_bwd_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -285,18 +286,24 @@ def full_attention_dkv_cuda(q, k, v, kv_mask, lse, dr, dout, *, n_head: int
     return dk, dv
 
 
-def backward_instance(device: int, n_own: int, d: int) -> dict:
+def backward_instance(device: int, n_own: int, d: int,
+                      dtype: torch.dtype = torch.float32) -> dict:
     """The instance K8 (``n_own`` = Tq) or K9 (``n_own`` = Tk) takes on
-    ``device`` for head dim ``d``, either dtype, as the C side picks it
-    (``csrc/masked_attention_bwd.cu::pick_backward``): ``rows`` owner rows a
-    block and the head-dim ``bucket``."""
-    rows, bucket = ctypes.c_int(), ctypes.c_int()
+    ``device`` for head dim ``d`` in ``dtype`` streams, as the C side picks
+    it (``csrc/masked_attention_bwd.cu::pick_backward``): ``rows`` owner
+    rows a block, the head-dim ``bucket`` and ``tile`` partner rows a tile.
+    fp32 runs the FMA body ``masked_attention_bwd_kernel<bucket, rows / 16,
+    K9>`` (128 threads), bf16 the tensor-core kernel
+    ``masked_attention_bwd_mma_kernel<bucket, rows / 16, tile, K9>`` (a warp
+    for each 16 rows)."""
+    rows, bucket, tile = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     lib = _bwd_kernel()
     with torch.cuda.device(device):
         code = lib.masked_attention_backward_instance(
-            n_own, d, ctypes.byref(rows), ctypes.byref(bucket))
+            n_own, d, dtype.itemsize,
+            ctypes.byref(rows), ctypes.byref(bucket), ctypes.byref(tile))
     _build.check_launch(lib, "masked_attention_bwd", code)
-    return {"rows": rows.value, "bucket": bucket.value}
+    return {"rows": rows.value, "bucket": bucket.value, "tile": tile.value}
 
 
 class FullAttention(torch.autograd.Function):
